@@ -1,0 +1,154 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The CUDA C++ sources under ``csrc/`` have a plain C interface. They are
+compiled at first use with ``nvcc`` for ``sm_90a`` into one shared library
+under ``<checkout>/build/makani_torch_kernels/`` and loaded with ``ctypes``.
+The library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt and a fresh checkout builds on its first call.
+
+Every kernel wrapper in the package adds one to its entry in ``LAUNCHES``
+where it launches its kernel, and nowhere else, so a run can show that its
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "count_launch", "build", "library", "check_launch", "dtype_code", "stream_ptr", "takes_plain", "set_use_kernels"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("sht_legendre.cu", "dhconv.cu")
+_HEADERS = ("convert.cuh",)
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+LAUNCHES = {"sht_analysis": 0, "sht_synthesis": 0, "dhconv": 0, "instance_norm": 0}
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def count_launch(name: str):
+    LAUNCHES[name] += 1
+
+
+def build_dir() -> Path:
+    return _CSRC.parents[1] / "build" / "makani_torch_kernels"
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES + _HEADERS:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.isfile(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and at {path}); the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the hashed shared library unless it exists;
+    returns its path. The compiler's output (``-Xptxas -v``: registers, shared
+    memory, spills per kernel) is kept beside it in a ``.log`` file."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"libmakani_torch_{_source_hash()}.so"
+    if so.exists():
+        return so
+    tmp = out_dir / f"{so.name}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n{res.stderr[-6000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            lib.mt_legendre_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.mt_legendre_contract.restype = i
+            lib.mt_dhconv_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.mt_dhconv_contract.restype = i
+            lib.mt_error_string.argtypes = [i]
+            lib.mt_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+    return _LIB
+
+
+def check_launch(err: int, name: str):
+    """Raise if a kernel's C entry point returned a CUDA error (its
+    ``cudaGetLastError()`` right after the launch, or an argument error)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: {library().mt_error_string(err).decode()} (code {err})")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernels take float32 or bfloat16 tensors, got {dtype}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def takes_plain(name: str, *tensors: torch.Tensor) -> bool:
+    """Decide a wrapper's route from where its tensors lie: True for the plain
+    version (all on the CPU), False for the kernel (all on one CUDA device).
+    Anything else raises; a CUDA tensor never takes the plain version."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors lie on different devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+def set_use_kernels(module: torch.nn.Module, flag: bool):
+    """Route every kernel-holding submodule of ``module`` through its kernel
+    wrappers (True, the default) or straight through the plain PyTorch
+    versions (False): the reference path a comparison on the card runs."""
+    for m in module.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = flag

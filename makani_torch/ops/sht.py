@@ -1,0 +1,173 @@
+"""Spherical harmonic transforms (counterpart of ``makani_tpu/ops/sht.py``).
+
+The real SHT pair factors into a real DFT in longitude (``fft_compat``,
+cuFFT) and a per-order Legendre contraction in latitude,
+
+    coeff[l, m] = 2 pi * sum_k w_k * Pbar_l^m(cos theta_k) * rfft(x)[theta_k, m]
+
+with the quadrature weights and 2 pi folded into the analysis table. The two
+Legendre contractions are the hand-written kernels K1 (analysis) and K2
+(synthesis) in ``csrc/sht_legendre.cu``; each has its plain PyTorch version
+here. Tables are float64 numpy computations stored as fp32 (and cast to bf16
+for bf16 input), cached per device and dtype on the transform object.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from makani_torch import kernels
+from makani_torch.ops import fft_compat
+from makani_torch.ops.legendre import precompute_legpoly
+from makani_torch.ops.precision import maybe_cast_table
+from makani_torch.ops.quadrature import precompute_latitudes
+
+__all__ = [
+    "RealSHT",
+    "InverseRealSHT",
+    "analysis_contract_cl_s",
+    "synthesis_contract_cl_s",
+    "analysis_contract_cl_s_plain",
+    "synthesis_contract_cl_s_plain",
+]
+
+
+def analysis_contract_cl_s_plain(xf2: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """split (..., nlat, mmax, C, 2) x (mmax, lmax, nlat) -> (..., lmax, mmax, C, 2)."""
+    return torch.einsum("...kmcr,mlk->...lmcr", xf2, maybe_cast_table(weights, xf2))
+
+
+def synthesis_contract_cl_s_plain(c2: torch.Tensor, pct: torch.Tensor) -> torch.Tensor:
+    """split (..., lmax, mmax, C, 2) x (mmax, lmax, nlat) -> (..., nlat, mmax, C, 2)."""
+    return torch.einsum("...lmcr,mlk->...kmcr", c2, maybe_cast_table(pct, c2))
+
+
+# Kernel K1/K2 modes of mt_legendre_contract (csrc/sht_legendre.cu)
+_ANALYSIS, _SYNTHESIS = 0, 1
+
+
+def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    if x.dtype != table.dtype:
+        raise TypeError(f"{name}: input {x.dtype} and table {table.dtype} differ; cast the table first")
+    if table.dim() != 3 or x.dim() < 5 or x.shape[-1] != 2:
+        raise ValueError(f"{name}: expected x (..., D, M, C, 2) and table (M, L, K), got {tuple(x.shape)} and {tuple(table.shape)}")
+    M, L, K = table.shape
+    rows, depth = (L, K) if mode == _ANALYSIS else (K, L)
+    if x.shape[-4] != depth or x.shape[-3] != M:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not match table {tuple(table.shape)}")
+    if not (x.is_contiguous() and table.is_contiguous()):
+        raise ValueError(f"{name}: x and table must be contiguous")
+    lead = x.shape[:-4]
+    B = math.prod(lead)
+    C = x.shape[-2]
+    out = torch.empty(*lead, rows, M, C, 2, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = kernels.library()
+    with torch.cuda.device(x.device):
+        err = lib.mt_legendre_contract(
+            kernels.dtype_code(x.dtype), table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, rows, depth, 2 * C, mode, kernels.stream_ptr(x.device)
+        )
+    kernels.check_launch(err, name)
+    kernels.count_launch(name)
+    return out
+
+
+def analysis_contract_cl_s(xf2: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Legendre analysis (kernel K1 on the card, the plain einsum on the CPU).
+
+    Replaces ``makani_tpu/ops/sht.py`` ``_analysis_contract_cl_s``. ``weights``
+    must already be in ``xf2``'s dtype on the card (``RealSHT`` caches it so).
+    """
+    if kernels.takes_plain("sht_analysis", xf2, weights):
+        return analysis_contract_cl_s_plain(xf2, weights)
+    return _legendre_launch("sht_analysis", _ANALYSIS, xf2, weights)
+
+
+def synthesis_contract_cl_s(c2: torch.Tensor, pct: torch.Tensor) -> torch.Tensor:
+    """Legendre synthesis (kernel K2 on the card, the plain einsum on the CPU).
+
+    Replaces ``makani_tpu/ops/sht.py`` ``_synthesis_contract_cl_s``.
+    """
+    if kernels.takes_plain("sht_synthesis", c2, pct):
+        return synthesis_contract_cl_s_plain(c2, pct)
+    return _legendre_launch("sht_synthesis", _SYNTHESIS, c2, pct)
+
+
+class _TableCache:
+    """fp32 numpy table -> torch tensor per (device, dtype), made once."""
+
+    def __init__(self, table: np.ndarray):
+        self.table = table
+        self._tensors = {}
+
+    def get(self, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        key = (torch.device(device), dtype)
+        if key not in self._tensors:
+            self._tensors[key] = torch.from_numpy(self.table).to(device=device, dtype=dtype).contiguous()
+        return self._tensors[key]
+
+
+class RealSHT:
+    """Forward (analysis) real spherical harmonic transform.
+
+    Maps a real field ``(..., nlat, nlon, C)`` to split-complex coefficients
+    ``(..., lmax, mmax, C, 2)``; entries with ``m > l`` are zero.
+    """
+
+    def __init__(self, nlat: int, nlon: int, lmax: int | None = None, mmax: int | None = None, grid: str = "equiangular", norm: str = "ortho", csphase: bool = True):
+        self.nlat = nlat
+        self.nlon = nlon
+        self.grid = grid
+        self.norm = norm
+        self.lmax = min(lmax or nlat, nlat)
+        self.mmax = min(mmax or nlon // 2 + 1, nlon // 2 + 1)
+
+        theta, w = precompute_latitudes(nlat, grid=grid)
+        pct = precompute_legpoly(self.mmax, self.lmax, theta, norm=norm, csphase=csphase)
+        # fold quadrature weights and the 2*pi longitude measure into the table
+        self._weights = _TableCache((2.0 * np.pi * pct * w[None, None, :]).astype(np.float32))
+
+    def weights(self, device, dtype=torch.float32) -> torch.Tensor:
+        return self._weights.get(device, dtype)
+
+    def analysis_cl(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+        """Channels-last analysis: real (..., nlat, nlon, C) -> (..., lmax, mmax, C, 2)."""
+        xf2 = fft_compat.rfft_cl_s(x, n=self.nlon, norm="forward", mout=self.mmax)
+        w = self.weights(xf2.device, xf2.dtype)
+        if use_kernels:
+            return analysis_contract_cl_s(xf2, w)
+        return analysis_contract_cl_s_plain(xf2, w)
+
+
+class InverseRealSHT:
+    """Inverse (synthesis) real spherical harmonic transform.
+
+    Maps split-complex coefficients ``(..., lmax, mmax, C, 2)`` to a real field
+    ``(..., nlat, nlon, C)``.
+    """
+
+    def __init__(self, nlat: int, nlon: int, lmax: int | None = None, mmax: int | None = None, grid: str = "equiangular", norm: str = "ortho", csphase: bool = True):
+        self.nlat = nlat
+        self.nlon = nlon
+        self.grid = grid
+        self.norm = norm
+        self.lmax = min(lmax or nlat, nlat)
+        self.mmax = min(mmax or nlon // 2 + 1, nlon // 2 + 1)
+
+        theta, _ = precompute_latitudes(nlat, grid=grid)
+        pct = precompute_legpoly(self.mmax, self.lmax, theta, norm=norm, inverse=True, csphase=csphase)
+        self._pct = _TableCache(pct.astype(np.float32))
+
+    def pct(self, device, dtype=torch.float32) -> torch.Tensor:
+        return self._pct.get(device, dtype)
+
+    def synthesis_cl(self, c2: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+        """Channels-last synthesis: (..., lmax, mmax, C, 2) -> real (..., nlat, nlon, C)."""
+        c2 = c2.contiguous()
+        p = self.pct(c2.device, c2.dtype)
+        xf2 = synthesis_contract_cl_s(c2, p) if use_kernels else synthesis_contract_cl_s_plain(c2, p)
+        return fft_compat.irfft_cl_s(xf2, n=self.nlon, norm="forward")

@@ -1,0 +1,125 @@
+"""makani_torch's hand-written kernels against their plain PyTorch versions,
+on the card. The kernels have no CPU mode, so these tests carry the ``gpu``
+marker and skip without a CUDA device; run them on a GPU machine with
+
+    python -m pytest tests/test_torch_kernels.py -m gpu -q
+
+Shapes are small and ragged (not multiples of the kernels' tiles).
+Tolerances: fp32 max|diff| <= 1e-5 * max|ref| (summation order); bf16
+max|diff| within one bf16 ulp of max|ref|, or relative L2 <= 1e-2.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from makani_torch import kernels
+from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
+from makani_torch.models.common.layer_norm import instance_norm_cl, instance_norm_cl_plain
+from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+from makani_torch.ops.sht import (
+    InverseRealSHT,
+    RealSHT,
+    analysis_contract_cl_s,
+    analysis_contract_cl_s_plain,
+    synthesis_contract_cl_s,
+    synthesis_contract_cl_s_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _agree(out, ref, dtype):
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if dtype == torch.float32:
+        return err <= 1e-5 * scale
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return err <= ulp or (out - ref).norm().item() <= 1e-2 * ref.norm().item()
+
+
+def _randn(shape, dtype, device, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32)).to(device=device, dtype=dtype)
+
+
+SHT_CASES = [(25, 48, "equiangular", None, None, 5), (13, 24, "legendre-gauss", 10, 9, 3), (91, 180, "equiangular", 70, 71, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nlat,nlon,grid,lmax,mmax,C", SHT_CASES)
+def test_legendre_kernels_match_plain(cuda, nlat, nlon, grid, lmax, mmax, C, dtype):
+    sht = RealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    isht = InverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    x = _randn((2, nlat, sht.mmax, C, 2), dtype, cuda)
+    c = _randn((2, isht.lmax, isht.mmax, C, 2), dtype, cuda, seed=1)
+    w, p = sht.weights(cuda, dtype), isht.pct(cuda, dtype)
+    kernels.reset_launch_counts()
+    a = analysis_contract_cl_s(x, w)
+    s = synthesis_contract_cl_s(c, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sht_analysis"] == 1 and kernels.LAUNCHES["sht_synthesis"] == 1
+    assert a.dtype == dtype and _agree(a, analysis_contract_cl_s_plain(x, w), dtype)
+    assert s.dtype == dtype and _agree(s, synthesis_contract_cl_s_plain(c, p), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,M,G,Ci,Co", [(2, 7, 6, 1, 5, 3), (1, 70, 71, 2, 20, 36), (1, 12, 13, 1, 48, 48)])
+def test_dhconv_kernel_matches_plain(cuda, B, L, M, G, Ci, Co, dtype):
+    x = _randn((B, L, M, G, Ci, 2), dtype, cuda)
+    w = _randn((G, Ci, Co, L, 2), torch.float32, cuda, seed=1)
+    kernels.reset_launch_counts()
+    out = contract_dense_s(x, w, False, "dhconv", True, weight_cache=_PermutedWeight())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dhconv"] == 1
+    assert out.dtype == dtype and _agree(out, contract_dense_s_plain(x, w, False, "dhconv", True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,nlat_phys", [((2, 37, 50, 70), None), ((2, 37, 50, 70), 30), ((1, 64, 128, 384), None)])
+def test_instance_norm_kernel_matches_plain(cuda, shape, nlat_phys, dtype):
+    x = 3.0 * _randn(shape, dtype, cuda) + 1.5
+    w = _randn(shape[-1:], torch.float32, cuda, seed=1)
+    b = _randn(shape[-1:], torch.float32, cuda, seed=2)
+    kernels.reset_launch_counts()
+    out = instance_norm_cl(x, w, b, nlat_phys)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["instance_norm"] == 1
+    assert out.dtype == dtype and _agree(out, instance_norm_cl_plain(x, w, b, nlat_phys), dtype)
+
+
+def test_small_sfno_kernel_path_matches_plain(cuda):
+    model = SphericalFourierNeuralOperatorNet(
+        inp_shape=(61, 120), out_shape=(61, 120), scale_factor=2, inp_chans=7, out_chans=6, embed_dim=48, num_layers=3, device=cuda
+    )
+    x = _randn((2, 7, 61, 120), torch.float32, cuda)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        kernels.set_use_kernels(model, False)
+        ref = model(x)
+    assert counts == {"sht_analysis": 3, "sht_synthesis": 5, "dhconv": 3, "instance_norm": 6}
+    assert torch.isfinite(y).all()
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_wrappers_refuse_mixed_devices(cuda):
+    x = _randn((1, 13, 9, 3, 2), torch.float32, cuda)
+    sht = RealSHT(13, 24, lmax=10, mmax=9, grid="legendre-gauss")
+    with pytest.raises(ValueError):
+        analysis_contract_cl_s(x, sht.weights("cpu"))
+    with pytest.raises(TypeError):
+        analysis_contract_cl_s(x.to(torch.bfloat16), sht.weights(cuda))

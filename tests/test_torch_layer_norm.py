@@ -1,0 +1,62 @@
+"""makani_torch InstanceNorm2d against makani_tpu's (default two-pass path),
+with and without nlat_phys latitude padding, NCHW and channels-last.
+
+Tolerances: fp32 max|diff| <= 1e-5 * max|ref|; bf16 relative L2 <= 2e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from makani_tpu.models.common.layer_norm import InstanceNorm2d as JInstanceNorm2d
+
+from makani_torch import kernels
+from makani_torch.convert_jax import load_from_jax
+from makani_torch.models.common.layer_norm import InstanceNorm2d, instance_norm_cl, instance_norm_cl_plain
+
+C = 6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("nlat_phys", [None, 7])
+def test_instance_norm_matches_jax(nlat_phys, channels_last, dtype):
+    rng = np.random.default_rng(0)
+    shape = (2, 9, 16, C) if channels_last else (2, C, 9, 16)
+    x = (3.0 * rng.standard_normal(shape) + 1.5).astype(np.float32)
+    params = {"params": {"weight": rng.standard_normal(C).astype(np.float32), "bias": rng.standard_normal(C).astype(np.float32)}}
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    jmod = JInstanceNorm2d(num_features=C, nlat_phys=nlat_phys, channels_last=channels_last)
+    ref = np.asarray(jmod.apply(params, jnp.asarray(x, jdt)), np.float32)
+    mod = load_from_jax(InstanceNorm2d(C, nlat_phys=nlat_phys, channels_last=channels_last), params)
+    with torch.no_grad():
+        out = mod(torch.from_numpy(x).to(tdt))
+    assert out.dtype == tdt and out.shape == ref.shape
+    out = out.float().numpy()
+    if dtype == "float32":
+        assert np.max(np.abs(out - ref)) <= 1e-5 * np.max(np.abs(ref))
+    else:
+        assert np.linalg.norm(out - ref) <= 2e-2 * np.linalg.norm(ref)
+
+
+def test_padded_rows_do_not_move_statistics():
+    """Rows at or beyond nlat_phys carry no weight: changing them leaves the
+    physical rows' output unchanged."""
+    x = torch.randn(1, 9, 8, C)
+    y1 = instance_norm_cl_plain(x, None, None, nlat_phys=6)
+    x2 = x.clone()
+    x2[:, 6:] = 1e3
+    y2 = instance_norm_cl_plain(x2, None, None, nlat_phys=6)
+    assert torch.allclose(y1[:, :6], y2[:, :6], atol=1e-6)
+    assert torch.allclose(y1[:, :6].mean(dim=(1, 2)), torch.zeros(1, C), atol=1e-5)
+
+
+def test_norm_wrapper_takes_plain_on_cpu_without_counting():
+    x, w, b = torch.randn(2, 5, 8, C), torch.randn(C), torch.randn(C)
+    kernels.reset_launch_counts()
+    assert torch.equal(instance_norm_cl(x, w, b, 4), instance_norm_cl_plain(x, w, b, 4))
+    assert kernels.LAUNCHES["instance_norm"] == 0
+    mod = InstanceNorm2d(C, affine=False, channels_last=True)
+    assert torch.equal(mod(x), instance_norm_cl_plain(x, None, None))

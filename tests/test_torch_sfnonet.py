@@ -1,0 +1,173 @@
+"""makani_torch SFNO forecast path against makani_tpu's.
+
+A small SFNO (24x48, scale 2, 5 channels, embed 16, 3 layers) is initialised
+in JAX, its weights carried over with ``params_from_jax``, and both run the
+same seeded numpy input. The whole model in fp32 agrees to 1e-4 * max|ref|
+(the JAX package takes its matmul DFT on the CPU, the port ``torch.fft``);
+bf16 compute to a relative L2 of 2e-2. The forecast path (``get_model`` +
+``ModelWrapper``, three zenith steps) is held to the same fp32 bound.
+"""
+
+import copy
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from makani_tpu.models.model_package import ModelWrapper as JModelWrapper
+from makani_tpu.models.model_registry import get_model as jget_model
+from makani_tpu.models.networks.sfnonet import SphericalFourierNeuralOperatorNet as JSFNO
+
+from makani_torch import kernels
+from makani_torch.convert_jax import load_from_jax, params_from_jax
+from makani_torch.models.model_package import ModelWrapper, rollout
+from makani_torch.models.model_registry import get_model
+from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+
+from testutils import get_default_parameters
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KW = dict(inp_shape=(24, 48), out_shape=(24, 48), scale_factor=2, inp_chans=5, out_chans=5, embed_dim=16, num_layers=3)
+
+
+def _jax_variables(model, *args):
+    """Initialised flax variables as numpy, with the biases and norm scales
+    (zeros and ones at init) drawn at random so that they count."""
+    variables = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0), *args))
+    rng = np.random.default_rng(7)
+
+    def perturb(path, leaf):
+        name = path[-1].key
+        if name == "bias":
+            return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        if name == "weight" and leaf.ndim == 1:
+            return (1.0 + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(perturb, variables)
+
+
+@pytest.mark.parametrize(
+    "dtype,extra",
+    [
+        ("float32", {}),
+        ("float32", dict(operator_type="diagonal", pos_embed="direct", use_bias=True)),
+        ("float32", dict(out_shape=(12, 24))),
+        ("bfloat16", {}),
+    ],
+)
+def test_sfno_forward_matches_jax(dtype, extra):
+    kw = dict(KW, **extra)
+    x = np.random.default_rng(0).standard_normal((2, 5, 24, 48)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    jmodel = JSFNO(dtype=jdt, **kw)
+    variables = _jax_variables(jmodel, jnp.asarray(x))
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x)), np.float32)
+
+    model = load_from_jax(SphericalFourierNeuralOperatorNet(dtype=tdt, **kw), variables)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x))
+    assert out.dtype == tdt and out.shape == ref.shape
+    out = out.float().numpy()
+    if dtype == "float32":
+        assert np.max(np.abs(out - ref)) <= 1e-4 * np.max(np.abs(ref))
+    else:
+        assert np.linalg.norm(out - ref) <= 2e-2 * np.linalg.norm(ref)
+
+
+def test_params_from_jax_names_and_strict_load():
+    jmodel = JSFNO(**KW)
+    variables = _jax_variables(jmodel, jnp.zeros((1, 5, 24, 48)))
+    sd = params_from_jax(variables)
+    assert sd["block0.filter_layer.filter.weight"].shape == (1, 16, 16, 12, 2)
+    assert sd["encoder.hidden0.kernel"].shape == (1, 5, 16)
+    model = SphericalFourierNeuralOperatorNet(**KW)
+    assert set(sd) == set(model.state_dict())
+    del sd["block1.norm0.bias"]
+    with pytest.raises(RuntimeError):
+        model.load_state_dict(sd, strict=True)
+
+
+def test_forecast_rollout_matches_jax(tmp_path):
+    """get_model(multistep=True) + ModelWrapper, 3 autoregressive 6-hour
+    steps with the zenith angle recomputed per step, against the JAX
+    package's wrapper and the example rollout."""
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    from inference_model_package import rollout as jrollout
+
+    params = get_default_parameters(tmp_path, normalization_layer="instance_norm", img_shape_x=24, img_shape_y=48)
+    H, W = 24, 48
+    C = len(params["in_channels"])
+    jmodel, _ = jget_model(copy.deepcopy(params), multistep=True)
+    variables = _jax_variables(jmodel, jnp.zeros((1, C, H, W)), jnp.zeros((1, 1, 1, H, W)))
+
+    rng = np.random.default_rng(1)
+    bias = rng.standard_normal((1, C, 1, 1)).astype(np.float32)
+    scale = (0.5 + rng.random((1, C, 1, 1))).astype(np.float32)
+    x0 = (bias + scale * rng.standard_normal((1, C, H, W))).astype(np.float32)
+    lat = 90.0 - 180.0 * np.arange(H) / (H - 1)
+    lon = 360.0 * np.arange(W) / W
+    t0 = 1.5e9
+
+    ref = jrollout(JModelWrapper(jmodel, variables, bias=bias, scale=scale), x0[0], lat, lon, t0, 6, 3)
+
+    model, pre = get_model(copy.deepcopy(params), multistep=True)
+    assert pre.n_history == 0
+    load_from_jax(model, variables)
+    frames = rollout(ModelWrapper(model, bias=bias, scale=scale), torch.from_numpy(x0), lat, lon, t0, 6, 3)
+    out = torch.stack(frames, 0)[:, 0].numpy()
+    assert out.shape == ref.shape == (3, C, H, W) and np.isfinite(out).all()
+    assert np.max(np.abs(out - ref)) <= 1e-4 * np.max(np.abs(ref))
+
+
+def test_get_model_seeds_weights(tmp_path):
+    params = get_default_parameters(tmp_path, normalization_layer="instance_norm")
+    a, _ = get_model(copy.deepcopy(params), multistep=True, seed=3)
+    b, _ = get_model(copy.deepcopy(params), multistep=True, seed=3)
+    c, _ = get_model(copy.deepcopy(params), multistep=True, seed=4)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["model.block0.filter_layer.filter.weight"], sc["model.block0.filter_layer.filter.weight"])
+    with pytest.raises(NotImplementedError):
+        get_model(get_default_parameters(tmp_path, normalization_layer="instance_norm", add_orography=True))
+
+
+def test_plain_reference_switch_matches_kernel_route_on_cpu():
+    model = SphericalFourierNeuralOperatorNet(**KW)
+    x = torch.randn(1, 5, 24, 48)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y1 = model(x)
+        kernels.set_use_kernels(model, False)
+        y2 = model(x)
+    assert torch.equal(y1, y2)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    assert not any(m.use_kernels for m in model.modules() if hasattr(m, "use_kernels"))
+
+
+def test_port_imports_no_jax():
+    """Every makani_torch module imports, and a forward runs, without jax,
+    flax or makani_tpu entering the process."""
+    code = (
+        "import importlib, pkgutil, sys, torch\n"
+        "import makani_torch\n"
+        "for m in pkgutil.walk_packages(makani_torch.__path__, 'makani_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet\n"
+        "net = SphericalFourierNeuralOperatorNet(inp_shape=(12, 24), out_shape=(12, 24), scale_factor=2, inp_chans=3, out_chans=3, embed_dim=8, num_layers=2)\n"
+        "with torch.no_grad():\n"
+        "    assert torch.isfinite(net(torch.randn(1, 3, 12, 24))).all()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'makani_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

@@ -1,0 +1,101 @@
+"""makani_torch spherical harmonic transforms against makani_tpu.
+
+The same seeded numpy inputs go through the JAX transforms (on the CPU, where
+the JAX package takes its matmul DFT) and the port's plain versions
+(``torch.fft`` + the Legendre einsum). Tolerances: fp32 max|diff| <=
+1e-5 * max|ref| (summation order over <= 48 longitudes and <= 25 latitudes);
+bf16 relative L2 <= 2e-2 (operand rounding of both packages).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from makani_tpu.ops.sht import InverseRealSHT as JInverseRealSHT
+from makani_tpu.ops.sht import RealSHT as JRealSHT
+
+from makani_torch import kernels
+from makani_torch.ops import fft_compat
+from makani_torch.ops.sht import (
+    InverseRealSHT,
+    RealSHT,
+    analysis_contract_cl_s,
+    analysis_contract_cl_s_plain,
+    synthesis_contract_cl_s,
+    synthesis_contract_cl_s_plain,
+)
+
+GRIDS = [(25, 48, "equiangular", None, None), (12, 24, "legendre-gauss", None, None), (25, 48, "equiangular", 10, 8)]
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _check(out, ref, dtype):
+    out = out.float().numpy()
+    ref = np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    if dtype == "float32":
+        assert np.max(np.abs(out - ref)) <= 1e-5 * np.max(np.abs(ref))
+    else:
+        assert np.linalg.norm(out - ref) <= 2e-2 * np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("nlat,nlon,grid,lmax,mmax", GRIDS)
+def test_analysis_matches_jax(nlat, nlon, grid, lmax, mmax, dtype):
+    tdt, jdt = DTYPES[dtype]
+    x = np.random.default_rng(0).standard_normal((2, nlat, nlon, 3)).astype(np.float32)
+    ref = JRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid).analysis_cl(jnp.asarray(x, jdt))
+    out = RealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid).analysis_cl(torch.from_numpy(x).to(tdt))
+    assert out.dtype == tdt
+    _check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("nlat,nlon,grid,lmax,mmax", GRIDS)
+def test_synthesis_matches_jax(nlat, nlon, grid, lmax, mmax, dtype):
+    tdt, jdt = DTYPES[dtype]
+    isht = InverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    c = np.random.default_rng(1).standard_normal((2, isht.lmax, isht.mmax, 3, 2)).astype(np.float32)
+    ref = JInverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid).synthesis_cl(jnp.asarray(c, jdt))
+    out = isht.synthesis_cl(torch.from_numpy(c).to(tdt))
+    assert out.dtype == tdt and out.shape == (2, nlat, nlon, 3)
+    _check(out, ref, dtype)
+
+
+def test_sht_round_trip_band_limited():
+    """analysis(synthesis(c)) == c for a band-limited field on the LG grid."""
+    sht, isht = RealSHT(12, 24, grid="legendre-gauss"), InverseRealSHT(12, 24, grid="legendre-gauss")
+    c = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 12, 13, 2, 2)).astype(np.float32))
+    l, m = torch.arange(12)[:, None], torch.arange(13)[None, :]
+    c = c * (m <= l)[None, :, :, None, None]
+    c[:, :, 0, :, 1] = 0.0  # m = 0 coefficients of a real field are real
+    out = sht.analysis_cl(isht.synthesis_cl(c))
+    assert torch.max(torch.abs(out - c)) <= 1e-5 * torch.max(torch.abs(c))
+
+
+@pytest.mark.parametrize("norm", ["forward", "backward", "ortho"])
+def test_rfft_pair_numpy_conventions(norm):
+    x = np.random.default_rng(3).standard_normal((2, 5, 16, 3))
+    out = fft_compat.rfft_cl_s(torch.from_numpy(x), norm=norm, mout=6)
+    ref = np.fft.rfft(x, axis=-2, norm=norm)[..., :6, :]
+    assert out.is_contiguous() and np.allclose(out.numpy(), np.stack([ref.real, ref.imag], -1))
+    back = fft_compat.irfft_cl_s(out, n=16, norm=norm)
+    assert np.allclose(back.numpy(), np.fft.irfft(ref, n=16, axis=-2, norm=norm))
+    bf = fft_compat.rfft_cl_s(torch.from_numpy(x).to(torch.bfloat16), norm=norm)
+    assert bf.dtype == torch.bfloat16
+
+
+def test_kernel_wrappers_take_plain_on_cpu_without_counting():
+    sht = RealSHT(12, 24, grid="legendre-gauss")
+    isht = InverseRealSHT(12, 24, grid="legendre-gauss")
+    rng = np.random.default_rng(4)
+    xf2 = torch.from_numpy(rng.standard_normal((1, 12, 13, 4, 2)).astype(np.float32))
+    kernels.reset_launch_counts()
+    w, p = sht.weights("cpu"), isht.pct("cpu")
+    assert torch.equal(analysis_contract_cl_s(xf2, w), analysis_contract_cl_s_plain(xf2, w))
+    assert torch.equal(synthesis_contract_cl_s(xf2, p), synthesis_contract_cl_s_plain(xf2, p))
+    assert kernels.LAUNCHES["sht_analysis"] == 0 and kernels.LAUNCHES["sht_synthesis"] == 0
+    with pytest.raises(ValueError):
+        analysis_contract_cl_s(xf2, w.to("meta"))
