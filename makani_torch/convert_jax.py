@@ -4,6 +4,9 @@ The port keeps the flax tree's parameter names and shapes, so converting is a
 rename: the nested dict ``jax.tree.map(np.asarray, variables)`` of a
 ``makani_tpu`` model becomes a ``state_dict`` whose keys join the path with
 dots (``params/model/block0/norm0/weight`` -> ``model.block0.norm0.weight``).
+The same holds for FCN3's tree: ``atmo_encoder.conv.weight`` (g, og, ig, K),
+``block1.local_conv.weight``, ``block0.global_conv.weight``,
+``block0.layer_scale.gamma``, ``atmo_decoder.conv.weight``, ...
 This module needs numpy and torch only; the caller produces the numpy tree.
 """
 

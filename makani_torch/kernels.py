@@ -26,7 +26,7 @@ import torch
 __all__ = ["LAUNCHES", "reset_launch_counts", "count_launch", "build", "library", "check_launch", "dtype_code", "stream_ptr", "takes_plain", "set_use_kernels"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sht_legendre.cu", "dhconv.cu")
+_SOURCES = ("sht_legendre.cu", "dhconv.cu", "disco_band.cu")
 _HEADERS = ("convert.cuh",)
 NVCC_FLAGS = (
     "-gencode",
@@ -40,7 +40,15 @@ NVCC_FLAGS = (
     "-v",
 )
 
-LAUNCHES = {"sht_analysis": 0, "sht_synthesis": 0, "dhconv": 0, "instance_norm": 0}
+LAUNCHES = {
+    "sht_analysis": 0,
+    "sht_synthesis": 0,
+    "dhconv": 0,
+    "instance_norm": 0,
+    "disco_band": 0,
+    "disco_polar": 0,
+    "resample": 0,
+}
 
 
 def reset_launch_counts():
@@ -100,11 +108,13 @@ def library() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
-            vp, i = ctypes.c_void_p, ctypes.c_int
+            vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.mt_legendre_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_legendre_contract.restype = i
             lib.mt_dhconv_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_contract.restype = i
+            lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [vp]
+            lib.mt_disco_band_contract.restype = i
             lib.mt_error_string.argtypes = [i]
             lib.mt_error_string.restype = ctypes.c_char_p
             _LIB = lib

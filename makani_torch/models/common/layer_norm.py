@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from makani_torch import kernels
+from makani_torch.device import resolve_device
 
 __all__ = ["InstanceNorm2d", "instance_norm_cl", "instance_norm_cl_plain"]
 
@@ -216,6 +217,7 @@ class InstanceNorm2d(nn.Module):
         self.nlat_phys = nlat_phys
         self.channels_last = channels_last
         self.use_kernels = True
+        device = resolve_device(device)
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features, device=device))
             self.bias = nn.Parameter(torch.zeros(num_features, device=device))

@@ -5,7 +5,9 @@ Every "conv" here is a channel contraction of (B, H, W, C) activations. The
 JAX package leaves these GEMMs to XLA, so they are plain ``torch.matmul`` in
 the compute dtype here (cuBLAS on the card). Parameter names and shapes
 follow the flax tree: ``kernel`` (1, fan_in, out) and ``bias`` (out,), fp32.
-Grouped mixing and the NCHW layout are not ported (the SFNO uses neither).
+Grouped mixing and the NCHW layout are not ported (the SFNO and FCN3 use
+neither). ``DropPath`` and ``LayerScale`` are the FCN3 block's residual-branch
+layers. Parameters are made on the card unless ``device`` names another.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from typing import Callable
 import torch
 from torch import nn
 
-__all__ = ["Conv1x1", "MLP", "EncoderDecoder"]
+from makani_torch.device import resolve_device
+
+__all__ = ["Conv1x1", "MLP", "EncoderDecoder", "DropPath", "LayerScale"]
 
 
 class Conv1x1(nn.Module):
@@ -35,6 +39,7 @@ class Conv1x1(nn.Module):
         super().__init__()
         self.kernel_std = kernel_std if kernel_std is not None else math.sqrt(2.0 / in_features)
         self.dtype = dtype
+        device = resolve_device(device)
         self.kernel = nn.Parameter(torch.empty(1, in_features, features, device=device))
         if use_bias:
             self.bias = nn.Parameter(torch.empty(features, device=device))
@@ -105,3 +110,38 @@ class EncoderDecoder(nn.Module):
         for i in range(self.num_layers):
             x = self.act_layer(getattr(self, f"hidden{i}")(x))
         return self.out(x)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: drop the whole residual branch per sample in
+    training, the identity in eval mode (``makani_tpu`` ``DropPath``)."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        self.drop_prob = drop_prob
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.drop_prob <= 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.drop_prob
+        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
+
+
+class LayerScale(nn.Module):
+    """Learnable per-channel scaling of a residual branch; ``gamma`` has the
+    flax tree's shape (1, C, 1, 1), fp32, initialised to ``init_value``."""
+
+    def __init__(self, num_chans: int, init_value: float = 0.1, channels_last: bool = False, device=None):
+        super().__init__()
+        self.init_value = init_value
+        self.channels_last = channels_last
+        self.gamma = nn.Parameter(torch.full((1, num_chans, 1, 1), init_value, device=resolve_device(device)))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.gamma.fill_(self.init_value)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gamma = self.gamma.reshape(1, 1, 1, -1) if self.channels_last else self.gamma
+        return x * gamma.to(x.dtype)

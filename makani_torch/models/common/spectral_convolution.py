@@ -16,6 +16,7 @@ import math
 import torch
 from torch import nn
 
+from makani_torch.device import resolve_device
 from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
 from makani_torch.ops.precision import transform_io_dtype
 
@@ -72,6 +73,7 @@ class SpectralConv(nn.Module):
             self._l_axis = len(wshape) - 1
         else:
             raise ValueError(f"Unsupported operator type {operator_type}")
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(*wshape, 2, device=device))
         if use_bias:
             self.bias = nn.Parameter(torch.zeros(1, out_channels, 1, 1, device=device))

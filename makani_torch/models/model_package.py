@@ -1,8 +1,9 @@
 """Physical-units model wrapper (counterpart of ``ModelWrapper`` in
 ``makani_tpu/models/model_package.py``).
 
-``ModelWrapper`` maps a physical input field (plus the zenith channels) to
-the physical prediction: normalize -> model -> denormalize. Loading a saved
+``ModelWrapper`` maps a physical input field (plus the zenith and noise
+channels) to the physical prediction: normalize -> model -> denormalize.
+``rollout`` runs it autoregressively, for an ensemble with a noise module. Loading a saved
 package (the JAX package's orbax ``load_model_package``) is not ported yet.
 """
 
@@ -45,21 +46,57 @@ class ModelWrapper:
         return y
 
 
-def rollout(wrapper: ModelWrapper, x0: torch.Tensor, lat, lon, base_time: float, dhours: float, steps: int, needs_zenith: bool = True) -> list:
+def rollout(
+    wrapper: ModelWrapper,
+    x0: torch.Tensor,
+    lat,
+    lon,
+    base_time: float,
+    dhours: float,
+    steps: int,
+    needs_zenith: bool = True,
+    noise=None,
+    ensemble_size: int = 1,
+    centered: bool = False,
+    generator: torch.Generator | None = None,
+) -> list:
     """Autoregressive rollout in physical units, recomputing the zenith angle
     for each step (counterpart of ``rollout`` in
     ``examples/inference_model_package.py``). ``x0`` is (B, C, H, W) on the
-    model's device; returns the ``steps`` predictions."""
+    model's device; returns the ``steps`` predictions.
+
+    With a noise module (``models.noise``), each of the B initial conditions
+    runs as ``ensemble_size`` members folded b-major into the batch, and each
+    step appends the noise fields after the zenith channel, drawn as the JAX
+    package's inferencer draws them (``utils/inference/inferencer.py``):
+    ``init_state`` before the first step, ``update`` before each later one,
+    ``sample`` every step, all from ``generator``. ``centered`` draws half the
+    members and gives each pair the fields +eta and -eta."""
     lon2d, lat2d = np.meshgrid(lon, lat)
     pred = x0
+    draw = state = None
+    if noise is not None:
+        pred = x0.repeat_interleave(ensemble_size, dim=0)
+        n = pred.shape[0]
+        if centered and n % 2:
+            raise ValueError(f"centered noise pairs members; {n} members is odd")
+        draw = n // 2 if centered else n
+        generator = generator if generator is not None else torch.Generator(x0.device).manual_seed(0)
     frames = []
     t = float(base_time)
     for _ in range(steps):
-        zen = None
+        unp = None
         if needs_zenith:
             z = cos_zenith_angle_from_timestamp(t, lon2d, lat2d).astype(np.float32)
-            zen = torch.from_numpy(z).to(x0.device)[None, None, None].expand(x0.shape[0], 1, 1, *z.shape)
-        pred = wrapper(pred, zen)
+            unp = torch.from_numpy(z).to(x0.device)[None, None, None].expand(pred.shape[0], 1, 1, *z.shape)
+        if noise is not None:
+            state = noise.init_state(generator, draw) if state is None else noise.update(state, generator)
+            eta = noise.sample(state)[:, 0]  # (draw, C_noise, H, W)
+            if centered:
+                eta = torch.stack([eta, -eta], dim=1).reshape(2 * draw, *eta.shape[1:])
+            eta = eta[:, None].to(x0.device)
+            unp = eta if unp is None else torch.cat([unp, eta], dim=2)
+        pred = wrapper(pred, unp)
         t += dhours * 3600.0
         frames.append(pred)
     return frames

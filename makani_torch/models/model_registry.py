@@ -2,7 +2,8 @@
 
 Derives the effective input/output channel counts from the config (history,
 zenith), builds the core network and wraps it with its preprocessor in the
-single- or multi-step wrapper. Only the SFNO is ported so far.
+single- or multi-step wrapper. The SFNO and FCN3 are ported so far. The
+model is built on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import inspect
 
 import torch
 
+from makani_torch.device import resolve_device
 from makani_torch.models.preprocessor import Preprocessor2D
 from makani_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
 from makani_torch.utils.features import get_auxiliary_channels
@@ -23,15 +25,27 @@ def get_model_handle(nettype: str):
         from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
 
         return SphericalFourierNeuralOperatorNet
-    raise NotImplementedError(f"nettype {nettype!r} is not ported yet (only SFNO)")
+    if nettype == "FCN3":
+        from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
+
+        return AtmoSphericNeuralOperatorNet
+    raise NotImplementedError(f"nettype {nettype!r} is not ported yet (only SFNO and FCN3)")
+
+
+def _noise_channels(params) -> int:
+    """Input-noise channels concatenated to each step's input."""
+    noise = params.get("input_noise", None) or {}
+    return noise.get("n_channels", 0) if noise.get("mode", "concatenate") == "concatenate" else 0
 
 
 def count_channels(params):
-    """Effective (in, out) channel counts seen by the core network (no
-    static features are ported, so none are counted)."""
+    """Effective (in, out) channel counts seen by the core network: the
+    prognostic channels and, per history step, the zenith angle and the
+    concatenated noise channels (no static features are ported, so none
+    are counted)."""
     n_prog = len(params.get("in_channels", range(params.get("N_in_channels", 0)))) or params.get("n_channels", 0)
     n_hist = params.get("n_history", 0) + 1
-    n_dyn_aux = len(get_auxiliary_channels(add_zenith=params.get("add_zenith", False)))
+    n_dyn_aux = len(get_auxiliary_channels(add_zenith=params.get("add_zenith", False), n_noise_chan=_noise_channels(params)))
     n_in = n_hist * (n_prog + n_dyn_aux)
     n_out = len(params.get("out_channels", range(n_prog)))
     return n_in, n_out
@@ -69,13 +83,26 @@ _MODEL_KEYS = (
     "separable",
     "checkpointing_level",
     "remat_policy",
+    "pos_drop_rate",
+    "path_drop_rate",
+    "mlp_drop_rate",
+    "num_groups",
+    "kernel_shape",
+    "sfno_block_frequency",
+    "atmo_embed_dim",
+    "surf_embed_dim",
+    "aux_embed_dim",
+    "layer_scale",
+    "clamp_water",
+    "filter_basis_type",
+    "filter_basis_norm_mode",
 )
 
 
 def get_model(params, multistep: bool = False, device=None, seed: int = 0):
     """Build (wrapper_module, preprocessor) from a params object, with the
-    weights drawn on ``device`` from a ``torch.Generator`` seeded with
-    ``seed``."""
+    weights drawn on ``device`` (the card when None) from a
+    ``torch.Generator`` seeded with ``seed``."""
     for axis in ("x", "y"):
         rs = params.get(f"img_shape_{axis}_resampled")
         if rs is not None:
@@ -96,6 +123,17 @@ def get_model(params, multistep: bool = False, device=None, seed: int = 0):
             kwargs[key] = params.get(key)
     if params.get("bias", None) is not None:
         kwargs["use_bias"] = params.get("bias")
+    # channel-grouped models (FCN3) take the channel name lists, the
+    # auxiliary ones including the concatenated noise channels
+    if "channel_names" in fields:
+        kwargs["channel_names"] = tuple(params.get("channel_names"))
+    if "aux_channel_names" in fields:
+        kwargs["aux_channel_names"] = tuple(get_auxiliary_channels(add_zenith=params.get("add_zenith", False), n_noise_chan=_noise_channels(params)))
+    if "filter_basis_type" in fields and params.get("filter_basis_table", None) is not None:
+        # exact import of a foreign basis convention from an exported table
+        from makani_torch.ops.disco import load_basis_table
+
+        kwargs["filter_basis_type"] = load_basis_table(params.get("filter_basis_table"))
     compute_dtype = params.get("compute_dtype", "float32")
     if compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(f"compute_dtype {compute_dtype!r} is not ported yet")
@@ -103,8 +141,8 @@ def get_model(params, multistep: bool = False, device=None, seed: int = 0):
     if params.get("constraints", None):
         raise NotImplementedError("model constraints are not ported yet")
 
-    device = torch.device(device) if device is not None else torch.device("cpu")
-    model = handle(**kwargs, device=device)
+    device = resolve_device(device)
+    model = handle(**{k: v for k, v in kwargs.items() if k in fields}, device=device)
     if multistep:
         wrapper = MultiStepWrapper(model, preprocessor, n_future=params.get("n_future", 0))
     else:

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from makani_torch.device import resolve_device
 from makani_torch.models.common.layer_norm import InstanceNorm2d
 from makani_torch.models.common.layers import MLP, Conv1x1, EncoderDecoder
 from makani_torch.models.common.spectral_convolution import SpectralConv
@@ -220,6 +221,7 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         self.pos_embed_type = pos_embed
         self.dtype = dtype
         self.use_kernels = True
+        device = resolve_device(device)
         self.h = self.inp_shape[0] // scale_factor
         self.w = self.inp_shape[1] // scale_factor
         if max_modes is not None:

@@ -2,11 +2,12 @@
 ``makani_tpu/models/preprocessor.py``), the subset the forecast path uses:
 
   * history window flatten/expand and sliding (``append_history``),
-  * appending per-step unpredicted channels (the zenith angle).
+  * appending per-step unpredicted channels (the zenith angle and, for
+    ensembles, the concatenated input-noise channels).
 
 History normalization (mode ``none`` only), static features, bias correction
-and input-noise channels are not ported yet; a configuration that asks for
-them raises instead of running without them.
+and the ``perturb`` input-noise mode are not ported yet; a configuration that
+asks for them raises instead of running without them.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 __all__ = ["Preprocessor2D", "get_preprocessor"]
 
-_UNPORTED_KEYS = ("add_grid", "add_orography", "add_landmask", "add_soiltype", "add_copernicus_emb", "bias_correction", "input_noise")
+_UNPORTED_KEYS = ("add_grid", "add_orography", "add_landmask", "add_soiltype", "add_copernicus_emb", "bias_correction")
 
 
 class Preprocessor2D:
@@ -25,6 +26,9 @@ class Preprocessor2D:
         for key in _UNPORTED_KEYS:
             if params.get(key, None):
                 raise NotImplementedError(f"preprocessor option {key!r} is not ported yet")
+        noise = params.get("input_noise", None) or {}
+        if noise and noise.get("mode", "concatenate") != "concatenate":
+            raise NotImplementedError(f"input-noise mode {noise.get('mode')!r} is not ported yet (only 'concatenate')")
         self.n_history = params.get("n_history", 0)
         self.history_normalization_mode = params.get("history_normalization_mode", "none")
         if self.history_normalization_mode != "none":

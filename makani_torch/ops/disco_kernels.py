@@ -1,0 +1,247 @@
+"""The DISCO convolution's kernels and their plain PyTorch versions.
+
+K5 (``band_contract``, CUDA C++ in ``csrc/disco_band.cu``): the banded
+contraction
+
+    out[b, h, p + phases*u, g, o] = sum_{i, j, w} F[h, g % Gf, i, j, w, o]
+        * x[b, band_start[h] + j, (off + u*a + w) mod Win, g*IG + i]
+
+It replaces ``scripts/r3/disco_pallas.py`` ``pallas_band_contract`` and the
+grouped convolution of ``makani_tpu/ops/disco.py`` (``DiscoConvS2.__call__``
+:663-674 and the weight-fused ``_fused_window`` :804-817, whose default
+``_fused_dense`` computes the same function). Its plain version is the JAX
+package's own formulation: the band rows gathered (BL times the input, never
+the WW-fold window), then one grouped ``conv1d`` with a group per output
+latitude, chunked over the channel axis to bound memory.
+
+K6 (``polar_psi_first`` / ``polar_mix_first``, Triton): the polar rows'
+conjugate multiply-sum between cuFFTs, ``Y = sum_j X conj(Psi)`` per basis
+function, or ``sum_{k, j}`` on the channel-mixed field
+(``makani_tpu/ops/disco.py`` :676-692, :856-864, :886-909). It is a
+broadcast multiply and a reduction over a short axis with no tensor-core
+work: bound by memory bandwidth. Each program holds a tile of orders m x
+channels x basis functions in registers, reads every X (or U) element once
+and Psi once per tile, accumulates re and im in fp32, and writes Y once.
+
+On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
+launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from makani_torch import kernels
+
+__all__ = [
+    "band_contract",
+    "band_contract_plain",
+    "polar_psi_first",
+    "polar_psi_first_plain",
+    "polar_mix_first",
+    "polar_mix_first_plain",
+]
+
+# the plain K5 gathers the band rows of this many bytes of input per chunk
+_PLAIN_CHUNK_BYTES = 1 << 30
+
+
+def _check_band_args(x, F_, out, Gf, IG, OG):
+    if x.dim() != 4 or F_.dim() != 6 or out.dim() != 4:
+        raise ValueError(f"disco_band: expected x (B,H,W,C), F (Hout,Gf,IG,BL,WW,OGp), out (B,Hout,Wout,Cout); got {tuple(x.shape)}, {tuple(F_.shape)}, {tuple(out.shape)}")
+    C = x.shape[-1]
+    if C % (Gf * IG) or tuple(F_.shape[1:3]) != (Gf, IG) or F_.shape[-1] < OG:
+        raise ValueError(f"disco_band: x channels {C}, F {tuple(F_.shape)} and (Gf, IG, OG) = {(Gf, IG, OG)} do not match")
+    if out.shape[-1] != C // IG * OG or out.shape[0] != x.shape[0] or out.shape[1] != F_.shape[0]:
+        raise ValueError(f"disco_band: out {tuple(out.shape)} does not match x {tuple(x.shape)} and F {tuple(F_.shape)}")
+
+
+def band_contract_plain(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, IG, OG):
+    """Plain K5: writes ``out[:, :, phase::phases]`` (see the module
+    docstring). x is a (B, Hin, Win, C) view of any strides."""
+    _check_band_args(x, F_, out, Gf, IG, OG)
+    B, Hin, Win, C = x.shape
+    Hout, _, _, BL, WW, _ = F_.shape
+    R = C // (Gf * IG)
+    dev = x.device
+    rows = (band_start.long()[:, None] + torch.arange(BL, device=dev)[None, :]).reshape(-1)  # (Hout*BL,)
+    span = (n_out - 1) * a + WW
+    cols = (off + torch.arange(span, device=dev)) % Win
+    filt = F_[..., :OG].permute(0, 1, 5, 2, 3, 4).reshape(Hout * Gf * OG, IG * BL, WW)
+    step = max(1, _PLAIN_CHUNK_BYTES // (B * Hout * BL * span * Gf * IG * 4))
+    dst = out[:, :, phase::phases]
+    for r0 in range(0, R, step):
+        r1 = min(R, r0 + step)
+        Rc = r1 - r0
+        xb = x[..., r0 * Gf * IG : r1 * Gf * IG][:, rows[:, None], cols[None, :]]  # (B, Hout*BL, span, Rc*Gf*IG)
+        inp = xb.reshape(B, Hout, BL, span, Rc, Gf, IG).permute(0, 4, 1, 5, 6, 2, 3).reshape(B * Rc, Hout * Gf * IG * BL, span)
+        y = F.conv1d(inp, filt, stride=a, groups=Hout * Gf)  # (B*Rc, Hout*Gf*OG, n_out)
+        y = y.reshape(B, Rc, Hout, Gf, OG, n_out).permute(0, 2, 5, 1, 3, 4).reshape(B, Hout, n_out, Rc * Gf * OG)
+        dst[..., r0 * Gf * OG : r1 * Gf * OG] = y
+    return out
+
+
+def band_contract(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, IG, OG):
+    """K5 on the card, the plain version on the CPU; writes
+    ``out[:, :, phase::phases]`` and returns out.
+
+    x: float32 (B, Hin, Win, G*IG) view of any strides; F_: float32
+    (Hout, Gf, IG, BL, WW, OGp) contiguous, zero-padded on the outputs to
+    OGp (1 for OG == 1, else a multiple of 9); band_start: int32 (Hout,);
+    out: float32 (B, Hout, Wout, G*OG) contiguous."""
+    if kernels.takes_plain("disco_band", x, F_, band_start, out):
+        return band_contract_plain(x, F_, band_start, out, a=a, off=off, n_out=n_out, phase=phase, phases=phases, Gf=Gf, IG=IG, OG=OG)
+    _check_band_args(x, F_, out, Gf, IG, OG)
+    if x.dtype != torch.float32 or F_.dtype != torch.float32 or out.dtype != torch.float32 or band_start.dtype != torch.int32:
+        raise TypeError(f"disco_band: takes float32 x, F and out and int32 band_start, got {x.dtype}, {F_.dtype}, {out.dtype}, {band_start.dtype}")
+    if not (F_.is_contiguous() and out.is_contiguous() and band_start.is_contiguous()):
+        raise ValueError("disco_band: F, out and band_start must be contiguous")
+    B, Hin, Win, C = x.shape
+    Hout, Gf_, IG_, BL, WW, OGp = F_.shape
+    Wout = out.shape[2]
+    if out.numel() == 0:
+        return out
+    lib = kernels.library()
+    sB, sH, sW, sC = x.stride()
+    with torch.cuda.device(x.device):
+        err = lib.mt_disco_band_contract(
+            x.data_ptr(), F_.data_ptr(), band_start.data_ptr(), out.data_ptr(), B, Hin, Win, sB, sH, sW, sC, Hout, Wout,
+            C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, kernels.stream_ptr(x.device),
+        )
+    kernels.check_launch(err, "disco_band")
+    kernels.count_launch("disco_band")
+    return out
+
+
+def polar_psi_first_plain(X: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """X (B, P, BL, M, C, 2), Pt (2, P, BL, K, M) ->
+    Y (B, P, M, C, K, 2) = sum_j X . conj(Psi)."""
+    Xr, Xi, Pr, Pi = X[..., 0], X[..., 1], Pt[0], Pt[1]
+    eq = "bpjmc,pjkm->bpmck"
+    re = torch.einsum(eq, Xr, Pr) + torch.einsum(eq, Xi, Pi)
+    im = torch.einsum(eq, Xi, Pr) - torch.einsum(eq, Xr, Pi)
+    return torch.stack([re, im], dim=-1)
+
+
+def polar_mix_first_plain(U: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """U (B, P, BL, M, C, K, 2), Pt (2, P, BL, K, M) ->
+    Y (B, P, M, C, 2) = sum_{j, k} U . conj(Psi)."""
+    Ur, Ui, Pr, Pi = U[..., 0], U[..., 1], Pt[0], Pt[1]
+    eq = "bpjmck,pjkm->bpmc"
+    re = torch.einsum(eq, Ur, Pr) + torch.einsum(eq, Ui, Pi)
+    im = torch.einsum(eq, Ui, Pr) - torch.einsum(eq, Ur, Pi)
+    return torch.stack([re, im], dim=-1)
+
+
+@functools.cache
+def _triton_kernels():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def psi_first(x_ptr, p_ptr, y_ptr, P, BL, M, C, K, BM: tl.constexpr, BC: tl.constexpr, BK: tl.constexpr):
+        # Y[b, p, m, c, k] = sum_j X[b, p, j, m, c] conj(Psi[p, j, k, m])
+        pid = tl.program_id(0)
+        p = tl.program_id(1)
+        b = tl.program_id(2).to(tl.int64)
+        n_ct = tl.cdiv(C, BC)
+        m = (pid // n_ct) * BM + tl.arange(0, BM)
+        c = (pid % n_ct) * BC + tl.arange(0, BC)
+        k = tl.arange(0, BK)
+        mm, cm, km = m < M, c < C, k < K
+        xmask = mm[:, None] & cm[None, :]
+        pmask = mm[:, None] & km[None, :]
+        plane = P * BL * K * M
+        acc_r = tl.zeros((BM, BC, BK), dtype=tl.float32)
+        acc_i = tl.zeros((BM, BC, BK), dtype=tl.float32)
+        for j in range(0, BL):
+            xo = (((b * P + p) * BL + j) * M + m[:, None]) * C + c[None, :]
+            xr = tl.load(x_ptr + 2 * xo, mask=xmask, other=0.0)[:, :, None]
+            xi = tl.load(x_ptr + 2 * xo + 1, mask=xmask, other=0.0)[:, :, None]
+            po = ((p * BL + j) * K + k[None, :]) * M + m[:, None]
+            pr = tl.load(p_ptr + po, mask=pmask, other=0.0)[:, None, :]
+            pi = tl.load(p_ptr + plane + po, mask=pmask, other=0.0)[:, None, :]
+            acc_r += xr * pr + xi * pi
+            acc_i += xi * pr - xr * pi
+        yo = (((b * P + p) * M + m[:, None, None]) * C + c[None, :, None]) * K + k[None, None, :]
+        ymask = xmask[:, :, None] & km[None, None, :]
+        tl.store(y_ptr + 2 * yo, acc_r, mask=ymask)
+        tl.store(y_ptr + 2 * yo + 1, acc_i, mask=ymask)
+
+    @triton.jit
+    def mix_first(u_ptr, p_ptr, y_ptr, P, BL, M, C, K, BM: tl.constexpr, BC: tl.constexpr, BK: tl.constexpr):
+        # Y[b, p, m, c] = sum_{j, k} U[b, p, j, m, c, k] conj(Psi[p, j, k, m])
+        pid = tl.program_id(0)
+        p = tl.program_id(1)
+        b = tl.program_id(2).to(tl.int64)
+        n_ct = tl.cdiv(C, BC)
+        m = (pid // n_ct) * BM + tl.arange(0, BM)
+        c = (pid % n_ct) * BC + tl.arange(0, BC)
+        k = tl.arange(0, BK)
+        mm, cm, km = m < M, c < C, k < K
+        umask = mm[:, None, None] & cm[None, :, None] & km[None, None, :]
+        pmask = mm[:, None] & km[None, :]
+        plane = P * BL * K * M
+        acc_r = tl.zeros((BM, BC), dtype=tl.float32)
+        acc_i = tl.zeros((BM, BC), dtype=tl.float32)
+        for j in range(0, BL):
+            uo = ((((b * P + p) * BL + j) * M + m[:, None, None]) * C + c[None, :, None]) * K + k[None, None, :]
+            ur = tl.load(u_ptr + 2 * uo, mask=umask, other=0.0)
+            ui = tl.load(u_ptr + 2 * uo + 1, mask=umask, other=0.0)
+            po = ((p * BL + j) * K + k[None, :]) * M + m[:, None]
+            pr = tl.load(p_ptr + po, mask=pmask, other=0.0)[:, None, :]
+            pi = tl.load(p_ptr + plane + po, mask=pmask, other=0.0)[:, None, :]
+            acc_r += tl.sum(ur * pr + ui * pi, axis=2)
+            acc_i += tl.sum(ui * pr - ur * pi, axis=2)
+        yo = ((b * P + p) * M + m[:, None]) * C + c[None, :]
+        ymask = mm[:, None] & cm[None, :]
+        tl.store(y_ptr + 2 * yo, acc_r, mask=ymask)
+        tl.store(y_ptr + 2 * yo + 1, acc_i, mask=ymask)
+
+    return triton, psi_first, mix_first
+
+
+_BM, _BC = 8, 32
+
+
+def _polar_launch(name, kernel_index, src, Pt, out_shape):
+    for t in (src, Pt):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: takes contiguous float32 tensors, got {t.dtype} contiguous={t.is_contiguous()}")
+    B, P, BL, M, C = src.shape[:5]
+    K = Pt.shape[3]
+    if tuple(Pt.shape) != (2, P, BL, K, M) or src.shape[-1] != 2:
+        raise ValueError(f"{name}: input {tuple(src.shape)} and table {tuple(Pt.shape)} do not match")
+    y = torch.empty(out_shape, dtype=torch.float32, device=src.device)
+    if y.numel() == 0:
+        return y
+    triton, *kerns = _triton_kernels()
+    BK = triton.next_power_of_2(K)
+    grid = (triton.cdiv(M, _BM) * triton.cdiv(C, _BC), P, B)
+    with torch.cuda.device(src.device):
+        kerns[kernel_index][grid](src, Pt, y, P, BL, M, C, K, BM=_BM, BC=_BC, BK=BK, num_warps=4)
+    kernels.count_launch("disco_polar")
+    return y
+
+
+def polar_psi_first(X: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """K6, responses and psi-first order: X (B, P, BL, M, C, 2), Pt
+    (2, P, BL, K, M) -> Y (B, P, M, C, K, 2); plain version on the CPU."""
+    if kernels.takes_plain("disco_polar", X, Pt):
+        return polar_psi_first_plain(X, Pt)
+    B, P, BL, M, C, _ = X.shape
+    return _polar_launch("disco_polar", 0, X, Pt, (B, P, M, C, Pt.shape[3], 2))
+
+
+def polar_mix_first(U: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """K6, mix-first order: U (B, P, BL, M, C, K, 2), Pt (2, P, BL, K, M) ->
+    Y (B, P, M, C, 2); plain version on the CPU."""
+    if kernels.takes_plain("disco_polar", U, Pt):
+        return polar_mix_first_plain(U, Pt)
+    B, P, BL, M, C, K, _ = U.shape
+    if K != Pt.shape[3]:
+        raise ValueError(f"disco_polar: U has {K} basis functions, the table {Pt.shape[3]}")
+    return _polar_launch("disco_polar", 1, U, Pt, (B, P, M, C, 2))

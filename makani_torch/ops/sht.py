@@ -142,6 +142,15 @@ class RealSHT:
             return analysis_contract_cl_s(xf2, w)
         return analysis_contract_cl_s_plain(xf2, w)
 
+    def analysis(self, x: torch.Tensor) -> torch.Tensor:
+        """The JAX package's layout: real (..., nlat, nlon) -> (..., lmax,
+        mmax, 2). The leading axes become the channels of one channels-last
+        transform (K1 with C = their product)."""
+        lead = x.shape[:-2]
+        xcl = x.reshape(-1, self.nlat, self.nlon).permute(1, 2, 0)[None]
+        c2 = self.analysis_cl(xcl)[0]  # (lmax, mmax, N, 2)
+        return c2.permute(2, 0, 1, 3).reshape(*lead, self.lmax, self.mmax, 2)
+
 
 class InverseRealSHT:
     """Inverse (synthesis) real spherical harmonic transform.
@@ -171,3 +180,12 @@ class InverseRealSHT:
         p = self.pct(c2.device, c2.dtype)
         xf2 = synthesis_contract_cl_s(c2, p) if use_kernels else synthesis_contract_cl_s_plain(c2, p)
         return fft_compat.irfft_cl_s(xf2, n=self.nlon, norm="forward")
+
+    def synthesis(self, c2: torch.Tensor) -> torch.Tensor:
+        """The JAX package's layout: (..., lmax, mmax, 2) -> real (..., nlat,
+        nlon). The leading axes become the channels of one channels-last
+        transform (K2 with C = their product)."""
+        lead = c2.shape[:-3]
+        ccl = c2.reshape(-1, self.lmax, self.mmax, 2).permute(1, 2, 0, 3)[None]
+        x = self.synthesis_cl(ccl)[0]  # (nlat, nlon, N)
+        return x.permute(2, 0, 1).reshape(*lead, self.nlat, self.nlon)

@@ -1,0 +1,118 @@
+"""makani_torch's DISCO convolution against makani_tpu's, on the CPU.
+
+The host tables (cutoffs, basis counts, psi) are float64 numpy copied from
+the JAX package and must be bit-equal. The device side (the banded part and
+the polar rows, here through the kernels' plain versions) is held to
+1e-5 * max|ref| in fp32 against the JAX package's jitted functions, on three
+grids with polar rows: input stride a = 2 with one phase (an encoder-like
+downsampling), a = 1 with one phase, and b = 3 phases. The fused conv is
+checked in both polar contraction orders (og*BL <= ig mixes first) against
+the JAX package's default ``_fused_dense`` and its ``_fused_window``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from makani_tpu.ops import disco as jdisco
+
+from makani_torch import kernels
+from makani_torch.ops import disco
+
+SHAPES = [((17, 32), (9, 16)), ((16, 32), (16, 32)), ((13, 32), (11, 24))]
+BASES = ["morlet th", "piecewise linear", "harmonic"]
+
+
+def _tol(out, ref, rel=1e-5):
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    assert out.shape == ref.shape
+    assert np.max(np.abs(out - ref)) <= rel * np.max(np.abs(ref))
+
+
+@pytest.mark.parametrize("basis", BASES + ["piecewise linear th", "tabulated"])
+@pytest.mark.parametrize("shapes", [SHAPES[0], SHAPES[2]])
+def test_psi_tables_and_cutoffs_bit_equal(shapes, basis):
+    in_shape, out_shape = shapes
+    ks = (3, 3)
+    if basis == "tabulated":
+        rng = np.random.default_rng(5)
+        table = dict(vals=rng.standard_normal((4, 9, 16)), r=np.linspace(0.0, 0.4, 9), alpha=np.arange(16) * 2 * np.pi / 16, r_cutoff=0.35)
+        basis = disco.register_basis_table("t5", table)
+        assert jdisco.register_basis_table("t5", table) == basis
+    assert disco.num_basis_functions(ks, basis) == jdisco.num_basis_functions(ks, basis)
+    cut = disco.compute_cutoff_radius(in_shape[0], ks, basis)
+    assert cut == jdisco.compute_cutoff_radius(in_shape[0], ks, basis)
+    assert disco.compute_cutoff_radius_lmax(12, ks, basis) == jdisco.compute_cutoff_radius_lmax(12, ks, basis)
+    args = (in_shape, out_shape, ks, "equiangular", "legendre-gauss", cut, "mean", basis)
+    t, j = disco._precompute_psi(*args), jdisco._precompute_psi(*args)
+    assert set(t) == set(j)
+    for key in t:
+        assert np.array_equal(np.asarray(t[key]), np.asarray(j[key])), key
+
+
+def _pair(in_shape, out_shape):
+    kw = dict(basis_type="morlet th", basis_norm_mode="mean")
+    return jdisco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw), disco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw)
+
+
+@pytest.mark.parametrize("in_shape,out_shape", SHAPES)
+def test_call_and_call_split_match_jax(in_shape, out_shape):
+    jc, tc = _pair(in_shape, out_shape)
+    assert tc.polar_rows and (tc.stride, tc.phases) == (jc.stride, jc.phases)
+    x = np.random.default_rng(0).standard_normal((2, 3, *in_shape)).astype(np.float32)
+    ref = jax.jit(jc.__call__)(jnp.asarray(x))
+    t_ref, tp_ref = jax.jit(jc.call_split)(jnp.asarray(x))
+    kernels.reset_launch_counts()
+    _tol(tc(torch.from_numpy(x)), ref)
+    t, tp = tc.call_split(torch.from_numpy(x))
+    assert not any(kernels.LAUNCHES.values())
+    assert np.array_equal(np.asarray(t)[:, :, :, tc.polar_rows], np.zeros_like(np.asarray(t)[:, :, :, tc.polar_rows]))
+    _tol(t, t_ref)
+    _tol(tp, tp_ref)
+
+
+@pytest.mark.parametrize("mode", ["dense", "window"])
+@pytest.mark.parametrize("channels", [(3, 2, 4), (2, 1, 8)])
+@pytest.mark.parametrize("in_shape,out_shape", SHAPES)
+def test_fused_matches_jax(in_shape, out_shape, channels, mode, monkeypatch):
+    """(3, 2, 4) contracts psi first (og*BL > ig), (2, 1, 8) mixes first."""
+    monkeypatch.setenv("MAKANI_DISCO_FUSED", mode)
+    jc, tc = _pair(in_shape, out_shape)
+    g, og, ig = channels
+    assert (og * tc.BL <= ig) == (channels == (2, 1, 8))
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, g * ig, *in_shape)).astype(np.float32)
+    w = (0.2 * rng.standard_normal((g, og, ig, tc.K))).astype(np.float32)
+    ref = jax.jit(jc.fused)(jnp.asarray(x), jnp.asarray(w))
+    _tol(tc.fused(torch.from_numpy(x), torch.from_numpy(w)), ref)
+
+
+def test_fused_stacked_inputs_and_filter_cache():
+    """R stacked inputs on the channel axis equal R separate convs (the JAX
+    package's batch fold; the CPU convolution blocks a larger batch in
+    another order, hence 1e-6), and the fused filter is rebuilt only when the
+    weight changes."""
+    tc = disco.DiscoConvS2((16, 32), (16, 32), (3, 3), basis_type="morlet th")
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((1, 3 * 2 * 4, 16, 32)).astype(np.float32))
+    w = torch.from_numpy((0.2 * rng.standard_normal((2, 3, 4, tc.K))).astype(np.float32))
+    cache = disco.FusedFilterCache()
+    y = tc.fused(x, w, cache=cache)
+    f0 = cache.get(tc, w, 0)
+    assert cache.get(tc, w, 0) is f0
+    for r in range(3):
+        _tol(y[:, r * 6 : (r + 1) * 6], tc.fused(x[:, r * 8 : (r + 1) * 8], w), rel=1e-6)
+    with torch.no_grad():
+        w.mul_(2.0)
+    assert cache.get(tc, w, 0) is not f0
+
+
+def test_make_disco_conv_is_the_serial_conv():
+    from makani_tpu.parallel.disco import make_disco_conv as jmake
+
+    conv = disco.make_disco_conv((16, 32), (16, 32), (3, 3), basis_type="morlet th", grid_in="legendre-gauss", grid_out="legendre-gauss")
+    ref = jmake((16, 32), (16, 32), (3, 3), basis_type="morlet th", grid_in="legendre-gauss", grid_out="legendre-gauss")
+    assert isinstance(conv, disco.DiscoConvS2)
+    assert np.array_equal(conv.psi_band, ref.psi_band) and conv.polar_rows == ref.polar_rows

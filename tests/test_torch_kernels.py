@@ -18,7 +18,11 @@ import torch
 from makani_torch import kernels
 from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
 from makani_torch.models.common.layer_norm import instance_norm_cl, instance_norm_cl_plain
+from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
 from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+from makani_torch.ops import disco_kernels
+from makani_torch.ops.disco import DiscoConvS2
+from makani_torch.ops.resample import ResampleS2
 from makani_torch.ops.sht import (
     InverseRealSHT,
     RealSHT,
@@ -111,7 +115,7 @@ def test_small_sfno_kernel_path_matches_plain(cuda):
         counts = dict(kernels.LAUNCHES)
         kernels.set_use_kernels(model, False)
         ref = model(x)
-    assert counts == {"sht_analysis": 3, "sht_synthesis": 5, "dhconv": 3, "instance_norm": 6}
+    assert counts == {"sht_analysis": 3, "sht_synthesis": 5, "dhconv": 3, "instance_norm": 6, "disco_band": 0, "disco_polar": 0, "resample": 0}
     assert torch.isfinite(y).all()
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
 
@@ -123,3 +127,84 @@ def test_wrappers_refuse_mixed_devices(cuda):
         analysis_contract_cl_s(x, sht.weights("cpu"))
     with pytest.raises(TypeError):
         analysis_contract_cl_s(x.to(torch.bfloat16), sht.weights(cuda))
+
+
+DISCO_SHAPES = [((33, 64), (17, 32)), ((24, 48), (24, 48)), ((13, 32), (11, 24))]
+
+
+@pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
+def test_disco_band_and_polar_kernels_match_plain(cuda, in_shape, out_shape):
+    """K5 in responses mode on a channels-last and an NCHW input, and K6 in
+    the responses order, through DiscoConvS2.responses_cl (phases b > 1 in
+    the last shape)."""
+    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    x = _randn((2, 37, *in_shape), torch.float32, cuda)
+    for view in (x.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1).contiguous()):
+        kernels.reset_launch_counts()
+        t, tp = conv.responses_cl(view)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["disco_band"] == conv.phases and kernels.LAUNCHES["disco_polar"] == conv.phases
+        rt, rtp = conv.responses_cl(view, use_kernels=False)
+        assert _agree(t, rt, torch.float32) and _agree(tp, rtp, torch.float32)
+
+
+@pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
+@pytest.mark.parametrize("g,og,ig,R", [(3, 2, 4, 1), (2, 1, 8, 3), (5, 9, 1, 2), (8, 7, 1, 1)])
+def test_disco_fused_kernels_match_plain(cuda, in_shape, out_shape, g, og, ig, R):
+    """K5 in fused mode (F = w x psi, R stacked inputs sharing the filters)
+    and K6 in both polar orders (og*BL <= ig mixes first)."""
+    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    x = _randn((2, R * g * ig, *in_shape), torch.float32, cuda).permute(0, 2, 3, 1)
+    w = 0.2 * _randn((g, og, ig, conv.K), torch.float32, cuda, seed=1)
+    kernels.reset_launch_counts()
+    y = conv.fused_cl(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["disco_band"] == conv.phases and kernels.LAUNCHES["disco_polar"] == conv.phases
+    assert y.shape == (2, *out_shape, R * g * og)
+    assert _agree(y, conv.fused_cl(x, w, use_kernels=False), torch.float32)
+
+
+def test_disco_band_refuses_wrong_inputs(cuda):
+    conv = DiscoConvS2((24, 48), (24, 48), (3, 3), basis_type="morlet th")
+    x = _randn((1, 24, 48, 3), torch.bfloat16, cuda)
+    out = torch.empty(1, 24, 48, 3 * conv.K, device=cuda)
+    kw = dict(a=1, off=0, n_out=48, phase=0, phases=1, Gf=1, IG=1, OG=conv.K)
+    with pytest.raises(TypeError):
+        disco_kernels.band_contract(x, conv.band_filter(0, cuda), conv.band_start_table(cuda), out, **kw)
+    with pytest.raises(ValueError):
+        disco_kernels.band_contract(x.float(), conv.band_filter(0, "cpu"), conv.band_start_table(cuda), out, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes", [((18, 36, "legendre-gauss"), (37, 72, "equiangular")), ((37, 72, "equiangular"), (18, 36, "legendre-gauss"))])
+def test_resample_kernel_matches_plain(cuda, shapes, dtype):
+    (hi, wi, gi), (ho, wo, go) = shapes
+    rs = ResampleS2(hi, wi, ho, wo, grid_in=gi, grid_out=go)
+    x = _randn((2, hi, wi, 45), dtype, cuda)
+    kernels.reset_launch_counts()
+    y = rs.resample_cl(x[..., 3:40])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["resample"] == 1 and y.dtype == dtype
+    assert _agree(y, rs.resample_cl(x[..., 3:40], use_kernels=False), dtype)
+
+
+def test_small_fcn3_kernel_path_matches_plain(cuda):
+    names = ["u10m", "v10m", "t2m", "tcwv", "u500", "v500", "q500", "u850", "v850", "q850"]
+    model = AtmoSphericNeuralOperatorNet(
+        inp_shape=(33, 64), out_shape=(33, 64), scale_factor=2, channel_names=tuple(names), aux_channel_names=("xzen", "xnoise0", "xnoise1"),
+        atmo_embed_dim=24, surf_embed_dim=16, aux_embed_dim=8, num_layers=4, sfno_block_frequency=2, kernel_shape=(3, 3),
+        filter_basis_type="morlet th", clamp_water=True, device=cuda,
+    )
+    x = _randn((2, len(names) + 3, 33, 64), torch.float32, cuda)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        kernels.set_use_kernels(model, False)
+        ref = model(x)
+    # 3 encoders (fused), 2 local blocks (two-stage: 72 channels), 2 decoders
+    # (fused): one band and one polar launch each
+    assert counts == {"sht_analysis": 2, "sht_synthesis": 2, "dhconv": 2, "instance_norm": 0, "disco_band": 7, "disco_polar": 7, "resample": 2}
+    assert torch.isfinite(y).all()
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()

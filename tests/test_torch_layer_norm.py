@@ -30,7 +30,7 @@ def test_instance_norm_matches_jax(nlat_phys, channels_last, dtype):
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
     jmod = JInstanceNorm2d(num_features=C, nlat_phys=nlat_phys, channels_last=channels_last)
     ref = np.asarray(jmod.apply(params, jnp.asarray(x, jdt)), np.float32)
-    mod = load_from_jax(InstanceNorm2d(C, nlat_phys=nlat_phys, channels_last=channels_last), params)
+    mod = load_from_jax(InstanceNorm2d(C, nlat_phys=nlat_phys, channels_last=channels_last, device="cpu"), params)
     with torch.no_grad():
         out = mod(torch.from_numpy(x).to(tdt))
     assert out.dtype == tdt and out.shape == ref.shape
@@ -58,5 +58,5 @@ def test_norm_wrapper_takes_plain_on_cpu_without_counting():
     kernels.reset_launch_counts()
     assert torch.equal(instance_norm_cl(x, w, b, 4), instance_norm_cl_plain(x, w, b, 4))
     assert kernels.LAUNCHES["instance_norm"] == 0
-    mod = InstanceNorm2d(C, affine=False, channels_last=True)
+    mod = InstanceNorm2d(C, affine=False, channels_last=True, device="cpu")
     assert torch.equal(mod(x), instance_norm_cl_plain(x, None, None))

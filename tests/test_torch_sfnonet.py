@@ -70,7 +70,7 @@ def test_sfno_forward_matches_jax(dtype, extra):
     variables = _jax_variables(jmodel, jnp.asarray(x))
     ref = np.asarray(jmodel.apply(variables, jnp.asarray(x)), np.float32)
 
-    model = load_from_jax(SphericalFourierNeuralOperatorNet(dtype=tdt, **kw), variables)
+    model = load_from_jax(SphericalFourierNeuralOperatorNet(dtype=tdt, device="cpu", **kw), variables)
     with torch.no_grad():
         out = model(torch.from_numpy(x))
     assert out.dtype == tdt and out.shape == ref.shape
@@ -87,7 +87,7 @@ def test_params_from_jax_names_and_strict_load():
     sd = params_from_jax(variables)
     assert sd["block0.filter_layer.filter.weight"].shape == (1, 16, 16, 12, 2)
     assert sd["encoder.hidden0.kernel"].shape == (1, 5, 16)
-    model = SphericalFourierNeuralOperatorNet(**KW)
+    model = SphericalFourierNeuralOperatorNet(device="cpu", **KW)
     assert set(sd) == set(model.state_dict())
     del sd["block1.norm0.bias"]
     with pytest.raises(RuntimeError):
@@ -117,7 +117,7 @@ def test_forecast_rollout_matches_jax(tmp_path):
 
     ref = jrollout(JModelWrapper(jmodel, variables, bias=bias, scale=scale), x0[0], lat, lon, t0, 6, 3)
 
-    model, pre = get_model(copy.deepcopy(params), multistep=True)
+    model, pre = get_model(copy.deepcopy(params), multistep=True, device="cpu")
     assert pre.n_history == 0
     load_from_jax(model, variables)
     frames = rollout(ModelWrapper(model, bias=bias, scale=scale), torch.from_numpy(x0), lat, lon, t0, 6, 3)
@@ -128,18 +128,18 @@ def test_forecast_rollout_matches_jax(tmp_path):
 
 def test_get_model_seeds_weights(tmp_path):
     params = get_default_parameters(tmp_path, normalization_layer="instance_norm")
-    a, _ = get_model(copy.deepcopy(params), multistep=True, seed=3)
-    b, _ = get_model(copy.deepcopy(params), multistep=True, seed=3)
-    c, _ = get_model(copy.deepcopy(params), multistep=True, seed=4)
+    a, _ = get_model(copy.deepcopy(params), multistep=True, seed=3, device="cpu")
+    b, _ = get_model(copy.deepcopy(params), multistep=True, seed=3, device="cpu")
+    c, _ = get_model(copy.deepcopy(params), multistep=True, seed=4, device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["model.block0.filter_layer.filter.weight"], sc["model.block0.filter_layer.filter.weight"])
     with pytest.raises(NotImplementedError):
-        get_model(get_default_parameters(tmp_path, normalization_layer="instance_norm", add_orography=True))
+        get_model(get_default_parameters(tmp_path, normalization_layer="instance_norm", add_orography=True), device="cpu")
 
 
 def test_plain_reference_switch_matches_kernel_route_on_cpu():
-    model = SphericalFourierNeuralOperatorNet(**KW)
+    model = SphericalFourierNeuralOperatorNet(device="cpu", **KW)
     x = torch.randn(1, 5, 24, 48)
     kernels.reset_launch_counts()
     with torch.no_grad():
@@ -152,17 +152,21 @@ def test_plain_reference_switch_matches_kernel_route_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Every makani_torch module imports, and a forward runs, without jax,
-    flax or makani_tpu entering the process."""
+    """Every makani_torch module imports, and an SFNO and an FCN3 forward
+    run, without jax, flax or makani_tpu entering the process."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import makani_torch\n"
         "for m in pkgutil.walk_packages(makani_torch.__path__, 'makani_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet\n"
-        "net = SphericalFourierNeuralOperatorNet(inp_shape=(12, 24), out_shape=(12, 24), scale_factor=2, inp_chans=3, out_chans=3, embed_dim=8, num_layers=2)\n"
+        "net = SphericalFourierNeuralOperatorNet(inp_shape=(12, 24), out_shape=(12, 24), scale_factor=2, inp_chans=3, out_chans=3, embed_dim=8, num_layers=2, device='cpu')\n"
         "with torch.no_grad():\n"
         "    assert torch.isfinite(net(torch.randn(1, 3, 12, 24))).all()\n"
+        "from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet\n"
+        "fcn3 = AtmoSphericNeuralOperatorNet(inp_shape=(17, 32), out_shape=(17, 32), scale_factor=2, channel_names=('t2m', 'u500', 'q500'), aux_channel_names=('xzen', 'xnoise0'), atmo_embed_dim=4, surf_embed_dim=4, aux_embed_dim=2, num_layers=2, sfno_block_frequency=2, filter_basis_type='morlet th', clamp_water=True, device='cpu')\n"
+        "with torch.no_grad():\n"
+        "    assert torch.isfinite(fcn3(torch.randn(1, 5, 17, 32))).all()\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'makani_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
