@@ -97,8 +97,13 @@ MODEL_BF16_REL_L2 = 3e-2
 MODEL_FP32_TOL = 1e-4
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet, dense): fp32
-# outside the tensor cores and HBM3 bandwidth.
+# outside the tensor cores, the tensor cores in TF32 and bf16, and HBM3
+# bandwidth. A product at fp32 accuracy on the tensor cores takes three TF32
+# passes (3xTF32: hi.hi + hi.lo + lo.hi).
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+TF32_PASSES = 3
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -140,12 +145,23 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, tensor_cores: torch.dtype | None = None) -> dict:
     """The least time the card could take: the larger of the operations over
-    the fp32 peak and the bytes (each input read once, each output written
-    once) over the HBM bandwidth."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops, "bytes": nbytes}
+    their peak and the bytes (each input read once, each output written once)
+    over the HBM bandwidth. ``fma_bound_ms`` counts the operations on the
+    fp32 FMA pipes; for a product the tensor cores can take (``tensor_cores``
+    = its IO dtype), ``tc_bound_ms`` counts them there (fp32 IO as three
+    TF32 passes, bf16 IO as one bf16 pass), and ``bound_ms`` is the smaller
+    of the two."""
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_fma = flops / PEAK_FP32_FLOPS
+    res = {"fma_bound_ms": 1e3 * max(t_fma, t_bytes), "tc_bound_ms": None, "flops": flops, "bytes": nbytes}
+    t_ops = t_fma
+    if tensor_cores is not None:
+        t_tc = TF32_PASSES * flops / PEAK_TF32_FLOPS if tensor_cores == torch.float32 else flops / PEAK_BF16_FLOPS
+        res["tc_bound_ms"] = 1e3 * max(t_tc, t_bytes)
+        t_ops = min(t_fma, t_tc)
+    return dict(res, bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def nbytes(*tensors) -> int:
@@ -178,7 +194,7 @@ def run_cases(cases, card, results, iters=10, warmup=2):
         ms, plain_ms = time_ms(kern, iters, warmup), time_ms(plain, iters, warmup)
         ok = within(err, dtype)
         dt = str(dtype).replace("torch.", "")
-        more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "library_ms") if extra.get(k) is not None)
+        more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "library_ms") if extra.get(k) is not None)
         print(
             f"kernel {name:13s} {label:17s} {dt:8s} out {shape}: max|d| {err['max_abs_err']:.3e} "
             f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; "
@@ -206,21 +222,31 @@ def legendre_extras(x, table, mode, lead):
     def extras(out):
         flops = 2.0 * torch.count_nonzero(table).item() * BN
         lib = time_ms(lambda: torch.bmm(A, Xp), 5, 1)
-        return dict(bound(flops, nbytes(x, table, out)), library_ms=lib)
+        return dict(bound(flops, nbytes(x, table, out), x.dtype), library_ms=lib)
 
     return extras
 
 
 def dhconv_extras(x, w):
+    """Bound and library yardstick of K3: for fp32 one complex ``torch.bmm``
+    per (l, g) over the B*M rows; for bf16 (no complex bf16 GEMM) the real
+    bf16 ``torch.bmm`` of the interleaved input with the [[wr, wi], [-wi, wr]]
+    block weight, the product K3 computes."""
     B, L, M, G, Ci, _ = x.shape
     Co = w.shape[2]
-    xc = torch.view_as_complex(x.float().permute(1, 3, 0, 2, 4, 5).reshape(L * G, B * M, Ci, 2).contiguous())
-    wc = torch.view_as_complex(w.float().permute(3, 0, 1, 2, 4).reshape(L * G, Ci, Co, 2).contiguous())
+    xl = x.permute(1, 3, 0, 2, 4, 5).reshape(L * G, B * M, Ci, 2)
+    wl = w.permute(3, 0, 1, 2, 4).reshape(L * G, Ci, Co, 2)
+    if x.dtype == torch.float32:
+        a, b = torch.view_as_complex(xl.contiguous()), torch.view_as_complex(wl.contiguous())
+    else:
+        wr, wi = wl[..., 0], wl[..., 1]
+        blocks = torch.stack([torch.stack([wr, wi], -1), torch.stack([-wi, wr], -1)], 2)  # (LG, Ci, 2, Co, 2)
+        a, b = xl.reshape(L * G, B * M, 2 * Ci).contiguous(), blocks.reshape(L * G, 2 * Ci, 2 * Co).to(x.dtype)
 
     def extras(out):
         flops = 8.0 * B * L * M * G * Ci * Co
-        lib = time_ms(lambda: torch.bmm(xc, wc), 5, 1)
-        return dict(bound(flops, nbytes(x, w, out)), library_ms=lib)
+        lib = time_ms(lambda: torch.bmm(a, b), 5, 1)
+        return dict(bound(flops, nbytes(x, w.to(x.dtype), out), x.dtype), library_ms=lib)
 
     return extras
 
@@ -258,7 +284,7 @@ def check_sfno_kernels(dev, card, transforms, embed_dim):
                 dtype,
                 lambda x=x, wd=wd, cache=cache: contract_dense_s(x, wd, False, "dhconv", True, weight_cache=cache),
                 lambda x=x, wd=wd: contract_dense_s_plain(x, wd, False, "dhconv", True),
-                dhconv_extras(x, wd) if main else None,
+                dhconv_extras(x, wd),
             )
         )
         for label, t, nlat_phys in (("full", itrans_up, itrans_up.nlat), ("internal", itrans, itrans.nlat), ("internal-masked", itrans, itrans.nlat - 7)):
@@ -477,7 +503,7 @@ def band_case(op, x, F_, Gf, IG, OG, label, library=False):
     def extras(out):
         nnz = torch.count_nonzero(F_[..., :OG]).item()  # summed over latitudes
         flops = 2.0 * nnz * B * (Wout // op.phases) * (C // (Gf * IG))
-        res = dict(bound(flops, nbytes(x, F_[..., :OG], bs, out)), library_ms=None, nnz_fraction=nnz / F_[..., :OG].numel())
+        res = dict(bound(flops, nbytes(x, F_[..., :OG], bs, out), torch.float32), library_ms=None, nnz_fraction=nnz / F_[..., :OG].numel())
         if library:
             BL, WW, a = op.BL, op.WW, op.stride
             rows = (bs.long()[:, None] + torch.arange(BL, device=dev)).reshape(-1)
@@ -498,13 +524,13 @@ def polar_case(src, Pt, mode, label, library=False):
     kern, plain = (disco_kernels.polar_psi_first, disco_kernels.polar_psi_first_plain) if mode == "psi_first" else (disco_kernels.polar_mix_first, disco_kernels.polar_mix_first_plain)
 
     def extras(out):
-        K = Pt.shape[3]
+        K = Pt.shape[2]
         n_mac = src.numel() // 2 * (K if mode == "psi_first" else 1)
         res = dict(bound(8.0 * n_mac, nbytes(src, Pt, out)), library_ms=None)
         if library:
             Xc = torch.view_as_complex(src)
-            Pc = torch.complex(Pt[0], Pt[1]).conj()
-            res["library_ms"] = time_ms(lambda: torch.einsum("bpjmc,pjkm->bpmck", Xc, Pc), 3, 1)
+            Pc = torch.view_as_complex(Pt).conj()
+            res["library_ms"] = time_ms(lambda: torch.einsum("bpjcm,pjkm->bpckm", Xc, Pc), 3, 1)
         return res
 
     return ("disco_polar", label, torch.float32, lambda: kern(src, Pt), lambda: plain(src, Pt), extras)
@@ -539,7 +565,7 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     op = net.block1.local_conv.conv_op
     x = randn((B, h, w, C), torch.float32, gen, dev)
     run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, op.K, "processor", library=True)], card, results, 3, 1)
-    X = torch.view_as_real(torch.fft.rfft(op.polar_bands(x), dim=3)).contiguous()
+    X = torch.view_as_real(torch.fft.rfft(op.polar_bands(x), dim=-1))
     run_cases([polar_case(X, op.polar_table(0, dev), "psi_first", "processor", library=True)], card, results, 3, 1)
     del x, X
     torch.cuda.empty_cache()
@@ -550,7 +576,7 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     g, og, ig, K = wt.shape
     xe = randn((B, net.n_atmo_groups * net.n_atmo, H, W), torch.float32, gen, dev).permute(0, 2, 3, 1)
     cases = [band_case(op, xe, FusedFilterCache().get(op, wt, 0), g, ig, og, "atmo-encoder")]
-    Xe = torch.view_as_real(torch.fft.rfft(op.polar_bands(xe), dim=3)).contiguous()
+    Xe = torch.view_as_real(torch.fft.rfft(op.polar_bands(xe), dim=-1))
     cases.append(polar_case(Xe, op.polar_table(0, dev), "psi_first", "atmo-encoder"))
     run_cases(cases, card, results, 3, 1)
     del xe, Xe, cases
@@ -567,7 +593,7 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     xd = randn((B, H, W, R * g * ig), torch.float32, gen, dev)
     cases = [band_case(op, xd, FusedFilterCache().get(op, wt, 0), g, ig, og, "atmo-decoder")]
     P, M = len(op.polar_rows), W // 2 + 1
-    U = randn((B, P, op.BL, M, R * g * og, K, 2), torch.float32, gen, dev)
+    U = randn((B, P, op.BL, R * g * og, K, M, 2), torch.float32, gen, dev)
     cases.append(polar_case(U, op.polar_table(0, dev), "mix_first", "atmo-decoder"))
     run_cases(cases, card, results, 3, 1)
     del xd, U, cases
@@ -588,7 +614,7 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     cases = [
         ("sht_analysis", "fcn3-internal", torch.float32, lambda: sht.analysis_contract_cl_s(xf, wa), lambda: sht.analysis_contract_cl_s_plain(xf, wa), None),
         ("sht_synthesis", "fcn3-internal", torch.float32, lambda: sht.synthesis_contract_cl_s(c2, pa), lambda: sht.synthesis_contract_cl_s_plain(c2, pa), None),
-        ("dhconv", "fcn3-internal", torch.float32, lambda: contract_dense_s(xs, blk.weight, False, "dhconv", True, weight_cache=cache), lambda: contract_dense_s_plain(xs, blk.weight, False, "dhconv", True), None),
+        ("dhconv", "fcn3-internal", torch.float32, lambda: contract_dense_s(xs, blk.weight, False, "dhconv", True, weight_cache=cache), lambda: contract_dense_s_plain(xs, blk.weight, False, "dhconv", True), dhconv_extras(xs, blk.weight.detach())),
         ("sht_synthesis", "fcn3-noise", torch.float32, lambda: sht.synthesis_contract_cl_s(cn, pn), lambda: sht.synthesis_contract_cl_s_plain(cn, pn), None),
     ]
     run_cases(cases, card, results, 3, 1)
@@ -715,7 +741,7 @@ def main() -> int:
         ("dhconv", "cuda", "makani_torch/csrc/dhconv.cu", "makani_tpu/models/common/contractions.py:45", sfno_res, ("internal", io), sfno_launches),
         ("instance_norm", "triton", "makani_torch/models/common/layer_norm.py", "makani_tpu/models/common/layer_norm.py:78", sfno_res, ("full", torch.bfloat16), sfno_launches),
         ("disco_band", "cuda", "makani_torch/csrc/disco_band.cu", "scripts/r3/disco_pallas.py:27", fcn3_res, ("processor", f32), fcn3_launches),
-        ("disco_polar", "triton", "makani_torch/ops/disco_kernels.py", "makani_tpu/ops/disco.py:686", fcn3_res, ("processor", f32), fcn3_launches),
+        ("disco_polar", "cuda", "makani_torch/csrc/disco_polar.cu", "makani_tpu/ops/disco.py:686", fcn3_res, ("processor", f32), fcn3_launches),
         ("resample", "triton", "makani_torch/ops/resample.py", "makani_tpu/ops/resample.py:90", fcn3_res, ("atmo-decoder", f32), fcn3_launches),
     ]
     table = []
@@ -724,7 +750,7 @@ def main() -> int:
         table.append(
             {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches[name],
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "fma_bound_ms": r["fma_bound_ms"], "tc_bound_ms": r["tc_bound_ms"]}
         )
     print(card)
     print(json.dumps({"kernels": table}))

@@ -26,7 +26,7 @@ import torch
 __all__ = ["LAUNCHES", "reset_launch_counts", "count_launch", "build", "library", "check_launch", "dtype_code", "stream_ptr", "takes_plain", "set_use_kernels"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sht_legendre.cu", "dhconv.cu", "disco_band.cu")
+_SOURCES = ("sht_legendre.cu", "dhconv.cu", "disco_band.cu", "disco_polar.cu")
 _HEADERS = ("convert.cuh",)
 NVCC_FLAGS = (
     "-gencode",
@@ -115,6 +115,8 @@ def library() -> ctypes.CDLL:
             lib.mt_dhconv_contract.restype = i
             lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [vp]
             lib.mt_disco_band_contract.restype = i
+            lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.mt_disco_polar.restype = i
             lib.mt_error_string.argtypes = [i]
             lib.mt_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -110,6 +110,16 @@ class DiscoConv(nn.Module):
         w = self.weight.float().reshape(self.out_channels, -1)
         return torch.matmul(t.reshape(-1, w.shape[1]), w.t()).reshape(*t.shape[:-2], self.out_channels)
 
+    def _mix_polar(self, t_pol: torch.Tensor) -> torch.Tensor:
+        """t_pol (B, P, C, K, W) fp32 -> (B, P, W, out_channels), a
+        transposed view: ``oik,bpikw->bpow``, one batched GEMM that reads
+        t_pol in the irFFT's layout (no copy); the indexed add reads the
+        result through the view."""
+        B, P, C, K, W = t_pol.shape
+        w = self.weight.float().reshape(self.out_channels, C * K)
+        y = torch.bmm(w.expand(B * P, self.out_channels, C * K), t_pol.reshape(B * P, C * K, W))
+        return y.view(B, P, self.out_channels, W).transpose(2, 3)
+
     def _two_stage(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"the two-stage DISCO conv takes {self.in_channels} channels, got {x.shape[-1]}")
@@ -120,7 +130,7 @@ class DiscoConv(nn.Module):
         del t
         if t_pol is not None:
             _, rows = self.conv_op.polar_index(x.device)
-            y.index_add_(1, rows, self._mix(t_pol))
+            y.index_add_(1, rows, self._mix_polar(t_pol))
         return y
 
 

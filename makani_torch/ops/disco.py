@@ -22,10 +22,11 @@ The device side keeps the JAX package's structure:
     of WW longitudes: the hand-written kernel K5 (``csrc/disco_band.cu``),
     whose plain version is the JAX package's grouped ``conv1d``;
   * the few polar rows whose disc wraps more longitude than the window are
-    an exact circular correlation: cuFFT, then the conjugate multiply-sum
-    of kernel K6 (Triton), then cuFFT back, added into their rows with an
-    indexed add (the responses there are exactly zero before the insert,
-    since psi_band is zeroed at the polar rows).
+    an exact circular correlation: the band rows gathered with the
+    longitude last, cuFFT along it, the conjugate multiply-sum of kernel K6
+    (``csrc/disco_polar.cu``) on cuFFT's layout, cuFFT back, added into
+    their rows with an indexed add (the responses there are exactly zero
+    before the insert, since psi_band is zeroed at the polar rows).
 
 Activations are channels-last here: ``responses_cl`` and ``fused_cl`` read a
 logical (B, H, W, C) view of any strides (an NCHW tensor is passed as its
@@ -622,12 +623,13 @@ class DiscoConvS2:
 
     def polar_table(self, p: int, device) -> torch.Tensor:
         """rFFT of phase p's full-longitude polar psi (offsets rolled to
-        absolute longitudes), split into planes: (2, P, BL, K, M) fp32."""
+        absolute longitudes), modes last and (re, im) interleaved:
+        (P, BL, K, M, 2) fp32, the layout K6 reads."""
 
         def build():
             psi_p = np.roll(self.psi_polar[p], int(self.bases[p]), axis=-1).astype(np.float64)  # (K, P, BL, Win)
             Pf = np.fft.rfft(psi_p, axis=-1).transpose(1, 2, 0, 3)  # (P, BL, K, M)
-            return np.stack([Pf.real, Pf.imag]).astype(np.float32)
+            return np.stack([Pf.real, Pf.imag], axis=-1).astype(np.float32)
 
         return self._tensor(f"polar_{p}", device, build)
 
@@ -654,26 +656,34 @@ class DiscoConvS2:
         return out
 
     def polar_bands(self, x):
-        """x (B, Hin, Win, C) -> its polar band rows (B, P, BL, Win, C)."""
+        """x (B, Hin, Win, C) view of any strides -> its polar band rows with
+        the longitude last, (B, P, BL, C, Win) contiguous: one transposing
+        gather (for an NCHW-backed view, nearly a plain one)."""
         band_rows, _ = self.polar_index(x.device)
         B, _, Win, C = x.shape
-        return x[:, band_rows].reshape(B, len(self.polar_rows), self.BL, Win, C)
+        out = torch.empty(B, band_rows.numel(), C, Win, dtype=x.dtype, device=x.device)
+        torch.index_select(x.transpose(2, 3), 1, band_rows, out=out)
+        return out.view(B, len(self.polar_rows), self.BL, C, Win)
 
     def _sample_cols(self, corr, p, out):
         """Write phase p's columns u*a of a full-longitude correlation
-        (B, P, Win, ...) into out (B, P, Wout, ...) at wo = p + b*u."""
+        (..., Win) into out (..., Wout) at wo = p + b*u; with one phase and
+        stride 1 the correlation is the result."""
         b, a = self.phases, self.stride
         if b == 1 and a == 1:
             return corr
-        out[:, :, p::b] = corr[:, :, ::a]
+        if out is None:
+            out = corr.new_empty(*corr.shape[:-1], self.out_shape[1])
+        out[..., p::b] = corr[..., ::a]
         return out
 
     def responses_cl(self, x: torch.Tensor, use_kernels: bool = True):
         """Basis responses, channels-last: x (B, Hin, Win, C) fp32 view ->
-        (t (B, Hout, Wout, C, K), t_polar (B, P, Wout, C, K) or None).
+        (t (B, Hout, Wout, C, K), t_polar (B, P, C, K, Wout) or None).
 
         t is exactly zero at the polar rows; t_polar holds their responses
-        (the counterpart of ``call_split``)."""
+        (the counterpart of ``call_split``) with the longitude last, as the
+        irFFT leaves it."""
         B, Hin, Win, C = x.shape
         Hout, Wout = self.out_shape
         K = self.K
@@ -682,11 +692,11 @@ class DiscoConvS2:
         if not self.polar_rows:
             return t, None
         polar = disco_kernels.polar_psi_first if use_kernels else disco_kernels.polar_psi_first_plain
-        X = torch.view_as_real(torch.fft.rfft(self.polar_bands(x), dim=3)).contiguous()  # (B, P, BL, M, C, 2)
-        t_pol = torch.empty(B, len(self.polar_rows), Wout, C, K, dtype=torch.float32, device=x.device)
+        X = torch.view_as_real(torch.fft.rfft(self.polar_bands(x), dim=-1))  # (B, P, BL, C, M, 2)
+        t_pol = None
         for p in range(self.phases):
-            Y = polar(X, self.polar_table(p, x.device))  # (B, P, M, C, K, 2)
-            corr = torch.fft.irfft(torch.view_as_complex(Y), n=Win, dim=2)  # (B, P, Win, C, K)
+            Y = polar(X, self.polar_table(p, x.device))  # (B, P, C, K, M, 2)
+            corr = torch.fft.irfft(torch.view_as_complex(Y), n=Win, dim=-1)  # (B, P, C, K, Win)
             t_pol = self._sample_cols(corr, p, t_pol)
         return t, t_pol
 
@@ -712,46 +722,47 @@ class DiscoConvS2:
         self._banded(x, lambda p: cache.get(self, w, p), y, g, ig, og, use_kernels)
         if not self.polar_rows:
             return y
-        P = len(self.polar_rows)
+        P, BL = len(self.polar_rows), self.BL
         _, rows = self.polar_index(x.device)
         w = w.float()
-        xb_p = self.polar_bands(x)  # (B, P, BL, Win, Ctot)
-        mix_first = og * self.BL <= ig
+        xb_p = self.polar_bands(x)  # (B, P, BL, Ctot, Win)
+        mix_first = og * BL <= ig
         if mix_first:
             # mix first: u = w . x in the spatial domain, one rFFT of the
-            # mixed field, then the psi multiply-sum over (k, j)
-            u = torch.einsum("bpjwrgi,goik->bpjwrgok", xb_p.reshape(B, P, self.BL, Win, R, g, ig), w)
-            U = torch.view_as_real(torch.fft.rfft(u.reshape(B, P, self.BL, Win, Cout, K), dim=3)).contiguous()  # (B, P, BL, M, Cout, K, 2)
+            # mixed field, then the psi multiply-sum over (k, j); the batched
+            # GEMM writes u as (B, P, BL, R, g, og*K, Win), the rFFT's layout
+            wg = w.permute(0, 1, 3, 2).reshape(g, og * K, ig)
+            u = torch.matmul(wg, xb_p.view(B * P * BL * R, g, ig, Win))
+            U = torch.view_as_real(torch.fft.rfft(u.view(B, P, BL, Cout, K, Win), dim=-1))  # (B, P, BL, Cout, K, M, 2)
             polar = disco_kernels.polar_mix_first if use_kernels else disco_kernels.polar_mix_first_plain
         else:
-            X = torch.view_as_real(torch.fft.rfft(xb_p, dim=3)).contiguous()  # (B, P, BL, M, Ctot, 2)
+            X = torch.view_as_real(torch.fft.rfft(xb_p, dim=-1))  # (B, P, BL, Ctot, M, 2)
             polar = disco_kernels.polar_psi_first if use_kernels else disco_kernels.polar_psi_first_plain
         b, a = self.phases, self.stride
         n_out = Wout // b
         for p in range(b):
             if mix_first:
-                corr = torch.fft.irfft(torch.view_as_complex(polar(U, self.polar_table(p, x.device))), n=Win, dim=2)  # (B, P, Win, Cout)
-                y_pp = corr[:, :, ::a]
+                corr = torch.fft.irfft(torch.view_as_complex(polar(U, self.polar_table(p, x.device))), n=Win, dim=-1)  # (B, P, Cout, Win)
+                y_pp = corr[..., ::a].transpose(2, 3)  # (B, P, n_out, Cout)
             else:
-                corr = torch.fft.irfft(torch.view_as_complex(polar(X, self.polar_table(p, x.device))), n=Win, dim=2)  # (B, P, Win, Ctot, K)
-                t_pp = corr[:, :, ::a].reshape(B, P, n_out, R, g, ig, K)
-                y_pp = torch.einsum("bpurgik,goik->bpurgo", t_pp, w).reshape(B, P, n_out, Cout)
+                corr = torch.fft.irfft(torch.view_as_complex(polar(X, self.polar_table(p, x.device))), n=Win, dim=-1)  # (B, P, Ctot, K, Win)
+                t_pp = corr[..., ::a].reshape(B, P, R, g, ig, K, n_out)
+                y_pp = torch.einsum("bprgiku,goik->bpurgo", t_pp, w).reshape(B, P, n_out, Cout)
             y[:, :, p::b].index_add_(1, rows, y_pp)
         return y
 
     # ---- the JAX package's NCHW interface ----------------------------------
     def call_split(self, x: torch.Tensor):
         """x (B, C, Hin, Win) -> (t (B, C, K, Hout, Wout) with exact zeros at
-        the polar rows, t_polar (B, C, K, P, Wout) or None)."""
+        the polar rows, t_polar (B, C, K, P, Wout) or None), as views."""
         t, t_pol = self.responses_cl(x.float().permute(0, 2, 3, 1))
-        perm = (0, 3, 4, 1, 2)
-        return t.permute(perm), None if t_pol is None else t_pol.permute(perm)
+        return t.permute(0, 3, 4, 1, 2), None if t_pol is None else t_pol.permute(0, 2, 3, 1, 4)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         t, t_pol = self.responses_cl(x.float().permute(0, 2, 3, 1))
         if t_pol is not None:
             _, rows = self.polar_index(x.device)
-            t.index_add_(1, rows, t_pol)
+            t.index_add_(1, rows, t_pol.permute(0, 1, 4, 2, 3))
         return t.permute(0, 3, 4, 1, 2)
 
     def fused(self, x: torch.Tensor, w: torch.Tensor, cache: FusedFilterCache | None = None) -> torch.Tensor:

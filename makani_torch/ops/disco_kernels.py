@@ -14,22 +14,21 @@ package's own formulation: the band rows gathered (BL times the input, never
 the WW-fold window), then one grouped ``conv1d`` with a group per output
 latitude, chunked over the channel axis to bound memory.
 
-K6 (``polar_psi_first`` / ``polar_mix_first``, Triton): the polar rows'
-conjugate multiply-sum between cuFFTs, ``Y = sum_j X conj(Psi)`` per basis
-function, or ``sum_{k, j}`` on the channel-mixed field
-(``makani_tpu/ops/disco.py`` :676-692, :856-864, :886-909). It is a
-broadcast multiply and a reduction over a short axis with no tensor-core
-work: bound by memory bandwidth. Each program holds a tile of orders m x
-channels x basis functions in registers, reads every X (or U) element once
-and Psi once per tile, accumulates re and im in fp32, and writes Y once.
+K6 (``polar_psi_first`` / ``polar_mix_first``, CUDA C++ in
+``csrc/disco_polar.cu``): the polar rows' conjugate multiply-sum between
+cuFFTs, ``Y = sum_j X conj(Psi)`` per basis function, or ``sum_{k, j}`` on
+the channel-mixed field (``makani_tpu/ops/disco.py`` :676-692, :856-864,
+:886-909), in cuFFT's layout with the longitude modes last, as the JAX
+package keeps them: X (B, P, BL, C, M), U (B, P, BL, C, K, M), Psi
+(P, BL, K, M), Y (B, P, C, K, M) or (B, P, C, M), complex as a trailing
+(re, im) pair. It is bound by memory bandwidth: it reads every X (or U)
+element once and writes every Y element once, coalesced along the modes.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -116,132 +115,62 @@ def band_contract(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, I
     return out
 
 
+
+
 def polar_psi_first_plain(X: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
-    """X (B, P, BL, M, C, 2), Pt (2, P, BL, K, M) ->
-    Y (B, P, M, C, K, 2) = sum_j X . conj(Psi)."""
-    Xr, Xi, Pr, Pi = X[..., 0], X[..., 1], Pt[0], Pt[1]
-    eq = "bpjmc,pjkm->bpmck"
+    """X (B, P, BL, C, M, 2), Pt (P, BL, K, M, 2) ->
+    Y (B, P, C, K, M, 2) = sum_j X . conj(Psi)."""
+    Xr, Xi, Pr, Pi = X[..., 0], X[..., 1], Pt[..., 0], Pt[..., 1]
+    eq = "bpjcm,pjkm->bpckm"
     re = torch.einsum(eq, Xr, Pr) + torch.einsum(eq, Xi, Pi)
     im = torch.einsum(eq, Xi, Pr) - torch.einsum(eq, Xr, Pi)
     return torch.stack([re, im], dim=-1)
 
 
 def polar_mix_first_plain(U: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
-    """U (B, P, BL, M, C, K, 2), Pt (2, P, BL, K, M) ->
-    Y (B, P, M, C, 2) = sum_{j, k} U . conj(Psi)."""
-    Ur, Ui, Pr, Pi = U[..., 0], U[..., 1], Pt[0], Pt[1]
-    eq = "bpjmck,pjkm->bpmc"
+    """U (B, P, BL, C, K, M, 2), Pt (P, BL, K, M, 2) ->
+    Y (B, P, C, M, 2) = sum_{j, k} U . conj(Psi)."""
+    Ur, Ui, Pr, Pi = U[..., 0], U[..., 1], Pt[..., 0], Pt[..., 1]
+    eq = "bpjckm,pjkm->bpcm"
     re = torch.einsum(eq, Ur, Pr) + torch.einsum(eq, Ui, Pi)
     im = torch.einsum(eq, Ui, Pr) - torch.einsum(eq, Ur, Pi)
     return torch.stack([re, im], dim=-1)
 
 
-@functools.cache
-def _triton_kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def psi_first(x_ptr, p_ptr, y_ptr, P, BL, M, C, K, BM: tl.constexpr, BC: tl.constexpr, BK: tl.constexpr):
-        # Y[b, p, m, c, k] = sum_j X[b, p, j, m, c] conj(Psi[p, j, k, m])
-        pid = tl.program_id(0)
-        p = tl.program_id(1)
-        b = tl.program_id(2).to(tl.int64)
-        n_ct = tl.cdiv(C, BC)
-        m = (pid // n_ct) * BM + tl.arange(0, BM)
-        c = (pid % n_ct) * BC + tl.arange(0, BC)
-        k = tl.arange(0, BK)
-        mm, cm, km = m < M, c < C, k < K
-        xmask = mm[:, None] & cm[None, :]
-        pmask = mm[:, None] & km[None, :]
-        plane = P * BL * K * M
-        acc_r = tl.zeros((BM, BC, BK), dtype=tl.float32)
-        acc_i = tl.zeros((BM, BC, BK), dtype=tl.float32)
-        for j in range(0, BL):
-            xo = (((b * P + p) * BL + j) * M + m[:, None]) * C + c[None, :]
-            xr = tl.load(x_ptr + 2 * xo, mask=xmask, other=0.0)[:, :, None]
-            xi = tl.load(x_ptr + 2 * xo + 1, mask=xmask, other=0.0)[:, :, None]
-            po = ((p * BL + j) * K + k[None, :]) * M + m[:, None]
-            pr = tl.load(p_ptr + po, mask=pmask, other=0.0)[:, None, :]
-            pi = tl.load(p_ptr + plane + po, mask=pmask, other=0.0)[:, None, :]
-            acc_r += xr * pr + xi * pi
-            acc_i += xi * pr - xr * pi
-        yo = (((b * P + p) * M + m[:, None, None]) * C + c[None, :, None]) * K + k[None, None, :]
-        ymask = xmask[:, :, None] & km[None, None, :]
-        tl.store(y_ptr + 2 * yo, acc_r, mask=ymask)
-        tl.store(y_ptr + 2 * yo + 1, acc_i, mask=ymask)
-
-    @triton.jit
-    def mix_first(u_ptr, p_ptr, y_ptr, P, BL, M, C, K, BM: tl.constexpr, BC: tl.constexpr, BK: tl.constexpr):
-        # Y[b, p, m, c] = sum_{j, k} U[b, p, j, m, c, k] conj(Psi[p, j, k, m])
-        pid = tl.program_id(0)
-        p = tl.program_id(1)
-        b = tl.program_id(2).to(tl.int64)
-        n_ct = tl.cdiv(C, BC)
-        m = (pid // n_ct) * BM + tl.arange(0, BM)
-        c = (pid % n_ct) * BC + tl.arange(0, BC)
-        k = tl.arange(0, BK)
-        mm, cm, km = m < M, c < C, k < K
-        umask = mm[:, None, None] & cm[None, :, None] & km[None, None, :]
-        pmask = mm[:, None] & km[None, :]
-        plane = P * BL * K * M
-        acc_r = tl.zeros((BM, BC), dtype=tl.float32)
-        acc_i = tl.zeros((BM, BC), dtype=tl.float32)
-        for j in range(0, BL):
-            uo = ((((b * P + p) * BL + j) * M + m[:, None, None]) * C + c[None, :, None]) * K + k[None, None, :]
-            ur = tl.load(u_ptr + 2 * uo, mask=umask, other=0.0)
-            ui = tl.load(u_ptr + 2 * uo + 1, mask=umask, other=0.0)
-            po = ((p * BL + j) * K + k[None, :]) * M + m[:, None]
-            pr = tl.load(p_ptr + po, mask=pmask, other=0.0)[:, None, :]
-            pi = tl.load(p_ptr + plane + po, mask=pmask, other=0.0)[:, None, :]
-            acc_r += tl.sum(ur * pr + ui * pi, axis=2)
-            acc_i += tl.sum(ui * pr - ur * pi, axis=2)
-        yo = ((b * P + p) * M + m[:, None]) * C + c[None, :]
-        ymask = mm[:, None] & cm[None, :]
-        tl.store(y_ptr + 2 * yo, acc_r, mask=ymask)
-        tl.store(y_ptr + 2 * yo + 1, acc_i, mask=ymask)
-
-    return triton, psi_first, mix_first
-
-
-_BM, _BC = 8, 32
-
-
-def _polar_launch(name, kernel_index, src, Pt, out_shape):
+def _polar_launch(mode: int, src: torch.Tensor, Pt: torch.Tensor, out_shape) -> torch.Tensor:
     for t in (src, Pt):
         if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: takes contiguous float32 tensors, got {t.dtype} contiguous={t.is_contiguous()}")
-    B, P, BL, M, C = src.shape[:5]
-    K = Pt.shape[3]
-    if tuple(Pt.shape) != (2, P, BL, K, M) or src.shape[-1] != 2:
-        raise ValueError(f"{name}: input {tuple(src.shape)} and table {tuple(Pt.shape)} do not match")
+            raise ValueError(f"disco_polar: takes contiguous float32 tensors, got {t.dtype} contiguous={t.is_contiguous()}")
+    B, P, BL, C = src.shape[:4]
+    K, M = Pt.shape[2], Pt.shape[3]
+    if tuple(Pt.shape) != (P, BL, K, M, 2) or src.shape[-2:] != (M, 2):
+        raise ValueError(f"disco_polar: input {tuple(src.shape)} and table {tuple(Pt.shape)} do not match")
     y = torch.empty(out_shape, dtype=torch.float32, device=src.device)
     if y.numel() == 0:
         return y
-    triton, *kerns = _triton_kernels()
-    BK = triton.next_power_of_2(K)
-    grid = (triton.cdiv(M, _BM) * triton.cdiv(C, _BC), P, B)
+    lib = kernels.library()
     with torch.cuda.device(src.device):
-        kerns[kernel_index][grid](src, Pt, y, P, BL, M, C, K, BM=_BM, BC=_BC, BK=BK, num_warps=4)
+        err = lib.mt_disco_polar(mode, src.data_ptr(), Pt.data_ptr(), y.data_ptr(), B, P, BL, C, K, M, kernels.stream_ptr(src.device))
+    kernels.check_launch(err, "disco_polar")
     kernels.count_launch("disco_polar")
     return y
 
 
 def polar_psi_first(X: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
-    """K6, responses and psi-first order: X (B, P, BL, M, C, 2), Pt
-    (2, P, BL, K, M) -> Y (B, P, M, C, K, 2); plain version on the CPU."""
+    """K6, responses and psi-first order: X (B, P, BL, C, M, 2), Pt
+    (P, BL, K, M, 2) -> Y (B, P, C, K, M, 2); plain version on the CPU."""
     if kernels.takes_plain("disco_polar", X, Pt):
         return polar_psi_first_plain(X, Pt)
-    B, P, BL, M, C, _ = X.shape
-    return _polar_launch("disco_polar", 0, X, Pt, (B, P, M, C, Pt.shape[3], 2))
+    B, P, BL, C, M, _ = X.shape
+    return _polar_launch(0, X, Pt, (B, P, C, Pt.shape[2], M, 2))
 
 
 def polar_mix_first(U: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
-    """K6, mix-first order: U (B, P, BL, M, C, K, 2), Pt (2, P, BL, K, M) ->
-    Y (B, P, M, C, 2); plain version on the CPU."""
+    """K6, mix-first order: U (B, P, BL, C, K, M, 2), Pt (P, BL, K, M, 2) ->
+    Y (B, P, C, M, 2); plain version on the CPU."""
     if kernels.takes_plain("disco_polar", U, Pt):
         return polar_mix_first_plain(U, Pt)
-    B, P, BL, M, C, K, _ = U.shape
-    if K != Pt.shape[3]:
-        raise ValueError(f"disco_polar: U has {K} basis functions, the table {Pt.shape[3]}")
-    return _polar_launch("disco_polar", 1, U, Pt, (B, P, M, C, 2))
+    B, P, BL, C, K, M, _ = U.shape
+    if K != Pt.shape[2]:
+        raise ValueError(f"disco_polar: U has {K} basis functions, the table {Pt.shape[2]}")
+    return _polar_launch(1, U, Pt, (B, P, C, M, 2))

@@ -37,8 +37,8 @@ def group(name: str) -> str:
     n = name.lower()
     rules = [
         ("disco_band", "K5 disco_band (CUDA)"),
-        ("psi_first", "K6 disco_polar psi-first (Triton)"),
-        ("mix_first", "K6 disco_polar mix-first (Triton)"),
+        ("psi_first", "K6 disco_polar psi-first (CUDA)"),
+        ("mix_first", "K6 disco_polar mix-first (CUDA)"),
         ("resample", "K7 resample (Triton)"),
         ("legendre", "K1/K2 Legendre (CUDA)"),
         ("dhconv", "K3 dhconv (CUDA)"),
@@ -52,6 +52,7 @@ def group(name: str) -> str:
         ("conv", "convolution (cuDNN)"),
         ("copy", "copies and casts"),
         ("index", "gathers, index_add, index_copy"),
+        ("scatter_gather", "gathers, index_add, index_copy"),
         ("reduce", "reductions"),
         ("elementwise", "elementwise"),
         ("vectorized", "elementwise"),

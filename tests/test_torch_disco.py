@@ -116,3 +116,56 @@ def test_make_disco_conv_is_the_serial_conv():
     ref = jmake((16, 32), (16, 32), (3, 3), basis_type="morlet th", grid_in="legendre-gauss", grid_out="legendre-gauss")
     assert isinstance(conv, disco.DiscoConvS2)
     assert np.array_equal(conv.psi_band, ref.psi_band) and conv.polar_rows == ref.polar_rows
+
+
+@pytest.mark.parametrize("K", [9, 7])
+@pytest.mark.parametrize("order", ["psi_first", "mix_first"])
+def test_polar_plain_matches_jax_formulation(order, K):
+    """K6's plain versions, in cuFFT's layout (modes last), against the JAX
+    package's own formulation of the polar product-sum: the ``__call__``
+    einsums ``bcpjm,kpjm->bckpm`` (psi first) and ``_polar_fused_phase``'s
+    broadcast multiply-sum over (k, j) (mix first), on seeded inputs."""
+    from makani_torch.ops import disco_kernels
+
+    B, P, BL, C, M = 2, 3, 4, 5, 11
+    rng = np.random.default_rng(3)
+    Ps = rng.standard_normal((K, P, BL, M, 2)).astype(np.float32)  # the JAX layout
+    Pt = torch.from_numpy(np.ascontiguousarray(Ps.transpose(1, 2, 0, 3, 4)))  # (P, BL, K, M, 2)
+    if order == "psi_first":
+        Xs = rng.standard_normal((B, C, P, BL, M, 2)).astype(np.float32)
+        eq = "bcpjm,kpjm->bckpm"
+        re = jnp.einsum(eq, Xs[..., 0], Ps[..., 0]) + jnp.einsum(eq, Xs[..., 1], Ps[..., 1])
+        im = jnp.einsum(eq, Xs[..., 1], Ps[..., 0]) - jnp.einsum(eq, Xs[..., 0], Ps[..., 1])
+        ref = np.stack([re, im], axis=-1).transpose(0, 3, 1, 2, 4, 5)  # (B, P, C, K, M, 2)
+        out = disco_kernels.polar_psi_first_plain(torch.from_numpy(np.ascontiguousarray(Xs.transpose(0, 2, 3, 1, 4, 5))), Pt)
+    else:
+        Us = rng.standard_normal((B, P, C, K, BL, M, 2)).astype(np.float32)  # (B, P, g*og, K, BL, M) in JAX
+        Pre, Pim = jnp.asarray(Ps[..., 0].transpose(1, 0, 2, 3))[None, :, None], jnp.asarray(Ps[..., 1].transpose(1, 0, 2, 3))[None, :, None]
+        ref = np.stack([(Us[..., 0] * Pre + Us[..., 1] * Pim).sum(axis=(3, 4)), (Us[..., 1] * Pre - Us[..., 0] * Pim).sum(axis=(3, 4))], axis=-1)
+        out = disco_kernels.polar_mix_first_plain(torch.from_numpy(np.ascontiguousarray(Us.transpose(0, 1, 4, 2, 3, 5, 6))), Pt)
+    _tol(out, ref)
+
+
+@pytest.mark.parametrize("path", ["responses", "fused_psi_first", "fused_mix_first"])
+def test_polar_ffts_transform_the_last_axis(path, monkeypatch):
+    """The polar rows' rFFT and irFFT run on the last axis of a contiguous
+    operand (cuFFT's own layout: no clone, no transposing copy)."""
+    calls = []
+    for name in ("rfft", "irfft"):
+        fn = getattr(torch.fft, name)
+
+        def rec(inp, *args, fn=fn, name=name, **kw):
+            calls.append((name, kw.get("dim"), inp.dim(), inp.is_contiguous()))
+            return fn(inp, *args, **kw)
+
+        monkeypatch.setattr(torch.fft, name, rec)
+    tc = disco.DiscoConvS2((13, 32), (11, 24), (3, 3), basis_type="morlet th")
+    rng = np.random.default_rng(4)
+    if path == "responses":
+        tc.responses_cl(torch.from_numpy(rng.standard_normal((1, 13, 32, 3)).astype(np.float32)))
+    else:
+        g, og, ig = (3, 2, 4) if path == "fused_psi_first" else (2, 1, 8)
+        x = torch.from_numpy(rng.standard_normal((1, g * ig, 13, 32)).astype(np.float32)).permute(0, 2, 3, 1)
+        tc.fused_cl(x, torch.from_numpy(rng.standard_normal((g, og, ig, tc.K)).astype(np.float32)))
+    assert [c[0] for c in calls] == ["rfft"] + ["irfft"] * tc.phases
+    assert all(d in (-1, n - 1) and contiguous for _, d, n, contiguous in calls), calls

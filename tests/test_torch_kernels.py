@@ -79,7 +79,11 @@ def test_legendre_kernels_match_plain(cuda, nlat, nlon, grid, lmax, mmax, C, dty
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,M,G,Ci,Co", [(2, 7, 6, 1, 5, 3), (1, 70, 71, 2, 20, 36), (1, 12, 13, 1, 48, 48)])
+# (1, 9, 10, 1, 37, 45): FCN3-like odd widths whose rows are not 16-byte
+# aligned; (1, 3, 300, 2, 40, 70): more rows than one 128-row tile
+@pytest.mark.parametrize(
+    "B,L,M,G,Ci,Co", [(2, 7, 6, 1, 5, 3), (1, 70, 71, 2, 20, 36), (1, 12, 13, 1, 48, 48), (1, 9, 10, 1, 37, 45), (1, 3, 300, 2, 40, 70)]
+)
 def test_dhconv_kernel_matches_plain(cuda, B, L, M, G, Ci, Co, dtype):
     x = _randn((B, L, M, G, Ci, 2), dtype, cuda)
     w = _randn((G, Ci, Co, L, 2), torch.float32, cuda, seed=1)
@@ -162,6 +166,32 @@ def test_disco_fused_kernels_match_plain(cuda, in_shape, out_shape, g, og, ig, R
     assert kernels.LAUNCHES["disco_band"] == conv.phases and kernels.LAUNCHES["disco_polar"] == conv.phases
     assert y.shape == (2, *out_shape, R * g * og)
     assert _agree(y, conv.fused_cl(x, w, use_kernels=False), torch.float32)
+
+
+@pytest.mark.parametrize("K", [9, 7])
+@pytest.mark.parametrize("order", ["psi_first", "mix_first"])
+@pytest.mark.parametrize("in_shape,out_shape", [DISCO_SHAPES[0], DISCO_SHAPES[2]])
+def test_disco_polar_kernel_matches_plain(cuda, in_shape, out_shape, order, K):
+    """K6 on its own, in both orders, with K = 9 (the templated pass) and
+    K = 7 (the chunked fallback), 77 channels (not a multiple of the 64 a
+    block takes), on the psi tables of every phase (b = 3 in the last
+    shape)."""
+    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    P, BL, M, C = len(conv.polar_rows), conv.BL, in_shape[1] // 2 + 1, 77
+    for p in range(conv.phases):
+        Pt = conv.polar_table(p, cuda)
+        if K != conv.K:
+            Pt = _randn((P, BL, K, M, 2), torch.float32, cuda, seed=p + 3)
+        kernels.reset_launch_counts()
+        if order == "psi_first":
+            src = _randn((2, P, BL, C, M, 2), torch.float32, cuda, seed=p)
+            out, ref = disco_kernels.polar_psi_first(src, Pt), disco_kernels.polar_psi_first_plain(src, Pt)
+        else:
+            src = _randn((2, P, BL, C, K, M, 2), torch.float32, cuda, seed=p)
+            out, ref = disco_kernels.polar_mix_first(src, Pt), disco_kernels.polar_mix_first_plain(src, Pt)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["disco_polar"] == 1
+        assert out.shape == ref.shape and _agree(out, ref, torch.float32)
 
 
 def test_disco_band_refuses_wrong_inputs(cuda):
