@@ -750,7 +750,7 @@ def main() -> int:
         table.append(
             {"name": name, "route": route, "source": source, "replaces": replaces, "launches": launches[name],
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "fma_bound_ms": r["fma_bound_ms"], "tc_bound_ms": r["tc_bound_ms"]}
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         )
     print(card)
     print(json.dumps({"kernels": table}))

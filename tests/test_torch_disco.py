@@ -120,29 +120,33 @@ def test_make_disco_conv_is_the_serial_conv():
 
 @pytest.mark.parametrize("K", [9, 7])
 @pytest.mark.parametrize("order", ["psi_first", "mix_first"])
-def test_polar_plain_matches_jax_formulation(order, K):
+def test_polar_plain_matches_jax_formulation(order, K, monkeypatch):
     """K6's plain versions, in cuFFT's layout (modes last), against the JAX
-    package's own formulation of the polar product-sum: the ``__call__``
-    einsums ``bcpjm,kpjm->bckpm`` (psi first) and ``_polar_fused_phase``'s
-    broadcast multiply-sum over (k, j) (mix first), on seeded inputs."""
+    package's polar rows at K = 9 (morlet th) and K = 7 (piecewise linear),
+    3 phases, 5 channels: psi first through ``call_split`` (the ``__call__``
+    einsum ``bcpjm,kpjm->bckpm``), mix first through ``fused``
+    (``_polar_fused_phase``)."""
     from makani_torch.ops import disco_kernels
 
-    B, P, BL, C, M = 2, 3, 4, 5, 11
+    calls = []
+    plain = getattr(disco_kernels, f"polar_{order}_plain")
+    monkeypatch.setattr(disco_kernels, f"polar_{order}_plain", lambda *a: calls.append(a[0].shape) or plain(*a))
+    in_shape, out_shape = SHAPES[2]
+    kw = dict(basis_type={9: "morlet th", 7: "piecewise linear"}[K], basis_norm_mode="mean")
+    jc, tc = jdisco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw), disco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw)
+    assert (tc.K, tc.phases) == (K, 3)
     rng = np.random.default_rng(3)
-    Ps = rng.standard_normal((K, P, BL, M, 2)).astype(np.float32)  # the JAX layout
-    Pt = torch.from_numpy(np.ascontiguousarray(Ps.transpose(1, 2, 0, 3, 4)))  # (P, BL, K, M, 2)
     if order == "psi_first":
-        Xs = rng.standard_normal((B, C, P, BL, M, 2)).astype(np.float32)
-        eq = "bcpjm,kpjm->bckpm"
-        re = jnp.einsum(eq, Xs[..., 0], Ps[..., 0]) + jnp.einsum(eq, Xs[..., 1], Ps[..., 1])
-        im = jnp.einsum(eq, Xs[..., 1], Ps[..., 0]) - jnp.einsum(eq, Xs[..., 0], Ps[..., 1])
-        ref = np.stack([re, im], axis=-1).transpose(0, 3, 1, 2, 4, 5)  # (B, P, C, K, M, 2)
-        out = disco_kernels.polar_psi_first_plain(torch.from_numpy(np.ascontiguousarray(Xs.transpose(0, 2, 3, 1, 4, 5))), Pt)
+        x = rng.standard_normal((2, 5, *in_shape)).astype(np.float32)
+        _, ref = jax.jit(jc.call_split)(jnp.asarray(x))
+        out = tc.call_split(torch.from_numpy(x))[1]
     else:
-        Us = rng.standard_normal((B, P, C, K, BL, M, 2)).astype(np.float32)  # (B, P, g*og, K, BL, M) in JAX
-        Pre, Pim = jnp.asarray(Ps[..., 0].transpose(1, 0, 2, 3))[None, :, None], jnp.asarray(Ps[..., 1].transpose(1, 0, 2, 3))[None, :, None]
-        ref = np.stack([(Us[..., 0] * Pre + Us[..., 1] * Pim).sum(axis=(3, 4)), (Us[..., 1] * Pre - Us[..., 0] * Pim).sum(axis=(3, 4))], axis=-1)
-        out = disco_kernels.polar_mix_first_plain(torch.from_numpy(np.ascontiguousarray(Us.transpose(0, 1, 4, 2, 3, 5, 6))), Pt)
+        g, og, ig = 1, 5, 5 * tc.BL
+        x = rng.standard_normal((2, g * ig, *in_shape)).astype(np.float32)
+        w = (0.2 * rng.standard_normal((g, og, ig, K))).astype(np.float32)
+        ref = jax.jit(jc.fused)(jnp.asarray(x), jnp.asarray(w))
+        out = tc.fused(torch.from_numpy(x), torch.from_numpy(w))
+    assert len(calls) == tc.phases
     _tol(out, ref)
 
 
