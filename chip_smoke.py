@@ -195,6 +195,7 @@ def run_cases(cases, card, results, iters=10, warmup=2):
         ok = within(err, dtype)
         dt = str(dtype).replace("torch.", "")
         more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "library_ms") if extra.get(k) is not None)
+        more += "".join(f"; {extra[k]}" for k in ("live", "library_note") if extra.get(k))
         print(
             f"kernel {name:13s} {label:17s} {dt:8s} out {shape}: max|d| {err['max_abs_err']:.3e} "
             f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; "
@@ -222,7 +223,14 @@ def legendre_extras(x, table, mode, lead):
     def extras(out):
         flops = 2.0 * torch.count_nonzero(table).item() * BN
         lib = time_ms(lambda: torch.bmm(A, Xp), 5, 1)
-        return dict(bound(flops, nbytes(x, table, out), x.dtype), library_ms=lib)
+        res = dict(bound(flops, nbytes(x, table, out), x.dtype), library_ms=lib)
+        if mode == 0:
+            # K1's 64-row l tiles: a tile whose rows all lie above the
+            # diagonal (l < m) is dead and reads nothing
+            n_lt = -(-L // 64)
+            live = sum(1 for m in range(M) for lt in range(n_lt) if min(64 * lt + 64, L) > m)
+            res["live"] = f"live (m, l-tile) pairs {live}/{M * n_lt} ({live / (M * n_lt):.1%})"
+        return res
 
     return extras
 
@@ -492,7 +500,8 @@ def band_case(op, x, F_, Gf, IG, OG, label, library=False):
     Hout, Wout = op.out_shape
     Cout = C // IG * OG
     bs = op.band_start_table(dev)
-    kw = dict(a=op.stride, off=int(op.bases[0]) - op.halo, n_out=Wout // op.phases, phase=0, phases=1, Gf=Gf, IG=IG, OG=OG)
+    taps = op.tap_table(0, dev)
+    kw = dict(taps=taps, a=op.stride, off=int(op.bases[0]) - op.halo, n_out=Wout // op.phases, phase=0, phases=1, Gf=Gf, IG=IG, OG=OG)
     if op.phases != 1:
         raise RuntimeError(f"{label}: the flagship grids have one phase, this conv has {op.phases}")
 
@@ -503,7 +512,14 @@ def band_case(op, x, F_, Gf, IG, OG, label, library=False):
     def extras(out):
         nnz = torch.count_nonzero(F_[..., :OG]).item()  # summed over latitudes
         flops = 2.0 * nnz * B * (Wout // op.phases) * (C // (Gf * IG))
-        res = dict(bound(flops, nbytes(x, F_[..., :OG], bs, out), torch.float32), library_ms=None, nnz_fraction=nnz / F_[..., :OG].numel())
+        runs = taps[..., 1] - taps[..., 0]
+        dead = torch.nonzero((runs == 0).all(dim=1)).flatten()
+        # the dead latitudes are written +0: no value, no sign bit
+        if not bool((out[:, dead].view(torch.int32) == 0).all()):
+            raise RuntimeError(f"{label}: K5 wrote something other than +0 at a latitude with no live tap")
+        live = (f"live taps {runs.sum().item() / taps[..., 0].numel() / op.WW:.1%} of the {op.BL}x{op.WW} window, "
+                f"dead latitudes {dead.numel()} of {Hout} (polar rows {len(op.polar_rows)}, equal: {dead.tolist() == list(op.polar_rows)}), +0 there")
+        res = dict(bound(flops, nbytes(x, F_[..., :OG], bs, out), torch.float32), library_ms=None, nnz_fraction=nnz / F_[..., :OG].numel(), live=live)
         if library:
             BL, WW, a = op.BL, op.WW, op.stride
             rows = (bs.long()[:, None] + torch.arange(BL, device=dev)).reshape(-1)
@@ -543,7 +559,29 @@ def resample_case(rs, x, label):
     li, lw, k0, k1, v = tabs
 
     def extras(out):
-        return dict(bound(6.0 * out.numel(), nbytes(x, out, *tabs)), library_ms=None)
+        res = dict(bound(6.0 * out.numel(), nbytes(x, out, *tabs)), library_ms=None)
+        # grid_sample (bilinear, align_corners) on x with its first longitude
+        # column appended, at (lat_idx + lat_w, longitude position) in index
+        # units; it counts as the yardstick only if it computes the function
+        B, Hin, Win, C = x.shape
+        xin = torch.cat([x, x[:, :, :1]], dim=2).permute(0, 3, 1, 2).contiguous()
+        rows = (li.double() + lw.double()) * 2.0 / (Hin - 1) - 1.0
+        pos = torch.arange(rs.out_shape[1], device=x.device, dtype=torch.float64) * (Win / rs.out_shape[1])
+        cols = pos * 2.0 / Win - 1.0
+        grid = torch.stack(torch.broadcast_tensors(cols[None, :], rows[:, None]), dim=-1).float()[None].expand(B, -1, -1, -1).contiguous()
+
+        def lib():
+            return torch.nn.functional.grid_sample(xin, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+        err = errors(lib().permute(0, 2, 3, 1), resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v))
+        if err["max_rel"] <= FP32_TOL:
+            res["library_ms"] = time_ms(lib, 3, 1)
+            res["library_note"] = f"library: grid_sample, max|d|/max|ref| {err['max_rel']:.3e}"
+        else:
+            res["library_note"] = (f"no library yardstick: grid_sample misses the fp32 gate (max|d|/max|ref| {err['max_rel']:.3e}): "
+                                   "it rebuilds the lerp weights from normalized fp32 coordinates")
+        del xin, grid
+        return res
 
     return ("resample", label, torch.float32, lambda: resample_cl(x, *tabs), lambda: resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v), extras)
 
@@ -612,7 +650,7 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     cn = randn((1, isht.lmax, isht.mmax, noise.num_channels, 2), torch.float32, gen, dev)
     pn = isht.pct(dev)
     cases = [
-        ("sht_analysis", "fcn3-internal", torch.float32, lambda: sht.analysis_contract_cl_s(xf, wa), lambda: sht.analysis_contract_cl_s_plain(xf, wa), None),
+        ("sht_analysis", "fcn3-internal", torch.float32, lambda: sht.analysis_contract_cl_s(xf, wa), lambda: sht.analysis_contract_cl_s_plain(xf, wa), legendre_extras(xf, wa, 0, B)),
         ("sht_synthesis", "fcn3-internal", torch.float32, lambda: sht.synthesis_contract_cl_s(c2, pa), lambda: sht.synthesis_contract_cl_s_plain(c2, pa), None),
         ("dhconv", "fcn3-internal", torch.float32, lambda: contract_dense_s(xs, blk.weight, False, "dhconv", True, weight_cache=cache), lambda: contract_dense_s_plain(xs, blk.weight, False, "dhconv", True), dhconv_extras(xs, blk.weight.detach())),
         ("sht_synthesis", "fcn3-noise", torch.float32, lambda: sht.synthesis_contract_cl_s(cn, pn), lambda: sht.synthesis_contract_cl_s_plain(cn, pn), None),

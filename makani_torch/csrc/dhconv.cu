@@ -61,7 +61,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 128;       // rows (orders m) per block: two warpgroups of 64
 constexpr int BN = 128;       // real output columns per block (64 complex channels)
@@ -70,7 +74,6 @@ constexpr int THREADS = 256;  // two warpgroups
 constexpr int ACC = BN / 2;   // fp32 accumulators per thread of an m64n128 wgmma
 constexpr int A_COPIES = BM * (BK / 2) / THREADS;       // pair copies of x per thread per stage
 constexpr int B_LOADS = (BK / 2) * (BN / 2) / THREADS;  // complex weights per thread per stage
-constexpr int CORE = 128;                               // a core matrix: 8 rows x 16 bytes
 
 // x rows in shared memory: 36 fp32 words or 40 bf16 halves, so that the
 // ldmatrix phases (8 rows x 16 bytes) hit 32 distinct banks. The weight in
@@ -106,22 +109,6 @@ struct Layout {
   static constexpr int SMEM = A_BYTES + 2 * Tile<T>::PLANES * PLANE;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
-
-// copies BYTES from src, or writes BYTES zeros when !pred (src is not read)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(BYTES), "r"(pred ? BYTES : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
 // four 8x8 matrices of 16-bit pairs: lane l gives the address of row l % 8
 // of matrix l / 8 and receives, of each, the word (row l / 4, column l % 4):
 // with the matrices (rows 0-7 | 8-15) x (first | second half of the depth),
@@ -132,20 +119,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
                : "r"(smem_addr(row)));
 }
 
-// shared-memory matrix descriptor: K-major, no swizzle
+// shared-memory matrix descriptor of the weight tile
 template <typename T>
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(CORE >> 4) << 16) | ((uint64_t)(Layout<T>::SBO >> 4) << 32);
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
+  return sm90::descriptor(addr, CORE, Layout<T>::SBO);
 }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// generic-proxy shared stores made visible to the wgmmas (async proxy)
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-// pins a register's reads and writes after an asynchronous wgmma's wait
-__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
-__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
 
 // d (m64 x n128, fp32) = a (registers) . b (shared) + (scale_d ? d : 0)
 __device__ __forceinline__ void wgmma_tf32(float (&d)[ACC], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
@@ -267,7 +245,7 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
   copy_x(0, 0);
   cp_async_commit();
   stage_w(0);
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
@@ -298,9 +276,9 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
       // one wgmma spans two core matrices along k
-      const uint64_t bh = descriptor<T>(b_base + ks * 2 * CORE);
+      const uint64_t bh = b_descriptor<T>(b_base + ks * 2 * CORE);
       if constexpr (PLANES == 2) {
-        const uint64_t bl = descriptor<T>(b_base + Lay::PLANE + ks * 2 * CORE);
+        const uint64_t bl = b_descriptor<T>(b_base + Lay::PLANE + ks * 2 * CORE);
         wgmma_tf32(part, al[ks], bh, ks > 0);
         wgmma_tf32(part, ah[ks], bl, 1);
         wgmma_tf32(part, ah[ks], bh, 1);
@@ -310,7 +288,7 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
     }
     wgmma_commit();
     if (more) stage_w(cur ^ 1);  // while the wgmmas run
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks)
 #pragma unroll
@@ -327,7 +305,7 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
         pin(acc[q]);
       }
     }
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();
   }
 

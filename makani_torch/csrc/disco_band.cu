@@ -21,173 +21,365 @@
 // (b > 1, when nlon_out/nlon_in is not 1/a) write their interleaved columns
 // directly: no stack/reshape copy.
 //
-// What bounds it on the card: at the FCN3 processor (B 2, 360x720, C 677,
-// K 9, BL 9, WW 31) the dense window is ~0.9 TFLOP of fp32 FMAs (about 40%
-// of the taps are inside the disc) against ~1.4 GB read and 12.6 GB written,
-// so it is bound by arithmetic. This version runs on the fp32 FMA pipes:
-// a 128-thread block stages, one input channel of each group at a time, the
-// F slice of its output latitude and the band window of 8 groups x 128
-// output columns in shared memory, and every thread holds 8 columns x OT
-// outputs of one group in registers: OT = 9 gives 72 FMAs per 10 shared
-// loads (the window slides through registers for stride 1; the F values are
-// broadcasts). Every output sums its taps in (i, j, w) order. Skipping psi's
-// zero taps, tensor cores (TF32 wgmma) and TMA are later work.
+// Live taps. Most of the (j, w) window lies outside the disc: at the FCN3
+// processor (B 2, 360x720, C 677, K 9, BL 9, WW 31) 60.7 of its 279 taps
+// per latitude hold a nonzero psi_k on average, and the 66 polar latitudes
+// (computed by K6) none. The wrapper passes a tap table, (Hout, BL, 2) int32:
+// for each (h, j) the one run [lo, hi) of w where some psi_k is nonzero
+// (empty: lo = hi), built on the host from psi, which also bounds the
+// support of the fused filter w (x) psi. The kernel stages and sums only
+// those runs, in the dense kernel's (i, j, w) order, so every finite output
+// is bit-equal to the dense sum (a skipped tap added fmaf(0, x, acc) = acc).
+// A NaN or inf of x under a dead tap no longer reaches the output, and a
+// latitude with no live tap writes +0 without reading x or F.
+//
+// What bounds it on the card: at the processor the live taps are ~0.38
+// TFLOP of fp32 FMAs (5.6 ms at 67 TFLOP/s) against ~1.4 GB read and 12.6
+// GB written (4.2 ms at 3.35 TB/s): both matter. A 256-thread block takes
+// one output latitude, TG channels (32, a 128-byte piece of a channels-last
+// row, when G >= 96; else 8) and one output-chunk oc, and walks every
+// column tile of TU outputs of its latitude, so the live rows are found
+// once (a ballot over the tap table) and the filter is staged once where
+// IG = 1. Every thread holds one channel x UT columns x OT outputs in
+// registers (OT = 9, UT = 6: 54 FMAs a tap for two broadcast 16-byte and
+// one 4-byte filter loads and one window load; the window slides through
+// registers for stride 1, two taps a pass; OT = 1, UT = 8). The live rows
+// of every input channel i are copied in stages of a cp.async ring, one
+// barrier a stage (32-channel tiles: four rows a stage, two buffers;
+// 8-channel tiles: two rows, three buffers): each row's live column span
+// only, in 4-byte copies (677-channel rows are only 4-byte aligned; each
+// thread keeps one channel and steps along the columns). The filter of
+// channel i is staged with its first rows (a ring where IG > 1). The
+// output goes through shared memory, one column's TG*OG contiguous floats
+// at a time, and leaves in 16-byte stores along (g, o) after a scalar head
+// that reaches 16-byte alignment (G*OG is odd at the processor). Launch
+// bounds give two blocks an SM (128 registers).
+//
+// What holds it back at the processor: the row copies and the FMAs with
+// the stores each take a large part of the time and overlap only in part;
+// 16-byte copies (pieces from the 16-byte boundary below a column's 32
+// channels) gained little and were not kept. At the decoders (IG = 9,
+// OG = 1) the copies dominate: one input channel of each group is a
+// 4-byte gather at a stride of IG floats. Tensor cores (3xTF32 mma with
+// N = K = 9 padded to 16) are later work.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int TG = 8;                // groups per block
-constexpr int NU = 16;               // column chunks per block
-constexpr int UT = 8;                // output columns per thread
-constexpr int TU = NU * UT;          // output columns per block
-constexpr int THREADS = TG * NU;     // 128
-constexpr int TGP = TG + 1;          // padded group stride in shared memory
+using sm90::cp_async;
+
+constexpr int THREADS = 256;
 
 struct Params {
   long long sB, sH, sW, sC;  // x strides, elements
   int Hin, Win, Hout, Wout;
   int G, Gf, IG, OG, OGp, BL, WW;
   int a, off, n_out, phase, phases;
-  int n_utiles, n_gtiles, cols, col_fast;
+  int n_utiles, n_gtiles, n_oc, col_fast;
+  int xcols;                      // window columns a stage can hold: (TU - 1) * a + WW
+  int off_f, off_x, off_o, xrow, xbuf, fbuf;  // shared-memory layout, floats
 };
 
 __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
 
-template <int OT, bool A1>
-__global__ void __launch_bounds__(THREADS)
-    disco_band_kernel(const float* __restrict__ x, const float* __restrict__ F, const int* __restrict__ band_start, float* __restrict__ out, Params p) {
-  extern __shared__ float smem[];
+template <int OT>
+struct FilterTile {
+  static constexpr int OP = OT == 9 ? 12 : OT;  // floats per tap in shared memory: 16-byte loads for OT 9
+  static constexpr int UT = OT == 9 ? 6 : 8;    // output columns per thread: 54 or 8 accumulators
+};
+
+template <int OT, int TG>
+struct GroupTile {
+  static constexpr int UT = FilterTile<OT>::UT;
+  static constexpr int TGP = TG == 32 ? 32 : 9;  // window stride per column: 32 banks for the column-chunk lanes
+  static constexpr int NU = THREADS / TG;        // column chunks
+  static constexpr int TU = NU * UT;             // output columns per block
+  static constexpr int SEGS = 32 / TG;           // columns a warp holds for one q
+};
+
+template <int OT>
+__device__ __forceinline__ void load_f(const float* p, float (&f)[OT]) {
+  if constexpr (OT == 9) {
+    const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w, f[8] = p[8];
+  } else {
+#pragma unroll
+    for (int o = 0; o < OT; ++o) f[o] = p[o];
+  }
+}
+
+template <int OT, bool A1, int TG, int ROWS, int RING>
+__global__ void __launch_bounds__(THREADS, 2)
+    disco_band_kernel(const float* __restrict__ x, const float* __restrict__ F, const int* __restrict__ band_start, const int* __restrict__ taps,
+                      float* __restrict__ out, Params p) {
+  using GT = GroupTile<OT, TG>;
+  constexpr int TGP = GT::TGP, TU = GT::TU, SEGS = GT::SEGS, UT = GT::UT;
+  constexpr int OP = FilterTile<OT>::OP;
+  constexpr int SEG = TG * OT + 4;  // output staging per column, +4 to match a store's alignment
+  extern __shared__ __align__(16) float smem[];
+  int* s_run = reinterpret_cast<int*>(smem);  // (lo, hi) of the live rows in j order
+  int* s_j = s_run + 2 * p.BL;                // their j, and their count at [BL]
+  float* Fs = smem + p.off_f;                 // filter of channel i: (Gf, BL, WW, OP), one buffer, or RING where IG > 1
+  float* Xs = smem + p.off_x;                 // RING window rows (cols, TGP)
+  float* Os = smem + p.off_o;                 // output staging, SEGS columns of SEG floats a warp
+
   int bid = blockIdx.x;
-  const int ut = bid % p.n_utiles;
-  bid /= p.n_utiles;
+  const int gt = bid % p.n_gtiles;
+  bid /= p.n_gtiles;
+  const int oc = bid % p.n_oc;
+  bid /= p.n_oc;
   const int h = bid % p.Hout;
   const int b = bid / p.Hout;
-  const int gt = blockIdx.y % p.n_gtiles;
-  const int oc = blockIdx.y / p.n_gtiles;
-  const int u0 = ut * TU;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tg = tid % TG, nu = tid / TG;
   const int g0 = gt * TG;
-  const int tid = threadIdx.x;
-  const int tg = tid % TG;
-  const int nu = tid / TG;
-  const int cols = p.cols;
-  const int per_i = p.BL * p.WW * OT;  // F values per (gf, i)
-  const int nF = p.Gf * per_i;
-  float* Fs = smem;                     // (Gf, BL, WW, OT) of one input channel i
-  float* Xs = smem + round_up4(nF);     // (BL, cols, TGP)
+  const int BL = p.BL, WW = p.WW;
 
-  // this latitude's filter for output chunk oc
-  const float* Fh = F + (long long)h * p.Gf * p.IG * p.BL * p.WW * p.OGp + oc * OT;
+  if (warp == 0) {  // the live rows of latitude h, compacted in j order (BL <= 32)
+    const int j = lane;
+    const int lo = j < BL ? max(0, min(taps[(h * BL + j) * 2], WW)) : 0;
+    const int hi = j < BL ? max(lo, min(taps[(h * BL + j) * 2 + 1], WW)) : 0;
+    const unsigned live = __ballot_sync(0xffffffffu, hi > lo);
+    if (hi > lo) {
+      const int k = __popc(live & ((1u << lane) - 1u));
+      s_run[2 * k] = lo;
+      s_run[2 * k + 1] = hi;
+      s_j[k] = j;
+    }
+    if (lane == 0) s_j[BL] = __popc(live);
+  }
+  __syncthreads();
+  const int n_live = s_j[BL];
+  // the block walks every column tile of its latitude; a tile's stages are
+  // (i, live row)
+  const int n_grp = (n_live + ROWS - 1) / ROWS;  // stages of one channel
+  const int NSU = p.IG * n_grp;
+  const int NS = p.n_utiles * NSU;
 
   const int g = g0 + tg;
-  const bool g_ok = g < p.G;
-  const int gf = g_ok ? g % p.Gf : 0;
+  const int gf = g < p.G ? g % p.Gf : 0;
   const int row0 = band_start[h];
-  const int col0 = p.off + u0 * p.a;
   const float* xb = x + (long long)b * p.sB;
+  const float* Fh = F + (long long)h * p.Gf * p.IG * BL * WW * p.OGp + oc * OT;
+  const int n_fbuf = p.IG > 1 ? RING : 1;
 
+  // the filter of channel i for column tile k, in slot (k*IG + i) % RING
+  auto stage_f = [&](int k, int i) {
+    float* dst = Fs + ((k * p.IG + i) % n_fbuf) * p.fbuf;
+    const int n = p.Gf * BL * WW * OT;
+    for (int idx = tid; idx < n; idx += THREADS) {
+      const int o = idx % OT, e = idx / OT, gfi = e / (BL * WW), jw = e % (BL * WW);
+      cp_async<4>(dst + e * OP + o, Fh + ((long long)(gfi * p.IG + i) * BL * WW + jw) * p.OGp + o, true);
+    }
+  };
+  // stage s: the live column span of one row of channel i of groups g0 ..
+  // g0+TG-1, for column tile s / NSU; the filter of channel i with its
+  // first row (once, where IG == 1)
+  auto stage = [&](int s) {
+    const int k = s / NSU, r = s - k * NSU, i = r / n_grp, gi = r - i * n_grp;
+    if (gi == 0 && (p.IG > 1 || s == 0)) stage_f(k, i);
+    const int u0 = k * TU, n_valid = min(TU, p.n_out - u0);
+    for (int li = gi * ROWS; li < min(n_live, gi * ROWS + ROWS); ++li) {
+      const int lo = s_run[2 * li], hi = s_run[2 * li + 1];
+      const int ncols = (n_valid - 1) * p.a + hi - lo;
+      float* dst = Xs + (s % RING) * p.xbuf + (li - gi * ROWS) * p.xrow;
+      int cb = (p.off + u0 * p.a + lo) % p.Win;
+      if (cb < 0) cb += p.Win;
+      const float* src = xb + (long long)(row0 + s_j[li]) * p.sH + (long long)i * p.sC;
+      if (p.col_fast) {
+        for (int idx = tid; idx < ncols * TG; idx += THREADS) {
+          const int col = idx % ncols, t = idx / ncols;
+          int wc = cb + col;
+          if (wc >= p.Win) wc %= p.Win;
+          const bool ok = g0 + t < p.G;
+          cp_async<4>(dst + col * TGP + t, ok ? src + (long long)wc * p.sW + (long long)(g0 + t) * p.IG * p.sC : x, ok);
+        }
+      } else {
+        // each thread copies one channel t at every NU-th column
+        const int t = tid % TG;
+        const bool ok = g0 + t < p.G;
+        const float* src_t = ok ? src + (long long)(g0 + t) * p.IG * p.sC : x;
+        int wc = cb + tid / TG;
+        for (int col = tid / TG; col < ncols; col += GT::NU) {
+          while (wc >= p.Win) wc -= p.Win;
+          cp_async<4>(dst + col * TGP + t, ok ? src_t + (long long)wc * p.sW : x, ok);
+          wc += GT::NU;
+        }
+      }
+    }
+  };
+
+  // out: for each of the thread's columns, its group's OTv outputs; a
+  // warp stages its SEGS columns of one q and stores each column's
+  // contiguous (g, o) segment
+  const int OTv = min(OT, p.OG - oc * OT);
+  const int TGv = min(TG, p.G - g0);
+  const int S = TGv * OTv;
+  const bool contiguous = OTv == p.OG;
+  const long long Cout = (long long)p.G * p.OG;
+  float* Ow = Os + warp * SEGS * SEG;
+  const int sl = lane / TG;  // this lane's column among the warp's SEGS
+  auto column = [&](int u) -> float* {
+    return out + ((long long)(b * p.Hout + h) * p.Wout + p.phase + p.phases * u) * Cout + (long long)g0 * p.OG + oc * OT;
+  };
   float acc[OT][UT];
+  auto store = [&](int u0) {
+#pragma unroll
+    for (int q = 0; q < UT; ++q) {
+      const int mis = contiguous ? (int)((reinterpret_cast<uintptr_t>(column(u0 + nu * UT + q)) >> 2) & 3) : 0;
+      if (tg < TGv) {
+#pragma unroll
+        for (int o = 0; o < OT; ++o)
+          if (o < OTv) Ow[sl * SEG + mis + tg * OTv + o] = acc[o][q];
+      }
+      __syncwarp();
+      for (int k = 0; k < SEGS; ++k) {
+        const int u = u0 + (warp * SEGS + k) * UT + q;
+        if (u >= p.n_out) continue;
+        float* dst = column(u);
+        if (contiguous) {
+          // scalar head to 16-byte alignment, float4 body, scalar tail; the
+          // staged segment starts at the same alignment
+          const int m = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+          const float* src = Ow + k * SEG + m;
+          const int head = min(S, (4 - m) & 3), nv = (S - head) / 4, tail = head + 4 * nv;
+          if (lane < head) dst[lane] = src[lane];
+          for (int v = lane; v < nv; v += 32)
+            *reinterpret_cast<float4*>(dst + head + 4 * v) = *reinterpret_cast<const float4*>(src + head + 4 * v);
+          if (tail + lane < S) dst[tail + lane] = src[tail + lane];
+        } else {
+          const float* src = Ow + k * SEG;
+          for (int e = lane; e < S; e += 32) dst[(e / OTv) * p.OG + e % OTv] = src[e];
+        }
+      }
+      __syncwarp();
+    }
+  };
+
 #pragma unroll
   for (int o = 0; o < OT; ++o)
 #pragma unroll
     for (int q = 0; q < UT; ++q) acc[o][q] = 0.f;
 
-  for (int i = 0; i < p.IG; ++i) {
-    __syncthreads();  // the previous channel's window and filter are no longer read
-    // stage F[h, :, i, :, :, oc*OT ..] as (Gf, BL, WW, OT)
-    for (int idx = tid; idx < nF; idx += THREADS) {
-      const int e = idx / OT, gfi = e / (p.BL * p.WW), jw = e % (p.BL * p.WW);
-      Fs[idx] = Fh[((long long)(gfi * p.IG + i) * p.BL * p.WW + jw) * p.OGp + idx % OT];
-    }
-    // stage the band window of channel i of groups g0 .. g0+TG-1; the
-    // fastest index follows the input's contiguous axis
-    const int n = p.BL * cols * TG;
-    for (int idx = tid; idx < n; idx += THREADS) {
-      int j, col, t;
-      if (p.col_fast) {
-        col = idx % cols;
-        t = (idx / cols) % TG;
-        j = idx / (cols * TG);
-      } else {
-        t = idx % TG;
-        col = (idx / TG) % cols;
-        j = idx / (TG * cols);
-      }
-      float v = 0.f;
-      if (g0 + t < p.G) {
-        int wc = (col0 + col) % p.Win;
-        if (wc < 0) wc += p.Win;
-        v = xb[(long long)(row0 + j) * p.sH + (long long)wc * p.sW + (long long)((g0 + t) * p.IG + i) * p.sC];
-      }
-      Xs[(j * cols + col) * TGP + t] = v;
-    }
-    __syncthreads();
+  if (NS == 0) {  // no live tap: +0 everywhere, nothing read
+    for (int k = 0; k < p.n_utiles; ++k) store(k * TU);
+    return;
+  }
 
-    const float* Fi = Fs + gf * per_i;
-    for (int j = 0; j < p.BL; ++j) {
-      const float* Xj = Xs + j * cols * TGP + tg;
-      const float* Fj = Fi + j * p.WW * OT;
-      if (A1) {
-        // stride 1: columns nu*UT + q + w; the window slides through registers
-        float xr[UT];
+  // stages s + 1 and s + 2 are copied while stage s is computed; a buffer
+  // is rewritten two stages after it was read, past the barrier between
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < NS) stage(s);
+    sm90::cp_async_commit();
+  }
+  for (int s = 0; s < NS; ++s) {
+    const int k = s / NSU, r = s - k * NSU, i = r / n_grp, gi = r - i * n_grp;
+    const int u0 = k * TU;
+    sm90::cp_async_wait<RING - 2>();
+    __syncthreads();
+    if (s + RING - 1 < NS) stage(s + RING - 1);
+    sm90::cp_async_commit();
+    for (int li = gi * ROWS; li < min(n_live, gi * ROWS + ROWS); ++li) {
+      const int lo = s_run[2 * li], hi = s_run[2 * li + 1];
+      const float* Xq = Xs + (s % RING) * p.xbuf + (li - gi * ROWS) * p.xrow + nu * UT * p.a * TGP + tg;  // column nu*UT*a + (w - lo)
+      const float* Fw = Fs + ((k * p.IG + i) % n_fbuf) * p.fbuf + ((gf * BL + s_j[li]) * WW) * OP;
+      if (u0 + nu * UT < p.n_out) {
+        if constexpr (A1) {
+          float xr[UT];
 #pragma unroll
-        for (int q = 0; q < UT; ++q) xr[q] = Xj[(nu * UT + q) * TGP];
-        for (int w = 0; w < p.WW; ++w) {
-          float f[OT];
+          for (int q = 0; q < UT; ++q) xr[q] = Xq[q * TGP];
+          int w = lo;
+          for (; w + 1 < hi; w += 2) {  // two taps a pass: the window slides by two
+            float f0[OT], f1[OT];
+            load_f<OT>(Fw + w * OP, f0);
+            load_f<OT>(Fw + (w + 1) * OP, f1);
+            const float xn0 = Xq[(UT + w - lo) * TGP];
+            const float xn1 = w + 2 < hi ? Xq[(UT + w + 1 - lo) * TGP] : 0.f;
 #pragma unroll
-          for (int o = 0; o < OT; ++o) f[o] = Fj[w * OT + o];
+            for (int o = 0; o < OT; ++o)
 #pragma unroll
-          for (int o = 0; o < OT; ++o)
+              for (int q = 0; q < UT; ++q) acc[o][q] = fmaf(f0[o], xr[q], acc[o][q]);
 #pragma unroll
-            for (int q = 0; q < UT; ++q) acc[o][q] = fmaf(f[o], xr[q], acc[o][q]);
+            for (int o = 0; o < OT; ++o) {
 #pragma unroll
-          for (int q = 0; q < UT - 1; ++q) xr[q] = xr[q + 1];
-          if (w + 1 < p.WW) xr[UT - 1] = Xj[(nu * UT + UT + w) * TGP];
-        }
-      } else {
-        for (int w = 0; w < p.WW; ++w) {
-          float f[OT];
+              for (int q = 0; q < UT - 1; ++q) acc[o][q] = fmaf(f1[o], xr[q + 1], acc[o][q]);
+              acc[o][UT - 1] = fmaf(f1[o], xn0, acc[o][UT - 1]);
+            }
 #pragma unroll
-          for (int o = 0; o < OT; ++o) f[o] = Fj[w * OT + o];
+            for (int q = 0; q < UT - 2; ++q) xr[q] = xr[q + 2];
+            xr[UT - 2] = xn0;
+            xr[UT - 1] = xn1;
+          }
+          if (w < hi) {
+            float f[OT];
+            load_f<OT>(Fw + w * OP, f);
 #pragma unroll
-          for (int q = 0; q < UT; ++q) {
-            const float xv = Xj[((nu * UT + q) * p.a + w) * TGP];
+            for (int o = 0; o < OT; ++o)
 #pragma unroll
-            for (int o = 0; o < OT; ++o) acc[o][q] = fmaf(f[o], xv, acc[o][q]);
+              for (int q = 0; q < UT; ++q) acc[o][q] = fmaf(f[o], xr[q], acc[o][q]);
+          }
+        } else {
+          for (int w = lo; w < hi; ++w) {
+            float f[OT];
+            load_f<OT>(Fw + w * OP, f);
+#pragma unroll
+            for (int q = 0; q < UT; ++q) {
+              const float xv = Xq[(q * p.a + w - lo) * TGP];
+#pragma unroll
+              for (int o = 0; o < OT; ++o) acc[o][q] = fmaf(f[o], xv, acc[o][q]);
+            }
           }
         }
       }
     }
-  }
-
-  if (!g_ok) return;
-  const int Cout = p.G * p.OG;
+    if (r == NSU - 1) {  // the tile is summed: store it and start the next
+      store(u0);
 #pragma unroll
-  for (int q = 0; q < UT; ++q) {
-    const int u = u0 + nu * UT + q;
-    if (u >= p.n_out) continue;
-    const int wo = p.phase + p.phases * u;
-    float* dst = out + ((long long)(b * p.Hout + h) * p.Wout + wo) * Cout + g * p.OG + oc * OT;
+      for (int o = 0; o < OT; ++o)
 #pragma unroll
-    for (int o = 0; o < OT; ++o)
-      if (oc * OT + o < p.OG) dst[o] = acc[o][q];
+        for (int q = 0; q < UT; ++q) acc[o][q] = 0.f;
+    }
   }
+  sm90::cp_async_wait<0>();
 }
 
-template <int OT, bool A1>
-int launch(const float* x, const float* F, const int* band_start, float* out, const Params& p, int B, cudaStream_t s) {
-  const int nF = p.Gf * p.BL * p.WW * OT;
-  const size_t smem = (size_t)(round_up4(nF) + p.BL * p.cols * TGP) * sizeof(float);
+template <int OT, bool A1, int TG, int ROWS, int RING>
+int launch(const float* x, const float* F, const int* band_start, const int* taps, float* out, Params p, int B, cudaStream_t s) {
+  using GT = GroupTile<OT, TG>;
+  constexpr int OP = FilterTile<OT>::OP;
+  p.n_utiles = (p.n_out + GT::TU - 1) / GT::TU;
+  p.n_gtiles = (p.G + TG - 1) / TG;
+  p.xcols = (GT::TU - 1) * p.a + p.WW;
+  p.off_f = round_up4(3 * p.BL + 1);
+  p.fbuf = round_up4(p.Gf * p.BL * p.WW * OP);
+  p.off_x = p.off_f + (p.IG > 1 ? RING : 1) * p.fbuf;
+  p.xrow = round_up4(p.xcols * GT::TGP);
+  p.xbuf = ROWS * p.xrow;
+  p.off_o = p.off_x + RING * p.xbuf;
+  const size_t smem = (size_t)(p.off_o + (THREADS / 32) * GT::SEGS * (TG * OT + 4)) * sizeof(float);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kern = disco_band_kernel<OT, A1>;
+  auto kern = disco_band_kernel<OT, A1, TG, ROWS, RING>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long nx = (long long)p.n_utiles * p.Hout * B;
-  const int n_oc = p.OGp / OT;
-  if (nx > 2147483647LL || (long long)p.n_gtiles * n_oc > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)nx, p.n_gtiles * n_oc);
-  kern<<<grid, THREADS, smem, s>>>(x, F, band_start, out, p);
+  const long long nb = (long long)p.n_gtiles * p.n_oc * p.Hout * B;
+  if (nb > 2147483647LL) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)nb, THREADS, smem, s>>>(x, F, band_start, taps, out, p);
   return (int)cudaGetLastError();
+}
+
+// 32-channel tiles stage four live rows a stage in a ring of two (the
+// fastest at the FCN3 processor of the shapes tried: two or three rows in
+// three buffers, four in two, all in two); 8-channel tiles, whose windows
+// are four times as wide, two rows in a ring of three
+template <int OT>
+int dispatch(const float* x, const float* F, const int* band_start, const int* taps, float* out, const Params& p, int B, cudaStream_t s) {
+  if (p.G >= 96)
+    return p.a == 1 ? launch<OT, true, 32, 4, 2>(x, F, band_start, taps, out, p, B, s) : launch<OT, false, 32, 4, 2>(x, F, band_start, taps, out, p, B, s);
+  return p.a == 1 ? launch<OT, true, 8, 2, 3>(x, F, band_start, taps, out, p, B, s) : launch<OT, false, 8, 2, 3>(x, F, band_start, taps, out, p, B, s);
 }
 
 }  // namespace
@@ -195,31 +387,32 @@ int launch(const float* x, const float* F, const int* band_start, float* out, co
 // x: float32, element strides (sB, sH, sW, sC) over (B, Hin, Win, G*IG);
 // F: float32 (Hout, Gf, IG, BL, WW, OGp) contiguous, OGp = OG rounded up to
 // the kernel's outputs per thread (1 for OG == 1, else a multiple of 9),
-// zero-padded; band_start: int32 (Hout,); out: float32 (B, Hout, Wout, G*OG)
-// contiguous. Returns cudaGetLastError() after the launch, or an argument
-// error without launching.
-extern "C" int mt_disco_band_contract(const void* x, const void* F, const void* band_start, void* out, int B, int Hin, int Win, long long sB,
-                                      long long sH, long long sW, long long sC, int Hout, int Wout, int G, int Gf, int IG, int OG, int OGp, int BL,
-                                      int WW, int a, int off, int n_out, int phase, int phases, void* stream) {
-  if (B <= 0 || Hin <= 0 || Win <= 0 || Hout <= 0 || G <= 0 || Gf <= 0 || G % Gf || IG <= 0 || OG <= 0 || BL <= 0 || WW <= 0 || a <= 0 ||
+// zero-padded; band_start: int32 (Hout,); taps: int32 (Hout, BL, 2), the
+// live run [lo, hi) of w of each (h, j), empty where lo >= hi; out: float32
+// (B, Hout, Wout, G*OG) contiguous. Returns cudaGetLastError() after the
+// launch, or an argument error without launching.
+extern "C" int mt_disco_band_contract(const void* x, const void* F, const void* band_start, const void* taps, void* out, int B, int Hin, int Win,
+                                      long long sB, long long sH, long long sW, long long sC, int Hout, int Wout, int G, int Gf, int IG, int OG,
+                                      int OGp, int BL, int WW, int a, int off, int n_out, int phase, int phases, void* stream) {
+  if (B <= 0 || Hin <= 0 || Win <= 0 || Hout <= 0 || G <= 0 || Gf <= 0 || G % Gf || IG <= 0 || OG <= 0 || BL <= 0 || BL > 32 || WW <= 0 || a <= 0 ||
       n_out <= 0 || phases <= 0 || phase < 0 || phase >= phases || phase + phases * (n_out - 1) >= Wout)
     return (int)cudaErrorInvalidValue;
   const int OT = OG == 1 ? 1 : 9;
   if (OGp % OT || OGp < OG || OGp - OG >= OT) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 4) return (int)cudaErrorMisalignedAddress;
   Params p;
   p.sB = sB, p.sH = sH, p.sW = sW, p.sC = sC;
   p.Hin = Hin, p.Win = Win, p.Hout = Hout, p.Wout = Wout;
   p.G = G, p.Gf = Gf, p.IG = IG, p.OG = OG, p.OGp = OGp, p.BL = BL, p.WW = WW;
   p.a = a, p.off = off, p.n_out = n_out, p.phase = phase, p.phases = phases;
-  p.n_utiles = (n_out + TU - 1) / TU;
-  p.n_gtiles = (G + TG - 1) / TG;
-  p.cols = (TU - 1) * a + WW;
+  p.n_oc = OGp / OT;
   p.col_fast = sC != 1 && sW == 1;
   const float* xf = static_cast<const float*>(x);
   const float* Ff = static_cast<const float*>(F);
   const int* bs = static_cast<const int*>(band_start);
+  const int* tp = static_cast<const int*>(taps);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (OT == 1) return a == 1 ? launch<1, true>(xf, Ff, bs, of, p, B, s) : launch<1, false>(xf, Ff, bs, of, p, B, s);
-  return a == 1 ? launch<9, true>(xf, Ff, bs, of, p, B, s) : launch<9, false>(xf, Ff, bs, of, p, B, s);
+  if (OT == 1) return dispatch<1>(xf, Ff, bs, tp, of, p, B, s);
+  return dispatch<9>(xf, Ff, bs, tp, of, p, B, s);
 }

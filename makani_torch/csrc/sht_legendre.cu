@@ -9,27 +9,59 @@
 //   synthesis (mode 1): out[b, k, m, n] = sum_l P[m, l, k] * c[b, l, m, n]
 //
 // n runs over the channels and the re/im pair (N = 2 C, contiguous). For each
-// (b, m) this is one GEMM: rows i (l or k), depth j (k or l), columns n.
+// (b, m) this is one GEMM: rows i (l or k), depth j (k or l), columns n. The
+// tables are exactly zero for m > l (asserted by the CPU tests).
 //
 // What bounds it on the card: at the flagship's full resolution (nlat 721,
-// lmax 240, mmax 241, C 384) the analysis is ~64 GFLOP against ~0.7 GB of
-// input and table, so it is bound by arithmetic, not memory. This version
-// runs on the fp32 FMA pipes (no tensor cores), with fp32 accumulation for
-// fp32 and bf16 input alike. Each 256-thread block computes a 64 x 128 output
-// tile; each thread holds 4 x 8 accumulators, fed by three 16-byte shared
-// loads per 32 FMAs. The 16-deep stages are double-buffered in shared memory:
-// the next stage's global loads are issued into registers before the current
-// stage is computed, so their latency hides behind the FMAs, and one barrier
-// per stage suffices. The tables are exactly zero for m > l (asserted by the
-// CPU tests), so the analysis writes zero tiles above the diagonal without
-// reading anything, and the synthesis starts its depth loop at l = m: about a
-// third of the dense work is skipped. Each output still sums its depth in
-// order with FMA. wgmma/TMA on bf16 tensor cores is later work.
+// lmax 240, mmax 241, C 384) the analysis is a 64 GFLOP dense product
+// against ~0.7 GB of input, table and output. Half of the product is the
+// table's zero triangle; what is left is bound by the tensor cores when they
+// run it, by the fp32 FMA pipes (67 TFLOP/s) otherwise.
+//
+// The fp32 analysis (K1 on the main paths) runs on the tensor cores:
+// legendre_analysis_tc_kernel below. It computes the transposed tile
+// D[n, l] = sum_k x[k, n] W[l, k] with wgmma m64n64k8 in 3xTF32 (each
+// operand split into a TF32 high part and residual with cvt.rna; hi.hi +
+// hi.lo + lo.hi accumulated in fp32, lo.lo dropped), as K3 does in
+// dhconv.cu. The table row W[m, l, :] is k-contiguous, so the table is the
+// K-major B operand straight from shared memory; x is the A operand from
+// registers, staged [k][n] as it lies in device memory. The table is a
+// constant: the wrapper keeps its TF32 high and low planes in device
+// memory, padded with zeros to 64 rows l and 32 deep k, so every table copy
+// is a 16-byte cp.async (721-float rows are only 4-byte aligned) and the
+// kernel never splits the table. Each 32-deep stage is summed into fresh
+// registers and added to the total with a rounded fp32 add: the tensor
+// cores add into their accumulator with truncation, a bias that grows with
+// the depth (721 here). A 256-thread block (two warpgroups) computes 128
+// columns n x 64 rows l of one (b, m) through a three-stage cp.async ring
+// (x and both table planes, 34 KB a stage). Within a stage each 8-deep step
+// is its own wgmma group, so only two steps' A fragments are held at a
+// time. One block an SM: two would cap the registers at 128 and spill,
+// which measured slower. A tile whose
+// 64 rows all lie above the diagonal (l < m) writes zeros and reads
+// nothing: 624 of the 964 (m, l-tile) pairs are live at the flagship's
+// shape (65%), against 76% with 128-row tiles. The accumulators hold
+// D[n, l]; they go through shared memory as [l][n] so that the stores run
+// along n, 16 bytes at a time where N is a multiple of 4 (8 bytes
+// otherwise, as at FCN3's 677 channels: N = 1354, 5416-byte rows). Three
+// TF32 passes over the live tiles take ~0.25 ms at the tensor cores' 495
+// TFLOP/s, about the 0.26 ms its bytes need at 3.35 TB/s.
+//
+// bf16 input, and the synthesis (K2) in both types, stay on the fp32 FMA
+// kernel legendre_contract_kernel: 64 x 128 output tiles, each thread 4 x 8
+// accumulators fed by three 16-byte shared loads per 32 FMAs, 16-deep
+// stages double-buffered in shared memory, fp32 accumulation for fp32 and
+// bf16 alike. Its analysis writes the zero tiles above the diagonal without
+// reading anything, and its synthesis starts the depth loop at l = m. K2 on
+// the tensor cores needs an l-contiguous copy of the table for the K-major
+// B operand: later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "convert.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -155,6 +187,192 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
+// ---- K1 fp32 analysis on the tensor cores ---------------------------------
+
+namespace tc {
+
+using namespace sm90;
+
+constexpr int BN = 128;       // columns n per block: two warpgroups of 64 (wgmma M)
+constexpr int BL = 64;        // rows l per block (wgmma N)
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int ACC = BL / 2;   // fp32 accumulators per thread of an m64n64 wgmma
+constexpr int LDX = BN + 8;   // x stage [k][n]: the A-fragment loads hit 32 banks
+constexpr int LDO = BN + 4;   // output tile [l][n]: the accumulator stores hit 32 banks
+
+constexpr int BK = 32;        // depth k per stage
+constexpr int STAGES = 3;     // cp.async ring
+constexpr int KSTEPS = BK / 8;
+constexpr int SBO = (BK / 4) * CORE + 16;  // bytes between 8-row (l) groups of a table plane
+constexpr int PLANE = (BL / 8) * SBO;      // bytes of one table plane per stage
+constexpr int X_BYTES = BK * LDX * 4;
+constexpr int STAGE_BYTES = X_BYTES + 2 * PLANE;
+constexpr int SMEM = STAGES * STAGE_BYTES;
+static_assert(BL * LDO * 4 <= SMEM, "the output tile reuses the ring");
+
+// d (m64 x n64, fp32) = a (registers) . b (shared) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[ACC], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  static __device__ __forceinline__ T zero() { return make_float2(0.f, 0.f); }
+};
+
+// planes: (2, M, Lp, Kp) TF32 high and low parts of the table, zero-padded;
+// x: (B, K, M, N); out: (B, L, M, N). VEC: floats per copy and store along n.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+    legendre_analysis_tc_kernel(const uint32_t* __restrict__ planes, const float* __restrict__ x, float* __restrict__ out, int M, int L, int K,
+                                int Lp, int Kp, int N, int n_ltiles) {
+  using V = typename Vec<VEC>::T;
+  constexpr int CPR = BN / VEC;  // copies (and stores) per row of BN floats
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lt = blockIdx.x % n_ltiles, nt = blockIdx.x / n_ltiles;
+  const int m = blockIdx.y, b = blockIdx.z;
+  const int l0 = lt * BL, n0 = nt * BN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int n_valid = min(BN, N - n0), l_valid = min(BL, L - l0);
+  const long long MN = (long long)M * N;
+  float* o_base = out + ((long long)b * L + l0) * MN + (long long)m * N + n0;
+
+  if (l0 + l_valid <= m) {  // every row l < m: the table is zero there
+    for (int e = tid; e < l_valid * CPR; e += THREADS) {
+      const int r = e / CPR, c = (e % CPR) * VEC;
+      if (c < n_valid) *reinterpret_cast<V*>(o_base + r * MN + c) = Vec<VEC>::zero();
+    }
+    return;
+  }
+
+  const float* x_base = x + (long long)b * K * MN + (long long)m * N + n0;
+  const uint32_t* w_hi = planes + ((long long)m * Lp + l0) * Kp;
+  const uint32_t* w_lo = w_hi + (long long)M * Lp * Kp;
+  const int nk = (K + BK - 1) / BK;  // Kp >= nk * BK
+
+  auto load_stage = [&](int s, int kt) {
+    unsigned char* st = smem + s * STAGE_BYTES;
+    float* xs = reinterpret_cast<float*>(st);
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int e0 = 0; e0 < BK * CPR; e0 += THREADS) {
+      const int e = e0 + tid, r = e / CPR, c = (e % CPR) * VEC;
+      const bool ok = k0 + r < K && c < n_valid;
+      cp_async<4 * VEC>(xs + r * LDX + c, ok ? x_base + (long long)(k0 + r) * MN + c : x, ok);
+    }
+    // table rows l, 16-byte chunks of 4 k into wgmma's core-matrix layout
+#pragma unroll
+    for (int e0 = 0; e0 < 2 * BL * (BK / 4); e0 += THREADS) {
+      const int e = e0 + tid, plane = e / (BL * (BK / 4)), l = (e / (BK / 4)) % BL, kc = e % (BK / 4);
+      const uint32_t* src = (plane ? w_lo : w_hi) + (long long)l * Kp + k0 + kc * 4;
+      cp_async<16>(st + X_BYTES + plane * PLANE + (l / 8) * SBO + kc * CORE + (l % 8) * 16, src, true);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  float acc[ACC], part[ACC];
+#pragma unroll
+  for (int q = 0; q < ACC; ++q) acc[q] = part[q] = 0.f;
+  const int row0 = (warp / 4) * 64 + (warp % 4) * 16;  // this warp's 16 columns n of the tile
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage kt have landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's have; stage kt - 1 is no longer read
+    if (kt + STAGES - 1 < nk) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (kt % STAGES) * STAGE_BYTES;
+    const float* xs = reinterpret_cast<const float*>(st) + row0 + gq;
+    const uint32_t b_base = smem_addr(st + X_BYTES);
+    // one wgmma group per 8-deep step; the A fragments of two steps live at
+    // a time: a step's registers are reused once its group has completed
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t(&h)[4] = ah[ks & 1];
+      uint32_t(&l)[4] = al[ks & 1];
+      // A fragment: (row gq, k tq), (gq + 8, tq), (gq, tq + 4), (gq + 8, tq + 4)
+      const float v[4] = {xs[(8 * ks + tq) * LDX], xs[(8 * ks + tq) * LDX + 8], xs[(8 * ks + tq + 4) * LDX], xs[(8 * ks + tq + 4) * LDX + 8]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        h[q] = tf32(v[q]);
+        l[q] = tf32(v[q] - __uint_as_float(h[q]));
+      }
+      // one wgmma spans two core matrices along k
+      const uint64_t bh = descriptor(b_base + ks * 2 * CORE, CORE, SBO);
+      const uint64_t bl = descriptor(b_base + PLANE + ks * 2 * CORE, CORE, SBO);
+      wgmma_fence();
+      wgmma_tf32(part, l, bh, ks > 0);
+      wgmma_tf32(part, h, bl, 1);
+      wgmma_tf32(part, h, bh, 1);
+      wgmma_commit();
+      if (ks > 0) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          pin(ah[(ks - 1) & 1][q]);
+          pin(al[(ks - 1) & 1][q]);
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      pin(ah[(KSTEPS - 1) & 1][q]);
+      pin(al[(KSTEPS - 1) & 1][q]);
+    }
+#pragma unroll
+    for (int q = 0; q < ACC; ++q) {
+      pin(part[q]);
+      acc[q] += part[q];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the output tile [l][n]
+
+  // accumulator j: column n = row0 + gq (+8 for j % 4 >= 2), row l =
+  // (j / 4) * 8 + 2 tq (+1 for odd j)
+  float* os = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) os[((j / 4) * 8 + 2 * tq + (j & 1)) * LDO + row0 + gq + 8 * ((j / 2) & 1)] = acc[j];
+  __syncthreads();
+  for (int e = tid; e < l_valid * CPR; e += THREADS) {
+    const int r = e / CPR, c = (e % CPR) * VEC;
+    if (c < n_valid) *reinterpret_cast<V*>(o_base + r * MN + c) = *reinterpret_cast<const V*>(os + r * LDO + c);
+  }
+}
+
+template <int VEC>
+int launch(const uint32_t* planes, const float* x, float* out, int B, int M, int L, int K, int Lp, int Kp, int N, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(legendre_analysis_tc_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int n_ltiles = (L + BL - 1) / BL;
+  const dim3 grid(n_ltiles * ((N + BN - 1) / BN), M, B);
+  legendre_analysis_tc_kernel<VEC><<<grid, THREADS, SMEM, s>>>(planes, x, out, M, L, K, Lp, Kp, N, n_ltiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 // dtype: 0 float32, 1 bfloat16. mode: 0 analysis, 1 synthesis.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mt_legendre_contract(int dtype, const void* table, const void* x, void* out, int B, int M, int rows, int depth, int N, int mode,
@@ -174,6 +392,25 @@ extern "C" int mt_legendre_contract(int dtype, const void* table, const void* x,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K1, fp32 on the tensor cores. planes: uint32 (2, M, Lp, Kp), the TF32 high
+// and low parts of the analysis table (M, L, K), zero-padded to Lp (a
+// multiple of 64) and Kp (a multiple of 32); x: float32 (B, K, M, N); out:
+// float32 (B, L, M, N); N even. Returns cudaGetLastError() after the launch,
+// or an argument error without launching.
+extern "C" int mt_legendre_analysis_tc(const void* planes, const void* x, void* out, int B, int M, int L, int K, int Lp, int Kp, int N,
+                                       void* stream) {
+  if (B <= 0 || M <= 0 || L <= 0 || K <= 0 || N <= 0 || N % 2 || B > 65535 || M > 65535 || Lp < L || Lp % tc::BL || Kp < K || Kp % tc::BK)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t io = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  if (reinterpret_cast<uintptr_t>(planes) % 16 || io % 8) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* p = static_cast<const uint32_t*>(planes);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (N % 4 == 0 && io % 16 == 0) return tc::launch<4>(p, xf, of, B, M, L, K, Lp, Kp, N, s);
+  return tc::launch<2>(p, xf, of, B, M, L, K, Lp, Kp, N, s);
 }
 
 extern "C" const char* mt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

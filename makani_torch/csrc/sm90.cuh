@@ -1,0 +1,53 @@
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
+// (K1 in sht_legendre.cu, K3 in dhconv.cu) and the cp.async staging of K5:
+// asynchronous copies into shared memory, the TF32 split of 3xTF32, and the
+// wgmma fences and shared-memory matrix descriptors.
+#pragma once
+
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int CORE = 128;  // a wgmma core matrix: 8 rows x 16 bytes
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
+
+// copies BYTES (4, 8 or 16) from src, or writes BYTES zeros when !pred (src is not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(BYTES), "r"(pred ? BYTES : 0));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// fp32 -> TF32 (round to nearest, ties away), as the 32-bit pattern wgmma reads
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// shared-memory matrix descriptor: K-major, no swizzle; lbo is the byte
+// distance between core matrices along k, sbo between 8-row groups
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, int lbo, int sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// waits until at most N of the warpgroup's committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+// generic-proxy shared stores (st.shared, cp.async) made visible to the wgmmas (async proxy)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// pins a register's reads and writes after an asynchronous wgmma's wait
+__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
+
+}  // namespace sm90

@@ -27,7 +27,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "count_launch", "build", "library"
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("sht_legendre.cu", "dhconv.cu", "disco_band.cu", "disco_polar.cu")
-_HEADERS = ("convert.cuh",)
+_HEADERS = ("convert.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -111,9 +111,11 @@ def library() -> ctypes.CDLL:
             vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.mt_legendre_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_legendre_contract.restype = i
+            lib.mt_legendre_analysis_tc.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
+            lib.mt_legendre_analysis_tc.restype = i
             lib.mt_dhconv_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_contract.restype = i
-            lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [vp]
+            lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [vp]
             lib.mt_disco_band_contract.restype = i
             lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_disco_polar.restype = i

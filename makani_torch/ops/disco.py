@@ -540,6 +540,24 @@ def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_
     )
 
 
+def live_tap_runs(psi_band: np.ndarray) -> np.ndarray:
+    """K5's tap table of one phase: psi_band (K, Hout, BL, WW) -> (Hout, BL, 2)
+    int32, for each (h, j) the run [lo, hi) of w where some psi_k is
+    nonzero, or (0, 0) where none is. A weight-fused filter w (x) psi is zero
+    wherever every psi_k is, so one table serves both modes. Raises if a
+    row's support is not one contiguous run."""
+    live = (np.asarray(psi_band) != 0).any(axis=0)  # (Hout, BL, WW)
+    WW = live.shape[-1]
+    count = live.sum(axis=-1)
+    lo = np.where(count > 0, live.argmax(axis=-1), 0)
+    hi = np.where(count > 0, WW - live[..., ::-1].argmax(axis=-1), 0)
+    split = count != hi - lo
+    if split.any():
+        h, j = (int(v[0]) for v in np.nonzero(split))
+        raise ValueError(f"DISCO tap table: the support of latitude {h}, band row {j} is not one contiguous run of longitudes")
+    return np.stack([lo, hi], axis=-1).astype(np.int32)
+
+
 def _pad_outputs(F: torch.Tensor) -> torch.Tensor:
     """Zero-pad the trailing output axis of a K5 filter to the kernel's
     outputs per thread (1 for a single output, else a multiple of 9)."""
@@ -614,6 +632,10 @@ class DiscoConvS2:
     def band_start_table(self, device) -> torch.Tensor:
         return self._tensor("band_start", device, lambda: self.band_start.astype(np.int32))
 
+    def tap_table(self, p: int, device) -> torch.Tensor:
+        """K5's live taps of phase p, (Hout, BL, 2) int32 (``live_tap_runs``)."""
+        return self._tensor(f"taps_{p}", device, lambda: live_tap_runs(self.psi_band[p]))
+
     def polar_index(self, device):
         """(input rows of the polar bands, flattened (P*BL,), and the polar
         output rows (P,)), int64."""
@@ -644,6 +666,7 @@ class DiscoConvS2:
                 F(p),
                 self.band_start_table(x.device),
                 out,
+                taps=self.tap_table(p, x.device),
                 a=a,
                 off=int(self.bases[p]) - self.halo,
                 n_out=Wout // b,

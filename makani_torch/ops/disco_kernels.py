@@ -12,7 +12,11 @@ grouped convolution of ``makani_tpu/ops/disco.py`` (``DiscoConvS2.__call__``
 ``_fused_dense`` computes the same function). Its plain version is the JAX
 package's own formulation: the band rows gathered (BL times the input, never
 the WW-fold window), then one grouped ``conv1d`` with a group per output
-latitude, chunked over the channel axis to bound memory.
+latitude, chunked over the channel axis to bound memory. The kernel sums
+only the filter's live taps: ``taps`` (Hout, BL, 2) int32 holds, for each
+output latitude h and band row j, the one run [lo, hi) of w outside which
+F is zero (``ops.disco.live_tap_runs``); the plain version sums the dense
+window.
 
 K6 (``polar_psi_first`` / ``polar_mix_first``, CUDA C++ in
 ``csrc/disco_polar.cu``): the polar rows' conjugate multiply-sum between
@@ -48,7 +52,9 @@ __all__ = [
 _PLAIN_CHUNK_BYTES = 1 << 30
 
 
-def _check_band_args(x, F_, out, Gf, IG, OG):
+def _check_band_args(x, F_, out, Gf, IG, OG, taps=None):
+    if taps is not None and (taps.dtype != torch.int32 or tuple(taps.shape) != (F_.shape[0], F_.shape[3], 2) or not taps.is_contiguous()):
+        raise ValueError(f"disco_band: taps must be a contiguous int32 (Hout, BL, 2) = {(F_.shape[0], F_.shape[3], 2)} table, got {taps.dtype} {tuple(taps.shape)}")
     if x.dim() != 4 or F_.dim() != 6 or out.dim() != 4:
         raise ValueError(f"disco_band: expected x (B,H,W,C), F (Hout,Gf,IG,BL,WW,OGp), out (B,Hout,Wout,Cout); got {tuple(x.shape)}, {tuple(F_.shape)}, {tuple(out.shape)}")
     C = x.shape[-1]
@@ -58,10 +64,11 @@ def _check_band_args(x, F_, out, Gf, IG, OG):
         raise ValueError(f"disco_band: out {tuple(out.shape)} does not match x {tuple(x.shape)} and F {tuple(F_.shape)}")
 
 
-def band_contract_plain(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, IG, OG):
+def band_contract_plain(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, IG, OG, taps=None):
     """Plain K5: writes ``out[:, :, phase::phases]`` (see the module
-    docstring). x is a (B, Hin, Win, C) view of any strides."""
-    _check_band_args(x, F_, out, Gf, IG, OG)
+    docstring). x is a (B, Hin, Win, C) view of any strides. It sums the
+    dense window; ``taps``, where given, is only checked."""
+    _check_band_args(x, F_, out, Gf, IG, OG, taps)
     B, Hin, Win, C = x.shape
     Hout, _, _, BL, WW, _ = F_.shape
     R = C // (Gf * IG)
@@ -83,17 +90,18 @@ def band_contract_plain(x, F_, band_start, out, *, a, off, n_out, phase, phases,
     return out
 
 
-def band_contract(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, IG, OG):
+def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases, Gf, IG, OG):
     """K5 on the card, the plain version on the CPU; writes
     ``out[:, :, phase::phases]`` and returns out.
 
     x: float32 (B, Hin, Win, G*IG) view of any strides; F_: float32
     (Hout, Gf, IG, BL, WW, OGp) contiguous, zero-padded on the outputs to
     OGp (1 for OG == 1, else a multiple of 9); band_start: int32 (Hout,);
-    out: float32 (B, Hout, Wout, G*OG) contiguous."""
-    if kernels.takes_plain("disco_band", x, F_, band_start, out):
-        return band_contract_plain(x, F_, band_start, out, a=a, off=off, n_out=n_out, phase=phase, phases=phases, Gf=Gf, IG=IG, OG=OG)
-    _check_band_args(x, F_, out, Gf, IG, OG)
+    taps: int32 (Hout, BL, 2), the live run [lo, hi) of w of each (h, j),
+    F zero outside it; out: float32 (B, Hout, Wout, G*OG) contiguous."""
+    if kernels.takes_plain("disco_band", x, F_, band_start, taps, out):
+        return band_contract_plain(x, F_, band_start, out, taps=taps, a=a, off=off, n_out=n_out, phase=phase, phases=phases, Gf=Gf, IG=IG, OG=OG)
+    _check_band_args(x, F_, out, Gf, IG, OG, taps)
     if x.dtype != torch.float32 or F_.dtype != torch.float32 or out.dtype != torch.float32 or band_start.dtype != torch.int32:
         raise TypeError(f"disco_band: takes float32 x, F and out and int32 band_start, got {x.dtype}, {F_.dtype}, {out.dtype}, {band_start.dtype}")
     if not (F_.is_contiguous() and out.is_contiguous() and band_start.is_contiguous()):
@@ -107,14 +115,12 @@ def band_contract(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, I
     sB, sH, sW, sC = x.stride()
     with torch.cuda.device(x.device):
         err = lib.mt_disco_band_contract(
-            x.data_ptr(), F_.data_ptr(), band_start.data_ptr(), out.data_ptr(), B, Hin, Win, sB, sH, sW, sC, Hout, Wout,
+            x.data_ptr(), F_.data_ptr(), band_start.data_ptr(), taps.data_ptr(), out.data_ptr(), B, Hin, Win, sB, sH, sW, sC, Hout, Wout,
             C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, kernels.stream_ptr(x.device),
         )
     kernels.check_launch(err, "disco_band")
     kernels.count_launch("disco_band")
     return out
-
-
 
 
 def polar_psi_first_plain(X: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:

@@ -9,12 +9,16 @@ with the quadrature weights and 2 pi folded into the analysis table. The two
 Legendre contractions are the hand-written kernels K1 (analysis) and K2
 (synthesis) in ``csrc/sht_legendre.cu``; each has its plain PyTorch version
 here. Tables are float64 numpy computations stored as fp32 (and cast to bf16
-for bf16 input), cached per device and dtype on the transform object.
+for bf16 input), cached per device and dtype on the transform object. The
+fp32 K1 runs on the tensor cores in 3xTF32 and reads the table's TF32 high
+and low planes, zero-padded to its tiles (``analysis_planes``), made once
+per table tensor; the plain version reads the table itself.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -32,6 +36,8 @@ __all__ = [
     "synthesis_contract_cl_s",
     "analysis_contract_cl_s_plain",
     "synthesis_contract_cl_s_plain",
+    "analysis_planes",
+    "tf32_split",
 ]
 
 
@@ -47,6 +53,41 @@ def synthesis_contract_cl_s_plain(c2: torch.Tensor, pct: torch.Tensor) -> torch.
 
 # Kernel K1/K2 modes of mt_legendre_contract (csrc/sht_legendre.cu)
 _ANALYSIS, _SYNTHESIS = 0, 1
+# K1's tensor-core tile: rows l per block and depth k per stage; its table
+# planes are zero-padded to multiples of these
+_TC_ROWS, _TC_DEPTH = 64, 32
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 t -> (hi, lo), both fp32 values with TF32's 10 mantissa bits:
+    hi is t rounded to nearest with ties away from zero (``cvt.rna``), lo is
+    the residual t - hi rounded the same way. hi + lo holds t to ~2**-22."""
+
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+# id(table) -> (table._version, planes); an entry leaves with its table
+_PLANES: dict = {}
+
+
+def analysis_planes(weights: torch.Tensor) -> torch.Tensor:
+    """The fp32 K1's copy of an analysis table (M, L, K): its TF32 high and
+    low planes, zero-padded along l and k to K1's tiles, (2, M, Lp, Kp)
+    fp32. Made once per table tensor (and again if it is written to)."""
+    key = id(weights)
+    hit = _PLANES.get(key)
+    if hit is None or hit[0] != weights._version:
+        if hit is None:
+            weakref.finalize(weights, _PLANES.pop, key, None)
+        M, L, K = weights.shape
+        pad = (0, -K % _TC_DEPTH, 0, -L % _TC_ROWS)
+        planes = torch.stack([torch.nn.functional.pad(p, pad) for p in tf32_split(weights)]).contiguous()
+        hit = _PLANES[key] = (weights._version, planes)
+    return hit[1]
 
 
 def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -68,9 +109,13 @@ def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor)
         return out
     lib = kernels.library()
     with torch.cuda.device(x.device):
-        err = lib.mt_legendre_contract(
-            kernels.dtype_code(x.dtype), table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, rows, depth, 2 * C, mode, kernels.stream_ptr(x.device)
-        )
+        stream = kernels.stream_ptr(x.device)
+        if mode == _ANALYSIS and x.dtype == torch.float32:
+            planes = analysis_planes(table)
+            Lp, Kp = planes.shape[2:]
+            err = lib.mt_legendre_analysis_tc(planes.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, Lp, Kp, 2 * C, stream)
+        else:
+            err = lib.mt_legendre_contract(kernels.dtype_code(x.dtype), table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, rows, depth, 2 * C, mode, stream)
     kernels.check_launch(err, name)
     kernels.count_launch(name)
     return out
@@ -81,6 +126,7 @@ def analysis_contract_cl_s(xf2: torch.Tensor, weights: torch.Tensor) -> torch.Te
 
     Replaces ``makani_tpu/ops/sht.py`` ``_analysis_contract_cl_s``. ``weights``
     must already be in ``xf2``'s dtype on the card (``RealSHT`` caches it so).
+    fp32 runs on the tensor cores (3xTF32), bf16 on the fp32 FMA kernel.
     """
     if kernels.takes_plain("sht_analysis", xf2, weights):
         return analysis_contract_cl_s_plain(xf2, weights)

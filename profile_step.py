@@ -40,7 +40,8 @@ def group(name: str) -> str:
         ("psi_first", "K6 disco_polar psi-first (CUDA)"),
         ("mix_first", "K6 disco_polar mix-first (CUDA)"),
         ("resample", "K7 resample (Triton)"),
-        ("legendre", "K1/K2 Legendre (CUDA)"),
+        ("legendre_analysis_tc", "K1 Legendre analysis (CUDA, wgmma)"),
+        ("legendre", "K2 Legendre synthesis (CUDA)"),
         ("dhconv", "K3 dhconv (CUDA)"),
         ("stats_partial", "K4 instance norm (Triton)"),
         ("stats_finalize", "K4 instance norm (Triton)"),

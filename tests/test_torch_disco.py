@@ -173,3 +173,40 @@ def test_polar_ffts_transform_the_last_axis(path, monkeypatch):
         tc.fused_cl(x, torch.from_numpy(rng.standard_normal((g, og, ig, tc.K)).astype(np.float32)))
     assert [c[0] for c in calls] == ["rfft"] + ["irfft"] * tc.phases
     assert all(d in (-1, n - 1) and contiguous for _, d, n, contiguous in calls), calls
+
+
+# the GPU tests' DISCO shapes (stride 2; stride 1; 3 phases) and an encoder-
+# like stride-2 shape
+TAP_SHAPES = [((33, 64), (17, 32)), ((24, 48), (24, 48)), ((13, 32), (11, 24)), SHAPES[0]]
+
+
+@pytest.mark.parametrize("in_shape,out_shape", TAP_SHAPES)
+def test_live_tap_table(in_shape, out_shape):
+    """K5's tap table, scattered back into a (Hout, BL, WW) mask, is exactly
+    where some psi_k is nonzero; its dead latitudes are exactly the polar
+    rows; a fused filter w (x) psi is zero outside its runs."""
+    conv = disco.DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    w = torch.from_numpy((0.2 * np.random.default_rng(6).standard_normal((3, 2, 4, conv.K))).astype(np.float32))
+    cache = disco.FusedFilterCache()
+    for p in range(conv.phases):
+        taps = conv.tap_table(p, "cpu")
+        assert taps.dtype == torch.int32 and taps.shape == (conv.out_shape[0], conv.BL, 2)
+        lo, hi = taps[..., :1], taps[..., 1:]
+        wv = torch.arange(conv.WW)
+        mask = (wv >= lo) & (wv < hi)
+        assert torch.equal(mask, torch.from_numpy((conv.psi_band[p] != 0).any(axis=0)))
+        dead = torch.nonzero(~mask.any(dim=(1, 2))).flatten().tolist()
+        assert dead == conv.polar_rows
+        F_ = cache.get(conv, w, p)  # (Hout, Gf, IG, BL, WW, OGp)
+        assert not F_.permute(0, 3, 4, 1, 2, 5)[~mask].any()
+
+
+def test_live_tap_table_refuses_split_rows():
+    psi = np.zeros((2, 3, 2, 7), np.float32)
+    psi[0, 1, 0, 1:3] = 1.0
+    psi[1, 2, 1, 4] = -1.0
+    runs = disco.live_tap_runs(psi)
+    assert runs.tolist() == [[[0, 0], [0, 0]], [[1, 3], [0, 0]], [[0, 0], [4, 5]]]
+    psi[1, 1, 0, 5] = 2.0  # a second run in latitude 1, band row 0
+    with pytest.raises(ValueError, match="latitude 1, band row 0"):
+        disco.live_tap_runs(psi)

@@ -58,7 +58,16 @@ def _randn(shape, dtype, device, seed=0):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32)).to(device=device, dtype=dtype)
 
 
-SHT_CASES = [(25, 48, "equiangular", None, None, 5), (13, 24, "legendre-gauss", 10, 9, 3), (91, 180, "equiangular", 70, 71, 40)]
+# (721, 1440, ..., 8): K1's full 721-deep sum, where the tensor cores'
+# truncating accumulation would show; C 37: rows of 74 floats, not 16-byte
+# aligned (K1 then copies and stores 8 bytes at a time)
+SHT_CASES = [
+    (25, 48, "equiangular", None, None, 5),
+    (13, 24, "legendre-gauss", 10, 9, 3),
+    (91, 180, "equiangular", 70, 71, 40),
+    (91, 180, "equiangular", 70, 71, 37),
+    (721, 1440, "equiangular", 240, 241, 8),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -136,13 +145,17 @@ def test_wrappers_refuse_mixed_devices(cuda):
 DISCO_SHAPES = [((33, 64), (17, 32)), ((24, 48), (24, 48)), ((13, 32), (11, 24))]
 
 
+@pytest.mark.parametrize("C", [37, 130])
 @pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
-def test_disco_band_and_polar_kernels_match_plain(cuda, in_shape, out_shape):
+def test_disco_band_and_polar_kernels_match_plain(cuda, in_shape, out_shape, C):
     """K5 in responses mode on a channels-last and an NCHW input, and K6 in
-    the responses order, through DiscoConvS2.responses_cl (phases b > 1 in
-    the last shape)."""
+    the responses order, through DiscoConvS2.responses_cl (stride 2 in the
+    first shape, phases b > 1 in the last; C 130 takes K5's 32-channel
+    tiles, C 37 its 8-channel ones). The latitudes with no live tap (the
+    polar rows) hold +0 in t. The plain version sums in cuDNN's order, so
+    bit equality is not asserted."""
     conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
-    x = _randn((2, 37, *in_shape), torch.float32, cuda)
+    x = _randn((2, C, *in_shape), torch.float32, cuda)
     for view in (x.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1).contiguous()):
         kernels.reset_launch_counts()
         t, tp = conv.responses_cl(view)
@@ -150,6 +163,8 @@ def test_disco_band_and_polar_kernels_match_plain(cuda, in_shape, out_shape):
         assert kernels.LAUNCHES["disco_band"] == conv.phases and kernels.LAUNCHES["disco_polar"] == conv.phases
         rt, rtp = conv.responses_cl(view, use_kernels=False)
         assert _agree(t, rt, torch.float32) and _agree(tp, rtp, torch.float32)
+        dead = t[:, conv.polar_rows]
+        assert torch.equal(dead, torch.zeros_like(dead)) and bool((dead.view(torch.int32) == 0).all())
 
 
 @pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
@@ -198,11 +213,17 @@ def test_disco_band_refuses_wrong_inputs(cuda):
     conv = DiscoConvS2((24, 48), (24, 48), (3, 3), basis_type="morlet th")
     x = _randn((1, 24, 48, 3), torch.bfloat16, cuda)
     out = torch.empty(1, 24, 48, 3 * conv.K, device=cuda)
+    taps = conv.tap_table(0, cuda)
     kw = dict(a=1, off=0, n_out=48, phase=0, phases=1, Gf=1, IG=1, OG=conv.K)
+    F_, bs = conv.band_filter(0, cuda), conv.band_start_table(cuda)
     with pytest.raises(TypeError):
-        disco_kernels.band_contract(x, conv.band_filter(0, cuda), conv.band_start_table(cuda), out, **kw)
+        disco_kernels.band_contract(x, F_, bs, out, taps=taps, **kw)
     with pytest.raises(ValueError):
-        disco_kernels.band_contract(x.float(), conv.band_filter(0, "cpu"), conv.band_start_table(cuda), out, **kw)
+        disco_kernels.band_contract(x.float(), conv.band_filter(0, "cpu"), bs, out, taps=taps, **kw)
+    # malformed tap tables: wrong dtype, wrong shape, not contiguous, on the CPU
+    for bad in (taps.long(), taps[:, :-1].contiguous(), taps.transpose(0, 1).contiguous().transpose(0, 1), taps.cpu()):
+        with pytest.raises(ValueError):
+            disco_kernels.band_contract(x.float(), F_, bs, out, taps=bad, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -23,8 +23,10 @@ from makani_torch.ops.sht import (
     RealSHT,
     analysis_contract_cl_s,
     analysis_contract_cl_s_plain,
+    analysis_planes,
     synthesis_contract_cl_s,
     synthesis_contract_cl_s_plain,
+    tf32_split,
 )
 
 GRIDS = [(25, 48, "equiangular", None, None), (12, 24, "legendre-gauss", None, None), (25, 48, "equiangular", 10, 8)]
@@ -99,3 +101,31 @@ def test_kernel_wrappers_take_plain_on_cpu_without_counting():
     assert kernels.LAUNCHES["sht_analysis"] == 0 and kernels.LAUNCHES["sht_synthesis"] == 0
     with pytest.raises(ValueError):
         analysis_contract_cl_s(xf2, w.to("meta"))
+
+
+@pytest.mark.parametrize("nlat,nlon,grid,lmax,mmax", [GRIDS[0], GRIDS[2]])
+def test_k1_table_planes_leave_the_plain_path_and_hold_the_table(nlat, nlon, grid, lmax, mmax):
+    """K1's padded TF32 planes of the analysis table: building them leaves the
+    table, the plain contraction and the JAX parity unchanged; they are
+    zero-padded to K1's tiles, carry TF32's 10 mantissa bits, and the three
+    products the kernel sums (hi.hi + hi.lo + lo.hi) give the plain result
+    to 1e-6 of max|ref|."""
+    sht = RealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    w = sht.weights("cpu")
+    x = np.random.default_rng(5).standard_normal((2, nlat, nlon, 3)).astype(np.float32)
+    xf2 = fft_compat.rfft_cl_s(torch.from_numpy(x), n=nlon, norm="forward", mout=sht.mmax)
+    before, table = analysis_contract_cl_s_plain(xf2, w), w.clone()
+    planes = analysis_planes(w)
+    assert analysis_planes(w) is planes
+    M, L, K = w.shape
+    assert planes.shape == (2, M, -(-L // 64) * 64, -(-K // 32) * 32) and planes.dtype == torch.float32
+    assert not planes[:, :, L:].any() and not planes[:, :, :, K:].any()
+    assert not (planes.view(torch.int32) & 0x1FFF).any()
+    hi, lo = planes[0, :, :L, :K].double(), planes[1, :, :L, :K].double()
+    assert torch.max(torch.abs(hi + lo - w.double())) <= 2.0**-21 * torch.max(torch.abs(w.double()))
+    assert torch.equal(w, table) and torch.equal(analysis_contract_cl_s_plain(xf2, w), before)
+    xh, xl = (t.double() for t in tf32_split(xf2))
+    three = sum(torch.einsum("...kmcr,mlk->...lmcr", a, b) for a, b in ((xh, hi), (xh, lo), (xl, hi)))
+    assert torch.max(torch.abs(three - before.double())) <= 1e-6 * torch.max(torch.abs(before.double()))
+    ref = JRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid).analysis_cl(jnp.asarray(x))
+    _check(sht.analysis_cl(torch.from_numpy(x)), ref, "float32")
