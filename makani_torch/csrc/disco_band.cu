@@ -53,7 +53,9 @@
 // output goes through shared memory, one column's TG*OG contiguous floats
 // at a time, and leaves in 16-byte stores along (g, o) after a scalar head
 // that reaches 16-byte alignment (G*OG is odd at the processor). Launch
-// bounds give two blocks an SM (128 registers).
+// bounds give two blocks an SM: 125-127 registers and no spills (the ptxas
+// lines that chip_smoke.py prints); 103 KB of shared memory a block at the
+// processor, 66 KB at the decoders.
 //
 // What holds it back at the processor: the row copies and the FMAs with
 // the stores each take a large part of the time and overlap only in part;
