@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device, nvcc (CUDA toolkit) and triton; exits non-zero, with no
+Needs one CUDA device, nvcc (CUDA toolkit) and triton (K4); exits non-zero, with no
 result line, without them or outside a checkout of the repository. Phases, in
 order, each fatal on failure:
 
@@ -56,6 +56,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -114,6 +116,28 @@ def device() -> torch.device:
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: its name
+    (demangled by c++filt where the machine has it), registers, shared
+    memory and spills."""
+    name, spill, out = "?", "", []
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((name, f"{line.split(':', 1)[-1].strip()}; {spill}"))
+            spill = ""
+    filt = shutil.which("c++filt")
+    if filt and out:
+        res = subprocess.run([filt], input="\n".join(n for n, _ in out), capture_output=True, text=True)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(out):
+            out = [(n.rsplit("(", 1)[0], d) for n, (_, d) in zip(res.stdout.splitlines(), out)]
+    return [f"{n}: {d}" for n, d in out]
 
 
 def errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -195,7 +219,7 @@ def run_cases(cases, card, results, iters=10, warmup=2):
         ok = within(err, dtype)
         dt = str(dtype).replace("torch.", "")
         more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "library_ms") if extra.get(k) is not None)
-        more += "".join(f"; {extra[k]}" for k in ("live", "library_note") if extra.get(k))
+        more += "".join(f"; {extra[k]}" for k in ("route", "live", "library_note") if extra.get(k))
         print(
             f"kernel {name:13s} {label:17s} {dt:8s} out {shape}: max|d| {err['max_abs_err']:.3e} "
             f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; "
@@ -211,8 +235,11 @@ def run_cases(cases, card, results, iters=10, warmup=2):
 
 def legendre_extras(x, table, mode, lead):
     """Bound and bmm yardstick of K1 (mode 0) / K2 (mode 1): for each order m
-    one GEMM (rows x depth) . (depth x B*N); the table's zero triangle
-    (m > l) is work the data does not need."""
+    one GEMM (rows x depth) . (depth x B*N). The table's zero triangle
+    (m > l) is work and bytes the data does not need: the bound counts its
+    m <= l entries only."""
+    from makani_torch.ops import sht
+
     M, L, K = table.shape
     BN = x.numel() // (x.shape[-4] * M)
     if mode == 0:
@@ -222,17 +249,48 @@ def legendre_extras(x, table, mode, lead):
 
     def extras(out):
         flops = 2.0 * torch.count_nonzero(table).item() * BN
+        pairs = sum(max(L - m, 0) for m in range(M))  # (m, l) with m <= l
+        table_bytes = pairs * K * table.element_size()
         lib = time_ms(lambda: torch.bmm(A, Xp), 5, 1)
-        res = dict(bound(flops, nbytes(x, table, out), x.dtype), library_ms=lib)
+        res = dict(bound(flops, nbytes(x, out) + table_bytes, x.dtype), library_ms=lib)
         if mode == 0:
             # K1's 64-row l tiles: a tile whose rows all lie above the
             # diagonal (l < m) is dead and reads nothing
             n_lt = -(-L // 64)
             live = sum(1 for m in range(M) for lt in range(n_lt) if min(64 * lt + 64, L) > m)
             res["live"] = f"live (m, l-tile) pairs {live}/{M * n_lt} ({live / (M * n_lt):.1%})"
+        elif x.dtype == torch.float32:
+            res["route"] = f"route {sht.synthesis_route(2 * x.shape[-2])} (N {2 * x.shape[-2]})"
         return res
 
     return extras
+
+
+def k2_routes(table, label, Ns, gen, card):
+    """K2's two fp32 routes on one table at each N = 2C, both held to the
+    plain version and timed in turns (narrow, tc, tc, narrow): the numbers
+    behind the crossover in ``sht.synthesis_route``. The tensor-core route
+    gets its own copy of the table, so its planes leave with it."""
+    from makani_torch.ops import sht
+
+    M, L, K = table.shape
+    tab = table.clone()
+    for N in Ns:
+        c = randn((1, L, M, N // 2, 2), torch.float32, gen, table.device)
+        ref = sht.synthesis_contract_cl_s_plain(c, table)
+        runs = {"narrow": lambda: sht._legendre_launch("sht_synthesis", sht._SYNTHESIS, c, table, "narrow"),
+                "tc": lambda: sht._legendre_launch("sht_synthesis", sht._SYNTHESIS, c, tab, "tc")}
+        ms = {r: [] for r in runs}
+        for r in ("narrow", "tc", "tc", "narrow"):
+            err = errors(runs[r](), ref)
+            if not within(err, torch.float32):
+                raise RuntimeError(f"K2 {r} route at {label}, N {N}, disagrees with the plain version: {err}")
+            ms[r].append(time_ms(runs[r], 5, 1))
+        print(f"K2 routes at {label} (M, L, K) {tuple(table.shape)}, N {N}: narrow {statistics.mean(ms['narrow']):.3f} ms, "
+              f"tc {statistics.mean(ms['tc']):.3f} ms (each the mean of two timings; wrapper picks {sht.synthesis_route(N)})  [{card}]", flush=True)
+        del c, ref
+    del tab
+    torch.cuda.empty_cache()
 
 
 def dhconv_extras(x, w):
@@ -275,12 +333,12 @@ def check_sfno_kernels(dev, card, transforms, embed_dim):
         for label, t in (("full", trans_down), ("internal", trans)):
             x = randn((1, t.nlat, t.mmax, C, 2), dtype, gen, dev)
             w = t.weights(dev, dtype)
-            ex = legendre_extras(x, w, 0, 1) if main and label == "full" else None
+            ex = legendre_extras(x, w, 0, 1) if main else None
             cases.append(("sht_analysis", label, dtype, lambda x=x, w=w: sht.analysis_contract_cl_s(x, w), lambda x=x, w=w: sht.analysis_contract_cl_s_plain(x, w), ex))
         for label, t in (("full", itrans_up), ("internal", itrans)):
             c = randn((1, t.lmax, t.mmax, C, 2), dtype, gen, dev)
             p = t.pct(dev, dtype)
-            ex = legendre_extras(c, p, 1, 1) if main and label == "full" else None
+            ex = legendre_extras(c, p, 1, 1) if main else None
             cases.append(("sht_synthesis", label, dtype, lambda c=c, p=p: sht.synthesis_contract_cl_s(c, p), lambda c=c, p=p: sht.synthesis_contract_cl_s_plain(c, p), ex))
         x = randn((1, itrans.lmax, itrans.mmax, 1, C, 2), dtype, gen, dev)
         wd = randn((1, C, C, itrans.lmax, 2), torch.float32, gen, dev) * 0.05
@@ -311,10 +369,12 @@ def check_sfno_kernels(dev, card, transforms, embed_dim):
                     dtype,
                     lambda xn=xn, wn=wn, bn=bn, n=nlat_phys: instance_norm_cl(xn, wn, bn, n),
                     lambda xn=xn, wn=wn, bn=bn, n=nlat_phys: instance_norm_cl_plain(xn, wn, bn, n),
-                    norm_extras if label == "full" and dtype == torch.bfloat16 else None,
+                    norm_extras if label in ("full", "internal") and dtype == torch.bfloat16 else None,
                 )
             )
-    return run_cases(cases, card, {})
+    res = run_cases(cases, card, {})
+    k2_routes(itrans_up.pct(dev), "SFNO full res", (16, 32), gen, card)
+    return res
 
 
 def build_sfno(dev, compute_dtype=None):
@@ -586,6 +646,33 @@ def resample_case(rs, x, label):
     return ("resample", label, torch.float32, lambda: resample_cl(x, *tabs), lambda: resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v), extras)
 
 
+def k7_tiles(rs, x, card):
+    """K7 at each tile width (output columns per block) whose shared memory
+    fits the card, staged by cp.async and through registers, held to the
+    plain version and timed: the numbers behind ``resample._SMEM_BUDGET``
+    and ``resample._ASYNC``."""
+    from makani_torch import kernels
+    from makani_torch.ops import resample
+
+    tabs = rs.tables(x.device)
+    ref = resample.resample_cl_plain(x, tabs[0].long(), tabs[1], tabs[2].long(), tabs[3].long(), tabs[4])
+    spans = resample._spans(tabs[2], tabs[3], x.shape[2])
+    lib, C = kernels.library(), x.shape[-1]
+    line = []
+    for stage_async in (True, False) if x.dtype == torch.float32 else (False,):
+        for tw in resample._TILE_WIDTHS:
+            smem = lib.mt_resample_smem_bytes(stage_async, C, tw, spans[tw])
+            if smem > resample._SMEM_MAX:
+                continue
+            err = errors(resample._resample_launch(x, tabs, (tw, stage_async)), ref)
+            if not within(err, x.dtype):
+                raise RuntimeError(f"K7 at tile width {tw} ({'cp.async' if stage_async else 'registers'}) disagrees with the plain version: {err}")
+            ms = time_ms(lambda: resample._resample_launch(x, tabs, (tw, stage_async)), 3, 1)
+            line.append(f"TW {tw} {'cp.async' if stage_async else 'registers'} (span {spans[tw]}, {smem} B) {ms:.3f} ms")
+    print(f"K7 tiles at {tuple(x.shape)} -> {tuple(ref.shape)}: " + "; ".join(line) + f"  [{card}]", flush=True)
+    del ref
+
+
 def check_fcn3_kernels(dev, card, net, noise, B):
     """Phase 8: the FCN3 path's kernels at its shapes (B = the folded
     ensemble), against their plain versions."""
@@ -626,7 +713,10 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     g, og, ig, K = wt.shape
     R = net.n_atmo_groups
     z = randn((B, h, w, net.block1.out_chans), torch.float32, gen, dev)
-    run_cases([resample_case(dec.resample, z[..., : R * g * ig], "atmo-decoder")], card, results, 3, 1)
+    sd = net.surf_decoder
+    run_cases([resample_case(dec.resample, z[..., : R * g * ig], "atmo-decoder"),
+               resample_case(sd.resample, z[..., z.shape[-1] - net.surf_embed_dim :], "surf-decoder")], card, results, 3, 1)
+    k7_tiles(dec.resample, z[..., : R * g * ig], card)
     del z
     xd = randn((B, H, W, R * g * ig), torch.float32, gen, dev)
     cases = [band_case(op, xd, FusedFilterCache().get(op, wt, 0), g, ig, og, "atmo-decoder")]
@@ -651,11 +741,13 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     pn = isht.pct(dev)
     cases = [
         ("sht_analysis", "fcn3-internal", torch.float32, lambda: sht.analysis_contract_cl_s(xf, wa), lambda: sht.analysis_contract_cl_s_plain(xf, wa), legendre_extras(xf, wa, 0, B)),
-        ("sht_synthesis", "fcn3-internal", torch.float32, lambda: sht.synthesis_contract_cl_s(c2, pa), lambda: sht.synthesis_contract_cl_s_plain(c2, pa), None),
+        ("sht_synthesis", "fcn3-internal", torch.float32, lambda: sht.synthesis_contract_cl_s(c2, pa), lambda: sht.synthesis_contract_cl_s_plain(c2, pa), legendre_extras(c2, pa, 1, B)),
         ("dhconv", "fcn3-internal", torch.float32, lambda: contract_dense_s(xs, blk.weight, False, "dhconv", True, weight_cache=cache), lambda: contract_dense_s_plain(xs, blk.weight, False, "dhconv", True), dhconv_extras(xs, blk.weight.detach())),
-        ("sht_synthesis", "fcn3-noise", torch.float32, lambda: sht.synthesis_contract_cl_s(cn, pn), lambda: sht.synthesis_contract_cl_s_plain(cn, pn), None),
+        ("sht_synthesis", "fcn3-noise", torch.float32, lambda: sht.synthesis_contract_cl_s(cn, pn), lambda: sht.synthesis_contract_cl_s_plain(cn, pn), legendre_extras(cn, pn, 1, 1)),
     ]
     run_cases(cases, card, results, 3, 1)
+    del xf, c2, xs, cn, cases
+    k2_routes(pn, "the noise", (16, 32), gen, card)
     return results
 
 
@@ -762,9 +854,8 @@ def main() -> int:
     so = kernels.build()
     kernels.library()
     print(f"built {os.path.relpath(so, REPO)} in {time.perf_counter() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})", flush=True)
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for line in ptxas_lines(so.with_suffix(".log").read_text()):
+        print("  ptxas:", line)
 
     sfno_res, sfno_launches = sfno_phases(dev, card)
     torch.cuda.empty_cache()
@@ -780,7 +871,7 @@ def main() -> int:
         ("instance_norm", "triton", "makani_torch/models/common/layer_norm.py", "makani_tpu/models/common/layer_norm.py:78", sfno_res, ("full", torch.bfloat16), sfno_launches),
         ("disco_band", "cuda", "makani_torch/csrc/disco_band.cu", "scripts/r3/disco_pallas.py:27", fcn3_res, ("processor", f32), fcn3_launches),
         ("disco_polar", "cuda", "makani_torch/csrc/disco_polar.cu", "makani_tpu/ops/disco.py:686", fcn3_res, ("processor", f32), fcn3_launches),
-        ("resample", "triton", "makani_torch/ops/resample.py", "makani_tpu/ops/resample.py:90", fcn3_res, ("atmo-decoder", f32), fcn3_launches),
+        ("resample", "cuda", "makani_torch/csrc/resample.cu", "makani_tpu/ops/resample.py:90", fcn3_res, ("atmo-decoder", f32), fcn3_launches),
     ]
     table = []
     for name, route, source, replaces, res, (label, dtype), launches in meta:

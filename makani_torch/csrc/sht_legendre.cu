@@ -48,14 +48,42 @@
 // TF32 passes over the live tiles take ~0.25 ms at the tensor cores' 495
 // TFLOP/s, about the 0.26 ms its bytes need at 3.35 TB/s.
 //
-// bf16 input, and the synthesis (K2) in both types, stay on the fp32 FMA
+// The fp32 synthesis (K2 on the main paths) takes one of two routes, picked
+// by the wrapper (makani_torch/ops/sht.py synthesis_route) from N alone; a
+// failed launch of either raises, there is no fallback between them:
+//
+// * wide N (N > 32: the SFNO's 768, FCN3's 1354, noise ensembles of 8 and
+//   more members): legendre_synthesis_tc_kernel, K1's tensor-core kernel
+//   with the roles swapped. It computes D[n, k] = sum_l c[l, n] P[l, k],
+//   c the A operand from registers staged [l][n] as it lies in device
+//   memory, the table the K-major B operand from shared memory: its TF32
+//   planes transposed to [m][k][l] (l-contiguous), padded to 64 rows k and
+//   32 deep l (sht.synthesis_planes). The depth loop starts at the stage
+//   that holds l = m: the zero triangle (l < m) is neither read nor
+//   multiplied. Same stage partials, ring, one block an SM and stores
+//   through shared memory as K1.
+// * narrow N (N <= 32: the FCN3 noise, N = 16): legendre_synthesis_narrow_
+//   kernel streams the table once. At 721 x 721 x 721 the live (l >= m)
+//   triangle is 751 MB and the product 6 GFLOP: bound by the bytes
+//   (0.22 ms at 3.35 TB/s), and a 128-column tensor-core tile would leave
+//   7/8 of its columns empty and read two planes (1.5 GB). A block owns
+//   512 latitudes k of one b and walks the slabs P[m, l >= m, :] of two
+//   orders, m and M - 1 - m (so every block sums about L rows), reading
+//   each table row once, coalesced along k (16 bytes a thread where K % 4
+//   == 0, else 4 bytes a thread, 128 bytes a warp), four rows in flight a
+//   thread; c[b, l, m, :] is staged 32 rows l at a time in a cp.async
+//   double buffer and read as broadcasts; each thread holds 4 k x N
+//   fp32 accumulators (N padded to 16 or 32). Nothing is made from the
+//   table: the route is picked before any planes would be.
+//
+// The crossover N = 32 was measured on an H100 (chip_smoke.py prints both
+// routes at N = 16 and 32 at the SFNO's full-resolution and the noise's
+// tables; PERF.md). bf16 input (no main path runs it) stays on the fp32 FMA
 // kernel legendre_contract_kernel: 64 x 128 output tiles, each thread 4 x 8
 // accumulators fed by three 16-byte shared loads per 32 FMAs, 16-deep
-// stages double-buffered in shared memory, fp32 accumulation for fp32 and
-// bf16 alike. Its analysis writes the zero tiles above the diagonal without
-// reading anything, and its synthesis starts the depth loop at l = m. K2 on
-// the tensor cores needs an l-contiguous copy of the table for the K-major
-// B operand: later work.
+// stages double-buffered in shared memory, fp32 accumulation. Its analysis
+// writes the zero tiles above the diagonal without reading anything, and
+// its synthesis starts the depth loop at l = m.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,23 +216,25 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// ---- K1 fp32 analysis on the tensor cores ---------------------------------
+// ---- K1 and K2 in fp32 on the tensor cores ---------------------------------
 
 namespace tc {
 
 using namespace sm90;
 
+// In K1 the tile's rows r are degrees l and its depth d runs over latitudes
+// k; in K2 the rows are latitudes k and the depth runs over degrees l.
 constexpr int BN = 128;       // columns n per block: two warpgroups of 64 (wgmma M)
-constexpr int BL = 64;        // rows l per block (wgmma N)
+constexpr int BL = 64;        // rows r per block (wgmma N)
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int ACC = BL / 2;   // fp32 accumulators per thread of an m64n64 wgmma
-constexpr int LDX = BN + 8;   // x stage [k][n]: the A-fragment loads hit 32 banks
-constexpr int LDO = BN + 4;   // output tile [l][n]: the accumulator stores hit 32 banks
+constexpr int LDX = BN + 8;   // x stage [d][n]: the A-fragment loads hit 32 banks
+constexpr int LDO = BN + 4;   // output tile [r][n]: the accumulator stores hit 32 banks
 
-constexpr int BK = 32;        // depth k per stage
+constexpr int BK = 32;        // depth d per stage
 constexpr int STAGES = 3;     // cp.async ring
 constexpr int KSTEPS = BK / 8;
-constexpr int SBO = (BK / 4) * CORE + 16;  // bytes between 8-row (l) groups of a table plane
+constexpr int SBO = (BK / 4) * CORE + 16;  // bytes between 8-row groups of a table plane
 constexpr int PLANE = (BL / 8) * SBO;      // bytes of one table plane per stage
 constexpr int X_BYTES = BK * LDX * 4;
 constexpr int STAGE_BYTES = X_BYTES + 2 * PLANE;
@@ -233,36 +263,39 @@ struct Vec<2> {
   static __device__ __forceinline__ T zero() { return make_float2(0.f, 0.f); }
 };
 
-// planes: (2, M, Lp, Kp) TF32 high and low parts of the table, zero-padded;
-// x: (B, K, M, N); out: (B, L, M, N). VEC: floats per copy and store along n.
-template <int VEC>
-__global__ void __launch_bounds__(THREADS, 1)
-    legendre_analysis_tc_kernel(const uint32_t* __restrict__ planes, const float* __restrict__ x, float* __restrict__ out, int M, int L, int K,
-                                int Lp, int Kp, int N, int n_ltiles) {
+// planes: (2, M, Rp, Dp) TF32 high and low parts of the table as [m][r][d],
+// zero-padded; x: (B, D, M, N); out: (B, R, M, N). VEC: floats per copy and
+// store along n. SYNTH: K2 (the depth starts at the stage that holds l = m)
+// rather than K1 (tiles whose rows all lie at l < m write zeros).
+template <int VEC, bool SYNTH>
+__device__ __forceinline__ void legendre_tc_body(const uint32_t* __restrict__ planes, const float* __restrict__ x, float* __restrict__ out, int M,
+                                                 int R, int D, int Rp, int Dp, int N, int n_rtiles) {
   using V = typename Vec<VEC>::T;
   constexpr int CPR = BN / VEC;  // copies (and stores) per row of BN floats
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lt = blockIdx.x % n_ltiles, nt = blockIdx.x / n_ltiles;
+  const int rt = blockIdx.x % n_rtiles, nt = blockIdx.x / n_rtiles;
   const int m = blockIdx.y, b = blockIdx.z;
-  const int l0 = lt * BL, n0 = nt * BN;
+  const int r0 = rt * BL, n0 = nt * BN;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gq = lane / 4, tq = lane % 4;
-  const int n_valid = min(BN, N - n0), l_valid = min(BL, L - l0);
+  const int n_valid = min(BN, N - n0), r_valid = min(BL, R - r0);
   const long long MN = (long long)M * N;
-  float* o_base = out + ((long long)b * L + l0) * MN + (long long)m * N + n0;
+  float* o_base = out + ((long long)b * R + r0) * MN + (long long)m * N + n0;
 
-  if (l0 + l_valid <= m) {  // every row l < m: the table is zero there
-    for (int e = tid; e < l_valid * CPR; e += THREADS) {
+  if (!SYNTH && r0 + r_valid <= m) {  // every row l < m: the table is zero there
+    for (int e = tid; e < r_valid * CPR; e += THREADS) {
       const int r = e / CPR, c = (e % CPR) * VEC;
       if (c < n_valid) *reinterpret_cast<V*>(o_base + r * MN + c) = Vec<VEC>::zero();
     }
     return;
   }
 
-  const float* x_base = x + (long long)b * K * MN + (long long)m * N + n0;
-  const uint32_t* w_hi = planes + ((long long)m * Lp + l0) * Kp;
-  const uint32_t* w_lo = w_hi + (long long)M * Lp * Kp;
-  const int nk = (K + BK - 1) / BK;  // Kp >= nk * BK
+  const float* x_base = x + (long long)b * D * MN + (long long)m * N + n0;
+  const uint32_t* w_hi = planes + ((long long)m * Rp + r0) * Dp;
+  const uint32_t* w_lo = w_hi + (long long)M * Rp * Dp;
+  const int nk = (D + BK - 1) / BK;  // Dp >= nk * BK
+  // K2: the table is zero at depths l < m, so the sum starts at m's stage
+  const int kt0 = SYNTH ? min(m / BK, nk) : 0;
 
   auto load_stage = [&](int s, int kt) {
     unsigned char* st = smem + s * STAGE_BYTES;
@@ -271,21 +304,21 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int e0 = 0; e0 < BK * CPR; e0 += THREADS) {
       const int e = e0 + tid, r = e / CPR, c = (e % CPR) * VEC;
-      const bool ok = k0 + r < K && c < n_valid;
+      const bool ok = k0 + r < D && c < n_valid;
       cp_async<4 * VEC>(xs + r * LDX + c, ok ? x_base + (long long)(k0 + r) * MN + c : x, ok);
     }
-    // table rows l, 16-byte chunks of 4 k into wgmma's core-matrix layout
+    // table rows r, 16-byte chunks of 4 d into wgmma's core-matrix layout
 #pragma unroll
     for (int e0 = 0; e0 < 2 * BL * (BK / 4); e0 += THREADS) {
       const int e = e0 + tid, plane = e / (BL * (BK / 4)), l = (e / (BK / 4)) % BL, kc = e % (BK / 4);
-      const uint32_t* src = (plane ? w_lo : w_hi) + (long long)l * Kp + k0 + kc * 4;
+      const uint32_t* src = (plane ? w_lo : w_hi) + (long long)l * Dp + k0 + kc * 4;
       cp_async<16>(st + X_BYTES + plane * PLANE + (l / 8) * SBO + kc * CORE + (l % 8) * 16, src, true);
     }
   };
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
+    if (kt0 + s < nk) load_stage(s, kt0 + s);
     cp_async_commit();
   }
 
@@ -294,14 +327,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int q = 0; q < ACC; ++q) acc[q] = part[q] = 0.f;
   const int row0 = (warp / 4) * 64 + (warp % 4) * 16;  // this warp's 16 columns n of the tile
 
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = kt0; kt < nk; ++kt) {
+    const int i = kt - kt0;
     cp_async_wait<STAGES - 2>();  // this thread's copies of stage kt have landed
     fence_proxy_async();
     __syncthreads();  // everyone's have; stage kt - 1 is no longer read
-    if (kt + STAGES - 1 < nk) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    if (kt + STAGES - 1 < nk) load_stage((i + STAGES - 1) % STAGES, kt + STAGES - 1);
     cp_async_commit();
 
-    const unsigned char* st = smem + (kt % STAGES) * STAGE_BYTES;
+    const unsigned char* st = smem + (i % STAGES) * STAGE_BYTES;
     const float* xs = reinterpret_cast<const float*>(st) + row0 + gq;
     const uint32_t b_base = smem_addr(st + X_BYTES);
     // one wgmma group per 8-deep step; the A fragments of two steps live at
@@ -311,14 +345,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int ks = 0; ks < KSTEPS; ++ks) {
       uint32_t(&h)[4] = ah[ks & 1];
       uint32_t(&l)[4] = al[ks & 1];
-      // A fragment: (row gq, k tq), (gq + 8, tq), (gq, tq + 4), (gq + 8, tq + 4)
+      // A fragment: (row gq, d tq), (gq + 8, tq), (gq, tq + 4), (gq + 8, tq + 4)
       const float v[4] = {xs[(8 * ks + tq) * LDX], xs[(8 * ks + tq) * LDX + 8], xs[(8 * ks + tq + 4) * LDX], xs[(8 * ks + tq + 4) * LDX + 8]};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         h[q] = tf32(v[q]);
         l[q] = tf32(v[q] - __uint_as_float(h[q]));
       }
-      // one wgmma spans two core matrices along k
+      // one wgmma spans two core matrices along d
       const uint64_t bh = descriptor(b_base + ks * 2 * CORE, CORE, SBO);
       const uint64_t bl = descriptor(b_base + PLANE + ks * 2 * CORE, CORE, SBO);
       wgmma_fence();
@@ -348,31 +382,210 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it holds the output tile [l][n]
+  __syncthreads();  // the ring is free: it holds the output tile [r][n]
 
-  // accumulator j: column n = row0 + gq (+8 for j % 4 >= 2), row l =
+  // accumulator j: column n = row0 + gq (+8 for j % 4 >= 2), row r =
   // (j / 4) * 8 + 2 tq (+1 for odd j)
   float* os = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int j = 0; j < ACC; ++j) os[((j / 4) * 8 + 2 * tq + (j & 1)) * LDO + row0 + gq + 8 * ((j / 2) & 1)] = acc[j];
   __syncthreads();
-  for (int e = tid; e < l_valid * CPR; e += THREADS) {
+  for (int e = tid; e < r_valid * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * VEC;
     if (c < n_valid) *reinterpret_cast<V*>(o_base + r * MN + c) = *reinterpret_cast<const V*>(os + r * LDO + c);
   }
 }
 
+// K1: planes (2, M, Lp, Kp), x (B, K, M, N), out (B, L, M, N)
 template <int VEC>
-int launch(const uint32_t* planes, const float* x, float* out, int B, int M, int L, int K, int Lp, int Kp, int N, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(legendre_analysis_tc_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+__global__ void __launch_bounds__(THREADS, 1)
+    legendre_analysis_tc_kernel(const uint32_t* __restrict__ planes, const float* __restrict__ x, float* __restrict__ out, int M, int L, int K,
+                                int Lp, int Kp, int N, int n_ltiles) {
+  legendre_tc_body<VEC, false>(planes, x, out, M, L, K, Lp, Kp, N, n_ltiles);
+}
+
+// K2: planes (2, M, Kp, Lp), c (B, L, M, N), out (B, K, M, N)
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+    legendre_synthesis_tc_kernel(const uint32_t* __restrict__ planes, const float* __restrict__ c, float* __restrict__ out, int M, int K, int L,
+                                 int Kp, int Lp, int N, int n_ktiles) {
+  legendre_tc_body<VEC, true>(planes, c, out, M, K, L, Kp, Lp, N, n_ktiles);
+}
+
+// R, D: the rows and the depth of the product (K1: L, K; K2: K, L)
+template <int VEC, bool SYNTH>
+int launch(const uint32_t* planes, const float* x, float* out, int B, int M, int R, int D, int Rp, int Dp, int N, cudaStream_t s) {
+  void (*kernel)(const uint32_t*, const float*, float*, int, int, int, int, int, int, int) = legendre_analysis_tc_kernel<VEC>;
+  if constexpr (SYNTH) kernel = legendre_synthesis_tc_kernel<VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int n_ltiles = (L + BL - 1) / BL;
-  const dim3 grid(n_ltiles * ((N + BN - 1) / BN), M, B);
-  legendre_analysis_tc_kernel<VEC><<<grid, THREADS, SMEM, s>>>(planes, x, out, M, L, K, Lp, Kp, N, n_ltiles);
+  const int n_rtiles = (R + BL - 1) / BL;
+  const dim3 grid(n_rtiles * ((N + BN - 1) / BN), M, B);
+  kernel<<<grid, THREADS, SMEM, s>>>(planes, x, out, M, R, D, Rp, Dp, N, n_rtiles);
   return (int)cudaGetLastError();
 }
 
+// the arguments both tensor-core entry points check; 0 if they are good
+static int check_args(const void* planes, const void* x, const void* out, int B, int M, int R, int D, int Rp, int Dp, int N) {
+  if (B <= 0 || M <= 0 || R <= 0 || D <= 0 || N <= 0 || N % 2 || B > 65535 || M > 65535 || Rp < R || Rp % BL || Dp < D || Dp % BK)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t io = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  if (reinterpret_cast<uintptr_t>(planes) % 16 || io % 8) return (int)cudaErrorMisalignedAddress;
+  return 0;
+}
+
+template <bool SYNTH>
+int dispatch(const void* planes, const void* x, void* out, int B, int M, int R, int D, int Rp, int Dp, int N, void* stream) {
+  if (int err = check_args(planes, x, out, B, M, R, D, Rp, Dp, N)) return err;
+  const uintptr_t io = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* p = static_cast<const uint32_t*>(planes);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (N % 4 == 0 && io % 16 == 0) return launch<4, SYNTH>(p, xf, of, B, M, R, D, Rp, Dp, N, s);
+  return launch<2, SYNTH>(p, xf, of, B, M, R, D, Rp, Dp, N, s);
+}
+
 }  // namespace tc
+
+// ---- K2 in fp32 at narrow N: one pass over the table -----------------------
+
+namespace narrow {
+
+using namespace sm90;
+
+constexpr int THREADS = 128;
+constexpr int LC = 32;     // degrees l per staged chunk of c
+constexpr int UNROLL = 4;  // table rows per group; two groups in flight a thread
+
+// latitudes per thread: VEC 1, k0 + t and k0 + t + THREADS (4-byte loads,
+// 128 bytes a warp); VEC 4, k0 + 4t .. +3 (one 16-byte load, K % 4 == 0)
+template <int VEC>
+__host__ __device__ constexpr int kpt() {
+  return VEC == 4 ? 4 : 2;
+}
+
+// table: (M, L, K); c: (B, L, M, N); out: (B, K, M, N); N <= NC, N even.
+// A block owns ktile latitudes (at most THREADS * kpt) of one (b, m). The
+// orders run slowest in the grid, m = 0 first: the blocks with the longest
+// slabs (L - m rows) start first and the shortest fill the last round.
+template <int NC, int VEC>
+__global__ void __launch_bounds__(THREADS)
+    legendre_synthesis_narrow_kernel(const float* __restrict__ table, const float* __restrict__ c, float* __restrict__ out, int M, int L, int K,
+                                     int N, int ktile) {
+  constexpr int KPT = kpt<VEC>();
+  __shared__ __align__(16) float cs[2][LC][NC];
+  const int b = blockIdx.x, k0 = blockIdx.y * ktile, tid = threadIdx.x;
+  const int k_end = min(k0 + ktile, K);
+  const long long MN = (long long)M * N;
+  int kk[KPT];
+  bool kv[KPT];
+#pragma unroll
+  for (int j = 0; j < KPT; ++j) {
+    kk[j] = VEC == 4 ? k0 + 4 * tid + j : k0 + tid + THREADS * j;
+    kv[j] = kk[j] < k_end;
+  }
+
+  // the table rows of one group, from row `rows` on, `left` of them live
+  auto load_group = [&](float(&p)[UNROLL][KPT], const float* rows, int left) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const float* row = rows + (long long)u * K;
+      const bool live = u < left;
+      if constexpr (VEC == 4) {
+        const float4 v = live && kv[0] ? __ldcs(reinterpret_cast<const float4*>(row + kk[0])) : make_float4(0.f, 0.f, 0.f, 0.f);
+        p[u][0] = v.x;
+        p[u][1] = v.y;
+        p[u][2] = v.z;
+        p[u][3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) p[u][j] = live && kv[j] ? __ldcs(row + kk[j]) : 0.f;
+      }
+    }
+  };
+
+  const int m = blockIdx.z;
+  const float* c_base = c + (long long)b * L * MN + (long long)m * N;
+  float acc[KPT][NC];
+#pragma unroll
+  for (int j = 0; j < KPT; ++j)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[j][n] = 0.f;
+
+  // rows l0 .. l0 + LC of c[b, :, m, :] into cs[buf], in 8-byte pieces;
+  // zeros past N and past L
+  auto stage = [&](int buf, int l0) {
+#pragma unroll
+    for (int e0 = 0; e0 < LC * NC / 2; e0 += THREADS) {
+      const int e = e0 + tid, r = e / (NC / 2), q = (e % (NC / 2)) * 2;
+      const bool ok = l0 + r < L && q < N;
+      cp_async<8>(&cs[buf][r][q], ok ? c_base + (long long)(l0 + r) * MN + q : c, ok);
+    }
+  };
+  auto fma_group = [&](const float(&p)[UNROLL][KPT], const float(*cb)[NC], int r) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+      for (int n4 = 0; n4 < NC / 4; ++n4) {
+        const float4 cv = *reinterpret_cast<const float4*>(&cb[r + u][4 * n4]);
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          acc[j][4 * n4 + 0] = fmaf(p[u][j], cv.x, acc[j][4 * n4 + 0]);
+          acc[j][4 * n4 + 1] = fmaf(p[u][j], cv.y, acc[j][4 * n4 + 1]);
+          acc[j][4 * n4 + 2] = fmaf(p[u][j], cv.z, acc[j][4 * n4 + 2]);
+          acc[j][4 * n4 + 3] = fmaf(p[u][j], cv.w, acc[j][4 * n4 + 3]);
+        }
+      }
+  };
+
+  // the table is zero at l < m: the sum runs over l = m .. L - 1. The
+  // loads of the next group are in flight while a group is summed, also
+  // across the chunks' barriers; rows past L multiply zeros staged in cs.
+  const int nrows = max(L - m, 0), nch = (nrows + LC - 1) / LC;
+  const float* t_rows = table + ((long long)m * L + m) * K;
+  if (nch > 0) stage(0, m);
+  cp_async_commit();
+  float pa[UNROLL][KPT], pb[UNROLL][KPT];
+  load_group(pa, t_rows, nrows);
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch has landed; chunk ch - 1 is no longer read
+    if (ch + 1 < nch) stage((ch + 1) & 1, m + (ch + 1) * LC);
+    cp_async_commit();
+    const float(*cb)[NC] = cs[ch & 1];
+    const int r_end = min(LC, nrows - ch * LC);
+    for (int r = 0; r < r_end; r += 2 * UNROLL) {
+      const int g = ch * LC + r;
+      load_group(pb, t_rows + (long long)(g + UNROLL) * K, nrows - g - UNROLL);
+      fma_group(pa, cb, r);
+      load_group(pa, t_rows + (long long)(g + 2 * UNROLL) * K, nrows - g - 2 * UNROLL);
+      fma_group(pb, cb, r + UNROLL);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < KPT; ++j) {
+    if (!kv[j]) continue;
+    float* o = out + ((long long)b * K + kk[j]) * MN + (long long)m * N;
+#pragma unroll
+    for (int n = 0; n < NC; n += 2)
+      if (n < N) *reinterpret_cast<float2*>(o + n) = make_float2(acc[j][n], acc[j][n + 1]);
+  }
+}
+
+template <int NC, int VEC>
+int launch(const float* table, const float* c, float* out, int B, int M, int L, int K, int N, cudaStream_t s) {
+  // latitude tiles of about equal width, at most THREADS * kpt (a multiple of VEC)
+  const int slots = THREADS * kpt<VEC>(), n_tiles = (K + slots - 1) / slots;
+  const int ktile = ((K + n_tiles - 1) / n_tiles + VEC - 1) / VEC * VEC;
+  const dim3 grid(B, (K + ktile - 1) / ktile, M);
+  legendre_synthesis_narrow_kernel<NC, VEC><<<grid, THREADS, 0, s>>>(table, c, out, M, L, K, N, ktile);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace narrow
 
 // dtype: 0 float32, 1 bfloat16. mode: 0 analysis, 1 synthesis.
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -402,16 +615,32 @@ extern "C" int mt_legendre_contract(int dtype, const void* table, const void* x,
 // or an argument error without launching.
 extern "C" int mt_legendre_analysis_tc(const void* planes, const void* x, void* out, int B, int M, int L, int K, int Lp, int Kp, int N,
                                        void* stream) {
-  if (B <= 0 || M <= 0 || L <= 0 || K <= 0 || N <= 0 || N % 2 || B > 65535 || M > 65535 || Lp < L || Lp % tc::BL || Kp < K || Kp % tc::BK)
+  return tc::dispatch<false>(planes, x, out, B, M, L, K, Lp, Kp, N, stream);
+}
+
+// K2, fp32 on the tensor cores. planes: uint32 (2, M, Kp, Lp), the TF32 high
+// and low parts of the synthesis table (M, L, K) transposed to [m][k][l],
+// zero-padded to Kp (a multiple of 64) and Lp (a multiple of 32); c: float32
+// (B, L, M, N); out: float32 (B, K, M, N); N even.
+extern "C" int mt_legendre_synthesis_tc(const void* planes, const void* c, void* out, int B, int M, int L, int K, int Kp, int Lp, int N,
+                                        void* stream) {
+  return tc::dispatch<true>(planes, c, out, B, M, K, L, Kp, Lp, N, stream);
+}
+
+// K2, fp32 at narrow N (N even, N <= 32): one pass over the table itself,
+// (M, L, K) float32; c: float32 (B, L, M, N); out: float32 (B, K, M, N).
+extern "C" int mt_legendre_synthesis_narrow(const void* table, const void* c, void* out, int B, int M, int L, int K, int N, void* stream) {
+  if (B <= 0 || M <= 0 || L <= 0 || K <= 0 || N <= 0 || N % 2 || N > 32 || M > 65535 || K > 65535)
     return (int)cudaErrorInvalidValue;
-  const uintptr_t io = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
-  if (reinterpret_cast<uintptr_t>(planes) % 16 || io % 8) return (int)cudaErrorMisalignedAddress;
+  const uintptr_t io = reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(out);
+  if (io % 8 || reinterpret_cast<uintptr_t>(table) % 4) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* p = static_cast<const uint32_t*>(planes);
-  const float* xf = static_cast<const float*>(x);
+  const float* t = static_cast<const float*>(table);
+  const float* cf = static_cast<const float*>(c);
   float* of = static_cast<float*>(out);
-  if (N % 4 == 0 && io % 16 == 0) return tc::launch<4>(p, xf, of, B, M, L, K, Lp, Kp, N, s);
-  return tc::launch<2>(p, xf, of, B, M, L, K, Lp, Kp, N, s);
+  const bool wide = K % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  if (N <= 16) return wide ? narrow::launch<16, 4>(t, cf, of, B, M, L, K, N, s) : narrow::launch<16, 1>(t, cf, of, B, M, L, K, N, s);
+  return wide ? narrow::launch<32, 4>(t, cf, of, B, M, L, K, N, s) : narrow::launch<32, 1>(t, cf, of, B, M, L, K, N, s);
 }
 
 extern "C" const char* mt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

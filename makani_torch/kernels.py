@@ -26,7 +26,7 @@ import torch
 __all__ = ["LAUNCHES", "reset_launch_counts", "count_launch", "build", "library", "check_launch", "dtype_code", "stream_ptr", "takes_plain", "set_use_kernels"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sht_legendre.cu", "dhconv.cu", "disco_band.cu", "disco_polar.cu")
+_SOURCES = ("sht_legendre.cu", "dhconv.cu", "disco_band.cu", "disco_polar.cu", "resample.cu")
 _HEADERS = ("convert.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode",
@@ -113,12 +113,20 @@ def library() -> ctypes.CDLL:
             lib.mt_legendre_contract.restype = i
             lib.mt_legendre_analysis_tc.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
             lib.mt_legendre_analysis_tc.restype = i
+            lib.mt_legendre_synthesis_tc.argtypes = [vp, vp, vp] + [i] * 7 + [vp]
+            lib.mt_legendre_synthesis_tc.restype = i
+            lib.mt_legendre_synthesis_narrow.argtypes = [vp, vp, vp] + [i] * 5 + [vp]
+            lib.mt_legendre_synthesis_narrow.restype = i
             lib.mt_dhconv_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_contract.restype = i
             lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [vp]
             lib.mt_disco_band_contract.restype = i
             lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_disco_polar.restype = i
+            lib.mt_resample.argtypes = [i] + [vp] * 7 + [i] * 5 + [ll] * 4 + [i] * 3 + [vp]
+            lib.mt_resample.restype = i
+            lib.mt_resample_smem_bytes.argtypes = [i] * 4
+            lib.mt_resample_smem_bytes.restype = i
             lib.mt_error_string.argtypes = [i]
             lib.mt_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -5,20 +5,22 @@ Separable bilinear interpolation between equiangular (or Legendre-Gauss)
 lat-lon grids: a latitude lerp at precomputed (index, weight) pairs, then a
 periodic longitude lerp, in the JAX package's order of operations.
 
-Kernel K7 (Triton) replaces ``ResampleS2.__call__`` (:90-99), which XLA runs
-as index gathers and elementwise passes. It is bound by memory bandwidth: at
-the FCN3 decoders (B 2, 360x720 -> 721x1440, 585 channels) it writes 4.9 GB
-and reads 1.2 GB. The kernel fuses the four gathers and both lerps into one
-pass over the output: each output element reads its four neighbours
-(channel-contiguous, so neighbouring lanes read neighbouring addresses) and
-writes once; the intermediate latitude-lerped field never reaches device
-memory. The matmul and ``auto`` methods serve the spatially sharded mesh and
-arrive with the spatial-parallel slice.
+Kernel K7 (CUDA, ``csrc/resample.cu``) replaces ``ResampleS2.__call__``
+(:90-99), which XLA runs as index gathers and elementwise passes. It is bound
+by memory bandwidth: at the FCN3 decoders (B 2, 360x720 -> 721x1440, 585
+channels) it writes 4.9 GB and reads 1.2 GB. A block makes a tile of output
+columns of one output row: it stages the span of the two input rows that the
+tile needs in shared memory and writes the tile's contiguous run of outputs
+16 bytes at a time; the intermediate latitude-lerped field never reaches
+device memory. The wrapper picks the tile width from the span the tables
+give (``column_span``, computed once per table tensor). The matmul and
+``auto`` methods serve the spatially sharded mesh and arrive with the
+spatial-parallel slice.
 """
 
 from __future__ import annotations
 
-import functools
+import weakref
 
 import numpy as np
 import torch
@@ -26,7 +28,7 @@ import torch
 from makani_torch import kernels
 from makani_torch.ops.quadrature import precompute_latitudes
 
-__all__ = ["ResampleS2", "make_resample", "resample_cl", "resample_cl_plain"]
+__all__ = ["ResampleS2", "make_resample", "resample_cl", "resample_cl_plain", "column_span"]
 
 
 def resample_cl_plain(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
@@ -39,41 +41,40 @@ def resample_cl_plain(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
     return y0 + (y1 - y0) * lon_w.to(x.dtype)[None, None, :, None]
 
 
-@functools.cache
-def _triton_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def resample(x_ptr, y_ptr, lat_idx_ptr, lat_w_ptr, lon0_ptr, lon1_ptr, lon_w_ptr, Hout, Wout, C, sB, sH, sW, sC, total, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < total
-        c = offs % C
-        t = offs // C
-        wo = t % Wout
-        t = t // Wout
-        ho = t % Hout
-        b = t // Hout
-        li = tl.load(lat_idx_ptr + ho, mask=mask, other=0).to(tl.int64)
-        lw = tl.load(lat_w_ptr + ho, mask=mask, other=0.0)
-        k0 = tl.load(lon0_ptr + wo, mask=mask, other=0).to(tl.int64)
-        k1 = tl.load(lon1_ptr + wo, mask=mask, other=0).to(tl.int64)
-        v = tl.load(lon_w_ptr + wo, mask=mask, other=0.0)
-        r0 = x_ptr + b * sB + li * sH + c * sC
-        r1 = r0 + sH
-        lo0 = tl.load(r0 + k0 * sW, mask=mask, other=0.0).to(tl.float32)
-        hi0 = tl.load(r1 + k0 * sW, mask=mask, other=0.0).to(tl.float32)
-        lo1 = tl.load(r0 + k1 * sW, mask=mask, other=0.0).to(tl.float32)
-        hi1 = tl.load(r1 + k1 * sW, mask=mask, other=0.0).to(tl.float32)
-        y0 = lo0 + (hi0 - lo0) * lw
-        y1 = lo1 + (hi1 - lo1) * lw
-        out = y0 + (y1 - y0) * v
-        tl.store(y_ptr + offs, out.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return triton, resample
+def column_span(lon_idx0: np.ndarray, lon_idx1: np.ndarray, nlon_in: int, tw: int) -> int:
+    """The widest run of input columns that K7 stages for a tile of ``tw``
+    consecutive output columns: counted from the tile's first ``lon_idx0``,
+    modulo ``nlon_in`` (the wrap from the last column to column 0), up to
+    the farthest ``lon_idx0`` or ``lon_idx1`` of the tile, over all tiles."""
+    k0 = np.asarray(lon_idx0, np.int64)
+    k1 = np.asarray(lon_idx1, np.int64)
+    start = k0[np.arange(k0.size) // tw * tw]
+    return int(np.maximum((k0 - start) % nlon_in, (k1 - start) % nlon_in).max()) + 1
 
 
-_BLOCK = 1024
+# K7's tile widths (output columns per block) and the shared memory a block
+# may take: the widest tile within _SMEM_BUDGET, else the narrowest within
+# the card's 227 KB. _ASYNC: fp32 stages with cp.async (both rows in shared
+# memory) rather than through registers (the lerped row only).
+_TILE_WIDTHS = (32, 16, 8, 4)
+_SMEM_BUDGET = 64 * 1024
+_SMEM_MAX = 227 * 1024
+_ASYNC = True
+
+# id(lon_idx0) -> (tag, {tw: span}); an entry leaves with its table
+_SPANS: dict = {}
+
+
+def _spans(lon_idx0: torch.Tensor, lon_idx1: torch.Tensor, nlon_in: int) -> dict:
+    key = id(lon_idx0)
+    tag = (lon_idx0._version, lon_idx1._version, id(lon_idx1), nlon_in)
+    hit = _SPANS.get(key)
+    if hit is None or hit[0] != tag:
+        if hit is None:
+            weakref.finalize(lon_idx0, _SPANS.pop, key, None)
+        k0, k1 = lon_idx0.cpu().numpy(), lon_idx1.cpu().numpy()
+        hit = _SPANS[key] = (tag, {tw: column_span(k0, k1, nlon_in, tw) for tw in _TILE_WIDTHS})
+    return hit[1]
 
 
 def resample_cl(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
@@ -82,18 +83,39 @@ def resample_cl(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
     CPU. Index tables int32, weights float32, on x's device."""
     if kernels.takes_plain("resample", x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
         return resample_cl_plain(x, lat_idx.long(), lat_w, lon_idx0.long(), lon_idx1.long(), lon_w)
+    return _resample_launch(x, (lat_idx, lat_w, lon_idx0, lon_idx1, lon_w))
+
+
+def _resample_launch(x, tables, tile=None):
+    """K7 on the card, at the tile (output columns per block, cp.async
+    staging) the wrapper picks, or ``tile`` (a measurement's override)."""
+    lat_idx, lat_w, lon_idx0, lon_idx1, lon_w = tables
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"resample: expected float32/bfloat16 (B, H, W, C), got {x.dtype} {tuple(x.shape)}")
-    B, _, _, C = x.shape
+    for t, dt in zip(tables, (torch.int32, torch.float32, torch.int32, torch.int32, torch.float32)):
+        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"resample: tables must be contiguous 1-D int32 indices and float32 weights, got {t.dtype} {tuple(t.shape)}")
+    B, _, Win, C = x.shape
     Hout, Wout = lat_idx.shape[0], lon_idx0.shape[0]
     y = torch.empty(B, Hout, Wout, C, dtype=x.dtype, device=x.device)
-    total = y.numel()
-    if total == 0:
+    if y.numel() == 0:
         return y
-    triton, kern = _triton_kernel()
+    lib = kernels.library()
+    spans = _spans(lon_idx0, lon_idx1, Win)
+    if tile is None:
+        stage_async = _ASYNC and x.dtype == torch.float32
+        fits = [tw for tw in _TILE_WIDTHS if lib.mt_resample_smem_bytes(stage_async, C, tw, spans[tw]) <= _SMEM_BUDGET]
+        tile = (fits[0] if fits else _TILE_WIDTHS[-1], stage_async)
+    tw, stage_async = tile
+    if lib.mt_resample_smem_bytes(stage_async, C, tw, spans[tw]) > _SMEM_MAX:
+        raise ValueError(f"resample: {C} channels over a span of {spans[tw]} input columns do not fit in shared memory")
     sB, sH, sW, sC = x.stride()
     with torch.cuda.device(x.device):
-        kern[(triton.cdiv(total, _BLOCK),)](x, y, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w, Hout, Wout, C, sB, sH, sW, sC, total, BLOCK=_BLOCK, num_warps=8)
+        err = lib.mt_resample(
+            kernels.dtype_code(x.dtype), x.data_ptr(), y.data_ptr(), lat_idx.data_ptr(), lat_w.data_ptr(), lon_idx0.data_ptr(), lon_idx1.data_ptr(),
+            lon_w.data_ptr(), B, Hout, Wout, Win, C, sB, sH, sW, sC, tw, spans[tw], int(stage_async), kernels.stream_ptr(x.device),
+        )
+    kernels.check_launch(err, "resample")
     kernels.count_launch("resample")
     return y
 

@@ -12,7 +12,11 @@ here. Tables are float64 numpy computations stored as fp32 (and cast to bf16
 for bf16 input), cached per device and dtype on the transform object. The
 fp32 K1 runs on the tensor cores in 3xTF32 and reads the table's TF32 high
 and low planes, zero-padded to its tiles (``analysis_planes``), made once
-per table tensor; the plain version reads the table itself.
+per table tensor; the plain version reads the table itself. The fp32 K2
+takes one of two routes by N = 2C (``synthesis_route``): wide N the tensor
+cores, on the transposed planes of the synthesis table
+(``synthesis_planes``); narrow N one pass over the table itself, with no
+planes made.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ __all__ = [
     "analysis_contract_cl_s_plain",
     "synthesis_contract_cl_s_plain",
     "analysis_planes",
+    "synthesis_planes",
+    "synthesis_route",
     "tf32_split",
 ]
 
@@ -53,8 +59,8 @@ def synthesis_contract_cl_s_plain(c2: torch.Tensor, pct: torch.Tensor) -> torch.
 
 # Kernel K1/K2 modes of mt_legendre_contract (csrc/sht_legendre.cu)
 _ANALYSIS, _SYNTHESIS = 0, 1
-# K1's tensor-core tile: rows l per block and depth k per stage; its table
-# planes are zero-padded to multiples of these
+# K1's and K2's tensor-core tile: rows per block (K1 l, K2 k) and depth per
+# stage (K1 k, K2 l); their table planes are zero-padded to multiples of these
 _TC_ROWS, _TC_DEPTH = 64, 32
 
 
@@ -70,27 +76,55 @@ def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(t - hi)
 
 
-# id(table) -> (table._version, planes); an entry leaves with its table
+# (id(table), kind) -> (table._version, planes); an entry leaves with its table
 _PLANES: dict = {}
+
+
+def _planes(table: torch.Tensor, kind: str, make) -> torch.Tensor:
+    key = (id(table), kind)
+    hit = _PLANES.get(key)
+    if hit is None or hit[0] != table._version:
+        if hit is None:
+            weakref.finalize(table, _PLANES.pop, key, None)
+        hit = _PLANES[key] = (table._version, make(table))
+    return hit[1]
+
+
+def _split_padded(t: torch.Tensor, rows: int, depth: int) -> torch.Tensor:
+    """(M, R, D) -> its TF32 (hi, lo) planes zero-padded to multiples of
+    rows along R and depth along D: (2, M, Rp, Dp)."""
+    pad = (0, -t.shape[2] % depth, 0, -t.shape[1] % rows)
+    return torch.stack([torch.nn.functional.pad(p, pad) for p in tf32_split(t)]).contiguous()
 
 
 def analysis_planes(weights: torch.Tensor) -> torch.Tensor:
     """The fp32 K1's copy of an analysis table (M, L, K): its TF32 high and
     low planes, zero-padded along l and k to K1's tiles, (2, M, Lp, Kp)
     fp32. Made once per table tensor (and again if it is written to)."""
-    key = id(weights)
-    hit = _PLANES.get(key)
-    if hit is None or hit[0] != weights._version:
-        if hit is None:
-            weakref.finalize(weights, _PLANES.pop, key, None)
-        M, L, K = weights.shape
-        pad = (0, -K % _TC_DEPTH, 0, -L % _TC_ROWS)
-        planes = torch.stack([torch.nn.functional.pad(p, pad) for p in tf32_split(weights)]).contiguous()
-        hit = _PLANES[key] = (weights._version, planes)
-    return hit[1]
+    return _planes(weights, "analysis", lambda w: _split_padded(w, _TC_ROWS, _TC_DEPTH))
 
 
-def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def synthesis_planes(pct: torch.Tensor) -> torch.Tensor:
+    """The tensor-core K2's copy of a synthesis table (M, L, K): its TF32
+    high and low planes transposed to [m][k][l] (l-contiguous, the K-major
+    B operand of wgmma) and zero-padded to K2's tiles, (2, M, Kp, Lp) fp32.
+    Made once per table tensor (and again if it is written to)."""
+    return _planes(pct, "synthesis", lambda p: _split_padded(p.transpose(1, 2), _TC_ROWS, _TC_DEPTH))
+
+
+# The fp32 K2's routes, by N = 2C alone: up to _NARROW_MAX_N columns the
+# kernel that streams the table once (no planes), above it the tensor cores.
+# The crossover was measured on an H100 (chip_smoke.py times both routes at
+# N 16 and 32; PERF.md); the narrow kernel holds at most 32 columns.
+_NARROW_MAX_N = 32
+
+
+def synthesis_route(N: int) -> str:
+    """The fp32 K2's route for N = 2C columns: "narrow" or "tc"."""
+    return "narrow" if N <= _NARROW_MAX_N else "tc"
+
+
+def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor, route: str | None = None) -> torch.Tensor:
     if x.dtype != table.dtype:
         raise TypeError(f"{name}: input {x.dtype} and table {table.dtype} differ; cast the table first")
     if table.dim() != 3 or x.dim() < 5 or x.shape[-1] != 2:
@@ -103,8 +137,8 @@ def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor)
         raise ValueError(f"{name}: x and table must be contiguous")
     lead = x.shape[:-4]
     B = math.prod(lead)
-    C = x.shape[-2]
-    out = torch.empty(*lead, rows, M, C, 2, dtype=x.dtype, device=x.device)
+    N = 2 * x.shape[-2]
+    out = torch.empty(*lead, rows, M, N // 2, 2, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = kernels.library()
@@ -113,9 +147,19 @@ def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor)
         if mode == _ANALYSIS and x.dtype == torch.float32:
             planes = analysis_planes(table)
             Lp, Kp = planes.shape[2:]
-            err = lib.mt_legendre_analysis_tc(planes.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, Lp, Kp, 2 * C, stream)
+            err = lib.mt_legendre_analysis_tc(planes.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, Lp, Kp, N, stream)
+        elif mode == _SYNTHESIS and x.dtype == torch.float32:
+            route = route or synthesis_route(N)
+            if route == "narrow":
+                err = lib.mt_legendre_synthesis_narrow(table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, N, stream)
+            elif route == "tc":
+                planes = synthesis_planes(table)
+                Kp, Lp = planes.shape[2:]
+                err = lib.mt_legendre_synthesis_tc(planes.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, Kp, Lp, N, stream)
+            else:
+                raise ValueError(f"{name}: unknown route {route!r}")
         else:
-            err = lib.mt_legendre_contract(kernels.dtype_code(x.dtype), table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, rows, depth, 2 * C, mode, stream)
+            err = lib.mt_legendre_contract(kernels.dtype_code(x.dtype), table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, rows, depth, N, mode, stream)
     kernels.check_launch(err, name)
     kernels.count_launch(name)
     return out
@@ -136,7 +180,9 @@ def analysis_contract_cl_s(xf2: torch.Tensor, weights: torch.Tensor) -> torch.Te
 def synthesis_contract_cl_s(c2: torch.Tensor, pct: torch.Tensor) -> torch.Tensor:
     """Legendre synthesis (kernel K2 on the card, the plain einsum on the CPU).
 
-    Replaces ``makani_tpu/ops/sht.py`` ``_synthesis_contract_cl_s``.
+    Replaces ``makani_tpu/ops/sht.py`` ``_synthesis_contract_cl_s``. fp32
+    takes the route ``synthesis_route(2 C)`` picks (the tensor cores, or one
+    pass over the table at narrow N), bf16 the fp32 FMA kernel.
     """
     if kernels.takes_plain("sht_synthesis", c2, pct):
         return synthesis_contract_cl_s_plain(c2, pct)

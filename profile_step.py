@@ -39,9 +39,11 @@ def group(name: str) -> str:
         ("disco_band", "K5 disco_band (CUDA)"),
         ("psi_first", "K6 disco_polar psi-first (CUDA)"),
         ("mix_first", "K6 disco_polar mix-first (CUDA)"),
-        ("resample", "K7 resample (Triton)"),
+        ("resample", "K7 resample (CUDA)"),
         ("legendre_analysis_tc", "K1 Legendre analysis (CUDA, wgmma)"),
-        ("legendre", "K2 Legendre synthesis (CUDA)"),
+        ("legendre_synthesis_tc", "K2 Legendre synthesis (CUDA, wgmma)"),
+        ("legendre_synthesis_narrow", "K2 Legendre synthesis (CUDA, narrow N)"),
+        ("legendre", "K1/K2 Legendre bf16 (CUDA, FMA)"),
         ("dhconv", "K3 dhconv (CUDA)"),
         ("stats_partial", "K4 instance norm (Triton)"),
         ("stats_finalize", "K4 instance norm (Triton)"),

@@ -20,7 +20,7 @@ from makani_torch.models.common.contractions import _PermutedWeight, contract_de
 from makani_torch.models.common.layer_norm import instance_norm_cl, instance_norm_cl_plain
 from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
 from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
-from makani_torch.ops import disco_kernels
+from makani_torch.ops import disco_kernels, resample, sht
 from makani_torch.ops.disco import DiscoConvS2
 from makani_torch.ops.resample import ResampleS2
 from makani_torch.ops.sht import (
@@ -85,6 +85,42 @@ def test_legendre_kernels_match_plain(cuda, nlat, nlon, grid, lmax, mmax, C, dty
     assert kernels.LAUNCHES["sht_analysis"] == 1 and kernels.LAUNCHES["sht_synthesis"] == 1
     assert a.dtype == dtype and _agree(a, analysis_contract_cl_s_plain(x, w), dtype)
     assert s.dtype == dtype and _agree(s, synthesis_contract_cl_s_plain(c, p), dtype)
+
+
+# K2's fp32 routes (sht.synthesis_route: the narrow kernel up to N = 32, the
+# tensor cores above). lmax = mmax = nlat: the whole triangle, as the noise's
+# 721-degree table; C 8 and 1: the noise's N 16 and the smallest N; C 16 and
+# 17: N 32 and 34, either side of the crossover; C 677: FCN3's 1354-float
+# rows (8-byte copies and stores); (360, 720, legendre-gauss, 360, 361):
+# FCN3's 360-deep sum, where the tensor cores' truncating accumulation would
+# show, and an order m = 360 with no degree l >= m.
+K2_CASES = [
+    (181, 362, "equiangular", 181, 181, 8, 1),
+    (181, 362, "equiangular", 181, 181, 1, 2),
+    (91, 180, "equiangular", 91, 91, 16, 2),
+    (91, 180, "equiangular", 91, 91, 17, 2),
+    (33, 64, "legendre-gauss", 32, 33, 677, 2),
+    (360, 720, "legendre-gauss", 360, 361, 64, 2),
+    (360, 720, "legendre-gauss", 360, 361, 8, 1),
+]
+
+
+@pytest.mark.parametrize("nlat,nlon,grid,lmax,mmax,C,B", K2_CASES)
+def test_k2_routes_match_plain(cuda, nlat, nlon, grid, lmax, mmax, C, B):
+    isht = InverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    c = _randn((B, isht.lmax, isht.mmax, C, 2), torch.float32, cuda, seed=2)
+    p = isht.pct(cuda)
+    ref = synthesis_contract_cl_s_plain(c, p)
+    kernels.reset_launch_counts()
+    out = synthesis_contract_cl_s(c, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sht_synthesis"] == 1 and _agree(out, ref, torch.float32)
+    narrow = sht.synthesis_route(2 * C) == "narrow"
+    assert narrow == (2 * C <= 32)
+    # the narrow route makes no planes of the table
+    assert ((id(p), "synthesis") in sht._PLANES) != narrow
+    for route in ("tc", "narrow") if narrow else ("tc",):
+        assert _agree(sht._legendre_launch("sht_synthesis", sht._SYNTHESIS, c, p, route), ref, torch.float32), route
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -237,6 +273,37 @@ def test_resample_kernel_matches_plain(cuda, shapes, dtype):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["resample"] == 1 and y.dtype == dtype
     assert _agree(y, rs.resample_cl(x[..., 3:40], use_kernels=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,C,used", [(((45, 90), (91, 180)), 677, 585), (((18, 36), (19, 37)), 7, 5)])
+def test_resample_kernel_on_a_channel_slice(cuda, shapes, C, used, dtype):
+    """K7 on the first channels of a wider tensor, as at the FCN3 atmo
+    decoder (585 of 677: pixels 2708 bytes apart, 4-byte aligned), up from
+    a Legendre-Gauss grid to an equiangular one with poles (lat_w clamped to
+    0 and 1) and a wrap column (lon_idx1 = 0); the second shape has output
+    rows that are not 16-byte aligned. The wrap column and the polar rows are
+    held on their own; fp32 is equal to the plain version (the same three
+    roundings in the same order)."""
+    (hi, wi), (ho, wo) = shapes
+    rs = ResampleS2(hi, wi, ho, wo, grid_in="legendre-gauss", grid_out="equiangular")
+    assert rs.lon_idx1[-1] == 0 and rs.lat_w[0] == 0.0 and rs.lat_w[-1] == 1.0
+    x = _randn((2, hi, wi, C), dtype, cuda)[..., :used]
+    kernels.reset_launch_counts()
+    y = rs.resample_cl(x)
+    torch.cuda.synchronize()
+    ref = rs.resample_cl(x, use_kernels=False)
+    assert kernels.LAUNCHES["resample"] == 1 and y.dtype == dtype and y.shape == ref.shape == (2, ho, wo, used)
+    for part in (slice(None), (slice(None), slice(None), -1), (slice(None), 0), (slice(None), -1)):
+        assert _agree(y[part], ref[part], dtype), part
+    if dtype == torch.float32:
+        assert torch.equal(y, ref)
+    # every tile width the wrapper could pick, both fp32 stagings
+    tabs = rs.tables(cuda)
+    for tw in resample._TILE_WIDTHS:
+        for stage_async in (False, True) if dtype == torch.float32 else (False,):
+            yt = resample._resample_launch(x, tabs, (tw, stage_async))
+            assert torch.equal(yt, y) if dtype == torch.float32 else _agree(yt, ref, dtype), (tw, stage_async)
 
 
 def test_small_fcn3_kernel_path_matches_plain(cuda):

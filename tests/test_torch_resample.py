@@ -12,7 +12,7 @@ import torch
 from makani_tpu.ops.resample import ResampleS2 as JResampleS2
 
 from makani_torch import kernels
-from makani_torch.ops.resample import ResampleS2, make_resample
+from makani_torch.ops.resample import ResampleS2, column_span, make_resample
 
 GRIDS = ["equiangular", "legendre-gauss"]
 
@@ -45,3 +45,20 @@ def test_make_resample_is_the_serial_gather():
     assert isinstance(op, ResampleS2) and op.method == "gather"
     with pytest.raises(NotImplementedError):
         ResampleS2(18, 36, 37, 72, method="matmul")
+
+
+@pytest.mark.parametrize("tw", [4, 16, 64])
+@pytest.mark.parametrize("wi,wo", [(720, 1440), (36, 72), (72, 36), (90, 180), (36, 37), (37, 36)])
+def test_column_span_covers_every_tile(wi, wo, tw):
+    """K7 stages, for each tile of tw output columns, the input columns from
+    the tile's first lon_idx0 onward (modulo wi); column_span is the widest
+    such run over the tiles, here against a loop over every column read."""
+    op = ResampleS2(18, wi, 19, wo)
+    need = 0
+    for t0 in range(0, wo, tw):
+        start = int(op.lon_idx0[t0])
+        for w in range(t0, min(t0 + tw, wo)):
+            for k in (int(op.lon_idx0[w]), int(op.lon_idx1[w])):
+                need = max(need, (k - start) % wi + 1)
+    assert column_span(op.lon_idx0, op.lon_idx1, wi, tw) == need <= wi
+

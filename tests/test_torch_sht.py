@@ -7,6 +7,8 @@ the JAX package takes its matmul DFT) and the port's plain versions
 bf16 relative L2 <= 2e-2 (operand rounding of both packages).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from makani_tpu.ops.sht import RealSHT as JRealSHT
 
 from makani_torch import kernels
 from makani_torch.ops import fft_compat
+from makani_torch.ops import sht as sht_mod
 from makani_torch.ops.sht import (
     InverseRealSHT,
     RealSHT,
@@ -26,6 +29,8 @@ from makani_torch.ops.sht import (
     analysis_planes,
     synthesis_contract_cl_s,
     synthesis_contract_cl_s_plain,
+    synthesis_planes,
+    synthesis_route,
     tf32_split,
 )
 
@@ -129,3 +134,72 @@ def test_k1_table_planes_leave_the_plain_path_and_hold_the_table(nlat, nlon, gri
     assert torch.max(torch.abs(three - before.double())) <= 1e-6 * torch.max(torch.abs(before.double()))
     ref = JRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid).analysis_cl(jnp.asarray(x))
     _check(sht.analysis_cl(torch.from_numpy(x)), ref, "float32")
+
+
+@pytest.mark.parametrize("nlat,nlon,grid,lmax,mmax", [GRIDS[0], GRIDS[2]])
+def test_k2_table_planes_leave_the_plain_path_and_hold_the_table(nlat, nlon, grid, lmax, mmax):
+    """The tensor-core K2's planes of the synthesis table: transposed to
+    [m][k][l], hi + lo within 2**-22 of each entry, TF32's 10 mantissa bits,
+    exact zeros in the padding to K2's tiles; made once per table, leaving
+    the table, the plain contraction and the JAX parity unchanged; the three
+    products the kernel sums (hi.hi + hi.lo + lo.hi) give the plain result
+    to 1e-6 of max|ref|."""
+    isht = InverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    p = isht.pct("cpu")
+    c = torch.from_numpy(np.random.default_rng(6).standard_normal((2, isht.lmax, isht.mmax, 3, 2)).astype(np.float32))
+    before, table = synthesis_contract_cl_s_plain(c, p), p.clone()
+    planes = synthesis_planes(p)
+    assert synthesis_planes(p) is planes
+    M, L, K = p.shape
+    assert planes.shape == (2, M, -(-K // 64) * 64, -(-L // 32) * 32) and planes.dtype == torch.float32
+    assert not planes[:, :, K:].any() and not planes[:, :, :, L:].any()
+    assert not (planes.view(torch.int32) & 0x1FFF).any()
+    pt = p.transpose(1, 2).double()
+    hi, lo = planes[0, :, :K, :L].double(), planes[1, :, :K, :L].double()
+    assert bool((torch.abs(hi + lo - pt) <= 2.0**-22 * torch.abs(pt)).all())
+    assert torch.equal(p, table) and torch.equal(synthesis_contract_cl_s_plain(c, p), before)
+    ch, cl = (t.double() for t in tf32_split(c))
+    three = sum(torch.einsum("...lmcr,mkl->...kmcr", a, b) for a, b in ((ch, hi), (ch, lo), (cl, hi)))
+    assert torch.max(torch.abs(three - before.double())) <= 1e-6 * torch.max(torch.abs(before.double()))
+    ref = JInverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid).synthesis_cl(jnp.asarray(c.numpy()))
+    _check(isht.synthesis_cl(c), ref, "float32")
+
+
+def test_k2_route_is_picked_from_n_before_any_planes(monkeypatch):
+    """The fp32 K2 wrapper picks its route from N = 2C alone: up to N = 32
+    it launches the narrow kernel on the table itself and never asks for
+    planes; above, the tensor-core kernel on the planes, made once per table.
+    A recording library stands in for the card."""
+    calls, asked = [], []
+
+    class Lib:
+        def mt_legendre_synthesis_narrow(self, table, c, out, *args):
+            calls.append(("narrow", table, args[:-1]))
+            return 0
+
+        def mt_legendre_synthesis_tc(self, planes, c, out, *args):
+            calls.append(("tc", planes, args[:-1]))
+            return 0
+
+    real = sht_mod.synthesis_planes
+    monkeypatch.setattr(sht_mod, "synthesis_planes", lambda t: asked.append(t) or real(t))
+    monkeypatch.setattr(kernels, "takes_plain", lambda name, *tensors: False)
+    monkeypatch.setattr(kernels, "library", Lib)
+    monkeypatch.setattr(kernels, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    isht = InverseRealSHT(25, 48, grid="equiangular")
+    p = isht.pct("cpu")
+    M, L, K = p.shape
+    for C, route in ((1, "narrow"), (8, "narrow"), (16, "narrow"), (17, "tc"), (40, "tc")):
+        assert synthesis_route(2 * C) == route
+        kernels.reset_launch_counts()
+        out = synthesis_contract_cl_s(torch.zeros(2, L, M, C, 2), p)
+        assert out.shape == (2, K, M, C, 2) and kernels.LAUNCHES["sht_synthesis"] == 1
+        name, operand, args = calls[-1]
+        assert name == route
+        if route == "narrow":
+            assert operand == p.data_ptr() and args == (2, M, L, K, 2 * C) and not asked
+        else:
+            planes = real(p)
+            assert operand == planes.data_ptr() and args == (2, M, L, K, *planes.shape[2:], 2 * C)
+    assert len(asked) == 2 and all(t is p for t in asked)
