@@ -647,10 +647,9 @@ def resample_case(rs, x, label):
 
 
 def k7_tiles(rs, x, card):
-    """K7 at each tile width (output columns per block) whose shared memory
-    fits the card, staged by cp.async and through registers, held to the
-    plain version and timed: the numbers behind ``resample._SMEM_BUDGET``
-    and ``resample._ASYNC``."""
+    """K7 at each tile (output rows x output columns per block) whose shared
+    memory fits the card, held to the plain version and timed: the numbers
+    behind ``resample._SMEM_BUDGET`` and the wrapper's choice of tile."""
     from makani_torch import kernels
     from makani_torch.ops import resample
 
@@ -659,17 +658,17 @@ def k7_tiles(rs, x, card):
     spans = resample._spans(tabs[2], tabs[3], x.shape[2])
     lib, C = kernels.library(), x.shape[-1]
     line = []
-    for stage_async in (True, False) if x.dtype == torch.float32 else (False,):
+    for rh in resample._ROW_HEIGHTS:
         for tw in resample._TILE_WIDTHS:
-            smem = lib.mt_resample_smem_bytes(stage_async, C, tw, spans[tw])
+            smem = lib.mt_resample_smem_bytes(C, rh, tw, spans[tw])
             if smem > resample._SMEM_MAX:
                 continue
-            err = errors(resample._resample_launch(x, tabs, (tw, stage_async)), ref)
+            err = errors(resample._resample_launch(x, tabs, (rh, tw)), ref)
             if not within(err, x.dtype):
-                raise RuntimeError(f"K7 at tile width {tw} ({'cp.async' if stage_async else 'registers'}) disagrees with the plain version: {err}")
-            ms = time_ms(lambda: resample._resample_launch(x, tabs, (tw, stage_async)), 3, 1)
-            line.append(f"TW {tw} {'cp.async' if stage_async else 'registers'} (span {spans[tw]}, {smem} B) {ms:.3f} ms")
-    print(f"K7 tiles at {tuple(x.shape)} -> {tuple(ref.shape)}: " + "; ".join(line) + f"  [{card}]", flush=True)
+                raise RuntimeError(f"K7 at tile {rh}x{tw} disagrees with the plain version: {err}")
+            ms = time_ms(lambda: resample._resample_launch(x, tabs, (rh, tw)), 3, 1)
+            line.append(f"{rh}x{tw} (span {spans[tw]}, {smem} B) {ms:.3f} ms")
+    print(f"K7 tiles (rows x columns) at {tuple(x.shape)} -> {tuple(ref.shape)}: " + "; ".join(line) + f"  [{card}]", flush=True)
     del ref
 
 

@@ -66,69 +66,48 @@ struct Cursor {
   }
 };
 
-// bytes of the staged rows: with ASYNC, both input rows copied by cp.async
-// and the first lerped in place; else the latitude-lerped row only (the
-// rows are loaded into registers and lerped on the way)
-template <bool ASYNC>
-__host__ __device__ constexpr int rows_bytes(int span, int C) {
-  return ((ASYNC ? 2 : 1) * span * C * 4 + 15) & ~15;
-}
+// shared memory: the RH latitude-lerped rows [RH][span][C] fp32, the
+// tile's column table {offset of k0 in the span times C, of k1, lon_w}, and
+// the warps' scratch of 32 * VEC outputs each
+__host__ __device__ constexpr int rows_bytes(int RH, int span, int C) { return (RH * span * C * 4 + 15) & ~15; }
 
-template <bool ASYNC>
-int smem_bytes(int C, int TW, int span) {
-  return rows_bytes<ASYNC>(span, C) + 16 * TW + WARPS * 16 * 32;
-}
+int smem_bytes(int C, int RH, int TW, int span) { return rows_bytes(RH, span, C) + 16 * TW + WARPS * 16 * 32; }
 
-// shared memory: the staged rows (the latitude-lerped row [span][C] fp32
-// first), the tile's column table {offset of k0 in the span times C, of k1,
-// lon_w}, and the warps' scratch of 32 * VEC outputs each
-template <typename T, bool ASYNC>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
     resample_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict__ lat_idx, const float* __restrict__ lat_w,
                     const int* __restrict__ lon_idx0, const int* __restrict__ lon_idx1, const float* __restrict__ lon_w, int Hout, int Wout, int Win,
-                    int C, long long sB, long long sH, int sW, int sC, int TW, int span) {
-  static_assert(!ASYNC || sizeof(T) == 4, "cp.async copies 4-byte elements");
+                    int C, long long sB, long long sH, int sW, int sC, int RH, int TW, int span) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNK = 32 * VEC;
   extern __shared__ __align__(16) unsigned char smem[];
   const int row_elems = span * C;
   float* mid = reinterpret_cast<float*>(smem);
-  int4* cols = reinterpret_cast<int4*>(smem + rows_bytes<ASYNC>(span, C));
+  int4* cols = reinterpret_cast<int4*>(smem + rows_bytes(RH, span, C));
   T* scratch = reinterpret_cast<T*>(cols + TW);
 
-  const int wo0 = blockIdx.x * TW, ho = blockIdx.y, b = blockIdx.z;
-  const int tw = min(TW, Wout - wo0);
+  const int wo0 = blockIdx.x * TW, ho0 = blockIdx.y * RH, b = blockIdx.z;
+  const int tw = min(TW, Wout - wo0), rh = min(RH, Hout - ho0);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int li = lat_idx[ho];
-  const float lw = lat_w[ho];
   const int start = lon_idx0[wo0];
 
-  // input rows li and li + 1, columns start .. start + span - 1 (mod Win),
-  // lerped along the latitude into mid
-  {
-    const T* src0 = x + b * sB + li * sH;
+  // for each of the tile's output rows ho, its input rows lat_idx[ho] and
+  // lat_idx[ho] + 1 at columns start .. start + span - 1 (mod Win), lerped
+  // along the latitude into mid[ho - ho0]; rows that share their input rows
+  // (most at an upsampling) read them once from device memory, the second
+  // time from L1
+  for (int i = 0; i < rh; ++i) {
+    const T* src0 = x + b * sB + lat_idx[ho0 + i] * sH;
+    const float lw = lat_w[ho0 + i];
+    float* dst = mid + i * row_elems;
     const int q = THREADS / C, r = THREADS % C;
     Cursor cur{tid / C, tid % C};
-    if constexpr (ASYNC) {
-      float* hi = mid + row_elems;
-      for (int e = tid; e < row_elems; e += THREADS) {
-        const int col = start + cur.w < Win ? start + cur.w : start + cur.w - Win;
-        const T* src = src0 + col * sW + cur.c * sC;
-        cp_async<4>(mid + e, src, true);
-        cp_async<4>(hi + e, src + sH, true);
-        cur.advance(q, r, C);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();  // this thread's copies have landed: it lerps them
-      for (int e = tid; e < row_elems; e += THREADS) mid[e] = lerp(mid[e], hi[e], lw);
-    } else {
 #pragma unroll 4
-      for (int e = tid; e < row_elems; e += THREADS) {
-        const int col = start + cur.w < Win ? start + cur.w : start + cur.w - Win;
-        const T* src = src0 + col * sW + cur.c * sC;
-        mid[e] = lerp(to_f32(src[0]), to_f32(src[sH]), lw);
-        cur.advance(q, r, C);
-      }
+    for (int e = tid; e < row_elems; e += THREADS) {
+      const int col = start + cur.w < Win ? start + cur.w : start + cur.w - Win;
+      const T* src = src0 + col * sW + cur.c * sC;
+      dst[e] = lerp(to_f32(src[0]), to_f32(src[sH]), lw);
+      cur.advance(q, r, C);
     }
   }
   for (int i = tid; i < tw; i += THREADS) {
@@ -140,69 +119,70 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
 
   const int n_out = tw * C;
-  T* y_tile = y + (((long long)b * Hout + ho) * Wout + wo0) * C;
-  const bool aligned = reinterpret_cast<uintptr_t>(y_tile) % 16 == 0;
   T* scr = scratch + warp * CHUNK;
   const int q32 = 32 / C, r32 = 32 % C;
   const int skip = (WARPS - 1) * CHUNK, q_skip = skip / C, r_skip = skip % C;
   const int e_first = warp * CHUNK + lane;
-  Cursor cur{e_first / C, e_first % C};
-  for (int base = warp * CHUNK; base < n_out; base += WARPS * CHUNK) {
+  for (int i = 0; i < rh; ++i) {
+    const float* m = mid + i * row_elems;
+    T* y_tile = y + (((long long)b * Hout + ho0 + i) * Wout + wo0) * C;
+    const bool aligned = reinterpret_cast<uintptr_t>(y_tile) % 16 == 0;
+    Cursor cur{e_first / C, e_first % C};
+    for (int base = warp * CHUNK; base < n_out; base += WARPS * CHUNK) {
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      if (base + 32 * v + lane < n_out) {
-        const int4 cw = cols[cur.w];
-        scr[32 * v + lane] = from_f32<T>(lerp(mid[cw.x + cur.c], mid[cw.y + cur.c], __int_as_float(cw.z)));
+      for (int v = 0; v < VEC; ++v) {
+        if (base + 32 * v + lane < n_out) {
+          const int4 cw = cols[cur.w];
+          scr[32 * v + lane] = from_f32<T>(lerp(m[cw.x + cur.c], m[cw.y + cur.c], __int_as_float(cw.z)));
+        }
+        cur.advance(q32, r32, C);
       }
-      cur.advance(q32, r32, C);
-    }
-    __syncwarp();
-    const int e = base + lane * VEC;
-    if (aligned && e + VEC <= n_out) {
-      *reinterpret_cast<uint4*>(y_tile + e) = *reinterpret_cast<const uint4*>(scr + lane * VEC);
-    } else {
+      __syncwarp();
+      const int e = base + lane * VEC;
+      if (aligned && e + VEC <= n_out) {
+        *reinterpret_cast<uint4*>(y_tile + e) = *reinterpret_cast<const uint4*>(scr + lane * VEC);
+      } else {
 #pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        if (e + v < n_out) y_tile[e + v] = scr[lane * VEC + v];
+        for (int v = 0; v < VEC; ++v)
+          if (e + v < n_out) y_tile[e + v] = scr[lane * VEC + v];
+      }
+      __syncwarp();
+      cur.advance(q_skip, r_skip, C);
     }
-    __syncwarp();
-    cur.advance(q_skip, r_skip, C);
   }
 }
 
-template <typename T, bool ASYNC>
+template <typename T>
 int launch(const void* x, void* y, const int* li, const float* lw, const int* k0, const int* k1, const float* v, int B, int Hout, int Wout, int Win,
-           int C, long long sB, long long sH, int sW, int sC, int TW, int span, cudaStream_t s) {
-  const int smem = smem_bytes<ASYNC>(C, TW, span);
-  cudaError_t err = cudaFuncSetAttribute(resample_kernel<T, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+           int C, long long sB, long long sH, int sW, int sC, int RH, int TW, int span, cudaStream_t s) {
+  const int smem = smem_bytes(C, RH, TW, span);
+  cudaError_t err = cudaFuncSetAttribute(resample_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Wout + TW - 1) / TW, Hout, B);
-  resample_kernel<T, ASYNC><<<grid, THREADS, smem, s>>>(static_cast<const T*>(x), static_cast<T*>(y), li, lw, k0, k1, v, Hout, Wout, Win, C, sB, sH,
-                                                        sW, sC, TW, span);
+  const dim3 grid((Wout + TW - 1) / TW, (Hout + RH - 1) / RH, B);
+  resample_kernel<T><<<grid, THREADS, smem, s>>>(static_cast<const T*>(x), static_cast<T*>(y), li, lw, k0, k1, v, Hout, Wout, Win, C, sB, sH, sW, sC,
+                                                 RH, TW, span);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The shared memory K7 asks for: the staged rows (async: both rows, copied
-// by cp.async; bf16 never), the column table and the warps' scratch (the
-// wrapper picks the tile width with it).
-extern "C" int mt_resample_smem_bytes(int async, int C, int TW, int span) {
-  return async ? smem_bytes<true>(C, TW, span) : smem_bytes<false>(C, TW, span);
-}
+// The shared memory K7 asks for: RH lerped rows of span columns, the column
+// table and the warps' scratch (the wrapper picks the tile with it).
+extern "C" int mt_resample_smem_bytes(int C, int RH, int TW, int span) { return smem_bytes(C, RH, TW, span); }
 
 // dtype: 0 float32, 1 bfloat16. x: (B, Hin, Win, C) with element strides
 // sB, sH, sW, sC; y: (B, Hout, Wout, C) contiguous; the int32 and float32
-// tables on the same device. A block makes TW output columns of one output
-// row; span: the widest run of input columns a tile needs (from
-// lon_idx0[first column of the tile], modulo Win). async (float32 only):
-// stage with cp.async. Returns cudaGetLastError() after the launch, or an
-// argument error without launching.
+// tables on the same device. A block makes RH output rows x TW output
+// columns; span: the widest run of input columns a tile of TW needs (from
+// lon_idx0[first column of the tile], modulo Win). Returns
+// cudaGetLastError() after the launch, or an argument error without
+// launching.
 extern "C" int mt_resample(int dtype, const void* x, void* y, const void* lat_idx, const void* lat_w, const void* lon_idx0, const void* lon_idx1,
                            const void* lon_w, int B, int Hout, int Wout, int Win, int C, long long sB, long long sH, long long sW, long long sC,
-                           int TW, int span, int async, void* stream) {
-  if (B <= 0 || Hout <= 0 || Wout <= 0 || Win <= 0 || C <= 0 || TW <= 0 || span <= 0 || span > Win || B > 65535 || Hout > 65535 ||
-      (long long)(Win - 1) * sW + (long long)(C - 1) * sC >= (1LL << 31) || sW < 0 || sC < 0 || (dtype != 0 && dtype != 1) || (async && dtype != 0))
+                           int RH, int TW, int span, void* stream) {
+  if (B <= 0 || Hout <= 0 || Wout <= 0 || Win <= 0 || C <= 0 || RH <= 0 || TW <= 0 || span <= 0 || span > Win || B > 65535 ||
+      (Hout + RH - 1) / RH > 65535 || (long long)(Win - 1) * sW + (long long)(C - 1) * sC >= (1LL << 31) || sW < 0 || sC < 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* li = static_cast<const int*>(lat_idx);
@@ -210,7 +190,6 @@ extern "C" int mt_resample(int dtype, const void* x, void* y, const void* lat_id
   const int* k0 = static_cast<const int*>(lon_idx0);
   const int* k1 = static_cast<const int*>(lon_idx1);
   const float* v = static_cast<const float*>(lon_w);
-  if (dtype == 1) return launch<__nv_bfloat16, false>(x, y, li, lw, k0, k1, v, B, Hout, Wout, Win, C, sB, sH, (int)sW, (int)sC, TW, span, s);
-  if (async) return launch<float, true>(x, y, li, lw, k0, k1, v, B, Hout, Wout, Win, C, sB, sH, (int)sW, (int)sC, TW, span, s);
-  return launch<float, false>(x, y, li, lw, k0, k1, v, B, Hout, Wout, Win, C, sB, sH, (int)sW, (int)sC, TW, span, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, y, li, lw, k0, k1, v, B, Hout, Wout, Win, C, sB, sH, (int)sW, (int)sC, RH, TW, span, s);
+  return launch<float>(x, y, li, lw, k0, k1, v, B, Hout, Wout, Win, C, sB, sH, (int)sW, (int)sC, RH, TW, span, s);
 }

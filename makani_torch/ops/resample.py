@@ -52,14 +52,14 @@ def column_span(lon_idx0: np.ndarray, lon_idx1: np.ndarray, nlon_in: int, tw: in
     return int(np.maximum((k0 - start) % nlon_in, (k1 - start) % nlon_in).max()) + 1
 
 
-# K7's tile widths (output columns per block) and the shared memory a block
-# may take: the widest tile within _SMEM_BUDGET, else the narrowest within
-# the card's 227 KB. _ASYNC: fp32 stages with cp.async (both rows in shared
-# memory) rather than through registers (the lerped row only).
-_TILE_WIDTHS = (32, 16, 8, 4)
-_SMEM_BUDGET = 64 * 1024
+# K7's tiles, output rows x output columns per block: the tile that reads
+# the fewest input elements from L2 per output (2 span / (RH TW)) among those
+# whose shared memory fits _SMEM_BUDGET, else one row of 4 columns within
+# the card's 227 KB.
+_ROW_HEIGHTS = (1, 2, 4)
+_TILE_WIDTHS = (4, 8, 16, 32, 64)
+_SMEM_BUDGET = 48 * 1024
 _SMEM_MAX = 227 * 1024
-_ASYNC = True
 
 # id(lon_idx0) -> (tag, {tw: span}); an entry leaves with its table
 _SPANS: dict = {}
@@ -87,8 +87,8 @@ def resample_cl(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
 
 
 def _resample_launch(x, tables, tile=None):
-    """K7 on the card, at the tile (output columns per block, cp.async
-    staging) the wrapper picks, or ``tile`` (a measurement's override)."""
+    """K7 on the card, at the tile (output rows, output columns per block)
+    the wrapper picks, or ``tile`` (a measurement's override)."""
     lat_idx, lat_w, lon_idx0, lon_idx1, lon_w = tables
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"resample: expected float32/bfloat16 (B, H, W, C), got {x.dtype} {tuple(x.shape)}")
@@ -103,17 +103,16 @@ def _resample_launch(x, tables, tile=None):
     lib = kernels.library()
     spans = _spans(lon_idx0, lon_idx1, Win)
     if tile is None:
-        stage_async = _ASYNC and x.dtype == torch.float32
-        fits = [tw for tw in _TILE_WIDTHS if lib.mt_resample_smem_bytes(stage_async, C, tw, spans[tw]) <= _SMEM_BUDGET]
-        tile = (fits[0] if fits else _TILE_WIDTHS[-1], stage_async)
-    tw, stage_async = tile
-    if lib.mt_resample_smem_bytes(stage_async, C, tw, spans[tw]) > _SMEM_MAX:
-        raise ValueError(f"resample: {C} channels over a span of {spans[tw]} input columns do not fit in shared memory")
+        fits = [(spans[tw] / (rh * tw), rh, tw) for rh in _ROW_HEIGHTS for tw in _TILE_WIDTHS if lib.mt_resample_smem_bytes(C, rh, tw, spans[tw]) <= _SMEM_BUDGET]
+        tile = min(fits)[1:] if fits else (1, _TILE_WIDTHS[0])
+    rh, tw = tile
+    if lib.mt_resample_smem_bytes(C, rh, tw, spans[tw]) > _SMEM_MAX:
+        raise ValueError(f"resample: {C} channels over {rh} rows and a span of {spans[tw]} input columns do not fit in shared memory")
     sB, sH, sW, sC = x.stride()
     with torch.cuda.device(x.device):
         err = lib.mt_resample(
             kernels.dtype_code(x.dtype), x.data_ptr(), y.data_ptr(), lat_idx.data_ptr(), lat_w.data_ptr(), lon_idx0.data_ptr(), lon_idx1.data_ptr(),
-            lon_w.data_ptr(), B, Hout, Wout, Win, C, sB, sH, sW, sC, tw, spans[tw], int(stage_async), kernels.stream_ptr(x.device),
+            lon_w.data_ptr(), B, Hout, Wout, Win, C, sB, sH, sW, sC, rh, tw, spans[tw], kernels.stream_ptr(x.device),
         )
     kernels.check_launch(err, "resample")
     kernels.count_launch("resample")
