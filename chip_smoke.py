@@ -647,28 +647,25 @@ def resample_case(rs, x, label):
 
 
 def k7_tiles(rs, x, card):
-    """K7 at each tile (output rows x output columns per block) whose shared
-    memory fits the card, held to the plain version and timed: the numbers
-    behind ``resample._SMEM_BUDGET`` and the wrapper's choice of tile."""
+    """K7 at each tile width (output columns per block) whose shared memory
+    fits the card, held to the plain version and timed: the numbers behind
+    ``resample._SMEM_BUDGET``, which picks the width."""
     from makani_torch import kernels
     from makani_torch.ops import resample
 
     tabs = rs.tables(x.device)
     ref = resample.resample_cl_plain(x, tabs[0].long(), tabs[1], tabs[2].long(), tabs[3].long(), tabs[4])
     spans = resample._spans(tabs[2], tabs[3], x.shape[2])
-    lib, C = kernels.library(), x.shape[-1]
     line = []
-    for rh in resample._ROW_HEIGHTS:
-        for tw in resample._TILE_WIDTHS:
-            smem = lib.mt_resample_smem_bytes(C, rh, tw, spans[tw])
-            if smem > resample._SMEM_MAX:
-                continue
-            err = errors(resample._resample_launch(x, tabs, (rh, tw)), ref)
-            if not within(err, x.dtype):
-                raise RuntimeError(f"K7 at tile {rh}x{tw} disagrees with the plain version: {err}")
-            ms = time_ms(lambda: resample._resample_launch(x, tabs, (rh, tw)), 3, 1)
-            line.append(f"{rh}x{tw} (span {spans[tw]}, {smem} B) {ms:.3f} ms")
-    print(f"K7 tiles (rows x columns) at {tuple(x.shape)} -> {tuple(ref.shape)}: " + "; ".join(line) + f"  [{card}]", flush=True)
+    for tw in resample._TILE_WIDTHS:
+        smem = kernels.library().mt_resample_smem_bytes(x.shape[-1], tw, spans[tw])
+        if smem > resample._SMEM_MAX:
+            continue
+        err = errors(resample._resample_launch(x, tabs, tw), ref)
+        if not within(err, x.dtype):
+            raise RuntimeError(f"K7 at tile width {tw} disagrees with the plain version: {err}")
+        line.append(f"TW {tw} (span {spans[tw]}, {smem} B) {time_ms(lambda: resample._resample_launch(x, tabs, tw), 3, 1):.3f} ms")
+    print(f"K7 tile widths at {tuple(x.shape)} -> {tuple(ref.shape)}: " + "; ".join(line) + f"  [{card}]", flush=True)
     del ref
 
 
@@ -716,6 +713,7 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     run_cases([resample_case(dec.resample, z[..., : R * g * ig], "atmo-decoder"),
                resample_case(sd.resample, z[..., z.shape[-1] - net.surf_embed_dim :], "surf-decoder")], card, results, 3, 1)
     k7_tiles(dec.resample, z[..., : R * g * ig], card)
+    k7_tiles(sd.resample, z[..., z.shape[-1] - net.surf_embed_dim :], card)
     del z
     xd = randn((B, H, W, R * g * ig), torch.float32, gen, dev)
     cases = [band_case(op, xd, FusedFilterCache().get(op, wt, 0), g, ig, og, "atmo-decoder")]

@@ -66,20 +66,24 @@
 //   kernel streams the table once. At 721 x 721 x 721 the live (l >= m)
 //   triangle is 751 MB and the product 6 GFLOP: bound by the bytes
 //   (0.22 ms at 3.35 TB/s), and a 128-column tensor-core tile would leave
-//   7/8 of its columns empty and read two planes (1.5 GB). A block owns
-//   512 latitudes k of one b and walks the slabs P[m, l >= m, :] of two
-//   orders, m and M - 1 - m (so every block sums about L rows), reading
-//   each table row once, coalesced along k (16 bytes a thread where K % 4
-//   == 0, else 4 bytes a thread, 128 bytes a warp), four rows in flight a
-//   thread; c[b, l, m, :] is staged 32 rows l at a time in a cp.async
-//   double buffer and read as broadcasts; each thread holds 4 k x N
-//   fp32 accumulators (N padded to 16 or 32). Nothing is made from the
-//   table: the route is picked before any planes would be.
+//   7/8 of its columns empty and read two planes (1.5 GB). A block owns up
+//   to 256 latitudes k of one (b, m), two a thread (512, four a thread in
+//   one 16-byte load, where K % 4 == 0), and reads each row of the slab
+//   P[m, l >= m, :] once, coalesced along k (128 bytes a warp at least),
+//   the next four rows' loads in flight while four rows are summed;
+//   c[b, l, m, :] is staged 32 rows l at a time in a cp.async double buffer
+//   and read as broadcasts; each thread holds its k x N fp32 accumulators
+//   (N padded to 16 or 32). The orders run slowest in the grid, m = 0 first, so the
+//   longest slabs start first and the shortest fill the last round. Nothing
+//   is made from the table: the route is picked before any planes would be.
 //
-// The crossover N = 32 was measured on an H100 (chip_smoke.py prints both
-// routes at N = 16 and 32 at the SFNO's full-resolution and the noise's
-// tables; PERF.md). bf16 input (no main path runs it) stays on the fp32 FMA
-// kernel legendre_contract_kernel: 64 x 128 output tiles, each thread 4 x 8
+// The crossover N = 32 is measured on an H100 (chip_smoke.py times both
+// routes at N 16 and 32 on the SFNO's full-resolution table and on the
+// noise's; PERF.md): the narrow route is 2-4x faster at N 16 and still
+// ahead at N 32, where it takes about twice its time at N 16, while the
+// tensor cores' time does not change with N up to their 128-column tile.
+// bf16 input (no main path runs it) stays on the fp32 FMA kernel
+// legendre_contract_kernel: 64 x 128 output tiles, each thread 4 x 8
 // accumulators fed by three 16-byte shared loads per 32 FMAs, 16-deep
 // stages double-buffered in shared memory, fp32 accumulation. Its analysis
 // writes the zero tiles above the diagonal without reading anything, and

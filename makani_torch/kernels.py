@@ -123,9 +123,9 @@ def library() -> ctypes.CDLL:
             lib.mt_disco_band_contract.restype = i
             lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_disco_polar.restype = i
-            lib.mt_resample.argtypes = [i] + [vp] * 7 + [i] * 5 + [ll] * 4 + [i] * 3 + [vp]
+            lib.mt_resample.argtypes = [i] + [vp] * 7 + [i] * 5 + [ll] * 4 + [i, i, vp]
             lib.mt_resample.restype = i
-            lib.mt_resample_smem_bytes.argtypes = [i] * 4
+            lib.mt_resample_smem_bytes.argtypes = [i] * 3
             lib.mt_resample_smem_bytes.restype = i
             lib.mt_error_string.argtypes = [i]
             lib.mt_error_string.restype = ctypes.c_char_p

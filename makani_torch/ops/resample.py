@@ -9,10 +9,10 @@ Kernel K7 (CUDA, ``csrc/resample.cu``) replaces ``ResampleS2.__call__``
 (:90-99), which XLA runs as index gathers and elementwise passes. It is bound
 by memory bandwidth: at the FCN3 decoders (B 2, 360x720 -> 721x1440, 585
 channels) it writes 4.9 GB and reads 1.2 GB. A block makes a tile of output
-columns of one output row: it stages the span of the two input rows that the
-tile needs in shared memory and writes the tile's contiguous run of outputs
-16 bytes at a time; the intermediate latitude-lerped field never reaches
-device memory. The wrapper picks the tile width from the span the tables
+columns of one output row: it stages the latitude lerp of the two input rows
+over the span of columns the tile needs in shared memory and writes the
+tile's contiguous run of outputs 16 bytes at a time; the latitude-lerped
+field never reaches device memory. The wrapper picks the tile width from the span the tables
 give (``column_span``, computed once per table tensor). The matmul and
 ``auto`` methods serve the spatially sharded mesh and arrive with the
 spatial-parallel slice.
@@ -52,13 +52,13 @@ def column_span(lon_idx0: np.ndarray, lon_idx1: np.ndarray, nlon_in: int, tw: in
     return int(np.maximum((k0 - start) % nlon_in, (k1 - start) % nlon_in).max()) + 1
 
 
-# K7's tiles, output rows x output columns per block: the tile that reads
-# the fewest input elements from L2 per output (2 span / (RH TW)) among those
-# whose shared memory fits _SMEM_BUDGET, else one row of 4 columns within
-# the card's 227 KB.
-_ROW_HEIGHTS = (1, 2, 4)
-_TILE_WIDTHS = (4, 8, 16, 32, 64)
-_SMEM_BUDGET = 48 * 1024
+# K7's tile widths (output columns per block): the widest whose shared
+# memory fits _SMEM_BUDGET (so that several blocks share an SM), else the
+# narrowest within the card's 227 KB. Measured on an H100 (chip_smoke.py's
+# tile sweep): 16 columns at the atmo decoder (585 channels), 64 at the
+# surface decoder (56).
+_TILE_WIDTHS = (64, 32, 16, 8, 4)
+_SMEM_BUDGET = 32 * 1024
 _SMEM_MAX = 227 * 1024
 
 # id(lon_idx0) -> (tag, {tw: span}); an entry leaves with its table
@@ -86,9 +86,9 @@ def resample_cl(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
     return _resample_launch(x, (lat_idx, lat_w, lon_idx0, lon_idx1, lon_w))
 
 
-def _resample_launch(x, tables, tile=None):
-    """K7 on the card, at the tile (output rows, output columns per block)
-    the wrapper picks, or ``tile`` (a measurement's override)."""
+def _resample_launch(x, tables, tile_width=None):
+    """K7 on the card, at the tile width (output columns per block) the
+    wrapper picks, or ``tile_width`` (a measurement's override)."""
     lat_idx, lat_w, lon_idx0, lon_idx1, lon_w = tables
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"resample: expected float32/bfloat16 (B, H, W, C), got {x.dtype} {tuple(x.shape)}")
@@ -102,17 +102,16 @@ def _resample_launch(x, tables, tile=None):
         return y
     lib = kernels.library()
     spans = _spans(lon_idx0, lon_idx1, Win)
-    if tile is None:
-        fits = [(spans[tw] / (rh * tw), rh, tw) for rh in _ROW_HEIGHTS for tw in _TILE_WIDTHS if lib.mt_resample_smem_bytes(C, rh, tw, spans[tw]) <= _SMEM_BUDGET]
-        tile = min(fits)[1:] if fits else (1, _TILE_WIDTHS[0])
-    rh, tw = tile
-    if lib.mt_resample_smem_bytes(C, rh, tw, spans[tw]) > _SMEM_MAX:
-        raise ValueError(f"resample: {C} channels over {rh} rows and a span of {spans[tw]} input columns do not fit in shared memory")
+    if tile_width is None:
+        fits = [tw for tw in _TILE_WIDTHS if lib.mt_resample_smem_bytes(C, tw, spans[tw]) <= _SMEM_BUDGET]
+        tile_width = fits[0] if fits else _TILE_WIDTHS[-1]
+    if lib.mt_resample_smem_bytes(C, tile_width, spans[tile_width]) > _SMEM_MAX:
+        raise ValueError(f"resample: {C} channels over a span of {spans[tile_width]} input columns do not fit in shared memory")
     sB, sH, sW, sC = x.stride()
     with torch.cuda.device(x.device):
         err = lib.mt_resample(
             kernels.dtype_code(x.dtype), x.data_ptr(), y.data_ptr(), lat_idx.data_ptr(), lat_w.data_ptr(), lon_idx0.data_ptr(), lon_idx1.data_ptr(),
-            lon_w.data_ptr(), B, Hout, Wout, Win, C, sB, sH, sW, sC, rh, tw, spans[tw], kernels.stream_ptr(x.device),
+            lon_w.data_ptr(), B, Hout, Wout, Win, C, sB, sH, sW, sC, tile_width, spans[tile_width], kernels.stream_ptr(x.device),
         )
     kernels.check_launch(err, "resample")
     kernels.count_launch("resample")

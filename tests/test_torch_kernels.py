@@ -298,15 +298,13 @@ def test_resample_kernel_on_a_channel_slice(cuda, shapes, C, used, dtype):
         assert _agree(y[part], ref[part], dtype), part
     if dtype == torch.float32:
         assert torch.equal(y, ref)
-    # every tile (output rows x columns per block) the wrapper could pick
+    # every tile width the wrapper could pick
     tabs = rs.tables(cuda)
     spans = resample._spans(tabs[2], tabs[3], wi)
-    for rh in resample._ROW_HEIGHTS:
-        for tw in resample._TILE_WIDTHS:
-            if kernels.library().mt_resample_smem_bytes(used, rh, tw, spans[tw]) > resample._SMEM_MAX:
-                continue
-            yt = resample._resample_launch(x, tabs, (rh, tw))
-            assert torch.equal(yt, y) if dtype == torch.float32 else _agree(yt, ref, dtype), (rh, tw)
+    for tw in resample._TILE_WIDTHS:
+        if kernels.library().mt_resample_smem_bytes(used, tw, spans[tw]) <= resample._SMEM_MAX:
+            yt = resample._resample_launch(x, tabs, tw)
+            assert torch.equal(yt, y) if dtype == torch.float32 else _agree(yt, ref, dtype), tw
 
 
 def test_small_fcn3_kernel_path_matches_plain(cuda):
