@@ -591,24 +591,17 @@ int launch(const float* table, const float* c, float* out, int B, int M, int L, 
 
 }  // namespace narrow
 
-// dtype: 0 float32, 1 bfloat16. mode: 0 analysis, 1 synthesis.
+// K1 and K2 in bf16 on the fp32 FMA kernel: dtype 1 (bfloat16) only, fp32
+// has the tensor-core and narrow kernels. mode: 0 analysis, 1 synthesis.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mt_legendre_contract(int dtype, const void* table, const void* x, void* out, int B, int M, int rows, int depth, int N, int mode,
                                     void* stream) {
-  if (B <= 0 || M <= 0 || rows <= 0 || depth <= 0 || N <= 0 || (long long)B * M > 65535 || (mode != 0 && mode != 1))
+  if (dtype != 1 || B <= 0 || M <= 0 || rows <= 0 || depth <= 0 || N <= 0 || (long long)B * M > 65535 || (mode != 0 && mode != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + TN - 1) / TN, (rows + TI - 1) / TI, B * M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    legendre_contract_kernel<float><<<grid, THREADS, 0, s>>>(static_cast<const float*>(table), static_cast<const float*>(x),
-                                                             static_cast<float*>(out), M, rows, depth, N, mode);
-  } else if (dtype == 1) {
-    legendre_contract_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(table),
-                                                                     static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), M,
-                                                                     rows, depth, N, mode);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  legendre_contract_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(table), static_cast<const __nv_bfloat16*>(x),
+                                                                   static_cast<__nv_bfloat16*>(out), M, rows, depth, N, mode);
   return (int)cudaGetLastError();
 }
 
