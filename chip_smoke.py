@@ -237,7 +237,8 @@ def legendre_extras(x, table, mode, lead):
     """Bound and bmm yardstick of K1 (mode 0) / K2 (mode 1): for each order m
     one GEMM (rows x depth) . (depth x B*N). The table's zero triangle
     (m > l) is work and bytes the data does not need: the bound counts its
-    m <= l entries only."""
+    m <= l entries only, and for K2 only the rows l >= m of the input c
+    (the rows above meet nothing but that triangle's zeros)."""
     from makani_torch.ops import sht
 
     M, L, K = table.shape
@@ -251,8 +252,9 @@ def legendre_extras(x, table, mode, lead):
         flops = 2.0 * torch.count_nonzero(table).item() * BN
         pairs = sum(max(L - m, 0) for m in range(M))  # (m, l) with m <= l
         table_bytes = pairs * K * table.element_size()
+        x_bytes = nbytes(x) if mode == 0 else pairs * BN * x.element_size()
         lib = time_ms(lambda: torch.bmm(A, Xp), 5, 1)
-        res = dict(bound(flops, nbytes(x, out) + table_bytes, x.dtype), library_ms=lib)
+        res = dict(bound(flops, x_bytes + nbytes(out) + table_bytes, x.dtype), library_ms=lib)
         if mode == 0:
             # K1's 64-row l tiles: a tile whose rows all lie above the
             # diagonal (l < m) is dead and reads nothing
@@ -264,33 +266,6 @@ def legendre_extras(x, table, mode, lead):
         return res
 
     return extras
-
-
-def k2_routes(table, label, Ns, gen, card):
-    """K2's two fp32 routes on one table at each N = 2C, both held to the
-    plain version and timed in turns (narrow, tc, tc, narrow): the numbers
-    behind the crossover in ``sht.synthesis_route``. The tensor-core route
-    gets its own copy of the table, so its planes leave with it."""
-    from makani_torch.ops import sht
-
-    M, L, K = table.shape
-    tab = table.clone()
-    for N in Ns:
-        c = randn((1, L, M, N // 2, 2), torch.float32, gen, table.device)
-        ref = sht.synthesis_contract_cl_s_plain(c, table)
-        runs = {"narrow": lambda: sht._legendre_launch("sht_synthesis", sht._SYNTHESIS, c, table, "narrow"),
-                "tc": lambda: sht._legendre_launch("sht_synthesis", sht._SYNTHESIS, c, tab, "tc")}
-        ms = {r: [] for r in runs}
-        for r in ("narrow", "tc", "tc", "narrow"):
-            err = errors(runs[r](), ref)
-            if not within(err, torch.float32):
-                raise RuntimeError(f"K2 {r} route at {label}, N {N}, disagrees with the plain version: {err}")
-            ms[r].append(time_ms(runs[r], 5, 1))
-        print(f"K2 routes at {label} (M, L, K) {tuple(table.shape)}, N {N}: narrow {statistics.mean(ms['narrow']):.3f} ms, "
-              f"tc {statistics.mean(ms['tc']):.3f} ms (each the mean of two timings; wrapper picks {sht.synthesis_route(N)})  [{card}]", flush=True)
-        del c, ref
-    del tab
-    torch.cuda.empty_cache()
 
 
 def dhconv_extras(x, w):
@@ -373,7 +348,6 @@ def check_sfno_kernels(dev, card, transforms, embed_dim):
                 )
             )
     res = run_cases(cases, card, {})
-    k2_routes(itrans_up.pct(dev), "SFNO full res", (16, 32), gen, card)
     return res
 
 
@@ -646,29 +620,6 @@ def resample_case(rs, x, label):
     return ("resample", label, torch.float32, lambda: resample_cl(x, *tabs), lambda: resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v), extras)
 
 
-def k7_tiles(rs, x, card):
-    """K7 at each tile width (output columns per block) whose shared memory
-    fits the card, held to the plain version and timed: the numbers behind
-    ``resample._SMEM_BUDGET``, which picks the width."""
-    from makani_torch import kernels
-    from makani_torch.ops import resample
-
-    tabs = rs.tables(x.device)
-    ref = resample.resample_cl_plain(x, tabs[0].long(), tabs[1], tabs[2].long(), tabs[3].long(), tabs[4])
-    spans = resample._spans(tabs[2], tabs[3], x.shape[2])
-    line = []
-    for tw in resample._TILE_WIDTHS:
-        smem = kernels.library().mt_resample_smem_bytes(x.shape[-1], tw, spans[tw])
-        if smem > resample._SMEM_MAX:
-            continue
-        err = errors(resample._resample_launch(x, tabs, tw), ref)
-        if not within(err, x.dtype):
-            raise RuntimeError(f"K7 at tile width {tw} disagrees with the plain version: {err}")
-        line.append(f"TW {tw} (span {spans[tw]}, {smem} B) {time_ms(lambda: resample._resample_launch(x, tabs, tw), 3, 1):.3f} ms")
-    print(f"K7 tile widths at {tuple(x.shape)} -> {tuple(ref.shape)}: " + "; ".join(line) + f"  [{card}]", flush=True)
-    del ref
-
-
 def check_fcn3_kernels(dev, card, net, noise, B):
     """Phase 8: the FCN3 path's kernels at its shapes (B = the folded
     ensemble), against their plain versions."""
@@ -712,8 +663,6 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     sd = net.surf_decoder
     run_cases([resample_case(dec.resample, z[..., : R * g * ig], "atmo-decoder"),
                resample_case(sd.resample, z[..., z.shape[-1] - net.surf_embed_dim :], "surf-decoder")], card, results, 3, 1)
-    k7_tiles(dec.resample, z[..., : R * g * ig], card)
-    k7_tiles(sd.resample, z[..., z.shape[-1] - net.surf_embed_dim :], card)
     del z
     xd = randn((B, H, W, R * g * ig), torch.float32, gen, dev)
     cases = [band_case(op, xd, FusedFilterCache().get(op, wt, 0), g, ig, og, "atmo-decoder")]
@@ -744,7 +693,6 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     ]
     run_cases(cases, card, results, 3, 1)
     del xf, c2, xs, cn, cases
-    k2_routes(pn, "the noise", (16, 32), gen, card)
     return results
 
 

@@ -32,7 +32,7 @@
 // run where it is 16-byte aligned (each output row starts aligned at the
 // decoders; 4 or 2 bytes a lane otherwise).
 //
-// Measured on an H100 (chip_smoke.py's K7 line and tile sweep; PERF.md): a
+// Measured on an H100 (chip_smoke.py's K7 line, sweep_k2_k7.py; PERF.md): a
 // 16-column tile (27.8 KB of shared memory, up to 8 blocks an SM) at the
 // atmo decoder; cp.async staging of both rows (twice the shared memory), a
 // second staging buffer, and tiles of 2 or 4 output rows sharing their

@@ -77,7 +77,7 @@
 //   longest slabs start first and the shortest fill the last round. Nothing
 //   is made from the table: the route is picked before any planes would be.
 //
-// The crossover N = 32 is measured on an H100 (chip_smoke.py times both
+// The crossover N = 32 is measured on an H100 (sweep_k2_k7.py times both
 // routes at N 16 and 32 on the SFNO's full-resolution table and on the
 // noise's; PERF.md): the narrow route is 2-4x faster at N 16 and still
 // ahead at N 32, where it takes about twice its time at N 16, while the

@@ -54,9 +54,9 @@ def column_span(lon_idx0: np.ndarray, lon_idx1: np.ndarray, nlon_in: int, tw: in
 
 # K7's tile widths (output columns per block): the widest whose shared
 # memory fits _SMEM_BUDGET (so that several blocks share an SM), else the
-# narrowest within the card's 227 KB. Measured on an H100 (chip_smoke.py's
-# tile sweep): 16 columns at the atmo decoder (585 channels), 64 at the
-# surface decoder (56).
+# narrowest within the card's 227 KB. Measured on an H100
+# (sweep_k2_k7.py): 16 columns at the atmo decoder (585 channels), 64 at
+# the surface decoder (56).
 _TILE_WIDTHS = (64, 32, 16, 8, 4)
 _SMEM_BUDGET = 32 * 1024
 _SMEM_MAX = 227 * 1024
@@ -86,9 +86,9 @@ def resample_cl(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
     return _resample_launch(x, (lat_idx, lat_w, lon_idx0, lon_idx1, lon_w))
 
 
-def _resample_launch(x, tables, tile_width=None):
-    """K7 on the card, at the tile width (output columns per block) the
-    wrapper picks, or ``tile_width`` (a measurement's override)."""
+def _resample_launch(x, tables):
+    """K7 on the card, at the widest tile (output columns per block) whose
+    shared memory fits _SMEM_BUDGET."""
     lat_idx, lat_w, lon_idx0, lon_idx1, lon_w = tables
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"resample: expected float32/bfloat16 (B, H, W, C), got {x.dtype} {tuple(x.shape)}")
@@ -102,9 +102,8 @@ def _resample_launch(x, tables, tile_width=None):
         return y
     lib = kernels.library()
     spans = _spans(lon_idx0, lon_idx1, Win)
-    if tile_width is None:
-        fits = [tw for tw in _TILE_WIDTHS if lib.mt_resample_smem_bytes(C, tw, spans[tw]) <= _SMEM_BUDGET]
-        tile_width = fits[0] if fits else _TILE_WIDTHS[-1]
+    fits = [tw for tw in _TILE_WIDTHS if lib.mt_resample_smem_bytes(C, tw, spans[tw]) <= _SMEM_BUDGET]
+    tile_width = fits[0] if fits else _TILE_WIDTHS[-1]
     if lib.mt_resample_smem_bytes(C, tile_width, spans[tile_width]) > _SMEM_MAX:
         raise ValueError(f"resample: {C} channels over a span of {spans[tile_width]} input columns do not fit in shared memory")
     sB, sH, sW, sC = x.stride()

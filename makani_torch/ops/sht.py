@@ -114,7 +114,7 @@ def synthesis_planes(pct: torch.Tensor) -> torch.Tensor:
 
 # The fp32 K2's routes, by N = 2C alone: up to _NARROW_MAX_N columns the
 # kernel that streams the table once (no planes), above it the tensor cores.
-# The crossover was measured on an H100 (chip_smoke.py times both routes at
+# The crossover was measured on an H100 (sweep_k2_k7.py times both routes at
 # N 16 and 32; PERF.md); the narrow kernel holds at most 32 columns.
 _NARROW_MAX_N = 32
 
@@ -124,7 +124,7 @@ def synthesis_route(N: int) -> str:
     return "narrow" if N <= _NARROW_MAX_N else "tc"
 
 
-def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor, route: str | None = None) -> torch.Tensor:
+def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if x.dtype != table.dtype:
         raise TypeError(f"{name}: input {x.dtype} and table {table.dtype} differ; cast the table first")
     if table.dim() != 3 or x.dim() < 5 or x.shape[-1] != 2:
@@ -149,15 +149,12 @@ def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor,
             Lp, Kp = planes.shape[2:]
             err = lib.mt_legendre_analysis_tc(planes.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, Lp, Kp, N, stream)
         elif mode == _SYNTHESIS and x.dtype == torch.float32:
-            route = route or synthesis_route(N)
-            if route == "narrow":
+            if synthesis_route(N) == "narrow":
                 err = lib.mt_legendre_synthesis_narrow(table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, N, stream)
-            elif route == "tc":
+            else:
                 planes = synthesis_planes(table)
                 Kp, Lp = planes.shape[2:]
                 err = lib.mt_legendre_synthesis_tc(planes.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, L, K, Kp, Lp, N, stream)
-            else:
-                raise ValueError(f"{name}: unknown route {route!r}")
         else:
             err = lib.mt_legendre_contract(kernels.dtype_code(x.dtype), table.data_ptr(), x.data_ptr(), out.data_ptr(), B, M, rows, depth, N, mode, stream)
     kernels.check_launch(err, name)

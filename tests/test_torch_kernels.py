@@ -31,6 +31,7 @@ from makani_torch.ops.sht import (
     synthesis_contract_cl_s,
     synthesis_contract_cl_s_plain,
 )
+from sweep_k2_k7 import k2_route, k7_width
 
 pytestmark = pytest.mark.gpu
 
@@ -119,8 +120,9 @@ def test_k2_routes_match_plain(cuda, nlat, nlon, grid, lmax, mmax, C, B):
     assert narrow == (2 * C <= 32)
     # the narrow route makes no planes of the table
     assert ((id(p), "synthesis") in sht._PLANES) != narrow
+    # both routes where both hold N, straight from the library
     for route in ("tc", "narrow") if narrow else ("tc",):
-        assert _agree(sht._legendre_launch("sht_synthesis", sht._SYNTHESIS, c, p, route), ref, torch.float32), route
+        assert _agree(k2_route(c, p, route), ref, torch.float32), route
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -303,7 +305,7 @@ def test_resample_kernel_on_a_channel_slice(cuda, shapes, C, used, dtype):
     spans = resample._spans(tabs[2], tabs[3], wi)
     for tw in resample._TILE_WIDTHS:
         if kernels.library().mt_resample_smem_bytes(used, tw, spans[tw]) <= resample._SMEM_MAX:
-            yt = resample._resample_launch(x, tabs, tw)
+            yt = k7_width(x, tabs, tw)
             assert torch.equal(yt, y) if dtype == torch.float32 else _agree(yt, ref, dtype), tw
 
 
