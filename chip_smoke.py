@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device, nvcc (CUDA toolkit) and triton (K4); exits non-zero, with no
-result line, without them or outside a checkout of the repository. Phases, in
-order, each fatal on failure:
+Needs one CUDA device and nvcc (CUDA toolkit); exits non-zero, with no result
+line, without them or outside a checkout of the repository. Phases, in order,
+each fatal on failure:
 
  1. print the card's name and power limit; build the CUDA kernels from
-    ``makani_torch/csrc`` and print the build time;
+    ``makani_torch/csrc`` (one nvcc a source, in parallel) and print the
+    build time and every kernel's registers and spills;
 
  The SFNO forecast (slice 1):
  2. compare each hand-written kernel of the path (K1 SHT analysis, K2 SHT
     synthesis, K3 dhconv, K4 instance norm) with its plain PyTorch version at
-    the flagship's shapes, in fp32 and bf16, and time both;
+    the flagship's shapes, in fp32 and bf16, and time both, with K4's bound
+    and its two-read floor;
  3. build ``sfno_linear_73chq_sc3_layers8_edim384`` (config/sfnonet.yaml:
     721x1440, 73 channels + zenith, embed 384, 8 blocks, bf16 compute) through
     ``get_model`` on seeded weights, wrap it in ``ModelWrapper`` with seeded
@@ -35,14 +37,15 @@ order, each fatal on failure:
  8. compare the kernels of this path with their plain versions at its
     shapes: K5 banded DISCO contraction (responses mode at the processor,
     fused mode at the encoders and decoders), K6 polar rows (psi-first and
-    mix-first orders), K7 bilinear resampling, and K1-K3 at the internal
-    grid and the noise synthesis; time both and the one-call library
-    yardsticks;
+    mix-first orders), K8 the processor's fp32 channel mix (against cuBLAS),
+    K7 bilinear resampling, and K1-K3 at the internal grid and the noise
+    synthesis; time both and the one-call library yardsticks, and the polar
+    rows' mix (a cuBLAS ``bmm``, no kernel);
  9. roll the ensemble out for 4 six-hour steps with diffusion noise drawn as
     the JAX package's inferencer draws it, and check every frame is finite
     and the two members differ;
-10. check the launch counts of that rollout (per step K5 13, K6 13, K7 2,
-    K1 2, K3 2, K2 3);
+10. check the launch counts of that rollout (per step K5 13, K6 13, K8 8,
+    K7 2, K1 2, K3 2, K2 3);
 11. run step 1 through the plain versions on the card and compare, in bf16
     and with fp32 compute on the same weights;
 12. time an ensemble forecast step on both paths and report peak memory.
@@ -74,13 +77,15 @@ SEED = 0
 STEPS = 4
 EXPECTED_PER_STEP = {"sht_analysis": 8, "sht_synthesis": 10, "dhconv": 8, "instance_norm": 16}
 # FCN3: 3 encoders + 8 local blocks + 2 decoders run one K5 and one K6 launch
-# each; the 2 global blocks one K1, K3 and K2 each; the noise synthesis one K2
-FCN3_EXPECTED_PER_STEP = {"disco_band": 13, "disco_polar": 13, "resample": 2, "sht_analysis": 2, "dhconv": 2, "sht_synthesis": 3}
+# each, the 8 local blocks' two-stage convs one K8; the 2 global blocks one
+# K1, K3 and K2 each; the noise synthesis one K2
+FCN3_EXPECTED_PER_STEP = {"disco_band": 13, "disco_polar": 13, "disco_mix": 8, "resample": 2, "sht_analysis": 2, "dhconv": 2, "sht_synthesis": 3}
 
 # Tolerances, kernel vs its plain version on identical inputs:
 #  fp32: max|diff| <= 1e-5 * max|ref|. Both sum in fp32, in different orders,
 #        over at most 855 terms (K5 at the decoders: 9 channels x 5 band rows
-#        x 19 longitudes; 721 in the full-resolution Legendre quadrature).
+#        x 19 longitudes; 721 in the full-resolution Legendre quadrature), or
+#        6093 in K8's channel mix, which sums 3xTF32 partials of 32 terms.
 #  bf16: max|diff| within one bf16 ulp of max|ref| (2**(floor(log2 max|ref|) - 7)),
 #        or relative L2 <= 1e-2. Both accumulate in fp32 and round once to bf16,
 #        except the plain dhconv, which rounds its four real products first.
@@ -218,7 +223,7 @@ def run_cases(cases, card, results, iters=10, warmup=2):
         ms, plain_ms = time_ms(kern, iters, warmup), time_ms(plain, iters, warmup)
         ok = within(err, dtype)
         dt = str(dtype).replace("torch.", "")
-        more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "library_ms") if extra.get(k) is not None)
+        more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "two_read_ms", "library_ms") if extra.get(k) is not None)
         more += "".join(f"; {extra[k]}" for k in ("route", "live", "library_note") if extra.get(k))
         print(
             f"kernel {name:13s} {label:17s} {dt:8s} out {shape}: max|d| {err['max_abs_err']:.3e} "
@@ -334,8 +339,11 @@ def check_sfno_kernels(dev, card, transforms, embed_dim):
             bn = 0.1 * randn((C,), torch.float32, gen, dev)
 
             def norm_extras(out, xn=xn, wn=wn, bn=bn):
+                # the bound reads x once; a norm that reads x twice from device
+                # memory cannot beat two_read_ms
                 lib = time_ms(lambda: torch.nn.functional.instance_norm(xn.permute(0, 3, 1, 2), weight=wn.to(xn.dtype), bias=bn.to(xn.dtype), eps=1e-6), 5, 1)
-                return dict(bound(8.0 * xn.numel(), nbytes(xn, wn, bn, out)), library_ms=lib)
+                two_read = 1e3 * nbytes(xn, xn, wn, bn, out) / PEAK_HBM_BYTES
+                return dict(bound(8.0 * xn.numel(), nbytes(xn, wn, bn, out)), library_ms=lib, two_read_ms=two_read)
 
             cases.append(
                 (
@@ -344,7 +352,7 @@ def check_sfno_kernels(dev, card, transforms, embed_dim):
                     dtype,
                     lambda xn=xn, wn=wn, bn=bn, n=nlat_phys: instance_norm_cl(xn, wn, bn, n),
                     lambda xn=xn, wn=wn, bn=bn, n=nlat_phys: instance_norm_cl_plain(xn, wn, bn, n),
-                    norm_extras if label in ("full", "internal") and dtype == torch.bfloat16 else None,
+                    norm_extras if label in ("full", "internal") else None,
                 )
             )
     res = run_cases(cases, card, {})
@@ -523,11 +531,15 @@ def build_fcn3(dev, compute_dtype=None, with_noise=True):
     return params, model, ModelWrapper(model, bias=bias, scale=scale), x0, noise
 
 
-def band_case(op, x, F_, Gf, IG, OG, label, library=False):
+def band_case(op, x, F_, Gf, IG, OG, label, library=False, padded=False):
     """A K5 case on x with the op's tables; extras count the nonzero filter
-    taps (the work this data needs) and, for the main case, time one grouped
-    conv1d on the pre-gathered band (the library yardstick)."""
+    taps (the work this data needs) and time one grouped conv1d on the
+    pre-gathered band (the library yardstick). ``padded``: the output's
+    pixels lie a multiple of 4 floats apart, as the processor's responses
+    (``DiscoConvS2.responses_cl``)."""
     from makani_torch.ops import disco_kernels
+    from makani_torch.ops.disco import RESPONSE_ALIGN
+    from makani_torch.ops.precision import fp32_exact
 
     dev = x.device
     B, Hin, Win, C = x.shape
@@ -540,7 +552,8 @@ def band_case(op, x, F_, Gf, IG, OG, label, library=False):
         raise RuntimeError(f"{label}: the flagship grids have one phase, this conv has {op.phases}")
 
     def run(fn):
-        out = torch.empty(B, Hout, Wout, Cout, dtype=torch.float32, device=dev)
+        Cp = -(-Cout // RESPONSE_ALIGN) * RESPONSE_ALIGN if padded else Cout
+        out = torch.empty(B, Hout, Wout, Cp, dtype=torch.float32, device=dev)[..., :Cout]
         return fn(x, F_, bs, out, **kw)
 
     def extras(out):
@@ -555,20 +568,27 @@ def band_case(op, x, F_, Gf, IG, OG, label, library=False):
                 f"dead latitudes {dead.numel()} of {Hout} (polar rows {len(op.polar_rows)}, equal: {dead.tolist() == list(op.polar_rows)}), +0 there")
         res = dict(bound(flops, nbytes(x, F_[..., :OG], bs, out), torch.float32), library_ms=None, nnz_fraction=nnz / F_[..., :OG].numel(), live=live)
         if library:
+            # grouped conv1d over the gathered band rows, a group per output
+            # latitude (and filter group): (B*R*g, Hout*IG*BL, span) in, the
+            # filter (Hout*Gf*OG, IG*BL, WW) (Gf < g repeats the filters)
             BL, WW, a = op.BL, op.WW, op.stride
-            rows = (bs.long()[:, None] + torch.arange(BL, device=dev)).reshape(-1)
+            rows = bs.long()[:, None] + torch.arange(BL, device=dev)
             span = (Wout - 1) * a + WW
             cols = (kw["off"] + torch.arange(span, device=dev)) % Win
-            inp = x.permute(0, 3, 1, 2)[:, :, rows[:, None], cols[None, :]].reshape(B * C, Hout * BL, span)
-            filt = F_[..., :OG].permute(0, 5, 3, 4, 1, 2).reshape(Hout * OG, BL, WW).contiguous()
-            res["library_ms"] = time_ms(lambda: torch.nn.functional.conv1d(inp, filt, stride=a, groups=Hout), 3, 1)
+            R = C // (Gf * IG)
+            xb = x[:, rows.reshape(-1, 1), cols.view(1, -1)]  # (B, Hout*BL, span, C): small index tensors
+            inp = xb.view(B, Hout, BL, span, R, Gf, IG).permute(0, 4, 1, 5, 6, 2, 3).reshape(B * R, Hout * Gf * IG * BL, span)
+            del xb
+            filt = F_[..., :OG].permute(0, 1, 5, 2, 3, 4).reshape(Hout * Gf * OG, IG * BL, WW).contiguous()
+            with fp32_exact():  # cuDNN would take TF32 at torch's defaults
+                res["library_ms"] = time_ms(lambda: torch.nn.functional.conv1d(inp, filt, stride=a, groups=Hout * Gf), 3, 1)
             del inp
         return res
 
     return ("disco_band", label, torch.float32, lambda: run(disco_kernels.band_contract), lambda: run(disco_kernels.band_contract_plain), extras)
 
 
-def polar_case(src, Pt, mode, label, library=False):
+def polar_case(src, Pt, mode, label):
     from makani_torch.ops import disco_kernels
 
     kern, plain = (disco_kernels.polar_psi_first, disco_kernels.polar_psi_first_plain) if mode == "psi_first" else (disco_kernels.polar_mix_first, disco_kernels.polar_mix_first_plain)
@@ -576,14 +596,43 @@ def polar_case(src, Pt, mode, label, library=False):
     def extras(out):
         K = Pt.shape[2]
         n_mac = src.numel() // 2 * (K if mode == "psi_first" else 1)
-        res = dict(bound(8.0 * n_mac, nbytes(src, Pt, out)), library_ms=None)
-        if library:
-            Xc = torch.view_as_complex(src)
-            Pc = torch.view_as_complex(Pt).conj()
-            res["library_ms"] = time_ms(lambda: torch.einsum("bpjcm,pjkm->bpckm", Xc, Pc), 3, 1)
-        return res
+        # the library yardstick: one complex einsum
+        Xc = torch.view_as_complex(src)
+        Pc = torch.view_as_complex(Pt).conj()
+        eq = "bpjcm,pjkm->bpckm" if mode == "psi_first" else "bpjckm,pjkm->bpcm"
+        return dict(bound(8.0 * n_mac, nbytes(src, Pt, out)), library_ms=time_ms(lambda: torch.einsum(eq, Xc, Pc), 3, 1))
 
     return ("disco_polar", label, torch.float32, lambda: kern(src, Pt), lambda: plain(src, Pt), extras)
+
+
+def mix_case(conv, B, card):
+    """K8 at the processor: the responses of B pixels grids (R = B*H*W rows
+    of C*K floats, laid out as ``responses_cl`` lays them out) mixed by the
+    conv's weight. Its plain version is the library call (cuBLAS SGEMM, TF32
+    off), timed again as the yardstick; the polar rows' mix (a cuBLAS bmm,
+    no kernel of the port) is timed at its shape beside it."""
+    from makani_torch.ops import disco_kernels
+    from makani_torch.ops.disco import RESPONSE_ALIGN
+
+    op = conv.conv_op
+    dev = conv.weight.device
+    H, W = op.out_shape
+    C, K, N = conv.in_channels, op.K, conv.out_channels
+    D = C * K
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    t2 = randn((B * H * W, -(-D // RESPONSE_ALIGN) * RESPONSE_ALIGN), torch.float32, gen, dev)[:, :D]
+    w = conv.weight.detach().float().reshape(N, D)
+    planes = disco_kernels.MixPlanes()
+
+    def extras(out):
+        t_pol = randn((B, len(op.polar_rows), C, K, W), torch.float32, gen, dev)
+        polar_ms = time_ms(lambda: conv._mix_polar(t_pol), 3, 1)
+        del t_pol
+        lib = time_ms(lambda: torch.matmul(t2, w.t()), 3, 1)
+        return dict(bound(2.0 * t2.shape[0] * D * N, nbytes(t2, w, out), torch.float32), library_ms=lib,
+                    library_note=f"polar rows' mix (cuBLAS bmm, {B}x{len(op.polar_rows)}x{W} columns) {polar_ms:.3f} ms")
+
+    return ("disco_mix", "processor", torch.float32, lambda: disco_kernels.channel_mix(t2, w, planes), lambda: disco_kernels.channel_mix_plain(t2, w), extras)
 
 
 def resample_case(rs, x, label):
@@ -620,11 +669,28 @@ def resample_case(rs, x, label):
     return ("resample", label, torch.float32, lambda: resample_cl(x, *tabs), lambda: resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v), extras)
 
 
+def fused_conv_cases(conv, x, label, gen):
+    """K5 and K6 of a weight-fused conv on x (B, Hin, Win, g*ig), in the
+    polar order the conv takes (mix first where og*BL <= ig)."""
+    from makani_torch.ops.disco import FusedFilterCache
+
+    op, wt = conv.conv_op, conv.weight
+    g, og, ig, K = wt.shape
+    B, Win = x.shape[0], x.shape[2]
+    cases = [band_case(op, x, FusedFilterCache().get(op, wt, 0), g, ig, og, label, library=True)]
+    if og * op.BL <= ig:
+        U = randn((B, len(op.polar_rows), op.BL, x.shape[-1] // ig * og, K, Win // 2 + 1, 2), torch.float32, gen, x.device)
+        cases.append(polar_case(U, op.polar_table(0, x.device), "mix_first", label))
+    else:
+        X = torch.view_as_real(torch.fft.rfft(op.polar_bands(x), dim=-1))
+        cases.append(polar_case(X, op.polar_table(0, x.device), "psi_first", label))
+    return cases
+
+
 def check_fcn3_kernels(dev, card, net, noise, B):
     """Phase 8: the FCN3 path's kernels at its shapes (B = the folded
     ensemble), against their plain versions."""
     from makani_torch.ops import sht
-    from makani_torch.ops.disco import FusedFilterCache
     from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
 
     gen = torch.Generator(dev).manual_seed(SEED + 5)
@@ -636,42 +702,34 @@ def check_fcn3_kernels(dev, card, net, noise, B):
     # processor: responses mode and the psi-first polar rows (the main shapes)
     op = net.block1.local_conv.conv_op
     x = randn((B, h, w, C), torch.float32, gen, dev)
-    run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, op.K, "processor", library=True)], card, results, 3, 1)
+    run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, op.K, "processor", library=True, padded=True)], card, results, 3, 1)
     X = torch.view_as_real(torch.fft.rfft(op.polar_bands(x), dim=-1))
-    run_cases([polar_case(X, op.polar_table(0, dev), "psi_first", "processor", library=True)], card, results, 3, 1)
+    run_cases([polar_case(X, op.polar_table(0, dev), "psi_first", "processor")], card, results, 3, 1)
     del x, X
     torch.cuda.empty_cache()
-
-    # atmo encoder: fused, NCHW input view, levels stacked on the channel axis
-    enc = net.atmo_encoder.conv
-    op, wt = enc.conv_op, enc.weight
-    g, og, ig, K = wt.shape
-    xe = randn((B, net.n_atmo_groups * net.n_atmo, H, W), torch.float32, gen, dev).permute(0, 2, 3, 1)
-    cases = [band_case(op, xe, FusedFilterCache().get(op, wt, 0), g, ig, og, "atmo-encoder")]
-    Xe = torch.view_as_real(torch.fft.rfft(op.polar_bands(xe), dim=-1))
-    cases.append(polar_case(Xe, op.polar_table(0, dev), "psi_first", "atmo-encoder"))
-    run_cases(cases, card, results, 3, 1)
-    del xe, Xe, cases
+    run_cases([mix_case(net.block1.local_conv, B, card)], card, results, 3, 1)
     torch.cuda.empty_cache()
 
-    # atmo decoder: resample (K7), fused conv, mix-first polar rows
-    dec = net.atmo_decoder
-    op, wt = dec.conv.conv_op, dec.conv.weight
-    g, og, ig, K = wt.shape
-    R = net.n_atmo_groups
+    # the decoders' resampling (K7), on the processor's output channels
+    dec, sd = net.atmo_decoder, net.surf_decoder
+    R, n_dec = net.n_atmo_groups, dec.conv.in_channels
     z = randn((B, h, w, net.block1.out_chans), torch.float32, gen, dev)
-    sd = net.surf_decoder
-    run_cases([resample_case(dec.resample, z[..., : R * g * ig], "atmo-decoder"),
+    run_cases([resample_case(dec.resample, z[..., : R * n_dec], "atmo-decoder"),
                resample_case(sd.resample, z[..., z.shape[-1] - net.surf_embed_dim :], "surf-decoder")], card, results, 3, 1)
     del z
-    xd = randn((B, H, W, R * g * ig), torch.float32, gen, dev)
-    cases = [band_case(op, xd, FusedFilterCache().get(op, wt, 0), g, ig, og, "atmo-decoder")]
-    P, M = len(op.polar_rows), W // 2 + 1
-    U = randn((B, P, op.BL, R * g * og, K, M, 2), torch.float32, gen, dev)
-    cases.append(polar_case(U, op.polar_table(0, dev), "mix_first", "atmo-decoder"))
-    run_cases(cases, card, results, 3, 1)
-    del xd, U, cases
-    torch.cuda.empty_cache()
+
+    # the weight-fused convs: the encoders read an NCHW input view (the
+    # atmo encoder's levels stacked on the channel axis), the decoders their
+    # resampled input, channels-last
+    for label, conv, n_in in (("atmo-encoder", net.atmo_encoder.conv, net.n_atmo_groups * net.n_atmo), ("surf-encoder", net.surf_encoder.conv, net.n_surf),
+                              ("aux-encoder", net.aux_encoder.conv, net.n_aux), ("atmo-decoder", dec.conv, R * n_dec), ("surf-decoder", sd.conv, net.surf_embed_dim)):
+        if label.endswith("decoder"):
+            xo = randn((B, H, W, n_in), torch.float32, gen, dev)
+        else:
+            xo = randn((B, n_in, H, W), torch.float32, gen, dev).permute(0, 2, 3, 1)
+        run_cases(fused_conv_cases(conv, xo, label, gen), card, results, 3, 1)
+        del xo
+        torch.cuda.empty_cache()
 
     # the global blocks' K1, K3, K2 at the internal grid, and the noise's K2
     blk = net.block0.global_conv
@@ -787,8 +845,8 @@ def main() -> int:
     from makani_torch import kernels
     from makani_torch.ops.precision import transform_io_dtype
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # torch's TF32 flags stay at their defaults: the port's fp32 library
+    # calls keep TF32 out themselves (makani_torch/ops/precision.py fp32_exact)
     dev = device()
 
     # ---- phase 1: card and build
@@ -813,9 +871,10 @@ def main() -> int:
         ("sht_analysis", "cuda", "makani_torch/csrc/sht_legendre.cu", "makani_tpu/ops/sht.py:54", sfno_res, ("full", io), sfno_launches),
         ("sht_synthesis", "cuda", "makani_torch/csrc/sht_legendre.cu", "makani_tpu/ops/sht.py:59", sfno_res, ("full", io), sfno_launches),
         ("dhconv", "cuda", "makani_torch/csrc/dhconv.cu", "makani_tpu/models/common/contractions.py:45", sfno_res, ("internal", io), sfno_launches),
-        ("instance_norm", "triton", "makani_torch/models/common/layer_norm.py", "makani_tpu/models/common/layer_norm.py:78", sfno_res, ("full", torch.bfloat16), sfno_launches),
+        ("instance_norm", "cuda", "makani_torch/csrc/instance_norm.cu", "makani_tpu/models/common/layer_norm.py:78", sfno_res, ("full", torch.bfloat16), sfno_launches),
         ("disco_band", "cuda", "makani_torch/csrc/disco_band.cu", "scripts/r3/disco_pallas.py:27", fcn3_res, ("processor", f32), fcn3_launches),
         ("disco_polar", "cuda", "makani_torch/csrc/disco_polar.cu", "makani_tpu/ops/disco.py:686", fcn3_res, ("processor", f32), fcn3_launches),
+        ("disco_mix", "cuda", "makani_torch/csrc/disco_mix.cu", "makani_tpu/models/networks/fourcastnet3.py:125", fcn3_res, ("processor", f32), fcn3_launches),
         ("resample", "cuda", "makani_torch/csrc/resample.cu", "makani_tpu/ops/resample.py:90", fcn3_res, ("atmo-decoder", f32), fcn3_launches),
     ]
     table = []

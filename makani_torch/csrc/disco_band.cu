@@ -16,8 +16,10 @@
 // package's fold of the pressure levels into the batch).
 //
 // x is read through arbitrary element strides (channels-last or NCHW alike);
-// out is channels-last (B, Hout, Wout, G*OG), the layout the processor's
-// channel-mix GEMM and the surrounding channels-last layers read. Phases
+// out is channels-last (B, Hout, Wout, G*OG), pixels sO >= G*OG floats
+// apart: the layout the surrounding channels-last layers read (sO = G*OG),
+// or the processor's response rows padded to a multiple of four floats, so
+// that K8 (disco_mix.cu) reads them in 16-byte copies. Phases
 // (b > 1, when nlon_out/nlon_in is not 1/a) write their interleaved columns
 // directly: no stack/reshape copy.
 //
@@ -78,6 +80,7 @@ constexpr int THREADS = 256;
 
 struct Params {
   long long sB, sH, sW, sC;  // x strides, elements
+  long long sO;              // out: elements between pixels
   int Hin, Win, Hout, Wout;
   int G, Gf, IG, OG, OGp, BL, WW;
   int a, off, n_out, phase, phases;
@@ -222,11 +225,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int TGv = min(TG, p.G - g0);
   const int S = TGv * OTv;
   const bool contiguous = OTv == p.OG;
-  const long long Cout = (long long)p.G * p.OG;
   float* Ow = Os + warp * SEGS * SEG;
   const int sl = lane / TG;  // this lane's column among the warp's SEGS
   auto column = [&](int u) -> float* {
-    return out + ((long long)(b * p.Hout + h) * p.Wout + p.phase + p.phases * u) * Cout + (long long)g0 * p.OG + oc * OT;
+    return out + ((long long)(b * p.Hout + h) * p.Wout + p.phase + p.phases * u) * p.sO + (long long)g0 * p.OG + oc * OT;
   };
   float acc[OT][UT];
   auto store = [&](int u0) {
@@ -391,19 +393,21 @@ int dispatch(const float* x, const float* F, const int* band_start, const int* t
 // the kernel's outputs per thread (1 for OG == 1, else a multiple of 9),
 // zero-padded; band_start: int32 (Hout,); taps: int32 (Hout, BL, 2), the
 // live run [lo, hi) of w of each (h, j), empty where lo >= hi; out: float32
-// (B, Hout, Wout, G*OG) contiguous. Returns cudaGetLastError() after the
-// launch, or an argument error without launching.
+// (B, Hout, Wout, G*OG), contiguous but for sO >= G*OG floats between
+// pixels. Returns cudaGetLastError() after the launch, or an argument error
+// without launching.
 extern "C" int mt_disco_band_contract(const void* x, const void* F, const void* band_start, const void* taps, void* out, int B, int Hin, int Win,
                                       long long sB, long long sH, long long sW, long long sC, int Hout, int Wout, int G, int Gf, int IG, int OG,
-                                      int OGp, int BL, int WW, int a, int off, int n_out, int phase, int phases, void* stream) {
+                                      int OGp, int BL, int WW, int a, int off, int n_out, int phase, int phases, long long sO,
+                                      void* stream) {
   if (B <= 0 || Hin <= 0 || Win <= 0 || Hout <= 0 || G <= 0 || Gf <= 0 || G % Gf || IG <= 0 || OG <= 0 || BL <= 0 || BL > 32 || WW <= 0 || a <= 0 ||
-      n_out <= 0 || phases <= 0 || phase < 0 || phase >= phases || phase + phases * (n_out - 1) >= Wout)
+      n_out <= 0 || phases <= 0 || phase < 0 || phase >= phases || phase + phases * (n_out - 1) >= Wout || sO < (long long)G * OG)
     return (int)cudaErrorInvalidValue;
   const int OT = OG == 1 ? 1 : 9;
   if (OGp % OT || OGp < OG || OGp - OG >= OT) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(out) % 4) return (int)cudaErrorMisalignedAddress;
   Params p;
-  p.sB = sB, p.sH = sH, p.sW = sW, p.sC = sC;
+  p.sB = sB, p.sH = sH, p.sW = sW, p.sC = sC, p.sO = sO;
   p.Hin = Hin, p.Win = Win, p.Hout = Hout, p.Wout = Wout;
   p.G = G, p.Gf = Gf, p.IG = IG, p.OG = OG, p.OGp = OGp, p.BL = BL, p.WW = WW;
   p.a = a, p.off = off, p.n_out = n_out, p.phase = phase, p.phases = phases;

@@ -1,0 +1,315 @@
+// Instance normalization, channels-last: kernel K4 of makani_torch.
+//
+// Replaces makani_tpu/models/common/layer_norm.py InstanceNorm2d (:78-122,
+// the default two-pass path; the same arithmetic as ops/norm.py _fwd_impl),
+// which the JAX package leaves to XLA as reductions:
+//
+//   per (b, c): mean and variance over the valid pixels (latitude rows below
+//   nlat_phys), y = (x - mean) / sqrt(var + eps) rounded to x's dtype, then
+//   y * w + b with a rounding to x's dtype after each operation.
+//
+// Statistics are fp32 and never E[x^2] - E[x]^2: each thread runs Welford's
+// update over its pixels, a block merges its threads' (count, mean, M2) with
+// Chan's formula, and the blocks' partials are merged the same way. The
+// division and the square root are IEEE round-to-nearest, and so is every
+// rounding of the affine step (__fmul_rn / __fadd_rn: no contraction into an
+// FMA; __float2bfloat16_rn for bf16), as the plain version computes them.
+//
+// What bounds it on the card: the bytes. At the SFNO flagship's full
+// resolution (1, 721, 1440, 384) bf16 the tensor is 797 MB, read once and
+// written once at best (0.476 ms at 3.35 TB/s); a norm that reads it twice
+// from device memory cannot beat 0.714 ms. At the internal grid (1, 240,
+// 480, 384) it is 88.5 MB, and the launches, barriers and grid tails weigh
+// as much as the bytes. So one launch does the whole norm, and reads x from
+// device memory once where it fits on chip or in L2:
+//
+// * A persistent cooperative grid, one block an SM, walks the channel groups
+//   of CG channels (and the batch) in turn. For each group every block
+//   reduces its slice of pixels, writes its partial, and the grid meets at a
+//   barrier; one warp a channel merges the blocks' partials and writes the
+//   channel's mean and sqrt(var + eps); after a second barrier every block
+//   normalizes its slice. Two grid barriers a group, no second launch.
+// * The normalization reads the slice again, the last pixel read first, so
+//   that what is still in L2 is read from there; the output is stored with
+//   the streaming hint (evict first), so it does not push x out of L2.
+// * The group is all C channels (models/common/layer_norm.py
+//   plan_instance_norm): whole 768-byte pixel rows.
+// * Each thread loads 16 bytes of one pixel (8 bf16 or 4 fp32 channels;
+//   single elements where C is not a multiple of that), eight pixels in
+//   flight.
+//
+// Measured on an H100 (sweeps of this design's variants, PERF.md): keeping
+// each block's first ~200 KB of pixels in shared memory between the two
+// passes gained nothing (the re-read hits L2 about as fast); narrower
+// channel groups, which would keep a group in L2, were slower at every
+// flagship shape (32- to 256-byte pieces of rows 768 bytes apart waste
+// device-memory bandwidth, and each group adds two barriers); two blocks an
+// SM (64 registers a thread) were slower than one.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "convert.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int UNROLL = 8;         // pixels a thread has in flight
+constexpr int MAX_THREADS = 512;  // threads a block, at most
+
+// VEC elements of T as one load: 16 bytes, or one element
+template <typename T, int VEC>
+struct Pack;
+template <>
+struct Pack<float, 4> {
+  using R = float4;
+  static __device__ __forceinline__ void unpack(const R& r, float (&v)[4]) { v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w; }
+  static __device__ __forceinline__ R pack(const float (&v)[4]) { return make_float4(v[0], v[1], v[2], v[3]); }
+};
+template <>
+struct Pack<__nv_bfloat16, 8> {
+  using R = uint4;
+  static __device__ __forceinline__ void unpack(const R& r, float (&v)[8]) {
+    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+    }
+  }
+  static __device__ __forceinline__ R pack(const float (&v)[8]) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]));
+      const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]));
+      u[i] = lo | (hi << 16);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+template <>
+struct Pack<float, 1> {
+  using R = float;
+  static __device__ __forceinline__ void unpack(const R& r, float (&v)[1]) { v[0] = r; }
+  static __device__ __forceinline__ R pack(const float (&v)[1]) { return v[0]; }
+};
+template <>
+struct Pack<__nv_bfloat16, 1> {
+  using R = unsigned short;
+  static __device__ __forceinline__ void unpack(const R& r, float (&v)[1]) { v[0] = __uint_as_float((uint32_t)r << 16); }
+  static __device__ __forceinline__ R pack(const float (&v)[1]) { return __bfloat16_as_ushort(__float2bfloat16_rn(v[0])); }
+};
+
+// Chan's merge of (nb, mb, qb) into (na, ma, qa)
+__device__ __forceinline__ void chan(float& na, float& ma, float& qa, float nb, float mb, float qb) {
+  const float n = na + nb;
+  if (nb == 0.f) return;
+  const float delta = mb - ma;
+  const float f = nb / n;
+  ma = ma + delta * f;
+  qa = qa + qb + delta * delta * (na * f);
+  na = n;
+}
+
+// x, y: (B, HW, C); w, b: (C,); part: (nblocks, 3, CG) and stats: (2, CG)
+// fp32 scratch. The block has ppi * (CG / VEC) threads: thread (row, cv)
+// takes channels c0 + cv * VEC ... and pixels p0 + row, p0 + row + ppi, ...
+// of its block's slice [p0, p0 + chunk).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    instance_norm_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias, T* __restrict__ y, float* __restrict__ part,
+                         float* __restrict__ stats, int B, int HW, int C, int n_valid, int CG, int ppi, int chunk, float eps) {
+  using P = Pack<T, VEC>;
+  using R = typename P::R;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int TPP = CG / VEC;
+  const int row = tid / TPP, cv = tid % TPP;
+  float* s_mean = smem;                 // [ppi][CG]
+  float* s_m2 = s_mean + nthreads * VEC;  // [ppi][CG]
+  float* s_n = s_m2 + nthreads * VEC;     // [ppi]
+  const int nblocks = gridDim.x, blk = blockIdx.x;
+  const int p0 = blk * chunk, p1 = min(HW, p0 + chunk);
+  const int first = p0 + row, n_k = first < p1 ? (p1 - first + ppi - 1) / ppi : 0;  // this thread's pixels
+  const int lane = tid % 32, warp = tid / 32, nwarps = nthreads / 32;
+  const int n_groups = C / CG;
+
+  for (int bg = 0; bg < B * n_groups; ++bg) {
+    const int b = bg / n_groups, c0 = (bg % n_groups) * CG;
+    const T* xb = x + (long long)b * HW * C + c0 + cv * VEC + (long long)first * C;
+    T* yb = y + (long long)b * HW * C + c0 + cv * VEC + (long long)first * C;
+    const long long step = (long long)ppi * C;
+
+    // ---- reduce this thread's pixels (Welford)
+    float n = 0.f, mean[VEC], m2[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) mean[v] = m2[v] = 0.f;
+    auto welford = [&](const R& r, int k) {
+      if (first + k * ppi >= n_valid) return;
+      float xv[VEC];
+      P::unpack(r, xv);
+      n += 1.f;
+      const float inv = 1.f / n;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float d = xv[v] - mean[v];
+        mean[v] += d * inv;
+        m2[v] += d * (xv[v] - mean[v]);
+      }
+    };
+    int k = 0;
+    for (; k + UNROLL <= n_k; k += UNROLL) {
+      R r[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) r[u] = *reinterpret_cast<const R*>(xb + (k + u) * step);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) welford(r[u], k + u);
+    }
+    for (; k < n_k; ++k) welford(*reinterpret_cast<const R*>(xb + k * step), k);
+
+    // ---- merge the block's rows (a tree over row pairs), then publish
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      s_mean[tid * VEC + v] = mean[v];
+      s_m2[tid * VEC + v] = m2[v];
+    }
+    if (cv == 0) s_n[row] = n;
+    int span = 1;
+    while (span < ppi) span *= 2;
+    for (int s = span / 2; s >= 1; s /= 2) {
+      __syncthreads();
+      for (int i = tid; i < s * CG; i += nthreads) {
+        const int ra = i / CG, rb = ra + s, c = i % CG;
+        if (rb < ppi) {
+          float na = s_n[ra], ma = s_mean[ra * CG + c], qa = s_m2[ra * CG + c];
+          chan(na, ma, qa, s_n[rb], s_mean[rb * CG + c], s_m2[rb * CG + c]);
+          s_mean[ra * CG + c] = ma;
+          s_m2[ra * CG + c] = qa;
+        }
+      }
+      __syncthreads();
+      if (tid < s && tid + s < ppi) s_n[tid] += s_n[tid + s];
+    }
+    __syncthreads();
+    for (int c = tid; c < CG; c += nthreads) {
+      float* dst = part + (long long)blk * 3 * CG + c;
+      dst[0] = s_n[0];
+      dst[CG] = s_mean[c];
+      dst[2 * CG] = s_m2[c];
+    }
+    grid.sync();
+
+    // ---- one warp a channel merges the blocks' partials, in a fixed order
+    // (read past L1, which other SMs' writes do not reach)
+    for (int c = blk * nwarps + warp; c < CG; c += nblocks * nwarps) {
+      float na = 0.f, ma = 0.f, qa = 0.f;
+      for (int j = lane; j < nblocks; j += 32) {
+        const float* src = part + (long long)j * 3 * CG + c;
+        chan(na, ma, qa, __ldcg(src), __ldcg(src + CG), __ldcg(src + 2 * CG));
+      }
+#pragma unroll
+      for (int off = 16; off >= 1; off /= 2) {
+        const float nb = __shfl_down_sync(0xFFFFFFFFu, na, off);
+        const float mb = __shfl_down_sync(0xFFFFFFFFu, ma, off);
+        const float qb = __shfl_down_sync(0xFFFFFFFFu, qa, off);
+        chan(na, ma, qa, nb, mb, qb);
+      }
+      if (lane == 0) {
+        stats[c] = ma;
+        stats[CG + c] = __fsqrt_rn(__fadd_rn(__fdiv_rn(qa, na), eps));
+      }
+    }
+    grid.sync();
+
+    // ---- normalize the slice, the last pixel read first: the likeliest
+    // to be in L2 still
+    float mu[VEC], sd[VEC], wv[VEC], bv[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const int c = cv * VEC + v;
+      mu[v] = __ldcg(stats + c);  // L2: written by other blocks, again each group
+      sd[v] = __ldcg(stats + CG + c);
+      wv[v] = mt::to_f32(w[c0 + c]);
+      bv[v] = mt::to_f32(bias[c0 + c]);
+    }
+    auto norm = [&](const R& r) -> R {
+      float v_[VEC];
+      P::unpack(r, v_);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float z = __fdiv_rn(__fsub_rn(v_[v], mu[v]), sd[v]);
+        if constexpr (sizeof(T) == 2) {
+          // bf16: round after the normalization and after each affine operation
+          const float zr = __bfloat162float(__float2bfloat16_rn(z));
+          const float zw = __bfloat162float(__float2bfloat16_rn(__fmul_rn(zr, wv[v])));
+          v_[v] = __fadd_rn(zw, bv[v]);  // rounded to bf16 by pack
+        } else {
+          v_[v] = __fadd_rn(__fmul_rn(z, wv[v]), bv[v]);
+        }
+      }
+      return P::pack(v_);
+    };
+    k = n_k - 1;
+    for (; k + 1 >= UNROLL; k -= UNROLL) {
+      R r[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) r[u] = *reinterpret_cast<const R*>(xb + (k - u) * step);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) __stcs(reinterpret_cast<R*>(yb + (k - u) * step), norm(r[u]));
+    }
+    for (; k >= 0; --k) __stcs(reinterpret_cast<R*>(yb + k * step), norm(*reinterpret_cast<const R*>(xb + k * step)));
+    // the next group's partials and statistics are written only after the
+    // grid barrier that follows its reduction, which every block reaches
+    // after this normalization
+  }
+}
+
+template <typename T, int VEC>
+int launch(const void* x, const void* w, const void* b, void* y, void* part, void* stats, int B, int HW, int C, int n_valid, int CG, int ppi,
+           int chunk, int nblocks, float eps, cudaStream_t s) {
+  const int nthreads = ppi * (CG / VEC);
+  if (CG % VEC || C % CG || nthreads > MAX_THREADS || nthreads % 32) return (int)cudaErrorInvalidValue;
+  // the rows' (mean, M2) and counts
+  const size_t smem = (size_t)2 * nthreads * VEC * sizeof(float) + (size_t)ppi * sizeof(float);
+  auto kernel = instance_norm_kernel<T, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  const T* bp = static_cast<const T*>(b);
+  T* yp = static_cast<T*>(y);
+  float* pp = static_cast<float*>(part);
+  float* sp = static_cast<float*>(stats);
+  void* args[] = {&xp, &wp, &bp, &yp, &pp, &sp, &B, &HW, &C, &n_valid, &CG, &ppi, &chunk, &eps};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblocks), dim3(nthreads), args, smem, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16; vec: 16 bytes of channels (4 or 8) or 1.
+// x, y: (B, HW, C) contiguous, 16-byte aligned for vec > 1; w, b: (C,) in
+// x's dtype; part: float32 (nblocks, 3, CG); stats: float32 (2, CG).
+// Statistics over the first n_valid pixels of each sample; block k
+// normalizes pixels [k * chunk, (k + 1) * chunk). The grid (nblocks) must
+// fit on the card at once: the launch is cooperative and fails otherwise.
+// Returns cudaGetLastError() after the launch, or an argument error.
+extern "C" int mt_instance_norm(int dtype, int vec, const void* x, const void* w, const void* b, void* y, void* part, void* stats, int B, int HW,
+                                int C, int n_valid, int CG, int ppi, int chunk, int nblocks, float eps, void* stream) {
+  if (B <= 0 || HW <= 0 || C <= 0 || CG <= 0 || ppi <= 0 || chunk <= 0 || nblocks <= 0 || n_valid <= 0 || n_valid > HW ||
+      (long long)nblocks * chunk < HW)
+    return (int)cudaErrorInvalidValue;
+  if (vec > 1 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4) return launch<float, 4>(x, w, b, y, part, stats, B, HW, C, n_valid, CG, ppi, chunk, nblocks, eps, s);
+  if (dtype == 0 && vec == 1) return launch<float, 1>(x, w, b, y, part, stats, B, HW, C, n_valid, CG, ppi, chunk, nblocks, eps, s);
+  if (dtype == 1 && vec == 8) return launch<__nv_bfloat16, 8>(x, w, b, y, part, stats, B, HW, C, n_valid, CG, ppi, chunk, nblocks, eps, s);
+  if (dtype == 1 && vec == 1) return launch<__nv_bfloat16, 1>(x, w, b, y, part, stats, B, HW, C, n_valid, CG, ppi, chunk, nblocks, eps, s);
+  return (int)cudaErrorInvalidValue;
+}

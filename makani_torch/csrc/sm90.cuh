@@ -21,6 +21,11 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) 
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(BYTES), "r"(pred ? BYTES : 0));
   }
 }
+// copies the first src_bytes (0 to 16) of a 16-byte chunk and zero-fills the
+// rest; src is 16-byte aligned and is not read where src_bytes is 0
+__device__ __forceinline__ void cp_async_zfill16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // waits until at most N of this thread's committed groups are in flight
 template <int N>
@@ -34,10 +39,14 @@ __device__ __forceinline__ uint32_t tf32(float v) {
 }
 
 // shared-memory matrix descriptor: K-major, no swizzle; lbo is the byte
-// distance between core matrices along k, sbo between 8-row groups
+// distance between core matrices along k, sbo between 8-row groups. Or'ed
+// with SWIZZLE_128B: rows of 128 bytes whose 16-byte pieces are permuted by
+// the row's index within its 8-row (1024-byte aligned) atom; sbo = 1024
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr, int lbo, int sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
+
+constexpr uint64_t SWIZZLE_128B = 1ull << 62;
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }

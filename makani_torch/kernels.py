@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The CUDA C++ sources under ``csrc/`` have a plain C interface. They are
-compiled at first use with ``nvcc`` for ``sm_90a`` into one shared library
-under ``<checkout>/build/makani_torch_kernels/`` and loaded with ``ctypes``.
+compiled at first use with ``nvcc`` for ``sm_90a``, one compiler process a
+source, all started together, and linked into one shared library under
+``<checkout>/build/makani_torch_kernels/``, loaded with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so an edited
 source is rebuilt and a fresh checkout builds on its first call.
 
@@ -26,14 +27,13 @@ import torch
 __all__ = ["LAUNCHES", "reset_launch_counts", "count_launch", "build", "library", "check_launch", "dtype_code", "stream_ptr", "takes_plain", "set_use_kernels"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sht_legendre.cu", "dhconv.cu", "disco_band.cu", "disco_polar.cu", "resample.cu")
+_SOURCES = ("sht_legendre.cu", "dhconv.cu", "instance_norm.cu", "disco_band.cu", "disco_polar.cu", "disco_mix.cu", "resample.cu")
 _HEADERS = ("convert.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -47,6 +47,7 @@ LAUNCHES = {
     "instance_norm": 0,
     "disco_band": 0,
     "disco_polar": 0,
+    "disco_mix": 0,
     "resample": 0,
 }
 
@@ -81,19 +82,38 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the hashed shared library unless it exists;
-    returns its path. The compiler's output (``-Xptxas -v``: registers, shared
-    memory, spills per kernel) is kept beside it in a ``.log`` file."""
+    returns its path. The sources compile in parallel, one ``nvcc`` each; the
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) is kept beside the library in a ``.log`` file."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"libmakani_torch_{_source_hash()}.so"
     if so.exists():
         return so
-    tmp = out_dir / f"{so.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n{res.stderr[-6000:]}")
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in _SOURCES:
+        obj = out_dir / f"{tag}.{Path(src).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]}: exit code {proc.returncode}\n{err[-3000:]}")
+    tmp = out_dir / f"{tag}.so.tmp"
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link: exit code {res.returncode}\n{res.stderr[-3000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     return so
 
@@ -119,8 +139,12 @@ def library() -> ctypes.CDLL:
             lib.mt_legendre_synthesis_narrow.restype = i
             lib.mt_dhconv_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_contract.restype = i
-            lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [vp]
+            lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [ll, vp]
             lib.mt_disco_band_contract.restype = i
+            lib.mt_instance_norm.argtypes = [i, i] + [vp] * 6 + [i] * 8 + [ctypes.c_float, vp]
+            lib.mt_instance_norm.restype = i
+            lib.mt_disco_mix.argtypes = [vp, ll, vp, vp] + [i] * 5 + [vp]
+            lib.mt_disco_mix.restype = i
             lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_disco_polar.restype = i
             lib.mt_resample.argtypes = [i] + [vp] * 7 + [i] * 5 + [ll] * 4 + [i, i, vp]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from makani_torch import kernels
+from makani_torch.ops.precision import fp32_exact
 
 __all__ = ["cmul_einsum_s", "contract_dense_s", "contract_dense_s_plain", "dhconv_contract_cl_s"]
 
@@ -25,10 +26,11 @@ def cmul_einsum_s(eq: str, a2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
         b2 = b2.to(torch.bfloat16)
     ar, ai = a2[..., 0], a2[..., 1]
     br, bi = b2[..., 0], b2[..., 1]
-    rr = torch.einsum(eq, ar, br)
-    ii = torch.einsum(eq, ai, bi)
-    ri = torch.einsum(eq, ar, bi)
-    ir = torch.einsum(eq, ai, br)
+    with fp32_exact():
+        rr = torch.einsum(eq, ar, br)
+        ii = torch.einsum(eq, ai, bi)
+        ri = torch.einsum(eq, ar, bi)
+        ir = torch.einsum(eq, ai, br)
     return torch.stack([rr - ii, ri + ir], dim=-1)
 
 

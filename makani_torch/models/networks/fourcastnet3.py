@@ -35,7 +35,9 @@ from makani_torch.models.common.layer_norm import InstanceNorm2d
 from makani_torch.models.common.layers import MLP, Conv1x1, DropPath, EncoderDecoder, LayerScale
 from makani_torch.models.common.spectral_convolution import SpectralConv
 from makani_torch.models.networks.sfnonet import _ACTIVATIONS, build_spectral_transforms
+from makani_torch.ops import disco_kernels
 from makani_torch.ops.disco import FusedFilterCache, compute_cutoff_radius, make_disco_conv
+from makani_torch.ops.precision import fp32_exact
 from makani_torch.ops.resample import make_resample
 from makani_torch.ops.sht import InverseRealSHT, RealSHT
 from makani_torch.utils.features import get_channel_groups, get_water_channels
@@ -60,7 +62,7 @@ class DiscoConv(nn.Module):
     package's batch fold). Channel-grouped convs (g*og*ig <= 4096: the
     encoders and decoders) take the weight-fused path; full-mixing convs (the
     processor's) compute the basis responses (K5, K6) and mix them with one
-    fp32 GEMM, inserting the mixed polar rows with an indexed add."""
+    fp32 GEMM (K8), inserting the mixed polar rows with an indexed add."""
 
     def __init__(self, conv_op, in_channels: int, out_channels: int, groups: int = 1, use_bias: bool = False, gain: float = 1.0, device=None):
         super().__init__()
@@ -81,6 +83,7 @@ class DiscoConv(nn.Module):
         else:
             self.register_parameter("bias", None)
         self._filters = FusedFilterCache()
+        self._mix_planes = disco_kernels.MixPlanes()
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -106,9 +109,13 @@ class DiscoConv(nn.Module):
         return y.to(dtype)
 
     def _mix(self, t: torch.Tensor) -> torch.Tensor:
-        """t (..., C, K) fp32 -> (..., out_channels): ``bik,oik->bo``, one GEMM."""
+        """t (..., C, K) fp32 -> (..., out_channels): ``bik,oik->bo``, one GEMM
+        (K8, or its plain version), reading t's rows through their pixel
+        stride (no copy)."""
         w = self.weight.float().reshape(self.out_channels, -1)
-        return torch.matmul(t.reshape(-1, w.shape[1]), w.t()).reshape(*t.shape[:-2], self.out_channels)
+        t2 = t.reshape(-1, w.shape[1])
+        y = disco_kernels.channel_mix(t2, w, self._mix_planes) if self.use_kernels else disco_kernels.channel_mix_plain(t2, w)
+        return y.reshape(*t.shape[:-2], self.out_channels)
 
     def _mix_polar(self, t_pol: torch.Tensor) -> torch.Tensor:
         """t_pol (B, P, C, K, W) fp32 -> (B, P, W, out_channels), a
@@ -117,7 +124,8 @@ class DiscoConv(nn.Module):
         result through the view."""
         B, P, C, K, W = t_pol.shape
         w = self.weight.float().reshape(self.out_channels, C * K)
-        y = torch.bmm(w.expand(B * P, self.out_channels, C * K), t_pol.reshape(B * P, C * K, W))
+        with fp32_exact():
+            y = torch.bmm(w.expand(B * P, self.out_channels, C * K), t_pol.reshape(B * P, C * K, W))
         return y.view(B, P, self.out_channels, W).transpose(2, 3)
 
     def _two_stage(self, x: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from makani_torch.ops.precision import fp32_exact
 from makani_torch.ops.sht import InverseRealSHT
 
 __all__ = ["IsotropicGaussianRandomFieldS2", "DiffusionNoiseS2", "DummyNoiseS2", "build_noise"]
@@ -150,7 +151,8 @@ class DiffusionNoiseS2(_BaseNoiseS2):
             first = eta[:, :1] / torch.sqrt(1.0 - phi**2)
             eta = torch.cat([first, eta[:, 1:]], dim=1)
             if self.num_time_steps > 1:
-                eta = torch.einsum("ctr,brclmu->btclmu", self.discount.to(state.device), eta)
+                with fp32_exact():
+                    eta = torch.einsum("ctr,brclmu->btclmu", self.discount.to(state.device), eta)
             return eta
         # a single AR step
         eta = self._innovation(generator, state.shape[0], 1)

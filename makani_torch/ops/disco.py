@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from makani_torch.ops import disco_kernels
+from makani_torch.ops.precision import fp32_exact
 from makani_torch.ops.quadrature import precompute_latitudes
 
 __all__ = [
@@ -568,6 +569,10 @@ def _pad_outputs(F: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(F, (0, ogp - og)).contiguous()
 
 
+# the responses' pixel stride is a multiple of this many floats (16 bytes)
+RESPONSE_ALIGN = 4
+
+
 class FusedFilterCache:
     """K5 filters of a weight-fused conv, ``einsum("goik,khjw->hgijwo", w,
     psi)`` per phase and device, made once per weight version and not per
@@ -583,7 +588,8 @@ class FusedFilterCache:
             self._key, self._value = key, {}
         if phase not in self._value:
             psi = conv.band_table(phase, w.device)  # (K, Hout, BL, WW)
-            self._value[phase] = _pad_outputs(torch.einsum("goik,khjw->hgijwo", w.detach().float(), psi))
+            with fp32_exact():
+                self._value[phase] = _pad_outputs(torch.einsum("goik,khjw->hgijwo", w.detach().float(), psi))
         return self._value[phase]
 
 
@@ -706,12 +712,16 @@ class DiscoConvS2:
 
         t is exactly zero at the polar rows; t_polar holds their responses
         (the counterpart of ``call_split``) with the longitude last, as the
-        irFFT leaves it."""
+        irFFT leaves it. t is a view whose pixels lie ``RESPONSE_ALIGN``
+        floats apart at least (C*K rounded up), so that K8 copies its rows 16
+        bytes at a time; the pad is never written."""
         B, Hin, Win, C = x.shape
         Hout, Wout = self.out_shape
         K = self.K
-        t = torch.empty(B, Hout, Wout, C, K, dtype=torch.float32, device=x.device)
-        self._banded(x, lambda p: self.band_filter(p, x.device), t.view(B, Hout, Wout, C * K), 1, 1, K, use_kernels)
+        CKp = -(-C * K // RESPONSE_ALIGN) * RESPONSE_ALIGN
+        t = torch.empty(B, Hout, Wout, CKp, dtype=torch.float32, device=x.device)[..., : C * K]
+        self._banded(x, lambda p: self.band_filter(p, x.device), t, 1, 1, K, use_kernels)
+        t = t.view(B, Hout, Wout, C, K)
         if not self.polar_rows:
             return t, None
         polar = disco_kernels.polar_psi_first if use_kernels else disco_kernels.polar_psi_first_plain
@@ -755,7 +765,8 @@ class DiscoConvS2:
             # mixed field, then the psi multiply-sum over (k, j); the batched
             # GEMM writes u as (B, P, BL, R, g, og*K, Win), the rFFT's layout
             wg = w.permute(0, 1, 3, 2).reshape(g, og * K, ig)
-            u = torch.matmul(wg, xb_p.view(B * P * BL * R, g, ig, Win))
+            with fp32_exact():
+                u = torch.matmul(wg, xb_p.view(B * P * BL * R, g, ig, Win))
             U = torch.view_as_real(torch.fft.rfft(u.view(B, P, BL, Cout, K, Win), dim=-1))  # (B, P, BL, Cout, K, M, 2)
             polar = disco_kernels.polar_mix_first if use_kernels else disco_kernels.polar_mix_first_plain
         else:
@@ -770,7 +781,8 @@ class DiscoConvS2:
             else:
                 corr = torch.fft.irfft(torch.view_as_complex(polar(X, self.polar_table(p, x.device))), n=Win, dim=-1)  # (B, P, Ctot, K, Win)
                 t_pp = corr[..., ::a].reshape(B, P, R, g, ig, K, n_out)
-                y_pp = torch.einsum("bprgiku,goik->bpurgo", t_pp, w).reshape(B, P, n_out, Cout)
+                with fp32_exact():
+                    y_pp = torch.einsum("bprgiku,goik->bpurgo", t_pp, w).reshape(B, P, n_out, Cout)
             y[:, :, p::b].index_add_(1, rows, y_pp)
         return y
 

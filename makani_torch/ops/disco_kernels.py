@@ -28,8 +28,18 @@ package keeps them: X (B, P, BL, C, M), U (B, P, BL, C, K, M), Psi
 (re, im) pair. It is bound by memory bandwidth: it reads every X (or U)
 element once and writes every Y element once, coalesced along the modes.
 
-On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
-launches its kernel or raises.
+K8 (``channel_mix``, CUDA C++ in ``csrc/disco_mix.cu``): the processor's
+channel mix of the two-stage conv, ``y[r, o] = sum_j t[r, j] w[o, j]`` over
+the responses t (B*H*W, C*K) and the weight (Cout, C*K), in fp32 as 3xTF32
+on the tensor cores (``makani_tpu/models/networks/fourcastnet3.py:125``,
+einsum ``bgikhw,goik->bhwgo``). It reads the weight's TF32 planes
+(``mix_planes``), made once per weight version, and t's rows in 16-byte
+pieces: K5 writes them ``RESPONSE_ALIGN`` floats apart (``ops/disco.py``).
+Its plain version is one ``torch.matmul``.
+
+The plain versions' cuDNN and cuBLAS calls run in full fp32 whatever the
+global TF32 flags say (``precision.fp32_exact``). On a CPU tensor a wrapper
+runs the plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from makani_torch import kernels
+from makani_torch.ops.precision import fp32_exact
+from makani_torch.ops.sht import tf32_split
 
 __all__ = [
     "band_contract",
@@ -46,6 +58,11 @@ __all__ = [
     "polar_psi_first_plain",
     "polar_mix_first",
     "polar_mix_first_plain",
+    "channel_mix",
+    "channel_mix_plain",
+    "mix_planes",
+    "MixPlanes",
+    "pixel_stride",
 ]
 
 # the plain K5 gathers the band rows of this many bytes of input per chunk
@@ -84,10 +101,22 @@ def band_contract_plain(x, F_, band_start, out, *, a, off, n_out, phase, phases,
         Rc = r1 - r0
         xb = x[..., r0 * Gf * IG : r1 * Gf * IG][:, rows[:, None], cols[None, :]]  # (B, Hout*BL, span, Rc*Gf*IG)
         inp = xb.reshape(B, Hout, BL, span, Rc, Gf, IG).permute(0, 4, 1, 5, 6, 2, 3).reshape(B * Rc, Hout * Gf * IG * BL, span)
-        y = F.conv1d(inp, filt, stride=a, groups=Hout * Gf)  # (B*Rc, Hout*Gf*OG, n_out)
+        with fp32_exact():  # cuDNN would run an fp32 conv in TF32 by default
+            y = F.conv1d(inp, filt, stride=a, groups=Hout * Gf)  # (B*Rc, Hout*Gf*OG, n_out)
         y = y.reshape(B, Rc, Hout, Gf, OG, n_out).permute(0, 2, 5, 1, 3, 4).reshape(B, Hout, n_out, Rc * Gf * OG)
         dst[..., r0 * Gf * OG : r1 * Gf * OG] = y
     return out
+
+
+def pixel_stride(out: torch.Tensor) -> int:
+    """The floats between pixels of a (B, H, W, C) tensor that is contiguous
+    but for its pixel stride (at least C), as K5 writes its output; raises
+    for any other layout."""
+    B, H, W, C = out.shape
+    sO = out.stride(2)
+    if out.stride() != (H * W * sO, W * sO, sO, 1) or sO < C:
+        raise ValueError(f"disco_band: out {tuple(out.shape)} with strides {out.stride()} is not contiguous but for its pixel stride")
+    return sO
 
 
 def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases, Gf, IG, OG):
@@ -98,14 +127,16 @@ def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases,
     (Hout, Gf, IG, BL, WW, OGp) contiguous, zero-padded on the outputs to
     OGp (1 for OG == 1, else a multiple of 9); band_start: int32 (Hout,);
     taps: int32 (Hout, BL, 2), the live run [lo, hi) of w of each (h, j),
-    F zero outside it; out: float32 (B, Hout, Wout, G*OG) contiguous."""
+    F zero outside it; out: float32 (B, Hout, Wout, G*OG), contiguous but
+    for its pixel stride (``pixel_stride``)."""
     if kernels.takes_plain("disco_band", x, F_, band_start, taps, out):
         return band_contract_plain(x, F_, band_start, out, taps=taps, a=a, off=off, n_out=n_out, phase=phase, phases=phases, Gf=Gf, IG=IG, OG=OG)
     _check_band_args(x, F_, out, Gf, IG, OG, taps)
     if x.dtype != torch.float32 or F_.dtype != torch.float32 or out.dtype != torch.float32 or band_start.dtype != torch.int32:
         raise TypeError(f"disco_band: takes float32 x, F and out and int32 band_start, got {x.dtype}, {F_.dtype}, {out.dtype}, {band_start.dtype}")
-    if not (F_.is_contiguous() and out.is_contiguous() and band_start.is_contiguous()):
-        raise ValueError("disco_band: F, out and band_start must be contiguous")
+    if not (F_.is_contiguous() and band_start.is_contiguous()):
+        raise ValueError("disco_band: F and band_start must be contiguous")
+    sO = pixel_stride(out)
     B, Hin, Win, C = x.shape
     Hout, Gf_, IG_, BL, WW, OGp = F_.shape
     Wout = out.shape[2]
@@ -116,7 +147,7 @@ def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases,
     with torch.cuda.device(x.device):
         err = lib.mt_disco_band_contract(
             x.data_ptr(), F_.data_ptr(), band_start.data_ptr(), taps.data_ptr(), out.data_ptr(), B, Hin, Win, sB, sH, sW, sC, Hout, Wout,
-            C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, kernels.stream_ptr(x.device),
+            C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, sO, kernels.stream_ptr(x.device),
         )
     kernels.check_launch(err, "disco_band")
     kernels.count_launch("disco_band")
@@ -128,8 +159,9 @@ def polar_psi_first_plain(X: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
     Y (B, P, C, K, M, 2) = sum_j X . conj(Psi)."""
     Xr, Xi, Pr, Pi = X[..., 0], X[..., 1], Pt[..., 0], Pt[..., 1]
     eq = "bpjcm,pjkm->bpckm"
-    re = torch.einsum(eq, Xr, Pr) + torch.einsum(eq, Xi, Pi)
-    im = torch.einsum(eq, Xi, Pr) - torch.einsum(eq, Xr, Pi)
+    with fp32_exact():
+        re = torch.einsum(eq, Xr, Pr) + torch.einsum(eq, Xi, Pi)
+        im = torch.einsum(eq, Xi, Pr) - torch.einsum(eq, Xr, Pi)
     return torch.stack([re, im], dim=-1)
 
 
@@ -138,8 +170,9 @@ def polar_mix_first_plain(U: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
     Y (B, P, C, M, 2) = sum_{j, k} U . conj(Psi)."""
     Ur, Ui, Pr, Pi = U[..., 0], U[..., 1], Pt[..., 0], Pt[..., 1]
     eq = "bpjckm,pjkm->bpcm"
-    re = torch.einsum(eq, Ur, Pr) + torch.einsum(eq, Ui, Pi)
-    im = torch.einsum(eq, Ui, Pr) - torch.einsum(eq, Ur, Pi)
+    with fp32_exact():
+        re = torch.einsum(eq, Ur, Pr) + torch.einsum(eq, Ui, Pi)
+        im = torch.einsum(eq, Ui, Pr) - torch.einsum(eq, Ur, Pi)
     return torch.stack([re, im], dim=-1)
 
 
@@ -180,3 +213,63 @@ def polar_mix_first(U: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
     if K != Pt.shape[2]:
         raise ValueError(f"disco_polar: U has {K} basis functions, the table {Pt.shape[2]}")
     return _polar_launch(1, U, Pt, (B, P, C, M, 2))
+
+
+# K8's tiles (csrc/disco_mix.cu BN, BK): the weight planes are padded to them
+_MIX_COLS, _MIX_DEPTH = 136, 32
+
+
+def mix_planes(w2: torch.Tensor) -> torch.Tensor:
+    """K8's copy of the weight (N, D): its TF32 high and low planes,
+    zero-padded to K8's column tile and depth stage, (2, Np, Dp) fp32."""
+    N, D = w2.shape
+    pad = (0, -D % _MIX_DEPTH, 0, -N % _MIX_COLS)
+    return torch.stack([F.pad(p, pad) for p in tf32_split(w2.detach().float())]).contiguous()
+
+
+class MixPlanes:
+    """``mix_planes`` of one weight, made once per weight version (its data
+    pointer and version are the key), not per call."""
+
+    def __init__(self):
+        self._key = None
+        self._value = None
+
+    def get(self, w2: torch.Tensor) -> torch.Tensor:
+        key = (w2.data_ptr(), w2._version, w2.device, tuple(w2.shape))
+        if key != self._key:
+            self._value, self._key = mix_planes(w2), key
+        return self._value
+
+
+def channel_mix_plain(t2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain K8: t2 (R, D) . w2 (N, D)^T -> (R, N) in fp32."""
+    with fp32_exact():
+        return torch.matmul(t2, w2.t())
+
+
+def channel_mix(t2: torch.Tensor, w2: torch.Tensor, cache: MixPlanes | None = None) -> torch.Tensor:
+    """K8 on the card, the plain version on the CPU: t2 (R, D) . w2 (N, D)^T
+    -> (R, N) fp32. t2 is a float32 view with unit stride along D and rows a
+    multiple of 4 floats apart, 16-byte aligned (the responses as
+    ``ops.disco.responses_cl`` lays them out); ``cache`` keeps the weight's
+    planes between calls."""
+    if kernels.takes_plain("disco_mix", t2, w2):
+        return channel_mix_plain(t2, w2)
+    if t2.dtype != torch.float32 or w2.dtype != torch.float32 or t2.dim() != 2 or w2.dim() != 2 or t2.shape[1] != w2.shape[1]:
+        raise ValueError(f"disco_mix: expected float32 t (R, D) and w (N, D), got {t2.dtype} {tuple(t2.shape)} and {w2.dtype} {tuple(w2.shape)}")
+    R, D = t2.shape
+    lda = t2.stride(0) if R > 1 else -(-D // 4) * 4
+    if t2.stride(1) != 1 or lda % 4 or lda < D or t2.data_ptr() % 16:
+        raise ValueError(f"disco_mix: t's rows must be contiguous, 16-byte aligned and a multiple of 4 floats apart, got strides {t2.stride()}")
+    planes = (cache if cache is not None else MixPlanes()).get(w2)
+    N = w2.shape[0]
+    out = torch.empty(R, N, dtype=torch.float32, device=t2.device)
+    if R == 0:
+        return out
+    lib = kernels.library()
+    with torch.cuda.device(t2.device):
+        err = lib.mt_disco_mix(t2.data_ptr(), lda, planes.data_ptr(), out.data_ptr(), R, D, N, planes.shape[1], planes.shape[2], kernels.stream_ptr(t2.device))
+    kernels.check_launch(err, "disco_mix")
+    kernels.count_launch("disco_mix")
+    return out

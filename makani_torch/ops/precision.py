@@ -8,15 +8,21 @@ What the policy selects here is the dtype the model feeds the spectral
 transforms: fp32 under ``highest`` and ``high``, bf16 under ``default``. The
 Legendre and dhconv kernels accumulate in fp32 for either input dtype, so the
 fp32 contractions compute at least what ``high`` (bf16x3 on the TPU) asks for.
+
+``fp32_exact`` is the port's local guard for fp32 library calls: cuDNN
+convolutions run in TF32 by default and cuBLAS GEMMs do where a caller set
+``torch.backends.cuda.matmul.allow_tf32``, while the JAX package's fp32
+contractions (and the kernels' fp32 gates) are exact fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
 
-__all__ = ["set_transform_precision", "transform_precision", "transform_io_dtype", "maybe_cast_table"]
+__all__ = ["set_transform_precision", "transform_precision", "transform_io_dtype", "maybe_cast_table", "fp32_exact"]
 
 _PRECISIONS = ("highest", "high", "default")
 
@@ -46,3 +52,17 @@ def maybe_cast_table(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         return table.to(torch.bfloat16)
     return table
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """Run the enclosed cuBLAS and cuDNN calls in full fp32 (no TF32),
+    whatever the global flags say, and restore the flags found on exit."""
+    matmul, cudnn = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(matmul)
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -30,7 +30,7 @@ import torch
 from makani_torch import kernels
 from makani_torch.ops import fft_compat
 from makani_torch.ops.legendre import precompute_legpoly
-from makani_torch.ops.precision import maybe_cast_table
+from makani_torch.ops.precision import fp32_exact, maybe_cast_table
 from makani_torch.ops.quadrature import precompute_latitudes
 
 __all__ = [
@@ -49,12 +49,14 @@ __all__ = [
 
 def analysis_contract_cl_s_plain(xf2: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """split (..., nlat, mmax, C, 2) x (mmax, lmax, nlat) -> (..., lmax, mmax, C, 2)."""
-    return torch.einsum("...kmcr,mlk->...lmcr", xf2, maybe_cast_table(weights, xf2))
+    with fp32_exact():
+        return torch.einsum("...kmcr,mlk->...lmcr", xf2, maybe_cast_table(weights, xf2))
 
 
 def synthesis_contract_cl_s_plain(c2: torch.Tensor, pct: torch.Tensor) -> torch.Tensor:
     """split (..., lmax, mmax, C, 2) x (mmax, lmax, nlat) -> (..., nlat, mmax, C, 2)."""
-    return torch.einsum("...lmcr,mlk->...kmcr", c2, maybe_cast_table(pct, c2))
+    with fp32_exact():
+        return torch.einsum("...lmcr,mlk->...kmcr", c2, maybe_cast_table(pct, c2))
 
 
 # Kernel K1/K2 modes of mt_legendre_contract (csrc/sht_legendre.cu)

@@ -37,6 +37,7 @@ def group(name: str) -> str:
     n = name.lower()
     rules = [
         ("disco_band", "K5 disco_band (CUDA)"),
+        ("disco_mix", "K8 disco_mix (CUDA, wgmma)"),
         ("psi_first", "K6 disco_polar psi-first (CUDA)"),
         ("mix_first", "K6 disco_polar mix-first (CUDA)"),
         ("resample", "K7 resample (CUDA)"),
@@ -45,9 +46,7 @@ def group(name: str) -> str:
         ("legendre_synthesis_narrow", "K2 Legendre synthesis (CUDA, narrow N)"),
         ("legendre", "K1/K2 Legendre bf16 (CUDA, FMA)"),
         ("dhconv", "K3 dhconv (CUDA)"),
-        ("stats_partial", "K4 instance norm (Triton)"),
-        ("stats_finalize", "K4 instance norm (Triton)"),
-        ("normalize", "K4 instance norm (Triton)"),
+        ("instance_norm_kernel", "K4 instance norm (CUDA)"),
         ("gemm", "GEMM (cuBLAS)"),
         ("sm90_xmma", "GEMM (cuBLAS)"),
         ("cutlass", "GEMM (cuBLAS)"),
@@ -105,8 +104,6 @@ def main() -> int:
     from makani_torch import kernels
     from makani_torch.utils.zenith_angle import cos_zenith_angle_from_timestamp
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = cs.device()
     card = cs.card_line()
     kernels.library()

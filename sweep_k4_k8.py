@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""The measurements behind K4's channel group and K8's weight layout, on one
+NVIDIA GPU:
+
+    python3 sweep_k4_k8.py
+
+- K4 (``models/common/layer_norm.py`` ``plan_instance_norm``): the norm at
+  every whole-sector channel group from 16 channels to all 384, at the SFNO
+  flagship's two bf16 shapes (721x1440 and 240x480), each held to the plain
+  version and timed: the plan takes all C channels;
+- K8 (``csrc/disco_mix.cu``): the kernel as built, and the same source with
+  the weight tiles in the unswizzled core-matrix layout K1 and K3 use, and
+  with a three-stage ring, compiled here from patched copies of the source
+  (``build/sweep_k4_k8/``), held to cuBLAS and timed in turns at FCN3's
+  processor shape, 518400 x 6093 x 677.
+
+Each line names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from chip_smoke import card_line, errors, randn, time_ms, within
+
+REPO = Path(__file__).resolve().parent
+
+# K8's source, patched: (the text as built, its replacement)
+K8_UNSWIZZLED = [
+    ("constexpr int SBO = 8 * ROW;", "constexpr int SBO = (BK / 4) * CORE + 16;"),
+    ("constexpr int PLANE = BN * ROW;", "constexpr int PLANE = (BN / 8) * SBO;"),
+    ("static_assert(A_BYTES % 1024 == 0 && PLANE % 1024 == 0,", "static_assert(true,"),
+    ("o * ROW + ((kc ^ o8) << 4)", "(o / 8) * SBO + kc * CORE + o8 * 16"),
+    ("descriptor(b_base + ks * 32, 16, SBO) | SWIZZLE_128B", "descriptor(b_base + ks * 2 * CORE, CORE, SBO)"),
+    ("descriptor(b_base + PLANE + ks * 32, 16, SBO) | SWIZZLE_128B", "descriptor(b_base + PLANE + ks * 2 * CORE, CORE, SBO)"),
+]
+K8_STAGES3 = [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")]
+
+
+def k4_groups(card: str, dev: torch.device):
+    from makani_torch.models.common import layer_norm as ln
+
+    gen = torch.Generator(dev).manual_seed(0)
+    sms = ln._card(dev.index or 0)["sms"]
+    for label, H, W in (("full", 721, 1440), ("internal", 240, 480)):
+        C = 384
+        x = (3.0 * randn((1, H, W, C), torch.float32, gen, dev) + 1.5).to(torch.bfloat16)
+        w = (1.0 + 0.1 * randn((C,), torch.float32, gen, dev)).to(x.dtype)
+        b = (0.1 * randn((C,), torch.float32, gen, dev)).to(x.dtype)
+        ref = ln.instance_norm_cl_plain(x, w, b)
+        chosen = ln.plan_instance_norm(H * W, C, x.element_size(), sms=sms).group
+        for group in (16, 32, 64, 128, 192, 384):
+            plan = ln.plan_instance_norm(H * W, C, x.element_size(), sms=sms, group=group)
+            err = errors(ln.launch_instance_norm(x, w, b, H * W, 1e-6, plan), ref)
+            if not within(err, x.dtype):
+                raise RuntimeError(f"K4 {label} group {group} disagrees with the plain version: {err}")
+            ms = time_ms(lambda: ln.launch_instance_norm(x, w, b, H * W, 1e-6, plan), 20, 3)
+            mark = " (the plan's)" if group == chosen else ""
+            print(f"K4 {label} bf16 {tuple(x.shape)} group {group:3d}{mark}: {ms:.4f} ms  [{card}]", flush=True)
+        del x, ref
+        torch.cuda.empty_cache()
+
+
+def k8_library(name: str, patches) -> ctypes.CDLL:
+    from makani_torch import kernels
+
+    src = (REPO / "makani_torch" / "csrc" / "disco_mix.cu").read_text()
+    for old, new in patches:
+        if old not in src:
+            raise RuntimeError(f"K8 variant {name}: {old!r} is not in disco_mix.cu")
+        src = src.replace(old, new)
+    out = REPO / "build" / "sweep_k4_k8"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{name}.cu").write_text(src)
+    so = out / f"{name}.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(REPO / "makani_torch" / "csrc"), "-o", str(so), str(out / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"K8 variant {name}: nvcc failed\n{res.stderr[-3000:]}")
+    regs = [line.split(":", 1)[-1].strip() for line in res.stdout.splitlines() + res.stderr.splitlines() if "registers" in line or "spill" in line]
+    print(f"K8 variant {name}: {'; '.join(regs[-2:])}", flush=True)
+    lib = ctypes.CDLL(str(so))
+    lib.mt_disco_mix.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
+def k8_layouts(card: str, dev: torch.device):
+    from makani_torch.ops import disco_kernels as dk
+
+    libs = {name: k8_library(name, patches) for name, patches in (("built", []), ("unswizzled", K8_UNSWIZZLED), ("stages3", K8_STAGES3))}
+    R, D, N = 518400, 6093, 677
+    gen = torch.Generator(dev).manual_seed(1)
+    t2 = randn((R, 6096), torch.float32, gen, dev)[:, :D]
+    w = 0.02 * randn((N, D), torch.float32, gen, dev)
+    planes = dk.mix_planes(w)
+    ref = dk.channel_mix_plain(t2, w)
+    out = torch.empty(R, N, device=dev)
+    print(f"K8 cuBLAS fp32 {time_ms(lambda: dk.channel_mix_plain(t2, w), 3, 1):.3f} ms  [{card}]", flush=True)
+    for name in list(libs) + list(reversed(libs)):
+        lib = libs[name]
+
+        def run():
+            err = lib.mt_disco_mix(t2.data_ptr(), t2.stride(0), planes.data_ptr(), out.data_ptr(), R, D, N, planes.shape[1], planes.shape[2],
+                                   torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"K8 variant {name}: launch failed ({err})")
+
+        run()
+        torch.cuda.synchronize()
+        err = errors(out, ref)
+        if not within(err, torch.float32):
+            raise RuntimeError(f"K8 variant {name} disagrees with cuBLAS: {err}")
+        print(f"K8 {name:10s} {time_ms(run, 3, 1):.3f} ms, max|d|/max|ref| {err['max_rel']:.2e}  [{card}]", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("sweep_k4_k8: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from makani_torch import kernels
+
+    card = card_line()
+    print(card, flush=True)
+    kernels.library()
+    dev = torch.device("cuda", 0)
+    k4_groups(card, dev)
+    k8_layouts(card, dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

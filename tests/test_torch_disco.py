@@ -210,3 +210,33 @@ def test_live_tap_table_refuses_split_rows():
     psi[1, 1, 0, 5] = 2.0  # a second run in latitude 1, band row 0
     with pytest.raises(ValueError, match="latitude 1, band row 0"):
         disco.live_tap_runs(psi)
+
+
+def test_plain_band_contract_guards_tf32(monkeypatch):
+    """The plain K5's cuDNN conv runs with TF32 off whatever the global flags
+    say, and the flags found are restored afterwards (here set to TF32 for
+    both cuDNN and cuBLAS, as a user may set them)."""
+    from makani_torch.ops import disco_kernels
+
+    seen = []
+    conv1d = torch.nn.functional.conv1d
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()))
+        return conv1d(*args, **kwargs)
+
+    monkeypatch.setattr(disco_kernels.F, "conv1d", spy)
+    tc = disco.DiscoConvS2((16, 32), (16, 32), (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 16, 32, 3)).astype(np.float32))
+    found = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        ref, _ = tc.responses_cl(x)
+        assert seen and all(s == (False, False, "highest") for s in seen)
+        assert torch.backends.cudnn.allow_tf32 and torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cudnn.allow_tf32 = found[0]
+        torch.set_float32_matmul_precision(found[1])
+    t, _ = tc.responses_cl(x)
+    assert torch.equal(t, ref)

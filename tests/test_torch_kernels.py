@@ -10,6 +10,9 @@ max|diff| within one bf16 ulp of max|ref|, or relative L2 <= 1e-2.
 """
 
 import math
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 
 from makani_torch import kernels
 from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
+from makani_torch.models.common import layer_norm
 from makani_torch.models.common.layer_norm import instance_norm_cl, instance_norm_cl_plain
 from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
 from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
@@ -39,9 +43,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -141,17 +143,48 @@ def test_dhconv_kernel_matches_plain(cuda, B, L, M, G, Ci, Co, dtype):
     assert out.dtype == dtype and _agree(out, contract_dense_s_plain(x, w, False, "dhconv", True), dtype)
 
 
+# (2, 37, 50, 70): C not a multiple of the 16-byte loads (one channel a
+# load), B = 2; nlat_phys 30 < H; (1, 64, 128, 384) and (2, 45, 90, 384):
+# 16-byte loads, one and several channel groups
+NORM_CASES = [((2, 37, 50, 70), None), ((2, 37, 50, 70), 30), ((1, 64, 128, 384), None), ((2, 45, 90, 384), 40)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,nlat_phys", [((2, 37, 50, 70), None), ((2, 37, 50, 70), 30), ((1, 64, 128, 384), None)])
+@pytest.mark.parametrize("shape,nlat_phys", NORM_CASES)
 def test_instance_norm_kernel_matches_plain(cuda, shape, nlat_phys, dtype):
     x = 3.0 * _randn(shape, dtype, cuda) + 1.5
+    x[..., 5] = 2.5  # a constant channel: variance 0
     w = _randn(shape[-1:], torch.float32, cuda, seed=1)
     b = _randn(shape[-1:], torch.float32, cuda, seed=2)
     kernels.reset_launch_counts()
     out = instance_norm_cl(x, w, b, nlat_phys)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["instance_norm"] == 1
-    assert out.dtype == dtype and _agree(out, instance_norm_cl_plain(x, w, b, nlat_phys), dtype)
+    ref = instance_norm_cl_plain(x, w, b, nlat_phys)
+    assert out.dtype == dtype and _agree(out, ref, dtype)
+    assert torch.isfinite(out).all() and _agree(out[..., 5], ref[..., 5], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,nlat_phys", [((2, 45, 90, 384), 40), ((2, 37, 50, 70), 30)])
+def test_instance_norm_kernel_groups(cuda, shape, nlat_phys, dtype):
+    """Several channel groups (two grid barriers each, per sample) and one,
+    on a full card's grid and on a grid of two blocks (long slices)."""
+    x = 3.0 * _randn(shape, dtype, cuda) + 1.5
+    w = _randn(shape[-1:], dtype, cuda, seed=1)
+    b = _randn(shape[-1:], dtype, cuda, seed=2)
+    B, H, W, C = shape
+    ref = instance_norm_cl_plain(x, w, b, nlat_phys)
+    sms = layer_norm._card(0)["sms"]
+    for g in sorted({g for g in (8, 14, 16, 48, 192, C) if C % g == 0}):
+        for n_sm in (sms, 1):
+            try:
+                p = layer_norm.plan_instance_norm(H * W, C, x.element_size(), sms=n_sm, group=g)
+            except ValueError:
+                continue
+            out = layer_norm.launch_instance_norm(x, w, b, (nlat_phys or H) * W, 1e-6, p)
+            torch.cuda.synchronize()
+            assert _agree(out, ref, dtype), (g, n_sm)
 
 
 def test_small_sfno_kernel_path_matches_plain(cuda):
@@ -166,7 +199,7 @@ def test_small_sfno_kernel_path_matches_plain(cuda):
         counts = dict(kernels.LAUNCHES)
         kernels.set_use_kernels(model, False)
         ref = model(x)
-    assert counts == {"sht_analysis": 3, "sht_synthesis": 5, "dhconv": 3, "instance_norm": 6, "disco_band": 0, "disco_polar": 0, "resample": 0}
+    assert counts == {"sht_analysis": 3, "sht_synthesis": 5, "dhconv": 3, "instance_norm": 6, "disco_band": 0, "disco_polar": 0, "disco_mix": 0, "resample": 0}
     assert torch.isfinite(y).all()
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
 
@@ -324,8 +357,75 @@ def test_small_fcn3_kernel_path_matches_plain(cuda):
         counts = dict(kernels.LAUNCHES)
         kernels.set_use_kernels(model, False)
         ref = model(x)
-    # 3 encoders (fused), 2 local blocks (two-stage: 72 channels), 2 decoders
-    # (fused): one band and one polar launch each
-    assert counts == {"sht_analysis": 2, "sht_synthesis": 2, "dhconv": 2, "instance_norm": 0, "disco_band": 7, "disco_polar": 7, "resample": 2}
+    # 3 encoders (fused), 2 local blocks (two-stage: 72 channels, one K8
+    # mix each), 2 decoders (fused): one band and one polar launch each
+    assert counts == {"sht_analysis": 2, "sht_synthesis": 2, "dhconv": 2, "instance_norm": 0, "disco_band": 7, "disco_polar": 7, "disco_mix": 2, "resample": 2}
     assert torch.isfinite(y).all()
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# (1000, 6093, 677): FCN3's processor depth (tail 6093 % 8 = 5, 13 past the
+# last 32-deep stage) and width (five 136-column tiles); (777, 45, 13) and
+# (130, 37, 5): a small odd width in one tile; no R is a multiple of 128
+MIX_CASES = [(1000, 6093, 677), (777, 45, 13), (130, 37, 5)]
+
+
+@pytest.mark.parametrize("R,D,N", MIX_CASES)
+def test_disco_mix_kernel_matches_plain(cuda, R, D, N):
+    """K8 on a responses-like view (rows a multiple of 4 floats apart; the
+    pad holds NaN, which must never be read) against its plain version."""
+    Dp = -(-D // 4) * 4
+    buf = _randn((R, Dp), torch.float32, cuda)
+    buf[:, D:] = float("nan")
+    t2 = buf[:, :D]
+    w = 0.05 * _randn((N, D), torch.float32, cuda, seed=1)
+    kernels.reset_launch_counts()
+    y = disco_kernels.channel_mix(t2, w, disco_kernels.MixPlanes())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["disco_mix"] == 1
+    assert y.shape == (R, N) and torch.isfinite(y).all()
+    assert _agree(y, disco_kernels.channel_mix_plain(t2, w), torch.float32)
+
+
+def test_disco_mix_refuses_unaligned_rows(cuda):
+    t = _randn((64, 45), torch.float32, cuda)
+    w = _randn((13, 45), torch.float32, cuda, seed=1)
+    with pytest.raises(ValueError):
+        disco_kernels.channel_mix(t, w)  # rows 45 floats apart
+    with pytest.raises(ValueError):
+        disco_kernels.channel_mix(_randn((64, 48), torch.float32, cuda)[:, 1:46], w)  # not 16-byte aligned
+
+
+def test_plain_paths_are_fp32_at_torch_defaults():
+    """The plain K5 (cuDNN conv1d) and K8 (cuBLAS) on the card, with the
+    global TF32 flags at torch's defaults (cuDNN's allow_tf32 is True), agree
+    with a float64 reference within the fp32 gate: their local guard keeps
+    TF32 out. Run in a fresh process, so that no flag set by another test
+    is in force."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    code = textwrap.dedent(
+        """
+        import numpy as np, torch
+        from makani_torch.ops import disco, disco_kernels
+        assert torch.backends.cudnn.allow_tf32, "not at torch's defaults"
+        def rel(a, ref):
+            return ((a.double().cpu() - ref).abs().max() / ref.abs().max()).item()
+        rng = np.random.default_rng(0)
+        op = disco.DiscoConvS2((33, 64), (33, 64), (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+        x = torch.from_numpy(rng.standard_normal((2, 33, 64, 37)).astype(np.float32))
+        kw = dict(a=op.stride, off=int(op.bases[0]) - op.halo, n_out=64, phase=0, phases=1, Gf=1, IG=1, OG=op.K)
+        out = torch.empty(2, 33, 64, 37 * op.K, device="cuda")
+        disco_kernels.band_contract_plain(x.cuda(), op.band_filter(0, "cuda"), op.band_start_table("cuda"), out, **kw)
+        ref = torch.zeros(2, 33, 64, 37 * op.K, dtype=torch.float64)
+        disco_kernels.band_contract_plain(x.double(), op.band_filter(0, "cpu").double(), op.band_start_table("cpu"), ref, **kw)
+        t2 = torch.from_numpy(rng.standard_normal((3000, 6093)).astype(np.float32))
+        w = torch.from_numpy(0.05 * rng.standard_normal((677, 6093)).astype(np.float32))
+        y = disco_kernels.channel_mix_plain(t2.cuda(), w.cuda())
+        print(rel(out, ref), rel(y, t2.double() @ w.double().t()))
+        """
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
+    assert res.returncode == 0, res.stderr[-3000:]
+    band, mix = map(float, res.stdout.split()[-2:])
+    assert band <= 1e-5 and mix <= 1e-5, (band, mix)

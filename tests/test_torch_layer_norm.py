@@ -2,6 +2,7 @@
 with and without nlat_phys latitude padding, NCHW and channels-last.
 
 Tolerances: fp32 max|diff| <= 1e-5 * max|ref|; bf16 relative L2 <= 2e-2.
+K4's launch plan (``plan_instance_norm``) is checked without a card.
 """
 
 import numpy as np
@@ -14,7 +15,7 @@ from makani_tpu.models.common.layer_norm import InstanceNorm2d as JInstanceNorm2
 
 from makani_torch import kernels
 from makani_torch.convert_jax import load_from_jax
-from makani_torch.models.common.layer_norm import InstanceNorm2d, instance_norm_cl, instance_norm_cl_plain
+from makani_torch.models.common.layer_norm import InstanceNorm2d, instance_norm_cl, instance_norm_cl_plain, plan_instance_norm
 
 C = 6
 
@@ -60,3 +61,32 @@ def test_norm_wrapper_takes_plain_on_cpu_without_counting():
     assert kernels.LAUNCHES["instance_norm"] == 0
     mod = InstanceNorm2d(C, affine=False, channels_last=True, device="cpu")
     assert torch.equal(mod(x), instance_norm_cl_plain(x, None, None))
+
+
+@pytest.mark.parametrize(
+    "HW,C,itemsize,aligned,vec",
+    [(721 * 1440, 384, 2, True, 8), (240 * 480, 384, 2, True, 8), (240 * 480, 384, 4, True, 4), (721 * 1440, 384, 4, True, 4),
+     (37 * 50, 70, 2, True, 1), (37 * 50, 70, 4, True, 1), (64 * 128, 384, 2, False, 1), (3, 5, 4, True, 1)],
+)
+def test_instance_norm_plan(HW, C, itemsize, aligned, vec):
+    """Every plan is a launch the kernel takes: whole warps of at most 512
+    threads, a group that divides C into vec-wide loads, and a grid of one
+    block an SM that covers every pixel."""
+    p = plan_instance_norm(HW, C, itemsize, aligned=aligned)
+    assert p.vec == vec and C % p.group == 0 and p.group % p.vec == 0
+    assert p.threads == p.ppi * p.group // p.vec and p.threads % 32 == 0 and p.threads <= 512
+    assert p.blocks == 132 and p.chunk == -(-HW // p.blocks)
+
+
+def test_instance_norm_plan_groups():
+    """The widest channel group a block can take: all 384 channels at the
+    flagship's shapes, in one group; a C whose one-group block would exceed
+    512 threads in whole warps takes the widest group that fits; ``group``
+    picks one."""
+    for HW, itemsize in ((721 * 1440, 2), (240 * 480, 2), (721 * 1440, 4), (240 * 480, 4)):
+        assert plan_instance_norm(HW, 384, itemsize).group == 384
+    assert plan_instance_norm(37 * 50, 70, 2).group == 14  # one channel a load: no whole-warp block of 70 or 35 threads a pixel
+    assert plan_instance_norm(240 * 480, 384, 2, group=64).group == 64
+    assert plan_instance_norm(240 * 480, 384, 2, sms=7).blocks == 7
+    with pytest.raises(ValueError):
+        plan_instance_norm(240 * 480, 384, 2, group=100)
