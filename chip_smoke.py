@@ -50,6 +50,30 @@ each fatal on failure:
     and with fp32 compute on the same weights;
 12. time an ensemble forecast step on both paths and report peak memory.
 
+ The SFNO training step (slice 3):
+13. build bench.py's training configuration (:97-123: 361x720, scale 3,
+    internal 120x240, 73 channels + zenith, embed 384, 8 dhconv blocks,
+    instance norm, bf16 compute, l2 / constant / squared loss, batch 3)
+    through ``get_model`` on seeded weights;
+14. compare each backward kernel with its plain version at its shapes: the
+    Legendre gradients (K2's kernels on the analysis tables, K1's on the
+    synthesis tables) at 361<->120 and 120<->120, the dhconv's dx (K3 on
+    the conjugate-transposed weight) and dw (K9), the instance-norm
+    backward (K10, bf16 at both grids, fp32 once), and the factored Adam
+    (K11) on the model's parameters with its gradients; time each beside
+    its bound, its plain version and the library's call where one exists;
+15. take one training step through the kernels and through the plain path
+    (autograd through the plain forward, the plain optimizer) from the same
+    weights, batch and optimizer state, in fp32 compute (loss, every
+    gradient leaf, every parameter after the step) and in bf16 compute
+    (loss and every gradient leaf);
+16. take 1 + 5 training steps (``train_step``, the bench's factored Adam)
+    on the repeated batch through the kernels: check every kernel's
+    launches per step, and that the loss is finite and falls; print ms per
+    step, samples/s, peak memory and the loss per step; then 1 + 3 steps on
+    the plain path, whose losses the kernel path's must match step by step
+    (relative 3e-2).
+
 Prints the card line and the kernel table as one JSON line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -102,6 +126,61 @@ BF16_REL_L2 = 1e-2
 #        order only, as the whole-model CPU tests against JAX.
 MODEL_BF16_REL_L2 = 3e-2
 MODEL_FP32_TOL = 1e-4
+
+# The SFNO training step of bench.py (:97-123, :246-254): 361x720, scale 3
+# (internal 120x240, lmax 120, mmax 121), 73 channels + zenith, embed 384, 8
+# dhconv blocks, instance norm, bf16 compute, the l2 / constant / squared
+# loss, batch 3, Adam with a factored nu and a bf16 mu at lr 1e-3
+TRAIN_CONFIG = dict(
+    nettype="SFNO",
+    img_shape_x=361,
+    img_shape_y=720,
+    scale_factor=3,
+    embed_dim=384,
+    num_layers=8,
+    operator_type="dhconv",
+    normalization_layer="instance_norm",
+    channel_names=[f"ch{i}" for i in range(73)],
+    in_channels=list(range(73)),
+    out_channels=list(range(73)),
+    n_history=0,
+    n_future=0,
+    add_zenith=True,
+    losses=[{"type": "l2", "channel_weights": "constant", "parameters": {"squared": True}}],
+    lr=1e-3,
+    optimizer_type="Adam",
+    optimizer_nu_factored=True,
+    optimizer_mu_dtype="bfloat16",
+    scheduler="none",
+)
+TRAIN_BATCH = 3
+TRAIN_STEPS = 5  # timed after one warm-up; the loss must fall over them
+TRAIN_PLAIN_STEPS = 3
+# per training step: the forward's launches and their backward's (K11's,
+# three a factored leaf and one for the unfactored ones, from the model)
+TRAIN_EXPECTED_PER_STEP = dict(
+    EXPECTED_PER_STEP, sht_analysis_grad=8, sht_synthesis_grad=10, dhconv_grad_input=8, dhconv_grad_weight=8, instance_norm_grad=16
+)
+# Training step, kernel path vs plain path on the card, same weights, batch
+# and optimizer state:
+#  fp32 compute: loss within 1e-5 relative; each gradient leaf within
+#        MODEL_FP32_TOL of its max|ref|; each parameter after the step within
+#        1e-3 * lr * max(1, |u|) where |g| > 1e-3 (1e-4 on a factored leaf)
+#        of its max, u the plain path's update in units of lr, with mu in
+#        fp32 (the CPU whole-step test's gates and exclusions, but relative to
+#        |u| where it exceeds 1: at full width the factored estimate makes
+#        steps of |u| up to ~54 on the dhconv weights, whose error is ~4e-5
+#        of the step, measured).
+#  bf16 compute: loss within MODEL_BF16_REL_L2 relative, each gradient leaf
+#        within relative L2 1e-1 (the forward's bf16 paths already differ by
+#        ~1.6%).
+#  Both: the MLP's second bias, whose gradient is zero in exact arithmetic
+#        (the instance norm after it removes any per-channel constant), is
+#        held to rounding level instead.
+TRAIN_LOSS_FP32_TOL = 1e-5
+TRAIN_GRAD_BF16_REL_L2 = 1e-1
+# the ptxas report's lines, one a kernel (filled when the library is built)
+PTXAS: list = []
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet, dense): fp32
 # outside the tensor cores, the tensor cores in TF32 and bf16, and HBM3
@@ -837,6 +916,381 @@ def fcn3_phases(dev, card):
     return kres, launches
 
 
+# ---------------------------------------------------------------------------
+# The SFNO training step (slice 3)
+
+
+def kernel_regs(*patterns) -> str:
+    """The ptxas report's lines of the CUDA functions whose names hold any
+    of ``patterns``: registers, shared memory and spills."""
+    hits = [line for line in PTXAS if any(p in line.split(": Used", 1)[0] for p in patterns)]
+    return "registers: " + " | ".join(hits) if hits else ""
+
+
+def train_params(compute_dtype="bfloat16"):
+    from makani_torch.utils.yparams import ParamsBase
+
+    return ParamsBase(dict(TRAIN_CONFIG, compute_dtype=compute_dtype))
+
+
+def build_train(dev, compute_dtype="bfloat16"):
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.loss import LossHandler
+
+    params = train_params(compute_dtype)
+    model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
+    return params, model, LossHandler(train_params(compute_dtype))
+
+
+def train_batch(dev):
+    """The bench's batch: seeded input, target and zenith channel."""
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    H, W, C = TRAIN_CONFIG["img_shape_x"], TRAIN_CONFIG["img_shape_y"], len(TRAIN_CONFIG["channel_names"])
+    inp = randn((TRAIN_BATCH, C, H, W), torch.float32, gen, dev)
+    tar = randn((TRAIN_BATCH, C, H, W), torch.float32, gen, dev)
+    zen = randn((TRAIN_BATCH, 1, 1, H, W), torch.float32, gen, dev)
+    return inp, tar, zen
+
+
+def adam_launches(model) -> int:
+    """K11's launches a step: three a factored leaf, one a 64 unfactored."""
+    from makani_torch.utils.training.optimizer import _MAX_LEAVES, _factored_dims
+
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    n_f = sum(_factored_dims(s, 128) is not None for s in shapes)
+    return 3 * n_f + -(-(len(shapes) - n_f) // _MAX_LEAVES)
+
+
+def zero_in_exact_arithmetic(name: str) -> bool:
+    """The MLP's second bias feeds the instance norm, which removes any
+    per-channel constant: its gradient is zero but for rounding."""
+    return name.endswith("mlp.fc2.bias")
+
+
+def loss_and_grads(model, loss_obj, inp, tar, zen):
+    loss = loss_obj(model(inp, zen, train=True), tar, inp=inp, train=True)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def check_train_kernels(dev, card, model, loss_obj, batch):
+    """The backward kernels and K11 against their plain versions at the
+    training step's shapes; returns {(name, label, dtype): result}."""
+    from makani_torch.models.common import layer_norm
+    from makani_torch.models.common.contractions import dhconv_grad_input, dhconv_grad_input_plain, dhconv_grad_weight, dhconv_grad_weight_plain
+    from makani_torch.ops import sht
+    from makani_torch.utils.training.optimizer import AdamFactored
+
+    net = model.model
+    trans_down, itrans_up, trans, itrans = net.trans_down, net.itrans_up, net.trans, net.itrans
+    B, C = TRAIN_BATCH, net.embed_dim
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    f32 = torch.float32
+    cases = []
+    # K2's kernels on the analysis tables, K1's on the synthesis tables
+    for label, t in (("full", trans_down), ("internal", trans)):
+        g = randn((B, t.lmax, t.mmax, C, 2), f32, gen, dev)
+        w = t.weights(dev, f32)
+        ex = legendre_extras(g, w, 1, B)
+        cases.append(("sht_analysis_grad", label, f32, lambda g=g, w=w: sht._legendre_launch("sht_analysis_grad", sht._SYNTHESIS, g, w),
+                      lambda g=g, w=w: sht.synthesis_contract_cl_s_plain(g, w), lambda out, ex=ex: dict(ex(out), library_note=kernel_regs("legendre_synthesis_tc_kernel"))))
+    for label, t in (("full", itrans_up), ("internal", itrans)):
+        g = randn((B, t.nlat, t.mmax, C, 2), f32, gen, dev)
+        p = t.pct(dev, f32)
+        ex = legendre_extras(g, p, 0, B)
+        cases.append(("sht_synthesis_grad", label, f32, lambda g=g, p=p: sht._legendre_launch("sht_synthesis_grad", sht._ANALYSIS, g, p),
+                      lambda g=g, p=p: sht.analysis_contract_cl_s_plain(g, p), lambda out, ex=ex: dict(ex(out), library_note=kernel_regs("legendre_analysis_tc_kernel"))))
+    res = run_cases(cases, card, {}, 5, 1)
+    del cases
+    torch.cuda.empty_cache()
+
+    # dhconv: dx (K3 on the conjugate-transposed weight) and dw (K9)
+    L, M = itrans.lmax, itrans.mmax
+    w = net.block1.filter_layer.filter.weight.detach()
+    x = randn((B, L, M, 1, C, 2), f32, gen, dev)
+    g = randn((B, L, M, 1, C, 2), f32, gen, dev)
+    wct = torch.stack([w[..., 0], -w[..., 1]], dim=-1).transpose(1, 2).contiguous()
+    ex_dx = dhconv_extras(g, wct)
+    xl = torch.view_as_complex(x.permute(1, 3, 0, 2, 4, 5).reshape(L, B * M, C, 2).contiguous()).conj().transpose(1, 2).contiguous()
+    gl = torch.view_as_complex(g.permute(1, 3, 0, 2, 4, 5).reshape(L, B * M, C, 2).contiguous())
+
+    def dw_extras(out):
+        flops = 8.0 * B * L * M * C * C
+        lib = time_ms(lambda: torch.bmm(xl, gl), 5, 1)
+        return dict(bound(flops, nbytes(x, g, out), f32), library_ms=lib, library_note=kernel_regs("dhconv_grad_weight_kernel<float>"))
+
+    cases = [
+        ("dhconv_grad_input", "internal", f32, lambda: dhconv_grad_input(g, w), lambda: dhconv_grad_input_plain(g, w),
+         lambda out: dict(ex_dx(out), library_note=kernel_regs("dhconv_kernel<float>"))),
+        ("dhconv_grad_weight", "internal", f32, lambda: dhconv_grad_weight(x, g), lambda: dhconv_grad_weight_plain(x, g), dw_extras),
+    ]
+    run_cases(cases, card, res, 5, 1)
+    del cases, x, g, xl, gl, wct
+    torch.cuda.empty_cache()
+
+    # K10: bf16 at both grids (the model's), fp32 once
+    for label, t, dtype in (("full", itrans_up, torch.bfloat16), ("internal", itrans, torch.bfloat16), ("internal", itrans, f32)):
+        xn = (3.0 * randn((B, t.nlat, t.nlon, C), f32, gen, dev) + 1.5).to(dtype)
+        gn = randn((B, t.nlat, t.nlon, C), dtype, gen, dev)
+        wn = (1.0 + 0.1 * randn((C,), f32, gen, dev)).to(dtype)
+        mean, sd = layer_norm._norm_stats_plain(xn, None, 1e-6)
+        plan = layer_norm._plan(xn, gn)
+        n = t.nlat * t.nlon
+
+        def kern(xn=xn, gn=gn, wn=wn, mean=mean, sd=sd, plan=plan, n=n):
+            return layer_norm.launch_instance_norm_grad(gn, xn, wn, mean, sd, n, plan)[0]
+
+        def plain(xn=xn, gn=gn, wn=wn, mean=mean, sd=sd, n=n):
+            return layer_norm.instance_norm_grad_plain(gn, xn, wn, mean, sd, n)[0]
+
+        fn_name = "instance_norm_grad_kernel<" + ("__nv_bfloat16, 8>" if dtype == torch.bfloat16 else "float, 4>")
+
+        def extras(out, xn=xn, gn=gn, wn=wn, mean=mean, sd=sd, plan=plan, n=n, dtype=dtype, fn_name=fn_name):
+            _, dw, db = layer_norm.launch_instance_norm_grad(gn, xn, wn, mean, sd, n, plan)
+            _, rw, rb = layer_norm.instance_norm_grad_plain(gn, xn, wn, mean, sd, n)
+            for nm, a, b_ in (("dw", dw, rw), ("db", db, rb)):
+                e = errors(a, b_)
+                if not within(e, dtype):
+                    raise RuntimeError(f"instance_norm_grad {nm} disagrees with its plain version: {e}")
+            # the library: the autograd backward of F.instance_norm (NCHW view)
+            xl_ = xn.permute(0, 3, 1, 2).detach().requires_grad_()
+            wl, bl = wn.detach().clone().requires_grad_(), torch.zeros_like(wn).requires_grad_()
+            yl = torch.nn.functional.instance_norm(xl_, weight=wl, bias=bl, eps=1e-6)
+            gl_ = gn.permute(0, 3, 1, 2)
+            lib = time_ms(lambda: torch.autograd.grad(yl, (xl_, wl, bl), gl_, retain_graph=True), 5, 1)
+            del yl
+            two_read = 1e3 * nbytes(xn, gn, xn, gn, out) / PEAK_HBM_BYTES
+            return dict(bound(14.0 * xn.numel(), nbytes(xn, gn, wn, out)), library_ms=lib, two_read_ms=two_read,
+                        library_note=f"dw, db ok; library: the autograd backward of F.instance_norm; {kernel_regs(fn_name)}")
+
+        run_cases([("instance_norm_grad", label, dtype, kern, plain, extras)], card, res, 5, 1)
+        del xn, gn
+        torch.cuda.empty_cache()
+
+    # K11 on the model's parameters with the model's gradients, one step
+    # from a fresh state, against the plain version on copies
+    model.zero_grad(set_to_none=True)
+    loss_obj(model(*batch[0::2], train=True), batch[1], inp=batch[0], train=True).backward()
+    params = [p for p in model.parameters()]
+    grads = [p.grad.detach().clone() for p in params]
+    model.zero_grad(set_to_none=True)
+
+    def fresh(use_kernels):
+        ps = [torch.nn.Parameter(p.detach().clone()) for p in params]
+        for p, g in zip(ps, grads):
+            p.grad = g
+        opt = AdamFactored(ps, lr=TRAIN_CONFIG["lr"], mu_dtype=torch.bfloat16)
+        opt.use_kernels = use_kernels
+        return ps, opt
+
+    out = []
+    for use in (True, False):
+        ps, opt = fresh(use)
+        opt.step()
+        torch.cuda.synchronize()
+        out.append(torch.cat([p.detach().flatten() for p in ps]))
+        del ps, opt
+    err = errors(out[0], out[1])
+    n_params = out[0].numel()
+    del out
+    torch.cuda.empty_cache()
+    times = {}
+    for use in (True, False):
+        ps, opt = fresh(use)
+        times[use] = time_ms(opt.step, 5, 1)
+        del ps, opt
+        torch.cuda.empty_cache()
+    # bytes: g, p and the bf16 mu read, p and mu written; the unfactored
+    # leaves' v read and written; the factored state is ~0.1% of that
+    n_unf = sum(p.numel() for p in params if p.dim() < 2 or sorted(p.shape)[-2] < 128)
+    moved = n_params * (4 + 4 + 2 + 4 + 2) + n_unf * 8
+    ok = within(err, torch.float32)
+    extra = dict(bound(6.0 * n_params, moved), library_ms=None)
+    print(f"kernel adam_factored     model params      float32  {n_params} parameters ({adam_launches(model)} launches): max|d| {err['max_abs_err']:.3e} "
+          f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; kernel {times[True]:.3f} ms, plain {times[False]:.3f} ms, "
+          f"bound_ms {extra['bound_ms']:.3f} ms ({extra['bound_by']}); no library call computes the factored update (torch's Adam keeps the full nu); "
+          f"{kernel_regs('factored_', 'unfactored_')}  [{card}]", flush=True)
+    if not ok:
+        raise RuntimeError(f"adam_factored disagrees with its plain version: {err}")
+    res[("adam_factored", "model", torch.float32)] = dict(err, ms=times[True], plain_ms=times[False], **extra)
+    del grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_train_steps(dev, card, batch):
+    """One training step at full width through the kernels and through the
+    plain path (PyTorch autograd through the plain forward, the plain
+    optimizer), from the same weights, batch and optimizer state: fp32
+    compute with the gates of the CPU whole-step test, bf16 compute with
+    the bf16 gates."""
+    import copy
+
+    from makani_torch import kernels
+    from makani_torch.utils.training.optimizer import AdamFactored, _factored_dims
+
+    inp, tar, zen = batch
+    # fp32 compute, fp32 mu
+    _, model, loss_obj = build_train(dev, "float32")
+    plain = copy.deepcopy(model)
+    kernels.set_use_kernels(plain, False)
+    results = []
+    for m, use in ((model, True), (plain, False)):
+        opt = AdamFactored(m.parameters(), lr=TRAIN_CONFIG["lr"])
+        opt.use_kernels = use
+        before = {n: p.detach().clone() for n, p in m.named_parameters()} if use else None
+        loss, grads = loss_and_grads(m, loss_obj, inp, tar, zen)
+        opt.step()
+        results.append((loss, grads, {n: p.detach() for n, p in m.named_parameters()}, before))
+        m.zero_grad(set_to_none=True)
+        del opt
+        torch.cuda.empty_cache()
+    (lk, gk, pk, p0), (lp, gp, pp, _) = results
+    largest = max(g.abs().max().item() for g in gp.values())
+    worst = (0.0, "")
+    for name in gp:
+        a, b = gk[name], gp[name]
+        if zero_in_exact_arithmetic(name):
+            if max(a.abs().max().item(), b.abs().max().item()) > 1e-5 * largest:
+                raise RuntimeError(f"fp32 step: {name}'s gradient is not at rounding level")
+            continue
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        worst = max(worst, (rel, name))
+        if rel > MODEL_FP32_TOL:
+            raise RuntimeError(f"fp32 step: gradient {name} kernel vs plain max|d|/max|ref| {rel:.3e} > {MODEL_FP32_TOL}")
+    lr = TRAIN_CONFIG["lr"]
+    worst_p = (0.0, "")
+    for name in pp:
+        if zero_in_exact_arithmetic(name):
+            continue
+        if torch.equal(pp[name], p0[name]):
+            raise RuntimeError(f"fp32 step: parameter {name} did not move")
+        g = gp[name].abs()
+        mask = g > (1e-4 if _factored_dims(tuple(g.shape), 128) else 1e-3) * g.max()
+        # the update's error in units of lr, over max(1, |u|): u the plain
+        # path's update in units of lr
+        u = ((pp[name] - p0[name]) / lr).abs()
+        r = ((pk[name] - pp[name]).abs() / lr / torch.clamp_min(u, 1.0))[mask].max().item()
+        worst_p = max(worst_p, (r, name))
+        if r > 1e-3:
+            raise RuntimeError(f"fp32 step: parameter {name} after the step differs by {r:.3e} lr max(1, |u|) > 1e-3")
+    ok = abs(lk - lp) <= TRAIN_LOSS_FP32_TOL * abs(lp)
+    print(f"SFNO training step (float32 compute, full width, B={TRAIN_BATCH}), kernel path vs plain path: loss {lk:.7f} vs {lp:.7f} "
+          f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {TRAIN_LOSS_FP32_TOL}); worst gradient leaf {worst[1]} max|d|/max|ref| {worst[0]:.3e} "
+          f"(tol {MODEL_FP32_TOL}); worst parameter after the step {worst_p[1]} {worst_p[0]:.3e} lr max(1, |u|) (tol 1e-3) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("fp32 training step: the kernel path's loss disagrees with the plain path's")
+    del model, plain, results, gk, gp, pk, pp, p0
+    torch.cuda.empty_cache()
+
+    # bf16 compute (the bench's), gradients only
+    _, model, loss_obj = build_train(dev, "bfloat16")
+    plain = copy.deepcopy(model)
+    kernels.set_use_kernels(plain, False)
+    lk, gk = loss_and_grads(model, loss_obj, inp, tar, zen)
+    del model
+    torch.cuda.empty_cache()
+    lp, gp = loss_and_grads(plain, loss_obj, inp, tar, zen)
+    del plain
+    largest = max(g.abs().max().item() for g in gp.values())
+    worst = (0.0, "")
+    for name in gp:
+        a, b = gk[name].float(), gp[name].float()
+        if zero_in_exact_arithmetic(name):
+            if max(a.abs().max().item(), b.abs().max().item()) > 1e-2 * largest:
+                raise RuntimeError(f"bf16 step: {name}'s gradient is not at rounding level")
+            continue
+        rel = ((a - b).norm() / b.norm()).item()
+        worst = max(worst, (rel, name))
+    ok = abs(lk - lp) <= MODEL_BF16_REL_L2 * abs(lp) and worst[0] <= TRAIN_GRAD_BF16_REL_L2
+    print(f"SFNO training step (bfloat16 compute, full width, B={TRAIN_BATCH}), kernel path vs plain path: loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {MODEL_BF16_REL_L2}); worst gradient leaf {worst[1]} relL2 {worst[0]:.3e} "
+          f"(tol {TRAIN_GRAD_BF16_REL_L2}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("bf16 training step: the kernel path disagrees with the plain path")
+    del gk, gp
+    torch.cuda.empty_cache()
+
+
+def time_train(dev, card, batch, use_kernels, steps):
+    """``steps`` + 1 training steps (the first a warm-up) through the bench
+    config's model and optimizer on the repeated batch; returns (the losses,
+    the step times in ms, the peak memory, the launch counts of all steps)."""
+    from makani_torch import kernels
+    from makani_torch.utils.training.deterministic_trainer import train_step
+    from makani_torch.utils.training.optimizer import get_optimizer
+
+    params, model, loss_obj = build_train(dev, "bfloat16")
+    kernels.set_use_kernels(model, use_kernels)
+    opt = get_optimizer(params, model)
+    opt.use_kernels = use_kernels
+    inp, tar, zen = batch
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(steps + 1):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        loss = train_step(model, loss_obj, opt, inp, tar, zen)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+        losses.append(loss.item())
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_adam = adam_launches(model)
+    del model, opt
+    torch.cuda.empty_cache()
+    return losses, times, peak, launches, n_adam
+
+
+def train_phases(dev, card):
+    """Phases 13-16; returns (kernel results, launch counts of the timed
+    training steps)."""
+    t0 = time.perf_counter()
+    params, model, loss_obj = build_train(dev)
+    net = model.model
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"built the bench's SFNO ({nparam} parameters, compute {params.compute_dtype}, {params.img_shape_x}x{params.img_shape_y} -> internal "
+          f"{net.h}x{net.w}, lmax/mmax {net.trans.lmax}/{net.trans.mmax}, embed {net.embed_dim}, {net.num_layers} blocks, batch {TRAIN_BATCH}, "
+          f"K11 launches a step {adam_launches(model)}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = train_batch(dev)
+    t0 = time.perf_counter()
+    kres = check_train_kernels(dev, card, model, loss_obj, batch)
+    print(f"phase 14 (training kernel checks) {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    compare_train_steps(dev, card, batch)
+    print(f"phase 15 (training step, kernel vs plain) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 16: the main path, timed; then the plain path
+    losses, times, peak, launches, n_adam = time_train(dev, card, batch, True, TRAIN_STEPS)
+    n = TRAIN_STEPS + 1
+    expected = {k: TRAIN_EXPECTED_PER_STEP.get(k, 0) * n for k in launches}
+    expected["adam_factored"] = n_adam * n
+    print(f"SFNO training launches over {n} steps: {launches} (per step {({k: v / n for k, v in launches.items()})})")
+    if launches != expected:
+        raise RuntimeError(f"training launch counts {launches} != expected {expected}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training loss not finite or not falling over {TRAIN_STEPS} steps: {losses}")
+    med = statistics.median(times[1:])
+    print(f"SFNO training step (kernel path, bf16, B={TRAIN_BATCH}): median {med:.2f} ms over {TRAIN_STEPS} steps after a warm-up "
+          f"{[round(t, 2) for t in times]}, {TRAIN_BATCH / med * 1e3:.3f} samples/s, peak memory {peak / 2**30:.2f} GiB; "
+          f"loss per step {[round(v, 6) for v in losses]}  [{card}]", flush=True)
+    p_losses, p_times, p_peak, _, _ = time_train(dev, card, batch, False, TRAIN_PLAIN_STEPS)
+    # step by step, the plain path's losses: each step's forward reads the
+    # weights the previous step's optimizer wrote
+    if not all(abs(a - b) <= MODEL_BF16_REL_L2 * abs(b) for a, b in zip(losses, p_losses)):
+        raise RuntimeError(f"training losses of the kernel path {losses} and the plain path {p_losses} part")
+    p_med = statistics.median(p_times[1:])
+    print(f"SFNO training step (plain path, bf16, B={TRAIN_BATCH}): median {p_med:.2f} ms over {TRAIN_PLAIN_STEPS} steps after a warm-up "
+          f"{[round(t, 2) for t in p_times]}, {TRAIN_BATCH / p_med * 1e3:.3f} samples/s, peak memory {p_peak / 2**30:.2f} GiB; "
+          f"loss per step {[round(v, 6) for v in p_losses]}  [{card}]", flush=True)
+    return kres, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -857,12 +1311,21 @@ def main() -> int:
     so = kernels.build()
     kernels.library()
     print(f"built {os.path.relpath(so, REPO)} in {time.perf_counter() - t0:.1f} s (nvcc {' '.join(kernels.NVCC_FLAGS)})", flush=True)
-    for line in ptxas_lines(so.with_suffix(".log").read_text()):
+    PTXAS[:] = ptxas_lines(so.with_suffix(".log").read_text())
+    for line in PTXAS:
         print("  ptxas:", line)
 
+    t0 = time.perf_counter()
     sfno_res, sfno_launches = sfno_phases(dev, card)
+    print(f"SFNO forecast phases {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     fcn3_res, fcn3_launches = fcn3_phases(dev, card)
+    print(f"FCN3 forecast phases {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_res, train_launches = train_phases(dev, card)
+    print(f"SFNO training phases {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- result: each kernel at its path's main shape, with that path's launches
     io = transform_io_dtype()
@@ -876,6 +1339,12 @@ def main() -> int:
         ("disco_polar", "cuda", "makani_torch/csrc/disco_polar.cu", "makani_tpu/ops/disco.py:686", fcn3_res, ("processor", f32), fcn3_launches),
         ("disco_mix", "cuda", "makani_torch/csrc/disco_mix.cu", "makani_tpu/models/networks/fourcastnet3.py:125", fcn3_res, ("processor", f32), fcn3_launches),
         ("resample", "cuda", "makani_torch/csrc/resample.cu", "makani_tpu/ops/resample.py:90", fcn3_res, ("atmo-decoder", f32), fcn3_launches),
+        ("sht_analysis_grad", "cuda", "makani_torch/csrc/sht_legendre.cu", "makani_tpu/ops/sht.py:54", train_res, ("full", f32), train_launches),
+        ("sht_synthesis_grad", "cuda", "makani_torch/csrc/sht_legendre.cu", "makani_tpu/ops/sht.py:59", train_res, ("full", f32), train_launches),
+        ("dhconv_grad_input", "cuda", "makani_torch/csrc/dhconv.cu", "makani_tpu/models/common/contractions.py:45", train_res, ("internal", f32), train_launches),
+        ("dhconv_grad_weight", "cuda", "makani_torch/csrc/dhconv_grad.cu", "makani_tpu/models/common/contractions.py:45", train_res, ("internal", f32), train_launches),
+        ("instance_norm_grad", "cuda", "makani_torch/csrc/instance_norm.cu", "makani_tpu/ops/norm.py:96", train_res, ("full", torch.bfloat16), train_launches),
+        ("adam_factored", "cuda", "makani_torch/csrc/adam_factored.cu", "makani_tpu/utils/training/optimizer.py:93", train_res, ("model", f32), train_launches),
     ]
     table = []
     for name, route, source, replaces, res, (label, dtype), launches in meta:

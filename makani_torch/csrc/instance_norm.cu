@@ -115,8 +115,9 @@ __device__ __forceinline__ void chan(float& na, float& ma, float& qa, float nb, 
   na = n;
 }
 
-// x, y: (B, HW, C); w, b: (C,); part: (nblocks, 3, CG) and stats: (2, CG)
-// fp32 scratch. The block has ppi * (CG / VEC) threads: thread (row, cv)
+// x, y: (B, HW, C); w, b: (C,); part: (nblocks, 3, CG) fp32 scratch; stats:
+// (B, C / CG, 2, CG) fp32, each (sample, group)'s mean and sqrt(var + eps),
+// kept for the backward (K10). The block has ppi * (CG / VEC) threads: thread (row, cv)
 // takes channels c0 + cv * VEC ... and pixels p0 + row, p0 + row + ppi, ...
 // of its block's slice [p0, p0 + chunk).
 template <typename T, int VEC>
@@ -220,8 +221,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         chan(na, ma, qa, nb, mb, qb);
       }
       if (lane == 0) {
-        stats[c] = ma;
-        stats[CG + c] = __fsqrt_rn(__fadd_rn(__fdiv_rn(qa, na), eps));
+        stats[(long long)bg * 2 * CG + c] = ma;
+        stats[(long long)bg * 2 * CG + CG + c] = __fsqrt_rn(__fadd_rn(__fdiv_rn(qa, na), eps));
       }
     }
     grid.sync();
@@ -232,8 +233,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
       const int c = cv * VEC + v;
-      mu[v] = __ldcg(stats + c);  // L2: written by other blocks, again each group
-      sd[v] = __ldcg(stats + CG + c);
+      mu[v] = __ldcg(stats + (long long)bg * 2 * CG + c);  // L2: written by other blocks
+      sd[v] = __ldcg(stats + (long long)bg * 2 * CG + CG + c);
       wv[v] = mt::to_f32(w[c0 + c]);
       bv[v] = mt::to_f32(bias[c0 + c]);
     }
@@ -295,7 +296,8 @@ int launch(const void* x, const void* w, const void* b, void* y, void* part, voi
 
 // dtype: 0 float32, 1 bfloat16; vec: 16 bytes of channels (4 or 8) or 1.
 // x, y: (B, HW, C) contiguous, 16-byte aligned for vec > 1; w, b: (C,) in
-// x's dtype; part: float32 (nblocks, 3, CG); stats: float32 (2, CG).
+// x's dtype; part: float32 (nblocks, 3, CG); stats: float32 (B, C / CG, 2,
+// CG), written with each (sample, channel)'s mean and sqrt(var + eps).
 // Statistics over the first n_valid pixels of each sample; block k
 // normalizes pixels [k * chunk, (k + 1) * chunk). The grid (nblocks) must
 // fit on the card at once: the launch is cooperative and fails otherwise.
@@ -311,5 +313,270 @@ extern "C" int mt_instance_norm(int dtype, int vec, const void* x, const void* w
   if (dtype == 0 && vec == 1) return launch<float, 1>(x, w, b, y, part, stats, B, HW, C, n_valid, CG, ppi, chunk, nblocks, eps, s);
   if (dtype == 1 && vec == 8) return launch<__nv_bfloat16, 8>(x, w, b, y, part, stats, B, HW, C, n_valid, CG, ppi, chunk, nblocks, eps, s);
   if (dtype == 1 && vec == 1) return launch<__nv_bfloat16, 1>(x, w, b, y, part, stats, B, HW, C, n_valid, CG, ppi, chunk, nblocks, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The instance-norm backward: kernel K10 of makani_torch.
+//
+// Replaces jax.grad through makani_tpu/models/common/layer_norm.py
+// InstanceNorm2d (the default two-pass path, :78-122) and the closed form of
+// makani_tpu/ops/norm.py _bwd (:96-121). With z = (x - mean) / sd (sd =
+// sqrt(var + eps), K4's saved statistics), dz = g * w (bf16: the bf16
+// product, rounded) and the n valid pixels of a sample:
+//
+//   dx = (dz - S1 / n - z * S2 / n) / sd   on the valid rows (padded rows:
+//                                          the terms with S1, S2 are 0),
+//   S1 = sum dz,  S2 = sum dz * z          over all pixels of (b, c),
+//   dw = sum_{b,p} g * zr,  db = sum_{b,p} g   (bf16: g * zr rounded to bf16,
+//                                          and dw, db once more at the end),
+//
+// zr being z rounded to x's dtype, as the bf16 forward applies its affine
+// step to it. Every division and rounding is IEEE round-to-nearest (no FMA
+// contraction), as the plain version instance_norm_grad_plain computes it.
+//
+// What bounds it on the card: the bytes. It reads x and g twice (the sums,
+// then dx) and writes dx: at the SFNO training step's full resolution
+// (3, 361, 720, 384) bf16 each is 599 MB, a one-read bound of 0.54 ms and a
+// two-read floor of 0.89 ms; at its internal grid 66 MB each, where the fixed
+// cost of the launch and its barriers weighs as much (K4's lesson). So it
+// takes K4's shape: one cooperative launch, a persistent grid of one block
+// an SM walking (sample, channel group) in turn; each block sums its slice of
+// pixels, the grid meets at a barrier, one warp a channel merges the blocks'
+// partials in a fixed order, a second barrier, and every block writes dx for
+// its slice, the last pixel read first (the likeliest in L2). The per-(b, c)
+// sums are kept, and after the last group one warp a channel sums them over
+// the batch for dw and db: no atomics, the same result on every run.
+
+namespace {
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    instance_norm_grad_kernel(const T* __restrict__ gy, const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ stats,
+                              T* __restrict__ dx, float* __restrict__ dwdb, float* __restrict__ part, float* __restrict__ sums, int B, int HW, int C,
+                              int n_valid, int CG, int ppi, int chunk) {
+  using P = Pack<T, VEC>;
+  using R = typename P::R;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int TPP = CG / VEC;
+  const int row = tid / TPP, cv = tid % TPP;
+  float* s_q[4] = {smem, smem + nthreads * VEC, smem + 2 * nthreads * VEC, smem + 3 * nthreads * VEC};  // [ppi][CG] each
+  const int nblocks = gridDim.x, blk = blockIdx.x;
+  const int p0 = blk * chunk, p1 = min(HW, p0 + chunk);
+  const int first = p0 + row, n_k = first < p1 ? (p1 - first + ppi - 1) / ppi : 0;
+  const int lane = tid % 32, warp = tid / 32, nwarps = nthreads / 32;
+  const int n_groups = C / CG;
+  // pixels a thread has in flight: (x, g) pairs, fewer for 16-byte bf16
+  // loads (their 8 channels' sums take the registers)
+  constexpr int GU = VEC == 8 ? 2 : 4;
+
+  for (int bg = 0; bg < B * n_groups; ++bg) {
+    const int b = bg / n_groups, c0 = (bg % n_groups) * CG;
+    const long long off = (long long)b * HW * C + c0 + cv * VEC + (long long)first * C;
+    const T* xb = x + off;
+    const T* gb = gy + off;
+    T* db_ = dx + off;
+    const long long step = (long long)ppi * C;
+
+    float mu[VEC], sd[VEC], wv[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const int c = c0 + cv * VEC + v;
+      mu[v] = stats[(long long)b * 2 * C + c];
+      sd[v] = stats[(long long)b * 2 * C + C + c];
+      wv[v] = mt::to_f32(w[c]);
+    }
+    // z, dz and the weight's term g * zr of one pixel's VEC channels
+    auto terms = [&](const R& rx, const R& rg, float (&z)[VEC], float (&dz)[VEC], float (&gv)[VEC], float (&gz)[VEC]) {
+      float xv[VEC];
+      P::unpack(rx, xv);
+      P::unpack(rg, gv);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        z[v] = __fdiv_rn(__fsub_rn(xv[v], mu[v]), sd[v]);
+        if constexpr (sizeof(T) == 2) {
+          dz[v] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(gv[v], wv[v])));
+          const float zr = __bfloat162float(__float2bfloat16_rn(z[v]));
+          gz[v] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(gv[v], zr)));
+        } else {
+          dz[v] = __fmul_rn(gv[v], wv[v]);
+          gz[v] = __fmul_rn(gv[v], z[v]);
+        }
+      }
+    };
+
+    // ---- pass 1: this thread's sums over its pixels (all rows, padded too)
+    float acc[4][VEC];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[q][v] = 0.f;
+    auto accumulate = [&](const R& rx, const R& rg) {
+      float z[VEC], dz[VEC], gv[VEC], gz[VEC];
+      terms(rx, rg, z, dz, gv, gz);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        acc[0][v] += dz[v];
+        acc[1][v] += dz[v] * z[v];
+        acc[2][v] += gz[v];
+        acc[3][v] += gv[v];
+      }
+    };
+    int k = 0;
+    for (; k + GU <= n_k; k += GU) {
+      R rx[GU], rg[GU];
+#pragma unroll
+      for (int u = 0; u < GU; ++u) {
+        rx[u] = *reinterpret_cast<const R*>(xb + (k + u) * step);
+        rg[u] = *reinterpret_cast<const R*>(gb + (k + u) * step);
+      }
+#pragma unroll
+      for (int u = 0; u < GU; ++u) accumulate(rx[u], rg[u]);
+    }
+    for (; k < n_k; ++k) accumulate(*reinterpret_cast<const R*>(xb + k * step), *reinterpret_cast<const R*>(gb + k * step));
+
+    // ---- sum the block's rows (a tree over row pairs), then publish
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) s_q[q][tid * VEC + v] = acc[q][v];
+    int span = 1;
+    while (span < ppi) span *= 2;
+    for (int s = span / 2; s >= 1; s /= 2) {
+      __syncthreads();
+      for (int i = tid; i < s * CG; i += nthreads) {
+        const int ra = i / CG, rb = ra + s, c = i % CG;
+        if (rb < ppi) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s_q[q][ra * CG + c] += s_q[q][rb * CG + c];
+        }
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < CG; c += nthreads) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[((long long)blk * 4 + q) * CG + c] = s_q[q][c];
+    }
+    grid.sync();
+
+    // ---- one warp a channel sums the blocks' partials, in a fixed order
+    for (int c = blk * nwarps + warp; c < CG; c += nblocks * nwarps) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = lane; j < nblocks; j += 32) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) t[q] += __ldcg(part + ((long long)j * 4 + q) * CG + c);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int o = 16; o >= 1; o /= 2) t[q] += __shfl_down_sync(0xFFFFFFFFu, t[q], o);
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sums[((long long)b * 4 + q) * C + c0 + c] = t[q];
+      }
+    }
+    grid.sync();
+
+    // ---- dx for the slice, the last pixel read first
+    float a[VEC], cc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const int c = c0 + cv * VEC + v;
+      a[v] = __fdiv_rn(__ldcg(sums + ((long long)b * 4 + 0) * C + c), (float)n_valid);
+      cc[v] = __fdiv_rn(__ldcg(sums + ((long long)b * 4 + 1) * C + c), (float)n_valid);
+    }
+    auto grad = [&](const R& rx, const R& rg, int kk) -> R {
+      float z[VEC], dz[VEC], gv[VEC], gz[VEC], out[VEC];
+      terms(rx, rg, z, dz, gv, gz);
+      const bool valid = first + kk * ppi < n_valid;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float av = valid ? a[v] : 0.f, cv_ = valid ? cc[v] : 0.f;
+        out[v] = __fdiv_rn(__fsub_rn(__fsub_rn(dz[v], av), __fmul_rn(z[v], cv_)), sd[v]);
+      }
+      return P::pack(out);
+    };
+    k = n_k - 1;
+    for (; k + 1 >= GU; k -= GU) {
+      R rx[GU], rg[GU];
+#pragma unroll
+      for (int u = 0; u < GU; ++u) {
+        rx[u] = *reinterpret_cast<const R*>(xb + (k - u) * step);
+        rg[u] = *reinterpret_cast<const R*>(gb + (k - u) * step);
+      }
+#pragma unroll
+      for (int u = 0; u < GU; ++u) __stcs(reinterpret_cast<R*>(db_ + (k - u) * step), grad(rx[u], rg[u], k - u));
+    }
+    for (; k >= 0; --k)
+      __stcs(reinterpret_cast<R*>(db_ + k * step), grad(*reinterpret_cast<const R*>(xb + k * step), *reinterpret_cast<const R*>(gb + k * step), k));
+  }
+
+  // ---- dw and db: the per-sample sums over the batch, a warp's lane 0 a
+  // channel (every sample's sums were written before the last barrier)
+  for (int c = blk * nwarps + warp; c < C; c += nblocks * nwarps) {
+    if (lane != 0) continue;
+    float sw = 0.f, sb = 0.f;
+    for (int b = 0; b < B; ++b) {
+      sw += __ldcg(sums + ((long long)b * 4 + 2) * C + c);
+      sb += __ldcg(sums + ((long long)b * 4 + 3) * C + c);
+    }
+    if constexpr (sizeof(T) == 2) {
+      sw = __bfloat162float(__float2bfloat16_rn(sw));
+      sb = __bfloat162float(__float2bfloat16_rn(sb));
+    }
+    dwdb[c] = sw;
+    dwdb[C + c] = sb;
+  }
+}
+
+template <typename T, int VEC>
+int launch_grad(const void* g, const void* x, const void* w, const void* stats, void* dx, void* dwdb, void* part, void* sums, int B, int HW, int C,
+                int n_valid, int CG, int ppi, int chunk, int nblocks, cudaStream_t s) {
+  const int nthreads = ppi * (CG / VEC);
+  if (CG % VEC || C % CG || nthreads > MAX_THREADS || nthreads % 32) return (int)cudaErrorInvalidValue;
+  // the rows' four sums
+  const size_t smem = (size_t)4 * nthreads * VEC * sizeof(float);
+  auto kernel = instance_norm_grad_kernel<T, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const T* gp = static_cast<const T*>(g);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  const float* sp = static_cast<const float*>(stats);
+  T* dxp = static_cast<T*>(dx);
+  float* dwp = static_cast<float*>(dwdb);
+  float* pp = static_cast<float*>(part);
+  float* su = static_cast<float*>(sums);
+  void* args[] = {&gp, &xp, &wp, &sp, &dxp, &dwp, &pp, &su, &B, &HW, &C, &n_valid, &CG, &ppi, &chunk};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblocks), dim3(nthreads), args, smem, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16; vec: 16 bytes of channels (4 or 8) or 1.
+// g, x, dx: (B, HW, C) contiguous, 16-byte aligned for vec > 1; w: (C,) in
+// x's dtype; stats: float32 (B, 2, C), each (sample, channel)'s mean and
+// sqrt(var + eps) (K4's); dwdb: float32 (2, C) out; part: float32 (nblocks,
+// 4, CG) and sums: float32 (B, 4, C) scratch. The launch shape is K4's
+// (plan_instance_norm); the grid must fit on the card at once.
+// Returns cudaGetLastError() after the launch, or an argument error.
+extern "C" int mt_instance_norm_grad(int dtype, int vec, const void* g, const void* x, const void* w, const void* stats, void* dx, void* dwdb,
+                                     void* part, void* sums, int B, int HW, int C, int n_valid, int CG, int ppi, int chunk, int nblocks, void* stream) {
+  if (B <= 0 || HW <= 0 || C <= 0 || CG <= 0 || ppi <= 0 || chunk <= 0 || nblocks <= 0 || n_valid <= 0 || n_valid > HW ||
+      (long long)nblocks * chunk < HW)
+    return (int)cudaErrorInvalidValue;
+  if (vec > 1 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4) return launch_grad<float, 4>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
+  if (dtype == 0 && vec == 1) return launch_grad<float, 1>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
+  if (dtype == 1 && vec == 8)
+    return launch_grad<__nv_bfloat16, 8>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
+  if (dtype == 1 && vec == 1)
+    return launch_grad<__nv_bfloat16, 1>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
   return (int)cudaErrorInvalidValue;
 }

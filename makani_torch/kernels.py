@@ -27,7 +27,17 @@ import torch
 __all__ = ["LAUNCHES", "reset_launch_counts", "count_launch", "build", "library", "check_launch", "dtype_code", "stream_ptr", "takes_plain", "set_use_kernels"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sht_legendre.cu", "dhconv.cu", "instance_norm.cu", "disco_band.cu", "disco_polar.cu", "disco_mix.cu", "resample.cu")
+_SOURCES = (
+    "sht_legendre.cu",
+    "dhconv.cu",
+    "dhconv_grad.cu",
+    "instance_norm.cu",
+    "adam_factored.cu",
+    "disco_band.cu",
+    "disco_polar.cu",
+    "disco_mix.cu",
+    "resample.cu",
+)
 _HEADERS = ("convert.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode",
@@ -49,6 +59,12 @@ LAUNCHES = {
     "disco_polar": 0,
     "disco_mix": 0,
     "resample": 0,
+    "sht_analysis_grad": 0,
+    "sht_synthesis_grad": 0,
+    "dhconv_grad_input": 0,
+    "dhconv_grad_weight": 0,
+    "instance_norm_grad": 0,
+    "adam_factored": 0,
 }
 
 
@@ -143,6 +159,19 @@ def library() -> ctypes.CDLL:
             lib.mt_disco_band_contract.restype = i
             lib.mt_instance_norm.argtypes = [i, i] + [vp] * 6 + [i] * 8 + [ctypes.c_float, vp]
             lib.mt_instance_norm.restype = i
+            lib.mt_instance_norm_grad.argtypes = [i, i] + [vp] * 8 + [i] * 8 + [vp]
+            lib.mt_instance_norm_grad.restype = i
+            lib.mt_dhconv_grad_weight.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.mt_dhconv_grad_weight.restype = i
+            f = ctypes.c_float
+            lib.mt_adam_factored_reduce.argtypes = [vp, vp, vp] + [i] * 5 + [f, f, vp]
+            lib.mt_adam_factored_reduce.restype = i
+            lib.mt_adam_factored_rowmean.argtypes = [vp, vp] + [i] * 5 + [vp]
+            lib.mt_adam_factored_rowmean.restype = i
+            lib.mt_adam_factored_apply.argtypes = [i] + [vp] * 6 + [i] * 6 + [f] * 6 + [vp]
+            lib.mt_adam_factored_apply.restype = i
+            lib.mt_adam_unfactored.argtypes = [i, ctypes.POINTER(ll), i] + [f] * 8 + [vp]
+            lib.mt_adam_unfactored.restype = i
             lib.mt_disco_mix.argtypes = [vp, ll, vp, vp] + [i] * 5 + [vp]
             lib.mt_disco_mix.restype = i
             lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]

@@ -4,7 +4,17 @@
 Complex values are carried as a trailing [re, im] axis. The dense
 channels-last dhconv contraction ``bxygi,giox->bxygo`` is the hand-written
 kernel K3 (``csrc/dhconv.cu``) on the card; ``cmul_einsum_s`` is its plain
-version (the JAX package's four real einsums).
+version (the JAX package's four real einsums). It is a
+``torch.autograd.Function`` whose backward is
+
+  dx[b,l,m,g,i] = sum_o  g[b,l,m,g,o] * conj(w[g,i,o,l])   K3 again, on the
+                  conjugate-transposed weight (L, G, Co, Ci, 2), made in the
+                  backward (``dhconv_grad_input``);
+  dw[g,i,o,l]   = sum_bm conj(x[b,l,m,g,i]) * g[b,l,m,g,o] kernel K9
+                  (``csrc/dhconv_grad.cu``, ``dhconv_grad_weight``), written
+                  in the parameter's own layout (G, Ci, Co, L, 2);
+
+with the same two formulas as einsums for its plain version.
 """
 
 from __future__ import annotations
@@ -14,7 +24,17 @@ import torch
 from makani_torch import kernels
 from makani_torch.ops.precision import fp32_exact
 
-__all__ = ["cmul_einsum_s", "contract_dense_s", "contract_dense_s_plain", "dhconv_contract_cl_s"]
+__all__ = [
+    "cmul_einsum_s",
+    "contract_dense_s",
+    "contract_dense_s_plain",
+    "dhconv_contract_cl_s",
+    "dhconv_grad_input",
+    "dhconv_grad_input_plain",
+    "dhconv_grad_weight",
+    "dhconv_grad_weight_plain",
+    "conj_transposed_weight",
+]
 
 
 def cmul_einsum_s(eq: str, a2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -78,20 +98,38 @@ class _PermutedWeight:
         return self._value
 
 
-def dhconv_contract_cl_s(x2: torch.Tensor, w_perm: torch.Tensor) -> torch.Tensor:
-    """Launch K3: channels-last dense dhconv ``bxygi,giox->bxygo`` on split
-    tensors. x2 (B, L, M, G, Ci, 2) and ``w_perm`` (L, G, Ci, Co, 2) in one
-    dtype (float32 or bfloat16), both contiguous on one CUDA device; returns
-    (B, L, M, G, Co, 2) in that dtype, accumulated in fp32."""
+def conj_transposed_weight(w2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The dhconv weight (G, Ci, Co, L, 2) as K3 reads it for the input
+    gradient: conjugated and transposed to (L, G, Co, Ci, 2), in ``dtype``."""
+    wt = w2.detach().permute(3, 0, 2, 1, 4).to(dtype)
+    return torch.stack([wt[..., 0], -wt[..., 1]], dim=-1).contiguous()
+
+
+def dhconv_grad_input_plain(g2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """dx of the channels-last dense dhconv: g2 (B, L, M, G, Co, 2) times the
+    conjugate of w2 (G, Ci, Co, L, 2) summed over Co, in plain PyTorch."""
+    wc = torch.stack([w2[..., 0], -w2[..., 1]], dim=-1)
+    return cmul_einsum_s("bxygo,giox->bxygi", g2, wc)
+
+
+def dhconv_grad_weight_plain(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+    """dw of the channels-last dense dhconv: conj(x2) (B, L, M, G, Ci, 2)
+    times g2 (B, L, M, G, Co, 2) summed over (B, M), as (G, Ci, Co, L, 2) in
+    the input dtype, in plain PyTorch."""
+    xc = torch.stack([x2[..., 0], -x2[..., 1]], dim=-1)
+    return cmul_einsum_s("bxygi,bxygo->giox", xc, g2)
+
+
+def _k3_launch(x2: torch.Tensor, w_perm: torch.Tensor, name: str) -> torch.Tensor:
     if x2.dtype != w_perm.dtype:
-        raise TypeError(f"dhconv: input {x2.dtype} and weight {w_perm.dtype} differ")
+        raise TypeError(f"{name}: input {x2.dtype} and weight {w_perm.dtype} differ")
     if x2.dim() != 6 or w_perm.dim() != 5 or x2.shape[-1] != 2 or w_perm.shape[-1] != 2:
-        raise ValueError(f"dhconv: expected x (B,L,M,G,Ci,2) and w (L,G,Ci,Co,2), got {tuple(x2.shape)} and {tuple(w_perm.shape)}")
+        raise ValueError(f"{name}: expected x (B,L,M,G,Ci,2) and w (L,G,Ci,Co,2), got {tuple(x2.shape)} and {tuple(w_perm.shape)}")
     B, L, M, G, Ci, _ = x2.shape
     if tuple(w_perm.shape[:3]) != (L, G, Ci):
-        raise ValueError(f"dhconv: x {tuple(x2.shape)} does not match w {tuple(w_perm.shape)}")
+        raise ValueError(f"{name}: x {tuple(x2.shape)} does not match w {tuple(w_perm.shape)}")
     if not (x2.is_contiguous() and w_perm.is_contiguous()):
-        raise ValueError("dhconv: x and w must be contiguous")
+        raise ValueError(f"{name}: x and w must be contiguous")
     Co = w_perm.shape[3]
     out = torch.empty(B, L, M, G, Co, 2, dtype=x2.dtype, device=x2.device)
     if out.numel() == 0:
@@ -101,9 +139,87 @@ def dhconv_contract_cl_s(x2: torch.Tensor, w_perm: torch.Tensor) -> torch.Tensor
         err = lib.mt_dhconv_contract(
             kernels.dtype_code(x2.dtype), x2.data_ptr(), w_perm.data_ptr(), out.data_ptr(), B, L, M, G, Ci, Co, kernels.stream_ptr(x2.device)
         )
-    kernels.check_launch(err, "dhconv")
-    kernels.count_launch("dhconv")
+    kernels.check_launch(err, name)
+    kernels.count_launch(name)
     return out
+
+
+def dhconv_contract_cl_s(x2: torch.Tensor, w_perm: torch.Tensor) -> torch.Tensor:
+    """Launch K3: channels-last dense dhconv ``bxygi,giox->bxygo`` on split
+    tensors. x2 (B, L, M, G, Ci, 2) and ``w_perm`` (L, G, Ci, Co, 2) in one
+    dtype (float32 or bfloat16), both contiguous on one CUDA device; returns
+    (B, L, M, G, Co, 2) in that dtype, accumulated in fp32."""
+    return _k3_launch(x2, w_perm, "dhconv")
+
+
+def dhconv_grad_input(g2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """dx of the dense channels-last dhconv on the card: K3 on the
+    conjugate-transposed weight, counted as ``dhconv_grad_input``. g2 (B, L,
+    M, G, Co, 2) float32 or bfloat16, w2 (G, Ci, Co, L, 2); returns (B, L,
+    M, G, Ci, 2) in g2's dtype."""
+    return _k3_launch(g2.contiguous(), conj_transposed_weight(w2, g2.dtype), "dhconv_grad_input")
+
+
+def dhconv_grad_weight(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+    """Launch K9: dw[g,i,o,l] = sum_{b,m} conj(x2[b,l,m,g,i]) g2[b,l,m,g,o]
+    on split tensors, x2 (B, L, M, G, Ci, 2) and g2 (B, L, M, G, Co, 2) in
+    one dtype (float32 or bfloat16), contiguous on one CUDA device. Returns
+    float32 (G, Ci, Co, L, 2), the parameter's layout, accumulated in fp32
+    (for bf16 input rounded once to bf16, as the plain einsum's output)."""
+    if x2.dtype != g2.dtype:
+        raise TypeError(f"dhconv_grad_weight: x {x2.dtype} and g {g2.dtype} differ")
+    if x2.dim() != 6 or g2.dim() != 6 or x2.shape[-1] != 2 or g2.shape[-1] != 2 or x2.shape[:4] != g2.shape[:4]:
+        raise ValueError(f"dhconv_grad_weight: expected x (B,L,M,G,Ci,2) and g (B,L,M,G,Co,2), got {tuple(x2.shape)} and {tuple(g2.shape)}")
+    if not (x2.is_contiguous() and g2.is_contiguous()):
+        raise ValueError("dhconv_grad_weight: x and g must be contiguous")
+    B, L, M, G, Ci, _ = x2.shape
+    Co = g2.shape[4]
+    out = torch.empty(G, Ci, Co, L, 2, dtype=torch.float32, device=x2.device)
+    if out.numel() == 0:
+        return out
+    lib = kernels.library()
+    with torch.cuda.device(x2.device):
+        err = lib.mt_dhconv_grad_weight(
+            kernels.dtype_code(x2.dtype), x2.data_ptr(), g2.data_ptr(), out.data_ptr(), B, L, M, G, Ci, Co, kernels.stream_ptr(x2.device)
+        )
+    kernels.check_launch(err, "dhconv_grad_weight")
+    kernels.count_launch("dhconv_grad_weight")
+    return out
+
+
+class _DhconvContract(torch.autograd.Function):
+    """The dense channels-last dhconv with its hand-written backward: K3
+    forward, K3 on the conjugate-transposed weight for dx and K9 for dw on
+    the card; the plain einsums of the same formulas on the CPU. The weight
+    is an input (the gradient flows to the parameter)."""
+
+    @staticmethod
+    def forward(ctx, x2, w2, cache):
+        ctx.save_for_backward(x2, w2)
+        if kernels.takes_plain("dhconv", x2, w2):
+            return contract_dense_s_plain(x2, w2, False, "dhconv", True)
+        dtype = torch.bfloat16 if x2.dtype == torch.bfloat16 else w2.dtype
+        return dhconv_contract_cl_s(x2.to(dtype).contiguous(), cache.get(w2, dtype))
+
+    @staticmethod
+    def backward(ctx, g2):
+        x2, w2 = ctx.saved_tensors
+        dx = dw = None
+        if kernels.takes_plain("dhconv_grad_input", g2, x2, w2):
+            if ctx.needs_input_grad[0]:
+                dx = dhconv_grad_input_plain(g2, w2)
+            if ctx.needs_input_grad[1]:
+                dw = dhconv_grad_weight_plain(x2.to(g2.dtype), g2)
+            return dx, dw, None
+        dtype = torch.bfloat16 if x2.dtype == torch.bfloat16 else w2.dtype
+        g2 = g2.to(dtype).contiguous()
+        if ctx.needs_input_grad[0]:
+            dx = dhconv_grad_input(g2, w2)
+        if ctx.needs_input_grad[1]:
+            dw = dhconv_grad_weight(x2.to(dtype).contiguous(), g2)
+            if dtype == torch.bfloat16:
+                dw = dw.to(torch.bfloat16)
+        return dx, dw, None
 
 
 def contract_dense_s(
@@ -118,17 +234,19 @@ def contract_dense_s(
 
     The dense channels-last dhconv case (the SFNO's) is kernel K3 on the card,
     replacing ``makani_tpu/models/common/contractions.py`` ``contract_dense_s``
-    + ``cmul_einsum_s``. The other cases have no kernel yet: on the card they
-    raise rather than run unported code. ``weight_cache`` keeps K3's permuted
-    weight between calls (``SpectralConv`` owns one per weight).
+    + ``cmul_einsum_s``, with its backward (K3 on the conjugate-transposed
+    weight for dx, K9 for dw); on the CPU the same ``autograd.Function`` runs
+    the plain einsums. The other cases have no kernel yet: on the CPU they
+    run the plain version under autograd, on the card they raise rather than
+    run unported code. ``weight_cache`` keeps K3's permuted weight between
+    calls of one weight version (``SpectralConv`` owns one per weight).
     """
+    dense_cl_dhconv = not separable and operator_type == "dhconv" and channels_last
+    if dense_cl_dhconv:
+        return _DhconvContract.apply(x2, w2, weight_cache if weight_cache is not None else _PermutedWeight())
     if kernels.takes_plain("dhconv", x2, w2):
         return contract_dense_s_plain(x2, w2, separable, operator_type, channels_last)
-    if separable or operator_type != "dhconv" or not channels_last:
-        raise NotImplementedError(
-            f"no kernel for the {'separable' if separable else 'dense'} {operator_type} contraction "
-            f"({'channels-last' if channels_last else 'NCHW'}); only dense channels-last dhconv is ported"
-        )
-    dtype = torch.bfloat16 if x2.dtype == torch.bfloat16 else w2.dtype
-    cache = weight_cache if weight_cache is not None else _PermutedWeight()
-    return dhconv_contract_cl_s(x2.to(dtype).contiguous(), cache.get(w2, dtype))
+    raise NotImplementedError(
+        f"no kernel for the {'separable' if separable else 'dense'} {operator_type} contraction "
+        f"({'channels-last' if channels_last else 'NCHW'}); only dense channels-last dhconv is ported"
+    )

@@ -14,7 +14,14 @@ reading each block's slice again, the last pixel read first (the likeliest
 to be in L2 still). It is bound by memory bandwidth.
 ``plan_instance_norm`` is its launch shape, made on the host. The division,
 the square root and every rounding are IEEE round-to-nearest-even, as in the
-plain version.
+plain version. K4 also writes each (sample, channel)'s mean and
+sqrt(var + eps) (B·C·2 floats), which the backward keeps.
+
+The backward is kernel K10 (same source, ``launch_instance_norm_grad``):
+the closed form of ``makani_tpu/ops/norm.py`` ``_bwd`` in one cooperative
+launch on K4's plan, ``instance_norm_grad_plain`` its plain version. Both
+sit in a ``torch.autograd.Function`` (``instance_norm_cl``) that takes the
+kernels for a CUDA tensor and the plain versions for a CPU one.
 """
 
 from __future__ import annotations
@@ -28,14 +35,27 @@ from torch import nn
 from makani_torch import kernels
 from makani_torch.device import resolve_device
 
-__all__ = ["InstanceNorm2d", "instance_norm_cl", "instance_norm_cl_plain", "plan_instance_norm", "launch_instance_norm", "NormPlan"]
+__all__ = [
+    "InstanceNorm2d",
+    "instance_norm_cl",
+    "instance_norm_cl_plain",
+    "instance_norm_grad_plain",
+    "plan_instance_norm",
+    "launch_instance_norm",
+    "launch_instance_norm_grad",
+    "NormPlan",
+]
 
 
-def instance_norm_cl_plain(
-    x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None, nlat_phys: int | None = None, eps: float = 1e-6
-) -> torch.Tensor:
-    """Plain PyTorch instance norm on channels-last x (B, H, W, C)."""
-    xs = x.float()
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in the statistics' type: fp32 (float64 for float64 input)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _norm_stats_plain(x: torch.Tensor, nlat_phys: int | None, eps: float):
+    """fp32 per-(b, c) mean and sqrt(var + eps) of channels-last x (B, H, W,
+    C) over the valid latitude rows, each (B, 1, 1, C)."""
+    xs = _acc(x)
     sp = (-3, -2)
     H, W = x.shape[-3], x.shape[-2]
     if nlat_phys is not None and nlat_phys < H:
@@ -46,10 +66,61 @@ def instance_norm_cl_plain(
     else:
         mean = torch.mean(xs, dim=sp, keepdim=True)
         var = torch.var(xs, dim=sp, keepdim=True, correction=0)
-    y = ((xs - mean) / torch.sqrt(var + eps)).to(x.dtype)
+    return mean, torch.sqrt(var + eps)
+
+
+def _normalize_affine(x, mean, sd, weight, bias):
+    y = ((_acc(x) - mean) / sd).to(x.dtype)
     if weight is not None:
         y = y * weight.to(x.dtype) + bias.to(x.dtype)
     return y
+
+
+def instance_norm_cl_plain(
+    x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None, nlat_phys: int | None = None, eps: float = 1e-6
+) -> torch.Tensor:
+    """Plain PyTorch instance norm on channels-last x (B, H, W, C)."""
+    mean, sd = _norm_stats_plain(x, nlat_phys, eps)
+    return _normalize_affine(x, mean, sd, weight, bias)
+
+
+def instance_norm_grad_plain(g, x, weight, mean, sd, n_valid: int):
+    """The closed-form instance-norm backward in plain PyTorch, K10's plain
+    version; the gradient of the default two-pass ``InstanceNorm2d`` path.
+
+    g, x (B, H, W, C) in x's dtype, ``weight`` (C,) or None, mean and sd
+    (B, 1, 1, C) fp32 (sd = sqrt(var + eps)); statistics over the first
+    ``n_valid`` pixels of each sample. With z = (x - mean) / sd and the
+    affine step's gradient dz = g * w (for bf16 rounded to bf16, as the
+    bf16 product is):
+
+        dx = (dz - S1 / n - z * S2 / n) / sd    on the valid rows,
+        dx = dz / sd                            on the padded rows,
+        S1 = sum dz,  S2 = sum dz * z           over all pixels of (b, c),
+        dw = sum_{b,h,w} g * zr,  db = sum_{b,h,w} g,
+
+    zr being z rounded to x's dtype; for bf16, g * zr is rounded to bf16 and
+    dw and db once more after the fp32 sum, as the bf16 autograd gives them.
+    Returns dx in x's dtype and (dw, db) fp32, or (dx, None, None) without
+    a weight."""
+    z = (_acc(x) - mean) / sd
+    if weight is None:
+        dz = _acc(g)
+    else:
+        dz = _acc(g * weight.to(x.dtype))
+    s1 = dz.sum(dim=(1, 2), keepdim=True)
+    s2 = (dz * z).sum(dim=(1, 2), keepdim=True)
+    W = x.shape[2]
+    rows = (torch.arange(x.shape[1], device=x.device) * W < n_valid)[:, None, None]
+    a = torch.where(rows, s1 / n_valid, 0.0)
+    c = torch.where(rows, s2 / n_valid, 0.0)
+    dx = ((dz - a - z * c) / sd).to(x.dtype)
+    if weight is None:
+        return dx, None, None
+    zr = z.to(x.dtype)
+    dw = _acc(_acc(g * zr).sum(dim=(0, 1, 2)).to(x.dtype))
+    db = _acc(_acc(g).sum(dim=(0, 1, 2)).to(x.dtype))
+    return dx, dw, db
 
 
 # K4's launch: threads a block (at most; csrc/instance_norm.cu MAX_THREADS),
@@ -101,13 +172,15 @@ def _card(index: int) -> dict:
     return {"sms": torch.cuda.get_device_properties(index).multi_processor_count}
 
 
-def launch_instance_norm(x, w, b, n_valid: int, eps: float, plan: NormPlan) -> torch.Tensor:
+def launch_instance_norm(x, w, b, n_valid: int, eps: float, plan: NormPlan):
     """Launch K4 with a given plan: x (B, H, W, C) contiguous, w and b (C,)
-    in x's dtype, all on one CUDA device."""
+    in x's dtype, all on one CUDA device. Returns y and the per-(b, c)
+    statistics (B, 1, 1, C) fp32 mean and sqrt(var + eps), which K4 keeps
+    for the backward."""
     B, H, W, C = x.shape
     y = torch.empty_like(x)
     part = torch.empty(plan.blocks, 3, plan.group, dtype=torch.float32, device=x.device)
-    stats = torch.empty(2, plan.group, dtype=torch.float32, device=x.device)
+    stats = torch.empty(B, C // plan.group, 2, plan.group, dtype=torch.float32, device=x.device)
     lib = kernels.library()
     with torch.cuda.device(x.device):
         err = lib.mt_instance_norm(
@@ -116,29 +189,92 @@ def launch_instance_norm(x, w, b, n_valid: int, eps: float, plan: NormPlan) -> t
         )
     kernels.check_launch(err, "instance_norm")
     kernels.count_launch("instance_norm")
-    return y
+    stats = stats.transpose(1, 2).reshape(B, 2, 1, 1, C)
+    return y, stats[:, 0], stats[:, 1]
+
+
+def launch_instance_norm_grad(g, x, w, mean, sd, n_valid: int, plan: NormPlan):
+    """Launch K10 with a given plan (K4's for x): g and x (B, H, W, C)
+    contiguous in one dtype, w (C,) in that dtype, mean and sd (B, 1, 1, C)
+    fp32 from K4. Returns dx in x's dtype and dw, db (C,) fp32."""
+    B, H, W, C = x.shape
+    dx = torch.empty_like(x)
+    part = torch.empty(plan.blocks, 4, plan.group, dtype=torch.float32, device=x.device)
+    sums = torch.empty(B, 4, C, dtype=torch.float32, device=x.device)
+    dwdb = torch.empty(2, C, dtype=torch.float32, device=x.device)
+    stats = torch.stack([mean.reshape(B, C), sd.reshape(B, C)], dim=1).contiguous()
+    lib = kernels.library()
+    with torch.cuda.device(x.device):
+        err = lib.mt_instance_norm_grad(
+            kernels.dtype_code(x.dtype), plan.vec, g.data_ptr(), x.data_ptr(), w.data_ptr(), stats.data_ptr(), dx.data_ptr(), dwdb.data_ptr(),
+            part.data_ptr(), sums.data_ptr(), B, H * W, C, n_valid, plan.group, plan.ppi, plan.chunk, plan.blocks, kernels.stream_ptr(x.device),
+        )
+    kernels.check_launch(err, "instance_norm_grad")
+    kernels.count_launch("instance_norm_grad")
+    return dx, dwdb[0], dwdb[1]
+
+
+def _affine(x, weight, bias):
+    C = x.shape[-1]
+    if weight is None:
+        return torch.ones(C, dtype=x.dtype, device=x.device), torch.zeros(C, dtype=x.dtype, device=x.device)
+    return weight.to(x.dtype).contiguous(), bias.to(x.dtype).contiguous()
+
+
+def _plan(x, *others):
+    """K4's (and K10's) launch for x; 16-byte loads only where x and the
+    ``others`` read alongside it are 16-byte aligned."""
+    B, H, W, C = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
+    return plan_instance_norm(H * W, C, x.element_size(), aligned=aligned, **_card(x.device.index or 0))
+
+
+class _InstanceNorm(torch.autograd.Function):
+    """Instance norm with its closed-form backward: K4 forward (keeping the
+    per-(b, c) statistics) and K10 backward on the card, the plain versions
+    of both on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, nlat_phys, eps):
+        params = () if weight is None else (weight, bias)
+        B, H, W, C = x.shape
+        n_valid = (min(nlat_phys, H) if nlat_phys is not None else H) * W
+        ctx.n_valid = n_valid
+        if kernels.takes_plain("instance_norm", x, *params):
+            mean, sd = _norm_stats_plain(x, nlat_phys, eps)
+            y = _normalize_affine(x, mean, sd, weight, bias)
+        else:
+            if x.dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError(f"instance_norm: expected float32/bfloat16 (B, H, W, C), got {x.dtype} {tuple(x.shape)}")
+            x = x.contiguous()
+            w, b = _affine(x, weight, bias)
+            y, mean, sd = launch_instance_norm(x, w, b, n_valid, eps, _plan(x))
+        ctx.save_for_backward(x, weight, mean, sd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, sd = ctx.saved_tensors
+        if kernels.takes_plain("instance_norm_grad", g, x):
+            dx, dw, db = instance_norm_grad_plain(g, x, weight, mean, sd, ctx.n_valid)
+        else:
+            g = g.to(x.dtype).contiguous()
+            w, _ = _affine(x, weight, weight)
+            dx, dw, db = launch_instance_norm_grad(g, x, w, mean, sd, ctx.n_valid, _plan(x, g))
+        if weight is None:
+            dw = db = None
+        return (dx if ctx.needs_input_grad[0] else None), dw, db, None, None
 
 
 def instance_norm_cl(
     x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None, nlat_phys: int | None = None, eps: float = 1e-6
 ) -> torch.Tensor:
     """Instance norm on channels-last x (B, H, W, C): kernel K4 on the card,
-    ``instance_norm_cl_plain`` on the CPU."""
-    params = () if weight is None else (weight, bias)
-    if kernels.takes_plain("instance_norm", x, *params):
-        return instance_norm_cl_plain(x, weight, bias, nlat_phys, eps)
-    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:
-        raise TypeError(f"instance_norm: expected float32/bfloat16 (B, H, W, C), got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
-    B, H, W, C = x.shape
-    n_valid = (min(nlat_phys, H) if nlat_phys is not None else H) * W
-    if weight is None:
-        w = torch.ones(C, dtype=x.dtype, device=x.device)
-        b = torch.zeros(C, dtype=x.dtype, device=x.device)
-    else:
-        w, b = weight.to(x.dtype).contiguous(), bias.to(x.dtype).contiguous()
-    plan = plan_instance_norm(H * W, C, x.element_size(), aligned=x.data_ptr() % 16 == 0, **_card(x.device.index or 0))
-    return launch_instance_norm(x, w, b, n_valid, eps, plan)
+    ``instance_norm_cl_plain`` on the CPU; differentiable, with K10 (on the
+    CPU ``instance_norm_grad_plain``) as its backward."""
+    if x.dim() != 4:
+        raise TypeError(f"instance_norm: expected (B, H, W, C), got {tuple(x.shape)}")
+    return _InstanceNorm.apply(x, weight, bias, nlat_phys, eps)
 
 
 class InstanceNorm2d(nn.Module):

@@ -144,7 +144,14 @@ def get_model(params, multistep: bool = False, device=None, seed: int = 0):
     device = resolve_device(device)
     model = handle(**{k: v for k, v in kwargs.items() if k in fields}, device=device)
     if multistep:
-        wrapper = MultiStepWrapper(model, preprocessor, n_future=params.get("n_future", 0))
+        ms = params.get("multistep", None) or {}
+        wrapper = MultiStepWrapper(
+            model,
+            preprocessor,
+            n_future=params.get("n_future", 0),
+            push_forward=ms.get("push_forward", False),
+            multistep_checkpoint=params.get("multistep_checkpoint", False),
+        )
     else:
         wrapper = SingleStepWrapper(model, preprocessor)
     init_parameters(wrapper, torch.Generator(device).manual_seed(seed))

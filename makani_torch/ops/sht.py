@@ -10,6 +10,10 @@ Legendre contractions are the hand-written kernels K1 (analysis) and K2
 (synthesis) in ``csrc/sht_legendre.cu``; each has its plain PyTorch version
 here. Tables are float64 numpy computations stored as fp32 (and cast to bf16
 for bf16 input), cached per device and dtype on the transform object. The
+two contractions are each other's transpose on one table, so each one's
+input gradient is the other's kernel on the same table
+(``torch.autograd.Function``s, counted as ``sht_analysis_grad`` and
+``sht_synthesis_grad``). The
 fp32 K1 runs on the tensor cores in 3xTF32 and reads the table's TF32 high
 and low planes, zero-padded to its tiles (``analysis_planes``), made once
 per table tensor; the plain version reads the table itself. The fp32 K2
@@ -164,28 +168,77 @@ def _legendre_launch(name: str, mode: int, x: torch.Tensor, table: torch.Tensor)
     return out
 
 
+class _AnalysisContract(torch.autograd.Function):
+    """K1 forward; its input gradient is the synthesis contraction on the
+    same table (K2's kernels on the analysis table), counted as
+    ``sht_analysis_grad``. No gradient for the table."""
+
+    @staticmethod
+    def forward(ctx, xf2, weights):
+        ctx.save_for_backward(weights)
+        if kernels.takes_plain("sht_analysis", xf2, weights):
+            return analysis_contract_cl_s_plain(xf2, weights)
+        return _legendre_launch("sht_analysis", _ANALYSIS, xf2, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (weights,) = ctx.saved_tensors
+        if kernels.takes_plain("sht_analysis_grad", g, weights):
+            return synthesis_contract_cl_s_plain(g, weights), None
+        return _legendre_launch("sht_analysis_grad", _SYNTHESIS, g.contiguous(), weights), None
+
+
+class _SynthesisContract(torch.autograd.Function):
+    """K2 forward; its input gradient is the analysis contraction on the
+    same table (K1's kernel on the synthesis table), counted as
+    ``sht_synthesis_grad``. No gradient for the table."""
+
+    @staticmethod
+    def forward(ctx, c2, pct):
+        ctx.save_for_backward(pct)
+        if kernels.takes_plain("sht_synthesis", c2, pct):
+            return synthesis_contract_cl_s_plain(c2, pct)
+        return _legendre_launch("sht_synthesis", _SYNTHESIS, c2, pct)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (pct,) = ctx.saved_tensors
+        if kernels.takes_plain("sht_synthesis_grad", g, pct):
+            return analysis_contract_cl_s_plain(g, pct), None
+        return _legendre_launch("sht_synthesis_grad", _ANALYSIS, g.contiguous(), pct), None
+
+
 def analysis_contract_cl_s(xf2: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Legendre analysis (kernel K1 on the card, the plain einsum on the CPU).
+    """Legendre analysis (kernel K1 on the card, the plain einsum on the CPU),
+    differentiable in ``xf2``.
 
     Replaces ``makani_tpu/ops/sht.py`` ``_analysis_contract_cl_s``. ``weights``
     must already be in ``xf2``'s dtype on the card (``RealSHT`` caches it so).
-    fp32 runs on the tensor cores (3xTF32), bf16 on the fp32 FMA kernel.
+    fp32 runs on the tensor cores (3xTF32), bf16 on the fp32 FMA kernel. The
+    backward is the synthesis contraction on this table: on the card K2's
+    kernel (fp32 wide N on the tensor cores, on this table's transposed
+    planes ``synthesis_planes``), on the CPU the plain synthesis einsum.
     """
-    if kernels.takes_plain("sht_analysis", xf2, weights):
-        return analysis_contract_cl_s_plain(xf2, weights)
-    return _legendre_launch("sht_analysis", _ANALYSIS, xf2, weights)
+    return _AnalysisContract.apply(xf2, weights)
 
 
 def synthesis_contract_cl_s(c2: torch.Tensor, pct: torch.Tensor) -> torch.Tensor:
-    """Legendre synthesis (kernel K2 on the card, the plain einsum on the CPU).
+    """Legendre synthesis (kernel K2 on the card, the plain einsum on the
+    CPU), differentiable in ``c2``.
 
     Replaces ``makani_tpu/ops/sht.py`` ``_synthesis_contract_cl_s``. fp32
     takes the route ``synthesis_route(2 C)`` picks (the tensor cores, or one
-    pass over the table at narrow N), bf16 the fp32 FMA kernel.
+    pass over the table at narrow N), bf16 the fp32 FMA kernel. The backward
+    is the analysis contraction on this table: on the card K1's kernel (fp32
+    on this table's TF32 planes ``analysis_planes``; K1 skips the tiles above
+    the diagonal, l < m, which this table leaves zero too), on the CPU the
+    plain analysis einsum.
     """
-    if kernels.takes_plain("sht_synthesis", c2, pct):
-        return synthesis_contract_cl_s_plain(c2, pct)
-    return _legendre_launch("sht_synthesis", _SYNTHESIS, c2, pct)
+    return _SynthesisContract.apply(c2, pct)
 
 
 class _TableCache:

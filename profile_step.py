@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where one forecast step of the port spends its device time, on one GPU.
+"""Where one step of the port spends its device time, on one GPU.
 
     python3 profile_step.py fcn3      # the FCN3 ensemble step (E=2), kernel path
     python3 profile_step.py sfno      # the SFNO flagship step (B=1)
+    python3 profile_step.py train     # the SFNO training step of bench.py (B=3)
     python3 profile_step.py fcn3 --plain --out DIR
     python3 profile_step.py --trace build/profile/profile_fcn3_kernel.json
 
@@ -36,6 +37,9 @@ import chip_smoke as cs
 def group(name: str) -> str:
     n = name.lower()
     rules = [
+        ("dhconv_grad_weight", "K9 dhconv weight gradient (CUDA)"),
+        ("instance_norm_grad", "K10 instance-norm backward (CUDA)"),
+        ("factored_", "K11 factored Adam (CUDA)"),
         ("disco_band", "K5 disco_band (CUDA)"),
         ("disco_mix", "K8 disco_mix (CUDA, wgmma)"),
         ("psi_first", "K6 disco_polar psi-first (CUDA)"),
@@ -88,7 +92,7 @@ def copy_sources(trace_path: str, top: int = 10):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("model", choices=["fcn3", "sfno"], nargs="?")
+    ap.add_argument("model", choices=["fcn3", "sfno", "train"], nargs="?")
     ap.add_argument("--plain", action="store_true", help="profile the plain PyTorch path instead of the kernels")
     ap.add_argument("--out", default="build/profile", help="directory for the Chrome trace")
     ap.add_argument("--trace", help="only attribute the copies of an existing trace")
@@ -97,7 +101,7 @@ def main() -> int:
         copy_sources(args.trace)
         return 0
     if args.model is None:
-        ap.error("name a model (fcn3 or sfno) or pass --trace")
+        ap.error("name a model (fcn3, sfno or train) or pass --trace")
     if not torch.cuda.is_available():
         print("profile_step: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -118,6 +122,18 @@ def main() -> int:
 
         def step():
             return wrapper(xm, unp)
+
+    elif args.model == "train":
+        from makani_torch.utils.training.deterministic_trainer import train_step
+        from makani_torch.utils.training.optimizer import get_optimizer
+
+        params, model, loss_obj = cs.build_train(dev)
+        opt = get_optimizer(params, model)
+        opt.use_kernels = not args.plain
+        inp, tar, zen = cs.train_batch(dev)
+
+        def step():
+            return train_step(model, loss_obj, opt, inp, tar, zen)
 
     else:
         params, model, wrapper, x0 = cs.build_sfno(dev)

@@ -56,7 +56,7 @@ def k4_groups(card: str, dev: torch.device):
         chosen = ln.plan_instance_norm(H * W, C, x.element_size(), sms=sms).group
         for group in (16, 32, 64, 128, 192, 384):
             plan = ln.plan_instance_norm(H * W, C, x.element_size(), sms=sms, group=group)
-            err = errors(ln.launch_instance_norm(x, w, b, H * W, 1e-6, plan), ref)
+            err = errors(ln.launch_instance_norm(x, w, b, H * W, 1e-6, plan)[0], ref)
             if not within(err, x.dtype):
                 raise RuntimeError(f"K4 {label} group {group} disagrees with the plain version: {err}")
             ms = time_ms(lambda: ln.launch_instance_norm(x, w, b, H * W, 1e-6, plan), 20, 3)

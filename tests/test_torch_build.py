@@ -54,5 +54,20 @@ def test_launch_counts_reset():
     kernels.count_launch("dhconv")
     assert kernels.LAUNCHES["dhconv"] >= 1
     kernels.reset_launch_counts()
-    assert set(kernels.LAUNCHES) == {"sht_analysis", "sht_synthesis", "dhconv", "instance_norm", "disco_band", "disco_polar", "disco_mix", "resample"}
+    assert set(kernels.LAUNCHES) == {
+        "sht_analysis",
+        "sht_synthesis",
+        "dhconv",
+        "instance_norm",
+        "disco_band",
+        "disco_polar",
+        "disco_mix",
+        "resample",
+        "sht_analysis_grad",
+        "sht_synthesis_grad",
+        "dhconv_grad_input",
+        "dhconv_grad_weight",
+        "instance_norm_grad",
+        "adam_factored",
+    }
     assert not any(kernels.LAUNCHES.values())

@@ -175,6 +175,7 @@ def test_instance_norm_kernel_groups(cuda, shape, nlat_phys, dtype):
     b = _randn(shape[-1:], dtype, cuda, seed=2)
     B, H, W, C = shape
     ref = instance_norm_cl_plain(x, w, b, nlat_phys)
+    ref_mean, ref_sd = layer_norm._norm_stats_plain(x, nlat_phys, 1e-6)
     sms = layer_norm._card(0)["sms"]
     for g in sorted({g for g in (8, 14, 16, 48, 192, C) if C % g == 0}):
         for n_sm in (sms, 1):
@@ -182,9 +183,10 @@ def test_instance_norm_kernel_groups(cuda, shape, nlat_phys, dtype):
                 p = layer_norm.plan_instance_norm(H * W, C, x.element_size(), sms=n_sm, group=g)
             except ValueError:
                 continue
-            out = layer_norm.launch_instance_norm(x, w, b, (nlat_phys or H) * W, 1e-6, p)
+            out, mean, sd = layer_norm.launch_instance_norm(x, w, b, (nlat_phys or H) * W, 1e-6, p)
             torch.cuda.synchronize()
             assert _agree(out, ref, dtype), (g, n_sm)
+            assert _agree(mean, ref_mean, torch.float32) and _agree(sd, ref_sd, torch.float32), (g, n_sm)
 
 
 def test_small_sfno_kernel_path_matches_plain(cuda):
@@ -199,7 +201,7 @@ def test_small_sfno_kernel_path_matches_plain(cuda):
         counts = dict(kernels.LAUNCHES)
         kernels.set_use_kernels(model, False)
         ref = model(x)
-    assert counts == {"sht_analysis": 3, "sht_synthesis": 5, "dhconv": 3, "instance_norm": 6, "disco_band": 0, "disco_polar": 0, "disco_mix": 0, "resample": 0}
+    assert counts == dict(dict.fromkeys(kernels.LAUNCHES, 0), sht_analysis=3, sht_synthesis=5, dhconv=3, instance_norm=6)
     assert torch.isfinite(y).all()
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
 
@@ -359,7 +361,7 @@ def test_small_fcn3_kernel_path_matches_plain(cuda):
         ref = model(x)
     # 3 encoders (fused), 2 local blocks (two-stage: 72 channels, one K8
     # mix each), 2 decoders (fused): one band and one polar launch each
-    assert counts == {"sht_analysis": 2, "sht_synthesis": 2, "dhconv": 2, "instance_norm": 0, "disco_band": 7, "disco_polar": 7, "disco_mix": 2, "resample": 2}
+    assert counts == dict(dict.fromkeys(kernels.LAUNCHES, 0), sht_analysis=2, sht_synthesis=2, dhconv=2, disco_band=7, disco_polar=7, disco_mix=2, resample=2)
     assert torch.isfinite(y).all()
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
 
@@ -429,3 +431,148 @@ def test_plain_paths_are_fp32_at_torch_defaults():
     assert res.returncode == 0, res.stderr[-3000:]
     band, mix = map(float, res.stdout.split()[-2:])
     assert band <= 1e-5 and mix <= 1e-5, (band, mix)
+
+
+# ---------------------------------------------------------------------------
+# The training step's kernels: the backward of K1-K4 (K1 and K2 on each
+# other's table, K3 on the conjugate-transposed weight, K9, K10) and K11.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nlat,nlon,grid,lmax,mmax,C", SHT_CASES[:4] + [(361, 720, "equiangular", 120, 121, 8), (120, 240, "legendre-gauss", 120, 121, 20)])
+def test_legendre_grads_match_plain(cuda, nlat, nlon, grid, lmax, mmax, C, dtype):
+    fwd = RealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    inv = InverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid)
+    w, p = fwd.weights(cuda, dtype), inv.pct(cuda, dtype)
+    x = _randn((2, nlat, fwd.mmax, C, 2), dtype, cuda).requires_grad_()
+    c = _randn((2, inv.lmax, inv.mmax, C, 2), dtype, cuda, seed=1).requires_grad_()
+    ga = _randn((2, fwd.lmax, fwd.mmax, C, 2), dtype, cuda, seed=2)
+    gs = _randn((2, nlat, inv.mmax, C, 2), dtype, cuda, seed=3)
+    kernels.reset_launch_counts()
+    analysis_contract_cl_s(x, w).backward(ga)
+    synthesis_contract_cl_s(c, p).backward(gs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sht_analysis_grad"] == 1 and kernels.LAUNCHES["sht_synthesis_grad"] == 1
+    assert x.grad.dtype == dtype and _agree(x.grad, synthesis_contract_cl_s_plain(ga, w), dtype)
+    assert c.grad.dtype == dtype and _agree(c.grad, analysis_contract_cl_s_plain(gs, p), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,M,G,Ci,Co", [(2, 7, 6, 1, 5, 3), (1, 9, 10, 1, 37, 45), (3, 12, 13, 2, 48, 70), (3, 20, 21, 1, 130, 64)])
+def test_dhconv_grads_match_plain(cuda, B, L, M, G, Ci, Co, dtype):
+    from makani_torch.models.common.contractions import dhconv_grad_input, dhconv_grad_input_plain, dhconv_grad_weight, dhconv_grad_weight_plain
+
+    x = _randn((B, L, M, G, Ci, 2), dtype, cuda)
+    g = _randn((B, L, M, G, Co, 2), dtype, cuda, seed=1)
+    w = _randn((G, Ci, Co, L, 2), torch.float32, cuda, seed=2)
+    kernels.reset_launch_counts()
+    dx = dhconv_grad_input(g, w)
+    dw = dhconv_grad_weight(x, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dhconv_grad_input"] == 1 and kernels.LAUNCHES["dhconv_grad_weight"] == 1
+    assert dx.dtype == dtype and _agree(dx, dhconv_grad_input_plain(g, w), dtype)
+    assert dw.dtype == torch.float32 and _agree(dw, dhconv_grad_weight_plain(x, g), dtype)
+    # through autograd: the weight's gradient reaches the parameter
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    contract_dense_s(xr, wr, False, "dhconv", True, weight_cache=_PermutedWeight()).backward(g)
+    assert torch.equal(xr.grad, dx) and wr.grad.shape == w.shape
+    assert torch.equal(wr.grad, dw if dtype == torch.float32 else dw.to(dtype).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,nlat_phys", NORM_CASES)
+def test_instance_norm_grad_matches_plain(cuda, shape, nlat_phys, dtype):
+    x = (3.0 * _randn(shape, dtype, cuda) + 1.5).requires_grad_()
+    w = (1.0 + 0.1 * _randn(shape[-1:], torch.float32, cuda, seed=1)).requires_grad_()
+    b = _randn(shape[-1:], torch.float32, cuda, seed=2).requires_grad_()
+    g = _randn(shape, dtype, cuda, seed=3)
+    kernels.reset_launch_counts()
+    instance_norm_cl(x, w, b, nlat_phys).backward(g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["instance_norm"] == 1 and kernels.LAUNCHES["instance_norm_grad"] == 1
+    H, W = shape[1], shape[2]
+    mean, sd = layer_norm._norm_stats_plain(x.detach(), nlat_phys, 1e-6)
+    dx, dw, db = layer_norm.instance_norm_grad_plain(g, x.detach(), w.detach(), mean, sd, (nlat_phys or H) * W)
+    assert x.grad.dtype == dtype and _agree(x.grad, dx, dtype)
+    assert _agree(w.grad, dw, dtype) and _agree(b.grad, db, dtype)
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+def test_adam_factored_kernel_matches_plain(cuda, mu_dtype):
+    """Three steps of K11 against the plain update on the same gradients:
+    factored leaves with d0 < d1 (a dhconv-shaped 5-D weight, a 2-D one) and
+    d0 > d1, with Q >= 32 and Q = 1, and unfactored ones."""
+    from makani_torch.utils.training.optimizer import AdamFactored
+
+    shapes = [(1, 130, 140, 40, 2), (1, 200, 300), (1, 300, 200), (130, 129), (1, 74, 96), (96,), (7, 3)]
+    ref = [torch.nn.Parameter(_randn(s, torch.float32, "cpu", seed=k)) for k, s in enumerate(shapes)]
+    dev = [torch.nn.Parameter(p.detach().to(cuda)) for p in ref]
+    opt_ref, opt_dev = AdamFactored(ref, lr=1e-2, mu_dtype=mu_dtype), AdamFactored(dev, lr=1e-2, mu_dtype=mu_dtype)
+    for step in range(3):
+        for k, (a, b) in enumerate(zip(ref, dev)):
+            grad = _randn(a.shape, torch.float32, "cpu", seed=100 * step + k) * (1.0 + k)
+            a.grad, b.grad = grad, grad.to(cuda)
+        opt_ref.step()
+        kernels.reset_launch_counts()
+        opt_dev.step()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["adam_factored"] == 3 * 4 + 1
+    for a, b in zip(ref, dev):
+        assert _agree(b.detach(), a.detach().to(cuda), torch.float32)
+        sa, sb = opt_ref.state[a], opt_dev.state[b]
+        assert int(sa["count"]) == int(sb["count"]) == 3
+        for key in ("v_row", "v_col", "v"):
+            if sa[key].numel():
+                assert _agree(sb[key], sa[key].to(cuda), torch.float32), key
+        assert sb["mu"].dtype == mu_dtype and _agree(sb["mu"], sa["mu"].to(cuda), mu_dtype)
+
+
+def test_small_sfno_train_step_kernel_path_matches_plain(cuda):
+    """One fp32 training step of a small SFNO, kernels against the plain
+    path (PyTorch autograd through the plain forward, the plain optimizer),
+    from the same weights and optimizer state: the gradients within 1e-4 of
+    each leaf's max|ref| (the MLP's second bias, zero but for rounding, at
+    rounding level), the loss of three steps within 1e-5."""
+    import copy
+
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.training.deterministic_trainer import train_step
+    from makani_torch.utils.training.optimizer import AdamFactored
+    from makani_torch.utils.yparams import ParamsBase
+
+    params = ParamsBase(dict(nettype="SFNO", img_shape_x=61, img_shape_y=120, scale_factor=2, embed_dim=48, num_layers=3, operator_type="dhconv",
+                             normalization_layer="instance_norm", channel_names=[f"ch{i}" for i in range(6)], in_channels=list(range(6)),
+                             out_channels=list(range(6)), n_history=0, n_future=0, add_zenith=True,
+                             losses=[{"type": "l2", "channel_weights": "constant", "parameters": {"squared": True}}]))
+    model, _ = get_model(copy.deepcopy(params), multistep=True, device=cuda, seed=1)
+    plain = copy.deepcopy(model)
+    kernels.set_use_kernels(plain, False)
+    loss_obj = LossHandler(params)
+    inp, tar = _randn((2, 6, 61, 120), torch.float32, cuda), _randn((2, 6, 61, 120), torch.float32, cuda, seed=1)
+    zen = _randn((2, 1, 1, 61, 120), torch.float32, cuda, seed=2)
+    grads = []
+    for m in (model, plain):
+        m(inp, zen, train=True).sub(tar).square().mean().backward()
+        grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
+        m.zero_grad(set_to_none=True)
+    largest = max(g.abs().max() for g in grads[1].values())
+    for n in grads[1]:
+        if n.endswith("mlp.fc2.bias"):
+            # the instance norm after it removes any per-channel constant:
+            # zero in exact arithmetic, rounding level in both paths
+            assert max(grads[0][n].abs().max(), grads[1][n].abs().max()) <= 1e-5 * largest, n
+        else:
+            assert (grads[0][n] - grads[1][n]).abs().max() <= 1e-4 * grads[1][n].abs().max(), n
+    kernels.reset_launch_counts()
+    opt_k, opt_p = AdamFactored(model.parameters(), min_dim_size_to_factor=32), AdamFactored(plain.parameters(), min_dim_size_to_factor=32)
+    opt_p.use_kernels = False
+    # three steps: each step's forward must see the weights K11 wrote (K3's
+    # permuted weight is cached per weight version)
+    for step in range(3):
+        lk = train_step(model, loss_obj, opt_k, inp, tar, zen).item()
+        lp = train_step(plain, loss_obj, opt_p, inp, tar, zen).item()
+        assert abs(lk - lp) <= 1e-5 * abs(lp), (step, lk, lp)
+    torch.cuda.synchronize()
+    for name in ("sht_analysis_grad", "dhconv_grad_input", "dhconv_grad_weight", "instance_norm_grad", "adam_factored"):
+        assert kernels.LAUNCHES[name] > 0, name

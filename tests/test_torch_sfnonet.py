@@ -152,8 +152,10 @@ def test_plain_reference_switch_matches_kernel_route_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Every makani_torch module imports, and an SFNO and an FCN3 forward
-    run, without jax, flax or makani_tpu entering the process."""
+    """Every makani_torch module imports (the training step's loss, optimizer
+    and trainer among them), and an SFNO and an FCN3 forward and an SFNO
+    training step run, without jax, flax or makani_tpu entering the
+    process."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import makani_torch\n"
@@ -167,6 +169,15 @@ def test_port_imports_no_jax():
         "fcn3 = AtmoSphericNeuralOperatorNet(inp_shape=(17, 32), out_shape=(17, 32), scale_factor=2, channel_names=('t2m', 'u500', 'q500'), aux_channel_names=('xzen', 'xnoise0'), atmo_embed_dim=4, surf_embed_dim=4, aux_embed_dim=2, num_layers=2, sfno_block_frequency=2, filter_basis_type='morlet th', clamp_water=True, device='cpu')\n"
         "with torch.no_grad():\n"
         "    assert torch.isfinite(fcn3(torch.randn(1, 5, 17, 32))).all()\n"
+        "from makani_torch.models.model_registry import get_model\n"
+        "from makani_torch.utils.loss import LossHandler\n"
+        "from makani_torch.utils.training.deterministic_trainer import train_step\n"
+        "from makani_torch.utils.training.optimizer import get_optimizer\n"
+        "from makani_torch.utils.yparams import ParamsBase\n"
+        "p = ParamsBase(dict(nettype='SFNO', img_shape_x=12, img_shape_y=24, scale_factor=2, embed_dim=8, num_layers=1, normalization_layer='instance_norm', channel_names=['a', 'b'], in_channels=[0, 1], out_channels=[0, 1], add_zenith=True, losses=[{'type': 'l2', 'parameters': {'squared': True}}], optimizer_nu_factored=True, optimizer_mu_dtype='bfloat16'))\n"
+        "m, _ = get_model(p, multistep=True, device='cpu')\n"
+        "loss = train_step(m, LossHandler(p), get_optimizer(p, m), torch.randn(1, 2, 12, 24), torch.randn(1, 2, 12, 24), torch.randn(1, 1, 1, 12, 24))\n"
+        "assert torch.isfinite(loss)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'makani_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
