@@ -8,7 +8,14 @@ weight, a 2-D one whose factored axes come in the other order, d0 > d1, and
 a 3-D one) and unfactored (a vector, a small kernel). Tolerances: parameters
 and second-moment state within 1e-6 of the leaf's max|ref| (fp32 sums in
 different orders); mu elementwise within one ulp of its dtype at the
-reference's magnitude. The JAX side is jitted.
+reference's magnitude. XLA contracts the mu update into a fused multiply-add
+whose operand order follows mu's dtype (fma(b1, mu, (1 - b1) g) for an fp32
+mu, fma(1 - b1, g, b1 mu) for a bf16 one, checked on the CPU); the port
+always takes the first, so a bf16 mu may round one ulp apart where the two
+land on either side of a bf16 rounding boundary (a few in 10^5 entries a
+step). With a bf16 mu each parameter may therefore also differ by 2**-7 of
+the sum of its steps' updates (one ulp of mu_hat a step), beside the 1e-6.
+The JAX side is jitted.
 """
 
 import math
@@ -48,7 +55,10 @@ def _grads(step):
     return {k: (r.standard_normal(s) * (1 + i)).astype(np.float32) for i, (k, s) in enumerate(SHAPES.items())}
 
 
-def _jax_run(params, mu_dtype, steps):
+def _jax_run(params, mu_dtype, steps, first=0):
+    """The JAX optimizer's steps first..first+steps-1 from params (and a
+    fresh state); returns the parameters, the state and, per leaf, the sum
+    of the steps' |update|."""
     tx = optax.chain(scale_by_adam_factored(mu_dtype=mu_dtype), optax.scale_by_learning_rate(LR))
     p = jax.tree.map(jnp.asarray, params)
     s = tx.init(p)
@@ -58,9 +68,13 @@ def _jax_run(params, mu_dtype, steps):
         u, s = tx.update(g, s, p)
         return optax.apply_updates(p, u), s
 
-    for k in range(steps):
-        p, s = step(p, s, jax.tree.map(jnp.asarray, _grads(k)))
-    return jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, s)
+    moved = {k: np.zeros(v.shape, np.float64) for k, v in params.items()}
+    for k in range(first, first + steps):
+        q, s = step(p, s, jax.tree.map(jnp.asarray, _grads(k)))
+        for name in moved:
+            moved[name] += np.abs(np.asarray(q[name], np.float64) - np.asarray(p[name], np.float64))
+        p = q
+    return jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, s), moved
 
 
 def _torch_run(module, opt, steps, first=0):
@@ -72,10 +86,11 @@ def _torch_run(module, opt, steps, first=0):
         opt.zero_grad(set_to_none=True)
 
 
-def _close(out, ref, tol=1e-6):
+def _close(out, ref, tol=1e-6, extra=0.0):
+    """max|out - ref| within tol of max|ref|, plus ``extra`` elementwise."""
     out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
     assert out.shape == ref.shape
-    assert np.max(np.abs(out - ref)) <= tol * max(np.max(np.abs(ref)), 1e-30)
+    assert np.all(np.abs(out - ref) <= tol * max(np.max(np.abs(ref)), 1e-30) + extra)
 
 
 def _within_ulp(out, ref, bits):
@@ -95,7 +110,7 @@ def test_factored_dims_match_jax():
 def test_adam_factored_matches_jax(mu_dtype):
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if mu_dtype == "bfloat16" else (None, torch.float32)
     init = _init()
-    ref_p, ref_s = _jax_run(init, jdt, 3)
+    ref_p, ref_s, moved = _jax_run(init, jdt, 3)
     module = _Leaves(init)
     opt = AdamFactored(module.parameters(), lr=LR, mu_dtype=tdt)
     _torch_run(module, opt, 3)
@@ -104,7 +119,7 @@ def test_adam_factored_matches_jax(mu_dtype):
     st = ref_s[0]
     assert int(st.count) == 3
     for name, p in module.named_parameters():
-        _close(p.detach().numpy(), ref_p[name])
+        _close(p.detach().numpy(), ref_p[name], extra=2.0**-7 * moved[name] if mu_dtype == "bfloat16" else 0.0)
         state = opt.state[p]
         assert int(state["count"]) == 3 and state["mu"].dtype == tdt
         _within_ulp(state["mu"].float().numpy(), np.asarray(st.mu[name], np.float32), 7 if mu_dtype == "bfloat16" else 23)
@@ -119,7 +134,7 @@ def test_opt_state_from_jax_round_trips():
     """The JAX state after 3 steps, carried over, equals the JAX arrays, and
     a 4th step from it in each package agrees."""
     init = _init(1)
-    p3, s3 = _jax_run(init, jnp.bfloat16, 3)
+    p3, s3, _ = _jax_run(init, jnp.bfloat16, 3)
     module = _Leaves(p3)
     opt = AdamFactored(module.parameters(), lr=LR, mu_dtype=torch.bfloat16)
     opt.load_state_dict(opt_state_from_jax(s3, module, opt))
@@ -132,9 +147,10 @@ def test_opt_state_from_jax_round_trips():
         for key in ("v_row", "v_col", "v"):
             np.testing.assert_array_equal(state[key].numpy(), np.asarray(getattr(st.nu[name], key)))
     _torch_run(module, opt, 1, first=3)
-    p4, _ = _jax_run(init, jnp.bfloat16, 4)
+    p4, _, _ = _jax_run(init, jnp.bfloat16, 4)
     for name, p in module.named_parameters():
-        _close(p.detach().numpy(), p4[name])
+        # the 4th step's update, to one ulp of its bf16 mu
+        _close(p.detach().numpy(), p4[name], extra=2.0**-7 * np.abs(p4[name].astype(np.float64) - p3[name]))
 
 
 def test_get_optimizer_covers_the_bench_config():
