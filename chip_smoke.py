@@ -74,6 +74,32 @@ each fatal on failure:
     the plain path, whose losses the kernel path's must match step by step
     (relative 3e-2).
 
+ The FCN3 ensemble-CRPS training step (slice 4):
+17. build bench.py's FCN3 row in its ensemble mode on the recipe's base
+    config (``fcn3_train_config``: 361x720, internal 180x360, 73 channels +
+    zenith + 8 centered diffusion-noise channels, embeds 45/56/36, 10 blocks
+    of which 0 and 5 spectral, bf16 compute with fp32 DISCO, E = 4 members
+    of B = 1 sample, skillspread CRPS with constant channel weights,
+    checkpointing_level 3) through ``get_model``, and fold a seeded batch
+    with its noise (``prepare_ensemble_batch``);
+18. compare each new backward kernel with its plain version at its shapes:
+    K12 (K5's transpose) at the processor, reading the padded responses,
+    and in fused mode at the atmo decoder and at the stride-2 atmo encoder;
+    K13 (K6's transposes) psi first at the processor and mix first at the
+    atmo decoder; K14 (K7's transpose) at both decoders; K15 (the CRPS,
+    forward and backward) on the step's forecasts; time each beside its
+    bound, its plain version and the library's call where one exists; and
+    time K8's backward, two cuBLAS GEMMs;
+19. take one bf16 training step's forward, loss and gradients through the
+    kernels and through the plain path (autograd through the plain forward
+    and the plain CRPS) from the same weights and batch;
+20. take 1 + 5 training steps (``ensemble_train_step``, the bench's factored
+    Adam) on the repeated batch through the kernels: check every kernel's
+    launches per step, and that the loss is finite and falls below its
+    first value; then 1 + 5 steps on the plain path, whose losses the
+    kernel path's must match step by step (relative 3e-2); print ms per
+    step, samples (members) per second and peak memory of both.
+
 Prints the card line and the kernel table as one JSON line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -179,6 +205,88 @@ TRAIN_EXPECTED_PER_STEP = dict(
 #        held to rounding level instead.
 TRAIN_LOSS_FP32_TOL = 1e-5
 TRAIN_GRAD_BF16_REL_L2 = 1e-1
+# The FCN3 ensemble-CRPS training step: bench.py's FCN3 row in its ensemble
+# mode (BENCH_NETTYPE=FCN3 BENCH_ENSEMBLE=4 BENCH_CHECKPOINTING=3; :64-72,
+# :126-146, :190-213, :218-228) on the published recipe's base config
+# (config/fourcastnet3.yaml: morlet th 3x3, embeds 45/56/36, 10 blocks of
+# which 0 and 5 spectral, clamp_water, 8 centered diffusion-noise channels,
+# bf16 compute with fp32 DISCO) at 0.5 degrees, cut to E = 4 members (two
+# centered pairs) of B = 1 sample, constant channel weights and the bench's
+# factored Adam with a bf16 mu at lr 1e-3, rematerializing the encoders,
+# decoders and blocks (checkpointing_level 3)
+FCN3_TRAIN_ENSEMBLE = 4
+FCN3_TRAIN_BATCH = 1
+# FCN3 training step, kernel path vs plain path on the card, same weights
+# and batch, bf16 compute: the forecast within MODEL_BF16_REL_L2 relative
+# L2, the loss within MODEL_BF16_REL_L2 relative, each gradient leaf within
+# relative L2 TRAIN_GRAD_BF16_REL_L2 (the member ranks that the two paths'
+# forecasts order differently are counted and covered by these gates), and
+# each of 1 + 5 steps' loss within MODEL_BF16_REL_L2 of the plain path's
+# per training step: the forward's launches twice (checkpointing_level 3
+# recomputes every encoder, block and decoder in the backward), and the
+# backward's: K12 for the inputs of the 8 local blocks and the 2 decoders
+# (the encoders' input needs none), K13 at the same 10 convs, K14 at the 2
+# decoders, the global blocks' K1/K2/K3 transposes, K15 forward and
+# backward; K5's launches for the fused convs' weight gradients
+# (``fcn3_wgrad_launches``) and K11's are added from the model
+FCN3_TRAIN_EXPECTED_PER_STEP = dict(
+    {k: 2 * v for k, v in FCN3_EXPECTED_PER_STEP.items()},
+    sht_synthesis=4, sht_analysis_grad=2, sht_synthesis_grad=2, dhconv_grad_input=2, dhconv_grad_weight=2,
+    disco_band_grad=10, disco_polar_grad=10, resample_grad=2, crps=2,
+)
+
+
+def fcn3_train_config(**overrides) -> dict:
+    """The FCN3 training configuration as a plain dict (shared with
+    tests/test_torch_fcn3_train.py, which shrinks it): the recipe's base
+    config with the cuts above, then ``overrides``; the in and out channels
+    follow ``channel_names`` unless given."""
+    import yaml
+
+    with open(os.path.join(REPO, FCN3_CONFIG[0])) as f:
+        cfg = dict(yaml.safe_load(f)[FCN3_CONFIG[1]])
+    cfg.update(
+        img_shape_x=361,
+        img_shape_y=720,
+        ensemble_size=FCN3_TRAIN_ENSEMBLE,
+        batch_size=FCN3_TRAIN_BATCH,
+        n_future=0,
+        checkpointing_level=3,
+        losses=[{"type": "crps", "channel_weights": "constant", "parameters": {"crps_type": "skillspread"}}],
+        lr=1e-3,
+        scheduler="none",
+        optimizer_type="Adam",
+        optimizer_nu_factored=True,
+        optimizer_mu_dtype="bfloat16",
+        optimizer_max_grad_norm=None,
+    )
+    cfg.update(overrides)
+    n = len(cfg["channel_names"])
+    cfg.setdefault("in_channels", list(range(n)))
+    cfg.setdefault("out_channels", list(range(n)))
+    return cfg
+
+
+def crps_order_weight(pred_a: torch.Tensor, pred_b: torch.Tensor, tar: torch.Tensor) -> torch.Tensor:
+    """Weights (B, C, H, W), 0 where two computations of one ensemble
+    forecast, pred_a and pred_b (B, E, C, H, W), may order two members, or a
+    member and the observation, differently, and 1 elsewhere. The CRPS
+    gradient jumps where two members swap ranks or a member crosses the
+    observation, so two paths whose forecasts differ by rounding are held
+    to each other only where every gap between those values, in either
+    forecast, exceeds four times the forecasts' largest difference at the
+    pixel, or is an exact tie in both (the clamped water channels' zeros)."""
+    a = torch.cat([pred_a, tar[:, None].to(pred_a.dtype)], dim=1)
+    b = torch.cat([pred_b, tar[:, None].to(pred_b.dtype)], dim=1)
+    margin = 4.0 * (pred_a - pred_b).abs().amax(dim=1)
+    unsure = torch.zeros_like(margin, dtype=torch.bool)
+    for i in range(a.shape[1]):
+        for j in range(i + 1, a.shape[1]):
+            da, db = a[:, i] - a[:, j], b[:, i] - b[:, j]
+            unsure |= ((da.abs() <= margin) | (db.abs() <= margin)) & ~((da == 0) & (db == 0))
+    return (~unsure).to(torch.float32)
+
+
 # the ptxas report's lines, one a kernel (filled when the library is built)
 PTXAS: list = []
 
@@ -1291,6 +1399,367 @@ def train_phases(dev, card):
     return kres, launches
 
 
+# ---------------------------------------------------------------------------
+# The FCN3 ensemble-CRPS training step (slice 4)
+
+
+def build_fcn3_train(dev, compute_dtype="bfloat16"):
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.yparams import ParamsBase
+
+    cfg = fcn3_train_config(compute_dtype=compute_dtype)
+    params = ParamsBase(dict(cfg))
+    model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
+    return params, model, LossHandler(ParamsBase(dict(cfg)))
+
+
+def fcn3_train_batch(dev, params):
+    """A seeded input, target and zenith channel, folded into the ensemble
+    with the centered diffusion noise drawn before the step
+    (``prepare_ensemble_batch``): (inp (B*E, C, H, W), tar (B, C, H, W),
+    unp (B*E, 1, 1 + 8, H, W))."""
+    from makani_torch.models.noise import build_noise
+    from makani_torch.utils.training.ensemble_trainer import prepare_ensemble_batch
+
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    H, W, C = params.img_shape_x, params.img_shape_y, len(params.channel_names)
+    inp = randn((FCN3_TRAIN_BATCH, C, H, W), torch.float32, gen, dev)
+    tar = randn((FCN3_TRAIN_BATCH, C, H, W), torch.float32, gen, dev)
+    zen = randn((FCN3_TRAIN_BATCH, 1, 1, H, W), torch.float32, gen, dev)
+    noise = build_noise(dict(params.input_noise, grid_type=params.model_grid_type), (H, W), num_time_steps=1)
+    return prepare_ensemble_batch(noise, inp, tar, zen, FCN3_TRAIN_ENSEMBLE, 1, torch.Generator(dev).manual_seed(SEED + 10), centered=True)
+
+
+def band_grad_case(op, dout, F_, C, Gf, IG, OG, label, library=False):
+    """K12 of phase 0 on dout against its plain version; extras count the
+    live filter taps, as K5's, and time the grouped conv_transpose1d on the
+    band (the library yardstick, without the scatter back to the rows)."""
+    from makani_torch.ops import disco_kernels
+    from makani_torch.ops.precision import fp32_exact
+
+    dev = dout.device
+    B, Hout, Wout, _ = dout.shape
+    if op.phases != 1:
+        raise RuntimeError(f"{label}: the path's grids have one phase, this conv has {op.phases}")
+    bs = op.band_start_table(dev)
+    kw = dict(a=op.stride, off=int(op.bases[0]) - op.halo, n_out=Wout, phase=0, phases=1, Gf=Gf, IG=IG, OG=OG, accumulate=False)
+
+    def run(kern):
+        dx = torch.empty(B, *op.in_shape, C, dtype=torch.float32, device=dev)
+        if kern:
+            return disco_kernels.band_contract_grad(dout, F_, bs, dx, taps=op.tap_table(0, dev), rows=op.grad_rows(0, dev), **kw)
+        return disco_kernels.band_contract_grad_plain(dout, F_, bs, dx, **kw)
+
+    def extras(out):
+        nnz = torch.count_nonzero(F_[..., :OG]).item()
+        flops = 2.0 * nnz * B * Wout * (C // (Gf * IG))
+        res = dict(bound(flops, B * Hout * Wout * (C // IG * OG) * 4 + nbytes(F_[..., :OG], bs, out), torch.float32), library_ms=None)
+        if library:
+            BL, WW = op.BL, op.WW
+            R = C // (Gf * IG)
+            y = dout.reshape(B, Hout, Wout, R, Gf, OG).permute(0, 3, 1, 4, 5, 2).reshape(B * R, Hout * Gf * OG, Wout)
+            filt = F_[..., :OG].permute(0, 1, 5, 2, 3, 4).reshape(Hout * Gf * OG, IG * BL, WW).contiguous()
+            with fp32_exact():
+                res["library_ms"] = time_ms(lambda: torch.nn.functional.conv_transpose1d(y, filt, stride=op.stride, groups=Hout * Gf), 3, 1)
+            del y
+            res["library_note"] = f"library: grouped conv_transpose1d on the band; {kernel_regs('disco_band_grad_kernel')}"
+        return res
+
+    return ("disco_band_grad", label, torch.float32, lambda: run(True), lambda: run(False), extras)
+
+
+def polar_grad_case(dY, Pt, mode, label):
+    from makani_torch.ops import disco_kernels
+
+    if mode == "psi_first":
+        kern, plain, eq = disco_kernels.polar_psi_first_grad, disco_kernels.polar_psi_first_grad_plain, "bpckm,pjkm->bpjcm"
+    else:
+        kern, plain, eq = disco_kernels.polar_mix_first_grad, disco_kernels.polar_mix_first_grad_plain, "bpcm,pjkm->bpjckm"
+
+    def extras(out):
+        n_mac = out.numel() // 2 * (Pt.shape[2] if mode == "psi_first" else 1)
+        Yc, Pc = torch.view_as_complex(dY), torch.view_as_complex(Pt)
+        return dict(bound(8.0 * n_mac, nbytes(dY, Pt, out)), library_ms=time_ms(lambda: torch.einsum(eq, Yc, Pc), 3, 1),
+                    library_note="library: one complex einsum")
+
+    return ("disco_polar_grad", label, torch.float32, lambda: kern(dY, Pt), lambda: plain(dY, Pt), extras)
+
+
+def resample_grad_case(rs, dy, label):
+    from makani_torch.ops.resample import resample_cl_grad, resample_cl_grad_plain
+
+    dev = dy.device
+    inv, tabs = rs.inverse_tables(dev), rs.tables(dev)
+    li, lw, k0, k1, v = tabs
+
+    def extras(out):
+        return dict(bound(6.0 * dy.numel(), nbytes(dy, out, *inv)), library_ms=None,
+                    library_note=f"no one library call (the plain version is four index_add_); {kernel_regs('resample_grad_kernel')}")
+
+    return ("resample_grad", label, torch.float32, lambda: resample_cl_grad(dy, inv, rs.in_shape, tabs),
+            lambda: resample_cl_grad_plain(dy, rs.in_shape, li.long(), lw, k0.long(), k1.long(), v), extras)
+
+
+def crps_cases(pred, tar):
+    """K15's forward and backward at the step's shapes: (B, E, C*H*W)."""
+    from makani_torch.utils.losses.crps_loss import crps_skillspread_fwd, crps_skillspread_grad, crps_skillspread_grad_plain, crps_skillspread_plain
+
+    B, E = pred.shape[:2]
+    f = pred.reshape(B, E, -1)
+    obs = tar.reshape(B, -1)
+    g = torch.full_like(obs, 1.0 / obs.numel())
+    note = "no library call computes the ensemble CRPS"
+    fwd_extras = lambda out: dict(bound(float(B * f.shape[-1] * (E * E + 4 * E)), nbytes(f, obs, out)), library_ms=None, library_note=note)
+    bwd_extras = lambda out: dict(bound(float(B * f.shape[-1] * (E * E + 5 * E)), nbytes(f, obs, g, out)), library_ms=None,
+                                  library_note=f"{note}; {kernel_regs('crps_')}")
+    return [
+        ("crps", "forward", torch.float32, lambda: crps_skillspread_fwd(f, obs), lambda: crps_skillspread_plain(f, obs), fwd_extras),
+        ("crps", "backward", torch.float32, lambda: crps_skillspread_grad(f, obs, g), lambda: crps_skillspread_grad_plain(f, obs, g), bwd_extras),
+    ]
+
+
+def mix_grad_times(conv, B, card):
+    """K8's backward, two cuBLAS GEMMs in full fp32 (no kernel of the port):
+    dt = dy . w2 into the padded responses layout, dw2 = dy^T . t2; timed
+    beside their fp32 bound."""
+    from makani_torch.ops.disco import RESPONSE_ALIGN
+    from makani_torch.ops.precision import fp32_exact
+
+    op = conv.conv_op
+    dev = conv.weight.device
+    H, W = op.out_shape
+    D, N = conv.in_channels * op.K, conv.out_channels
+    R = B * H * W
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    Dp = -(-D // RESPONSE_ALIGN) * RESPONSE_ALIGN
+    t2 = randn((R, Dp), torch.float32, gen, dev)[:, :D]
+    dy = randn((R, N), torch.float32, gen, dev)
+    w2p = torch.nn.functional.pad(conv.weight.detach().float().reshape(N, D), (0, Dp - D))
+    with fp32_exact():
+        for name, fn, nb in (("dt = dy.w2", lambda: torch.matmul(dy, w2p), nbytes(dy, w2p) + R * Dp * 4),
+                             ("dw2 = dy^T.t2", lambda: torch.matmul(dy.t(), t2), nbytes(dy) + R * D * 4 + N * D * 4)):
+            ms = time_ms(fn, 3, 1)
+            b = bound(2.0 * R * D * N, nb)
+            print(f"K8 backward {name:14s} ({R} x {N} x {D}, cuBLAS fp32): {ms:.3f} ms, fp32 bound {b['fma_bound_ms']:.3f} ms "
+                  f"({b['bound_by']}), {2.0 * R * D * N / ms / 1e9:.1f} TFLOP/s  [{card}]", flush=True)
+    del t2, dy, w2p
+    torch.cuda.empty_cache()
+
+
+def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
+    """Phase 18: K12-K15 against their plain versions at the training step's
+    shapes (B*E members), and K8's backward GEMMs timed."""
+    from makani_torch.ops.disco import FusedFilterCache
+
+    net = model.model
+    BE = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    results = {}
+    # K12 at the processor, reading the padded responses layout
+    conv = net.block1.local_conv
+    op = conv.conv_op
+    C, K = conv.in_channels, op.K
+    dt = op.response_buffer(BE, C, dev)
+    dt.copy_(randn(dt.shape, torch.float32, gen, dev))
+    run_cases([band_grad_case(op, dt, op.band_filter(0, dev), C, 1, 1, K, "processor", library=True)], card, results, 3, 1)
+    del dt
+    torch.cuda.empty_cache()
+    # K13 psi-first at the processor, mix-first at the atmo decoder
+    M = op.in_shape[1] // 2 + 1
+    dY = randn((BE, len(op.polar_rows), C, K, M, 2), torch.float32, gen, dev)
+    run_cases([polar_grad_case(dY, op.polar_table(0, dev), "psi_first", "processor")], card, results, 3, 1)
+    del dY
+    torch.cuda.empty_cache()
+    dec = net.atmo_decoder
+    dop = dec.conv.conv_op
+    g, og, ig, _ = dec.conv.weight.shape
+    R = net.n_atmo_groups
+    H, W = dop.in_shape
+    dY = randn((BE, len(dop.polar_rows), R * g * og, W // 2 + 1, 2), torch.float32, gen, dev)
+    run_cases([polar_grad_case(dY, dop.polar_table(0, dev), "mix_first", "atmo-decoder")], card, results, 3, 1)
+    del dY
+    torch.cuda.empty_cache()
+    # K12 in fused mode at the atmo decoder (on the path) and the atmo
+    # encoder (stride 2; the encoders' input needs no gradient, so the path
+    # does not launch it there)
+    cache = FusedFilterCache()
+    dout = randn((BE, H, W, R * g * og), torch.float32, gen, dev)
+    run_cases([band_grad_case(dop, dout, cache.get(dop, dec.conv.weight, 0), R * g * ig, g, ig, og, "atmo-decoder")], card, results, 3, 1)
+    del dout
+    enc = net.atmo_encoder.conv
+    eg, eog, eig, _ = enc.weight.shape
+    dout = randn((BE, *enc.conv_op.out_shape, R * eg * eog), torch.float32, gen, dev)
+    run_cases([band_grad_case(enc.conv_op, dout, FusedFilterCache().get(enc.conv_op, enc.weight, 0), R * eg * eig, eg, eig, eog, "atmo-encoder")], card, results, 3, 1)
+    del dout
+    torch.cuda.empty_cache()
+    # K14 at both decoders
+    for label, d, n in (("atmo-decoder", dec, R * dec.conv.in_channels), ("surf-decoder", net.surf_decoder, net.surf_embed_dim)):
+        dy = randn((BE, *d.resample.out_shape, n), torch.float32, gen, dev)
+        run_cases([resample_grad_case(d.resample, dy, label)], card, results, 3, 1)
+        del dy
+        torch.cuda.empty_cache()
+    # K15 on the step's predictions and target
+    inp, tar, unp = batch
+    with torch.no_grad():
+        pred = model(inp, unp, train=True).reshape(FCN3_TRAIN_BATCH, FCN3_TRAIN_ENSEMBLE, *tar.shape[1:])
+    run_cases(crps_cases(pred, tar), card, results, 5, 1)
+    del pred
+    torch.cuda.empty_cache()
+    mix_grad_times(conv, BE, card)
+    return results
+
+
+def fcn3_wgrad_launches(net, members: int) -> int:
+    """K5's launches a step for the weight gradients of the fused convs (the
+    encoders and decoders), one a chunk of their responses and phase."""
+    n_embed = net.n_atmo_groups * net.atmo_embed_dim
+    convs = ((net.atmo_encoder.conv, net.n_atmo_groups * net.n_atmo), (net.surf_encoder.conv, net.n_surf), (net.aux_encoder.conv, net.n_aux),
+             (net.atmo_decoder.conv, n_embed), (net.surf_decoder.conv, net.surf_embed_dim))
+    return sum(len(c.conv_op.weight_grad_chunks(members, n)) * c.conv_op.phases for c, n in convs)
+
+
+def fcn3_grads(model, loss_obj, batch):
+    from makani_torch.utils.training.ensemble_trainer import fold_ensemble
+
+    inp, tar, unp = batch
+    loss = loss_obj(fold_ensemble(model(inp, unp, train=True), FCN3_TRAIN_ENSEMBLE), tar, train=True)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_fcn3_train_steps(dev, card, batch):
+    """Phase 19: one full-width training step's loss and gradients in bf16
+    compute, through the kernels and through the plain path (autograd
+    through the plain forward and the plain CRPS), from the same weights and
+    batch."""
+    import copy
+
+    from makani_torch import kernels
+    from makani_torch.utils.training.ensemble_trainer import fold_ensemble
+
+    _, model, loss_obj = build_fcn3_train(dev)
+    plain, plain_loss = copy.deepcopy(model), copy.deepcopy(loss_obj)
+    kernels.set_use_kernels(plain, False)
+    plain_loss.loss_fns[0].use_kernels = False
+    inp, tar, unp = batch
+    with torch.no_grad():
+        pk = model(inp, unp, train=True)
+        pp = plain(inp, unp, train=True)
+    err = errors(pk, pp)
+    wgt = crps_order_weight(fold_ensemble(pk, FCN3_TRAIN_ENSEMBLE), fold_ensemble(pp, FCN3_TRAIN_ENSEMBLE), tar)
+    del pk, pp
+    t0 = time.perf_counter()
+    lk, gk = fcn3_grads(model, loss_obj, batch)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lp, gp = fcn3_grads(plain, plain_loss, batch)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    del plain
+    torch.cuda.empty_cache()
+    worst = max((((gk[n].float() - gp[n].float()).norm() / gp[n].float().norm()).item(), n) for n in gp)
+    ok = abs(lk - lp) <= MODEL_BF16_REL_L2 * abs(lp) and worst[0] <= TRAIN_GRAD_BF16_REL_L2 and err["rel_l2"] <= MODEL_BF16_REL_L2
+    print(f"FCN3 training step (bfloat16 compute, full width, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}), kernel path vs plain path: forecast relL2 "
+          f"{err['rel_l2']:.3e} (tol {MODEL_BF16_REL_L2}); loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, tol {MODEL_BF16_REL_L2}); "
+          f"worst gradient leaf {worst[1]} relL2 {worst[0]:.3e} (tol {TRAIN_GRAD_BF16_REL_L2}); pixels the two forecasts may rank differently "
+          f"{1.0 - wgt.mean().item():.2%} (counted, not excluded: the bf16 gates cover them); step {t_k:.1f} s vs {t_p:.1f} s (first, with "
+          f"warm-up) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("FCN3 bf16 training step: the kernel path disagrees with the plain path")
+    del gk, gp
+    torch.cuda.empty_cache()
+
+
+def time_fcn3_train(dev, card, batch, use_kernels, steps):
+    """``steps`` + 1 training steps (``ensemble_train_step``, the bench's
+    factored Adam) on the repeated batch, through the kernels or the plain
+    path; returns (the losses, the step times in ms, the peak memory, the
+    launch counts, K11's launches a step, K5's launches a step for the
+    weight gradients)."""
+    from makani_torch import kernels
+    from makani_torch.utils.training.ensemble_trainer import ensemble_train_step
+    from makani_torch.utils.training.optimizer import get_optimizer
+
+    params, model, loss_obj = build_fcn3_train(dev)
+    kernels.set_use_kernels(model, use_kernels)
+    opt = get_optimizer(params, model)
+    opt.use_kernels = loss_obj.loss_fns[0].use_kernels = use_kernels
+    inp, tar, unp = batch
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(steps + 1):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        loss = ensemble_train_step(model, loss_obj, opt, inp, tar, unp, FCN3_TRAIN_ENSEMBLE)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+        losses.append(loss.item())
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_adam, n_wgrad = adam_launches(model), fcn3_wgrad_launches(model.model, FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE)
+    del model, opt
+    torch.cuda.empty_cache()
+    return losses, times, peak, launches, n_adam, n_wgrad
+
+
+def fcn3_train_phases(dev, card):
+    """Phases 17-20; returns (kernel results, launch counts of the timed
+    training steps)."""
+    t0 = time.perf_counter()
+    params, model, loss_obj = build_fcn3_train(dev)
+    net = model.model
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"built the FCN3 training step ({nparam} parameters, compute {params.compute_dtype}, {params.img_shape_x}x{params.img_shape_y} -> internal "
+          f"{net.h}x{net.w}, {net.num_layers} blocks, {params.N_in_channels} in / {params.N_out_channels} out channels, B={FCN3_TRAIN_BATCH} "
+          f"E={FCN3_TRAIN_ENSEMBLE}, checkpointing_level {net.checkpointing_level}, K11 launches a step {adam_launches(model)}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    batch = fcn3_train_batch(dev, params)
+    t0 = time.perf_counter()
+    kres = check_fcn3_train_kernels(dev, card, model, loss_obj, batch)
+    print(f"phase 18 (FCN3 training kernel checks) {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    compare_fcn3_train_steps(dev, card, batch)
+    print(f"phase 19 (FCN3 training step, kernel vs plain) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 20: the main path, timed
+    losses, times, peak, launches, n_adam, n_wgrad = time_fcn3_train(dev, card, batch, True, TRAIN_STEPS)
+    n = TRAIN_STEPS + 1
+    expected = {k: FCN3_TRAIN_EXPECTED_PER_STEP.get(k, 0) * n for k in launches}
+    expected["adam_factored"] = n_adam * n
+    expected["disco_band"] += n_wgrad * n
+    print(f"FCN3 training launches over {n} steps: {launches} (per step {({k: v / n for k, v in launches.items()})})")
+    if launches != expected:
+        raise RuntimeError(f"FCN3 training launch counts {launches} != expected {expected}")
+    members = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
+    p_losses, p_times, p_peak = time_fcn3_train(dev, card, batch, False, TRAIN_STEPS)[:3]
+    for label, ls, ts, pk in (("kernel", losses, times, peak), ("plain", p_losses, p_times, p_peak)):
+        med = statistics.median(ts[1:])
+        print(f"FCN3 training step ({label} path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {TRAIN_STEPS} steps "
+              f"after a warm-up {[round(t, 2) for t in ts]}, {members / med * 1e3:.3f} samples/s (members), peak memory {pk / 2**30:.2f} GiB; "
+              f"loss per step {[round(v, 6) for v in ls]}  [{card}]", flush=True)
+    # the losses of a random target fall to the CRPS of a matching Gaussian
+    # ensemble, 1/sqrt(pi) ~ 0.564, within five steps, where Adam at lr 1e-3
+    # overshoots once (on both paths alike): the loss must fall below its
+    # first value, and each step's loss must be the plain path's (each step's
+    # forward reads the weights that the previous step's optimizer wrote)
+    if not all(math.isfinite(v) for v in losses) or not min(losses[1:]) < losses[0]:
+        raise RuntimeError(f"FCN3 training loss not finite or not falling over {TRAIN_STEPS} steps: {losses}")
+    if not all(abs(a - b) <= MODEL_BF16_REL_L2 * abs(b) for a, b in zip(losses, p_losses)):
+        raise RuntimeError(f"FCN3 training losses of the kernel path {losses} and the plain path {p_losses} part")
+    return kres, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -1326,6 +1795,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_res, train_launches = train_phases(dev, card)
     print(f"SFNO training phases {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fcn3_train_res, fcn3_train_launches = fcn3_train_phases(dev, card)
+    print(f"FCN3 training phases {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- result: each kernel at its path's main shape, with that path's launches
     io = transform_io_dtype()
@@ -1345,7 +1818,18 @@ def main() -> int:
         ("dhconv_grad_weight", "cuda", "makani_torch/csrc/dhconv_grad.cu", "makani_tpu/models/common/contractions.py:45", train_res, ("internal", f32), train_launches),
         ("instance_norm_grad", "cuda", "makani_torch/csrc/instance_norm.cu", "makani_tpu/ops/norm.py:96", train_res, ("full", torch.bfloat16), train_launches),
         ("adam_factored", "cuda", "makani_torch/csrc/adam_factored.cu", "makani_tpu/utils/training/optimizer.py:93", train_res, ("model", f32), train_launches),
+        ("disco_band_grad", "cuda", "makani_torch/csrc/disco_band_grad.cu", "makani_tpu/ops/disco.py:638", fcn3_train_res, ("processor", f32), fcn3_train_launches),
+        ("disco_polar_grad", "cuda", "makani_torch/csrc/disco_polar.cu", "makani_tpu/ops/disco.py:638", fcn3_train_res, ("processor", f32), fcn3_train_launches),
+        ("resample_grad", "cuda", "makani_torch/csrc/resample_grad.cu", "makani_tpu/ops/resample.py:81", fcn3_train_res, ("atmo-decoder", f32), fcn3_train_launches),
+        ("crps", "cuda", "makani_torch/csrc/crps.cu", "makani_tpu/utils/losses/crps_loss.py:136", fcn3_train_res, ("forward+backward", f32), fcn3_train_launches),
     ]
+    # K15: its forward and backward launch once each a step; the line sums them
+    fwd, bwd = fcn3_train_res[("crps", "forward", f32)], fcn3_train_res[("crps", "backward", f32)]
+    fcn3_train_res[("crps", "forward+backward", f32)] = dict(
+        max_abs_err=max(fwd["max_abs_err"], bwd["max_abs_err"]), library_ms=None,
+        bound_by="bytes" if fwd["bound_by"] == bwd["bound_by"] == "bytes" else "operations",
+        **{k: fwd[k] + bwd[k] for k in ("ms", "plain_ms", "bound_ms")},
+    )
     table = []
     for name, route, source, replaces, res, (label, dtype), launches in meta:
         r = res[(name, label, dtype)]

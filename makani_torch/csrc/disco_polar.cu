@@ -29,6 +29,23 @@
 // all 64 channels. Psi-first keeps the K complex sums of two channels in
 // registers; K is a template parameter (9, FCN3's basis, in one pass; any
 // other K in chunks of 4), never padded to a power of two.
+//
+// Their transposes, kernel K13 (the VJP that JAX derives for the same
+// lines), are modes 2 and 3 of the same entry point, on the same grid and
+// the same staged Psi tile:
+//
+//   psi-first: dX[b, p, j, c, m]    = sum_k dY[b, p, c, k, m] Psi[p, j, k, m]
+//   mix-first: dU[b, p, j, c, k, m] = dY[b, p, c, m]          Psi[p, j, k, m]
+//
+// complex products on the (re, im) views without the forward's conjugate (a
+// conjugate there would leave the real parts right and flip the sign of the
+// imaginary ones). The psi-first transpose reads the K values of dY of its
+// (channel, mode) once into registers and writes BL values of dX; the
+// mix-first one reads one dY and writes BL*K values of dU. Both are bound by
+// memory bandwidth like the forward: at the FCN3 processor the psi-first
+// transpose reads 2.32 GB and writes 2.32 GB; at the atmo decoder the
+// mix-first one reads 0.1 GB and writes 8.2 GB (B 4, P 50, BL 5, C 65, K 9,
+// M 721).
 
 #include <cuda_runtime.h>
 
@@ -135,6 +152,81 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// acc += v * q (no conjugate)
+__device__ __forceinline__ void cmac(float& re, float& im, float2 v, float2 q) {
+  re = fmaf(v.x, q.x, fmaf(-v.y, q.y, re));
+  im = fmaf(v.x, q.y, fmaf(v.y, q.x, im));
+}
+
+// dX = sum_k dY Psi: KT = K (9) keeps dY's K values in registers; KT = 0
+// reads them again for every j (any other K)
+template <int KT>
+__global__ void __launch_bounds__(THREADS)
+    psi_first_grad_kernel(const float2* __restrict__ dY, const float2* __restrict__ Pt, float2* __restrict__ dX, int P, int BL, int C, int K, int M) {
+  extern __shared__ float2 ps[];
+  const int c_lo = blockIdx.y * CB, c_hi = min(C, c_lo + CB);
+  const int bp = blockIdx.z, p = bp % P;
+  const int m0 = blockIdx.x * MB;
+  const int lane = threadIdx.x % MB, row = threadIdx.x / MB;
+  const int m = m0 + lane;
+  stage_psi(ps, Pt, p, BL, K, M, 0, K, m0);
+  __syncthreads();
+  if (m >= M) return;
+
+  const long long j_stride = (long long)C * M;
+  for (int c = c_lo + row; c < c_hi; c += ROWS) {
+    const float2* y = dY + ((long long)bp * C + c) * K * M + m;
+    float2* x = dX + ((long long)bp * BL * C + c) * M + m;
+    if constexpr (KT > 0) {
+      float2 v[KT];
+#pragma unroll
+      for (int k = 0; k < KT; ++k) v[k] = y[(long long)k * M];
+      for (int j = 0; j < BL; ++j) {
+        const float2* q = ps + j * KT * MB + lane;
+        float re = 0.f, im = 0.f;
+#pragma unroll
+        for (int k = 0; k < KT; ++k) cmac(re, im, v[k], q[k * MB]);
+        x[j * j_stride] = make_float2(re, im);
+      }
+    } else {
+      for (int j = 0; j < BL; ++j) {
+        const float2* q = ps + j * K * MB + lane;
+        float re = 0.f, im = 0.f;
+        for (int k = 0; k < K; ++k) cmac(re, im, y[(long long)k * M], q[k * MB]);
+        x[j * j_stride] = make_float2(re, im);
+      }
+    }
+  }
+}
+
+// dU = dY Psi for every (j, k)
+__global__ void __launch_bounds__(THREADS)
+    mix_first_grad_kernel(const float2* __restrict__ dY, const float2* __restrict__ Pt, float2* __restrict__ dU, int P, int BL, int C, int K, int M) {
+  extern __shared__ float2 ps[];
+  const int c_lo = blockIdx.y * CB, c_hi = min(C, c_lo + CB);
+  const int bp = blockIdx.z, p = bp % P;
+  const int m0 = blockIdx.x * MB;
+  const int lane = threadIdx.x % MB, row = threadIdx.x / MB;
+  const int m = m0 + lane;
+  stage_psi(ps, Pt, p, BL, K, M, 0, K, m0);
+  __syncthreads();
+  if (m >= M) return;
+
+  const long long j_stride = (long long)C * K * M;
+  for (int c = c_lo + row; c < c_hi; c += ROWS) {
+    const float2 v = dY[((long long)bp * C + c) * M + m];
+    float2* u = dU + ((long long)bp * BL * C + c) * K * M + m;
+    for (int j = 0; j < BL; ++j) {
+      const float2* q = ps + j * K * MB + lane;
+      for (int k = 0; k < K; ++k) {
+        float re = 0.f, im = 0.f;
+        cmac(re, im, v, q[k * MB]);
+        u[j * j_stride + (long long)k * M] = make_float2(re, im);
+      }
+    }
+  }
+}
+
 template <typename Kernel>
 int launch(Kernel kern, dim3 grid, size_t smem, cudaStream_t s, const float2* src, const float2* Pt, float2* Y, int P, int BL, int C, int K, int M) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -146,9 +238,11 @@ int launch(Kernel kern, dim3 grid, size_t smem, cudaStream_t s, const float2* sr
 }  // namespace
 
 // mode 0: psi-first, src X (B, P, BL, C, M) -> Y (B, P, C, K, M);
-// mode 1: mix-first, src U (B, P, BL, C, K, M) -> Y (B, P, C, M); complex64
-// as interleaved float pairs, Pt (P, BL, K, M). Returns cudaGetLastError()
-// after the launch.
+// mode 1: mix-first, src U (B, P, BL, C, K, M) -> Y (B, P, C, M);
+// mode 2: psi-first's transpose, src dY (B, P, C, K, M) -> dX (B, P, BL, C, M);
+// mode 3: mix-first's transpose, src dY (B, P, C, M) -> dU (B, P, BL, C, K, M);
+// complex64 as interleaved float pairs, Pt (P, BL, K, M). Returns
+// cudaGetLastError() after the launch.
 extern "C" int mt_disco_polar(int mode, const void* src, const void* Pt, void* Y, int B, int P, int BL, int C, int K, int M, void* stream) {
   if (B <= 0 || P <= 0 || BL <= 0 || C <= 0 || K <= 0 || M <= 0 || (long long)B * P > 65535) return (int)cudaErrorInvalidValue;
   const auto* s_ = static_cast<const float2*>(src);
@@ -165,5 +259,11 @@ extern "C" int mt_disco_polar(int mode, const void* src, const void* Pt, void* Y
     return launch(psi_first_kernel<KT>, dim3(mx, (unsigned)gy, B * P), (size_t)BL * KT * MB * sizeof(float2), s, s_, p_, y_, P, BL, C, K, M);
   }
   if (mode == 1) return launch(mix_first_kernel, dim3(mx, n_ct, B * P), (size_t)BL * K * MB * sizeof(float2), s, s_, p_, y_, P, BL, C, K, M);
+  const size_t smem = (size_t)BL * K * MB * sizeof(float2);
+  if (mode == 2) {
+    if (K == 9) return launch(psi_first_grad_kernel<9>, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
+    return launch(psi_first_grad_kernel<0>, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
+  }
+  if (mode == 3) return launch(mix_first_grad_kernel, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
   return (int)cudaErrorInvalidValue;
 }

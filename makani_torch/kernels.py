@@ -34,9 +34,12 @@ _SOURCES = (
     "instance_norm.cu",
     "adam_factored.cu",
     "disco_band.cu",
+    "disco_band_grad.cu",
     "disco_polar.cu",
     "disco_mix.cu",
     "resample.cu",
+    "resample_grad.cu",
+    "crps.cu",
 )
 _HEADERS = ("convert.cuh", "sm90.cuh")
 NVCC_FLAGS = (
@@ -65,6 +68,10 @@ LAUNCHES = {
     "dhconv_grad_weight": 0,
     "instance_norm_grad": 0,
     "adam_factored": 0,
+    "disco_band_grad": 0,
+    "disco_polar_grad": 0,
+    "resample_grad": 0,
+    "crps": 0,
 }
 
 
@@ -178,6 +185,12 @@ def library() -> ctypes.CDLL:
             lib.mt_disco_polar.restype = i
             lib.mt_resample.argtypes = [i] + [vp] * 7 + [i] * 5 + [ll] * 4 + [i, i, vp]
             lib.mt_resample.restype = i
+            lib.mt_disco_band_grad.argtypes = [vp] * 7 + [i] * 17 + [ll, i, vp]
+            lib.mt_disco_band_grad.restype = i
+            lib.mt_resample_grad.argtypes = [vp] * 8 + [i] * 6 + [vp]
+            lib.mt_resample_grad.restype = i
+            lib.mt_crps_skillspread.argtypes = [i, vp, vp, vp, vp, i, i, ll, f, vp]
+            lib.mt_crps_skillspread.restype = i
             lib.mt_resample_smem_bytes.argtypes = [i] * 3
             lib.mt_resample_smem_bytes.restype = i
             lib.mt_error_string.argtypes = [i]

@@ -19,6 +19,14 @@ Precision follows the JAX package: every DISCO contraction and its channel
 mix run in fp32 (the conv's compute dtype), the decoders in fp32, and only
 the MLPs (and 1x1 convs) in the compute dtype; an fp32 residual stream plus
 a bf16 branch stays fp32, as in JAX's type promotion.
+
+Training: every op of the forward is differentiable (the DISCO convs and
+the resampling through their kernels' autograd functions, K12-K14 in the
+backward; the processor's channel mix through ``disco_kernels.ChannelMix``).
+``checkpointing_level`` 1 and 2 recompute the encoders and decoders in the
+backward, 3 also the processor blocks, as the JAX package's ``nn.remat``
+(``torch.utils.checkpoint`` without reentrance, only while gradients are
+recorded).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from makani_torch.device import resolve_device
 from makani_torch.models.common.layer_norm import InstanceNorm2d
@@ -114,7 +123,7 @@ class DiscoConv(nn.Module):
         stride (no copy)."""
         w = self.weight.float().reshape(self.out_channels, -1)
         t2 = t.reshape(-1, w.shape[1])
-        y = disco_kernels.channel_mix(t2, w, self._mix_planes) if self.use_kernels else disco_kernels.channel_mix_plain(t2, w)
+        y = disco_kernels.ChannelMix.apply(t2, w, self._mix_planes) if self.use_kernels else disco_kernels.channel_mix_plain(t2, w)
         return y.reshape(*t.shape[:-2], self.out_channels)
 
     def _mix_polar(self, t_pol: torch.Tensor) -> torch.Tensor:
@@ -379,8 +388,8 @@ class AtmoSphericNeuralOperatorNet(nn.Module):
         super().__init__()
         if not channels_last:
             raise NotImplementedError("the port's FCN3 runs channels-last only")
-        if checkpointing_level != 0:
-            raise NotImplementedError("rematerialization is a training feature and is not ported yet")
+        if checkpointing_level not in (0, 1, 2, 3):
+            raise ValueError(f"checkpointing_level {checkpointing_level} (0 to 3)")
         if pos_drop_rate > 0:
             raise NotImplementedError("input dropout is a training feature and is not ported yet")
         device = resolve_device(device)
@@ -391,6 +400,7 @@ class AtmoSphericNeuralOperatorNet(nn.Module):
         self.num_layers = num_layers
         self.big_skip = big_skip
         self.clamp_water = clamp_water
+        self.checkpointing_level = checkpointing_level
         self.dtype = dtype
         act = _ACTIVATIONS[activation_function]
         h = int(self.inp_shape[0] // scale_factor)
@@ -489,6 +499,13 @@ class AtmoSphericNeuralOperatorNet(nn.Module):
             sel = x.index_select(1, getattr(self, f"{group}_idx"))
         return sel.permute(0, 2, 3, 1)
 
+    def _run(self, module: nn.Module, x: torch.Tensor, level: int) -> torch.Tensor:
+        """module(x), recomputed in the backward from x when the model's
+        checkpointing level is at least ``level`` and gradients are recorded."""
+        if self.checkpointing_level >= level and torch.is_grad_enabled():
+            return checkpoint(module, x, use_reentrant=False)
+        return module(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, n_channels + n_aux, H, W) -> (B, n_out, H, W), NCHW."""
         n_expected = len(self.channel_names) + len(self.aux_channel_names)
@@ -503,24 +520,24 @@ class AtmoSphericNeuralOperatorNet(nn.Module):
         # encode; the pressure levels are stacked on the channel axis
         parts = []
         if hasattr(self, "atmo_encoder"):
-            parts.append(self.atmo_encoder(self._channels(x, "atmo")))
+            parts.append(self._run(self.atmo_encoder, self._channels(x, "atmo"), 1))
         if self.n_surf > 0:
-            parts.append(self.surf_encoder(self._channels(x, "surf")))
+            parts.append(self._run(self.surf_encoder, self._channels(x, "surf"), 1))
         z = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
-        z_aux = self.aux_encoder(self._channels(x, "aux")) if self.n_aux > 0 else None
+        z_aux = self._run(self.aux_encoder, self._channels(x, "aux"), 1) if self.n_aux > 0 else None
 
         for i in range(self.num_layers):
             if z_aux is not None:
                 z = torch.cat([z, z_aux], dim=-1)
-            z = getattr(self, f"block{i}")(z)
+            z = self._run(getattr(self, f"block{i}"), z, 3)
 
         out = torch.empty(B, self.n_out_chans, H, W, dtype=x.dtype, device=x.device)
         n_atmo_embed = self.n_atmo_groups * self.atmo_embed_dim
         if hasattr(self, "atmo_decoder"):
-            ya = self.atmo_decoder(z[..., :n_atmo_embed])  # (B, H, W, n_groups*n_atmo)
+            ya = self._run(self.atmo_decoder, z[..., :n_atmo_embed], 1)  # (B, H, W, n_groups*n_atmo)
             out.index_copy_(1, self.atmo_idx, ya.permute(0, 3, 1, 2).to(x.dtype))
         if self.n_surf > 0:
-            ys = self.surf_decoder(z[..., z.shape[-1] - self.surf_embed_dim :])
+            ys = self._run(self.surf_decoder, z[..., z.shape[-1] - self.surf_embed_dim :], 1)
             out.index_copy_(1, self.surf_idx, ys.permute(0, 3, 1, 2).to(x.dtype))
 
         if self.big_skip:

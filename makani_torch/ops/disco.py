@@ -28,6 +28,18 @@ The device side keeps the JAX package's structure:
     their rows with an indexed add (the responses there are exactly zero
     before the insert, since psi_band is zeroed at the polar rows).
 
+Training: ``responses_cl`` and ``fused_cl`` are differentiable. Their
+banded parts are autograd functions whose backward is kernel K12
+(``disco_kernels.band_contract_grad``, the transpose of K5) for the input
+and, for the fused conv's weight, K5 in responses mode on the input then a
+GEMM against the output's gradient over the pixels (in chunks of output
+rows, so that the responses of a full-resolution decoder never exist at
+once). The polar rows go through autograd: the gather, ``torch.fft``'s own
+backward (which doubles the interior modes of an rFFT), K6 with its
+transpose K13 (``disco_kernels.PolarPsiFirst``/``PolarMixFirst``), the
+column sampling and the indexed add. With ``use_kernels=False`` every
+step is a plain PyTorch op and autograd differentiates the plain forward.
+
 Activations are channels-last here: ``responses_cl`` and ``fused_cl`` read a
 logical (B, H, W, C) view of any strides (an NCHW tensor is passed as its
 permuted view, without a copy) and write channels-last results, the layout
@@ -572,6 +584,10 @@ def _pad_outputs(F: torch.Tensor) -> torch.Tensor:
 # the responses' pixel stride is a multiple of this many floats (16 bytes)
 RESPONSE_ALIGN = 4
 
+# the fused conv's weight gradient makes the input's responses in chunks of
+# at most this many bytes
+_WGRAD_CHUNK_BYTES = 1 << 30
+
 
 class FusedFilterCache:
     """K5 filters of a weight-fused conv, ``einsum("goik,khjw->hgijwo", w,
@@ -642,6 +658,12 @@ class DiscoConvS2:
         """K5's live taps of phase p, (Hout, BL, 2) int32 (``live_tap_runs``)."""
         return self._tensor(f"taps_{p}", device, lambda: live_tap_runs(self.psi_band[p]))
 
+    def grad_rows(self, p: int, device):
+        """K12's row lists of phase p (``disco_kernels.band_grad_rows``):
+        (row_ptr (Hin + 1,), row_h) int32."""
+        lists = lambda: disco_kernels.band_grad_rows(self.band_start, live_tap_runs(self.psi_band[p]), self.in_shape[0])
+        return self._tensor(f"grad_rows_ptr_{p}", device, lambda: lists()[0]), self._tensor(f"grad_rows_h_{p}", device, lambda: lists()[1])
+
     def polar_index(self, device):
         """(input rows of the polar bands, flattened (P*BL,), and the polar
         output rows (P,)), int64."""
@@ -684,15 +706,63 @@ class DiscoConvS2:
             )
         return out
 
+    def _banded_grad(self, dout, F, dx, Gf, IG, OG):
+        """K12 of every phase into dx (B, Hin, Win, C) contiguous, the first
+        phase written, the others added."""
+        Wout = self.out_shape[1]
+        b, a = self.phases, self.stride
+        for p in range(b):
+            disco_kernels.band_contract_grad(
+                dout, F(p), self.band_start_table(dx.device), dx, taps=self.tap_table(p, dx.device), rows=self.grad_rows(p, dx.device), a=a,
+                off=int(self.bases[p]) - self.halo, n_out=Wout // b, phase=p, phases=b, Gf=Gf, IG=IG, OG=OG, accumulate=p > 0,
+            )
+        return dx
+
+    def _fused_weight_grad(self, x, dy, w_shape):
+        """The banded part's weight gradient: the responses of x (K5 with
+        psi, phase by phase), contracted with dy over the pixels by one GEMM
+        per channel group, in chunks of samples and output rows of at most
+        ``_WGRAD_CHUNK_BYTES`` of responses. Returns (g, og, ig, K) fp32."""
+        g, og, ig, K = w_shape
+        B, Hin, Win, Ctot = x.shape
+        R = Ctot // (g * ig)
+        b, a = self.phases, self.stride
+        n_out = self.out_shape[1] // b
+        dev = x.device
+        bs = self.band_start_table(dev)
+        dw = torch.zeros(g, ig * K, og, dtype=torch.float32, device=dev)
+        for p in range(b):
+            filt, taps = self.band_filter(p, dev), self.tap_table(p, dev)
+            for b0, b1, h0, h1 in self.weight_grad_chunks(B, Ctot):
+                t = torch.empty(b1 - b0, h1 - h0, n_out, Ctot * K, dtype=torch.float32, device=dev)
+                disco_kernels.band_contract(
+                    x[b0:b1], filt[h0:h1], bs[h0:h1], t, taps=taps[h0:h1], a=a, off=int(self.bases[p]) - self.halo, n_out=n_out, phase=0, phases=1,
+                    Gf=1, IG=1, OG=K,
+                )
+                dyc = dy[b0:b1, h0:h1, p::b].reshape(-1, R, g, og)
+                with fp32_exact():
+                    dw += torch.einsum("nrgq,nrgo->gqo", t.view(-1, R, g, ig * K), dyc)
+                del t
+        return dw.view(g, ig, K, og).permute(0, 3, 1, 2)
+
+    def weight_grad_chunks(self, B: int, C: int) -> list:
+        """The (b0, b1, h0, h1) chunks of samples and output rows whose
+        responses ``_fused_weight_grad`` makes at once (one K5 launch each,
+        a phase): whole samples while they fit in ``_WGRAD_CHUNK_BYTES``,
+        else rows of one sample."""
+        Hout, Wout = self.out_shape
+        per_row = Wout // self.phases * C * self.K * 4
+        n_b = max(1, min(B, _WGRAD_CHUNK_BYTES // (Hout * per_row)))
+        n_h = Hout if n_b > 1 else max(1, min(Hout, _WGRAD_CHUNK_BYTES // per_row))
+        return [(b0, min(B, b0 + n_b), h0, min(Hout, h0 + n_h)) for b0 in range(0, B, n_b) for h0 in range(0, Hout, n_h)]
+
     def polar_bands(self, x):
         """x (B, Hin, Win, C) view of any strides -> its polar band rows with
         the longitude last, (B, P, BL, C, Win) contiguous: one transposing
         gather (for an NCHW-backed view, nearly a plain one)."""
         band_rows, _ = self.polar_index(x.device)
         B, _, Win, C = x.shape
-        out = torch.empty(B, band_rows.numel(), C, Win, dtype=x.dtype, device=x.device)
-        torch.index_select(x.transpose(2, 3), 1, band_rows, out=out)
-        return out.view(B, len(self.polar_rows), self.BL, C, Win)
+        return torch.index_select(x.transpose(2, 3), 1, band_rows).view(B, len(self.polar_rows), self.BL, C, Win)
 
     def _sample_cols(self, corr, p, out):
         """Write phase p's columns u*a of a full-longitude correlation
@@ -706,6 +776,15 @@ class DiscoConvS2:
         out[..., p::b] = corr[..., ::a]
         return out
 
+    def response_buffer(self, B: int, C: int, device) -> torch.Tensor:
+        """K5's responses output, (B, Hout, Wout, C*K) fp32 with pixels
+        ``RESPONSE_ALIGN`` floats apart at least (C*K rounded up), as a view
+        of its padded buffer; the pad is never written."""
+        Hout, Wout = self.out_shape
+        CK = C * self.K
+        CKp = -(-CK // RESPONSE_ALIGN) * RESPONSE_ALIGN
+        return torch.empty(B, Hout, Wout, CKp, dtype=torch.float32, device=device)[..., :CK]
+
     def responses_cl(self, x: torch.Tensor, use_kernels: bool = True):
         """Basis responses, channels-last: x (B, Hin, Win, C) fp32 view ->
         (t (B, Hout, Wout, C, K), t_polar (B, P, C, K, Wout) or None).
@@ -718,13 +797,15 @@ class DiscoConvS2:
         B, Hin, Win, C = x.shape
         Hout, Wout = self.out_shape
         K = self.K
-        CKp = -(-C * K // RESPONSE_ALIGN) * RESPONSE_ALIGN
-        t = torch.empty(B, Hout, Wout, CKp, dtype=torch.float32, device=x.device)[..., : C * K]
-        self._banded(x, lambda p: self.band_filter(p, x.device), t, 1, 1, K, use_kernels)
+        if use_kernels:
+            t = _BandResponses.apply(x, self)
+        else:
+            t = self.response_buffer(B, C, x.device)
+            self._banded(x, lambda p: self.band_filter(p, x.device), t, 1, 1, K, False)
         t = t.view(B, Hout, Wout, C, K)
         if not self.polar_rows:
             return t, None
-        polar = disco_kernels.polar_psi_first if use_kernels else disco_kernels.polar_psi_first_plain
+        polar = disco_kernels.PolarPsiFirst.apply if use_kernels else disco_kernels.polar_psi_first_plain
         X = torch.view_as_real(torch.fft.rfft(self.polar_bands(x), dim=-1))  # (B, P, BL, C, M, 2)
         t_pol = None
         for p in range(self.phases):
@@ -750,9 +831,14 @@ class DiscoConvS2:
         R = Ctot // (g * ig)
         Hout, Wout = self.out_shape
         Cout = R * g * og
-        cache = cache if cache is not None else FusedFilterCache()
-        y = torch.empty(B, Hout, Wout, Cout, dtype=torch.float32, device=x.device)
-        self._banded(x, lambda p: cache.get(self, w, p), y, g, ig, og, use_kernels)
+        if use_kernels:
+            y = _BandFused.apply(x, w, self, cache if cache is not None else FusedFilterCache())
+        else:
+            # the filter w (x) psi under autograd, made anew each call
+            y = torch.empty(B, Hout, Wout, Cout, dtype=torch.float32, device=x.device)
+            with fp32_exact():
+                filt = [_pad_outputs(torch.einsum("goik,khjw->hgijwo", w.float(), self.band_table(p, x.device))) for p in range(self.phases)]
+            self._banded(x, lambda p: filt[p], y, g, ig, og, False)
         if not self.polar_rows:
             return y
         P, BL = len(self.polar_rows), self.BL
@@ -768,10 +854,10 @@ class DiscoConvS2:
             with fp32_exact():
                 u = torch.matmul(wg, xb_p.view(B * P * BL * R, g, ig, Win))
             U = torch.view_as_real(torch.fft.rfft(u.view(B, P, BL, Cout, K, Win), dim=-1))  # (B, P, BL, Cout, K, M, 2)
-            polar = disco_kernels.polar_mix_first if use_kernels else disco_kernels.polar_mix_first_plain
+            polar = disco_kernels.PolarMixFirst.apply if use_kernels else disco_kernels.polar_mix_first_plain
         else:
             X = torch.view_as_real(torch.fft.rfft(xb_p, dim=-1))  # (B, P, BL, Ctot, M, 2)
-            polar = disco_kernels.polar_psi_first if use_kernels else disco_kernels.polar_psi_first_plain
+            polar = disco_kernels.PolarPsiFirst.apply if use_kernels else disco_kernels.polar_psi_first_plain
         b, a = self.phases, self.stride
         n_out = Wout // b
         for p in range(b):
@@ -797,13 +883,65 @@ class DiscoConvS2:
         t, t_pol = self.responses_cl(x.float().permute(0, 2, 3, 1))
         if t_pol is not None:
             _, rows = self.polar_index(x.device)
-            t.index_add_(1, rows, t_pol.permute(0, 1, 4, 2, 3))
+            # out of place: t is the output of an autograd function
+            t = t.index_add(1, rows, t_pol.permute(0, 1, 4, 2, 3))
         return t.permute(0, 3, 4, 1, 2)
 
     def fused(self, x: torch.Tensor, w: torch.Tensor, cache: FusedFilterCache | None = None) -> torch.Tensor:
         """Weight-fused conv, x (B, g*ig, Hin, Win), w (g, og, ig, K) ->
         y (B, g*og, Hout, Wout)."""
         return self.fused_cl(x.float().permute(0, 2, 3, 1), w, cache=cache).permute(0, 3, 1, 2)
+
+
+class _BandResponses(torch.autograd.Function):
+    """The banded responses (K5 with psi, every phase) of x (B, Hin, Win, C),
+    as ``DiscoConvS2.response_buffer``'s padded view; backward K12 in
+    responses mode, reading the gradient through its pixel stride."""
+
+    @staticmethod
+    def forward(ctx, x, conv):
+        ctx.conv, ctx.x_shape = conv, x.shape
+        t = conv.response_buffer(x.shape[0], x.shape[-1], x.device)
+        return conv._banded(x, lambda p: conv.band_filter(p, x.device), t, 1, 1, conv.K, True)
+
+    @staticmethod
+    def backward(ctx, dt):
+        conv = ctx.conv
+        try:
+            disco_kernels.pixel_stride(dt)
+        except ValueError:
+            dt = dt.contiguous()
+        dx = torch.empty(ctx.x_shape, dtype=torch.float32, device=dt.device)
+        return conv._banded_grad(dt, lambda p: conv.band_filter(p, dt.device), dx, 1, 1, conv.K), None
+
+
+class _BandFused(torch.autograd.Function):
+    """The banded part of the weight-fused conv (K5 with w (x) psi, every
+    phase) of x (B, Hin, Win, R*g*ig) and w (g, og, ig, K); backward K12 in
+    fused mode for x and ``DiscoConvS2._fused_weight_grad`` for w."""
+
+    @staticmethod
+    def forward(ctx, x, w, conv, cache):
+        g, og, ig, _ = w.shape
+        ctx.conv, ctx.cache = conv, cache
+        ctx.save_for_backward(x, w)
+        Hout, Wout = conv.out_shape
+        y = torch.empty(x.shape[0], Hout, Wout, x.shape[-1] // ig * og, dtype=torch.float32, device=x.device)
+        return conv._banded(x, lambda p: cache.get(conv, w, p), y, g, ig, og, True)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        conv, cache = ctx.conv, ctx.cache
+        g, og, ig, _ = w.shape
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+            conv._banded_grad(dy, lambda p: cache.get(conv, w, p), dx, g, ig, og)
+        if ctx.needs_input_grad[1]:
+            dw = conv._fused_weight_grad(x, dy, w.shape)
+        return dx, dw, None, None
 
 
 def make_disco_conv(in_shape, out_shape, kernel_shape=(3, 4), **kwargs) -> DiscoConvS2:

@@ -37,6 +37,23 @@ einsum ``bgikhw,goik->bhwgo``). It reads the weight's TF32 planes
 pieces: K5 writes them ``RESPONSE_ALIGN`` floats apart (``ops/disco.py``).
 Its plain version is one ``torch.matmul``.
 
+K12 (``band_contract_grad``, CUDA C++ in ``csrc/disco_band_grad.cu``): the
+transpose of K5 with respect to x, for one phase, added into dx (the VJP
+that JAX derives for ``DiscoConvS2.__call__`` and ``.fused``). It gathers:
+``band_grad_rows`` lists, for each input row, the output latitudes whose
+band reads it through a live tap. Its plain version is the transposed
+grouped convolution (``conv_transpose1d``) on the band, scattered back to
+the input rows and columns with an indexed add.
+
+K13 (``polar_psi_first_grad`` / ``polar_mix_first_grad``, modes 2 and 3 of
+``csrc/disco_polar.cu``): the transposes of K6, ``dX = sum_k dY Psi`` and
+``dU = dY Psi``, complex products without the forward's conjugate.
+``PolarPsiFirst`` and ``PolarMixFirst`` are K6 and K13 as one autograd
+function; ``ChannelMix`` is K8 with its backward, the two GEMMs
+``dt = dy w2`` (written in the padded layout of the responses, which K12
+reads in place) and ``dw2 = dy^T t``, cuBLAS in full fp32, as the JAX
+package leaves the transpose of its einsum to XLA.
+
 The plain versions' cuDNN and cuBLAS calls run in full fp32 whatever the
 global TF32 flags say (``precision.fp32_exact``). On a CPU tensor a wrapper
 runs the plain version; on a CUDA tensor it launches its kernel or raises.
@@ -44,6 +61,7 @@ runs the plain version; on a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -54,6 +72,16 @@ from makani_torch.ops.sht import tf32_split
 __all__ = [
     "band_contract",
     "band_contract_plain",
+    "band_contract_grad",
+    "band_contract_grad_plain",
+    "band_grad_rows",
+    "polar_psi_first_grad",
+    "polar_psi_first_grad_plain",
+    "polar_mix_first_grad",
+    "polar_mix_first_grad_plain",
+    "PolarPsiFirst",
+    "PolarMixFirst",
+    "ChannelMix",
     "polar_psi_first",
     "polar_psi_first_plain",
     "polar_mix_first",
@@ -81,6 +109,31 @@ def _check_band_args(x, F_, out, Gf, IG, OG, taps=None):
         raise ValueError(f"disco_band: out {tuple(out.shape)} does not match x {tuple(x.shape)} and F {tuple(F_.shape)}")
 
 
+class _ExactConv1d(torch.autograd.Function):
+    """The plain K5's grouped conv1d, its forward and its backward (for
+    autograd through the plain forward) in full fp32: cuDNN would run an
+    fp32 convolution, and the convolutions of its backward, in TF32 by
+    default."""
+
+    @staticmethod
+    def forward(ctx, inp, filt, stride, groups):
+        ctx.save_for_backward(inp, filt)
+        ctx.stride, ctx.groups = stride, groups
+        with fp32_exact():
+            return F.conv1d(inp, filt, stride=stride, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        inp, filt = ctx.saved_tensors
+        d_inp = d_filt = None
+        with fp32_exact():
+            if ctx.needs_input_grad[0]:
+                d_inp = torch.nn.grad.conv1d_input(inp.shape, filt, g, stride=ctx.stride, groups=ctx.groups)
+            if ctx.needs_input_grad[1]:
+                d_filt = torch.nn.grad.conv1d_weight(inp, filt.shape, g, stride=ctx.stride, groups=ctx.groups)
+        return d_inp, d_filt, None, None
+
+
 def band_contract_plain(x, F_, band_start, out, *, a, off, n_out, phase, phases, Gf, IG, OG, taps=None):
     """Plain K5: writes ``out[:, :, phase::phases]`` (see the module
     docstring). x is a (B, Hin, Win, C) view of any strides. It sums the
@@ -101,8 +154,7 @@ def band_contract_plain(x, F_, band_start, out, *, a, off, n_out, phase, phases,
         Rc = r1 - r0
         xb = x[..., r0 * Gf * IG : r1 * Gf * IG][:, rows[:, None], cols[None, :]]  # (B, Hout*BL, span, Rc*Gf*IG)
         inp = xb.reshape(B, Hout, BL, span, Rc, Gf, IG).permute(0, 4, 1, 5, 6, 2, 3).reshape(B * Rc, Hout * Gf * IG * BL, span)
-        with fp32_exact():  # cuDNN would run an fp32 conv in TF32 by default
-            y = F.conv1d(inp, filt, stride=a, groups=Hout * Gf)  # (B*Rc, Hout*Gf*OG, n_out)
+        y = _ExactConv1d.apply(inp, filt, a, Hout * Gf)  # (B*Rc, Hout*Gf*OG, n_out)
         y = y.reshape(B, Rc, Hout, Gf, OG, n_out).permute(0, 2, 5, 1, 3, 4).reshape(B, Hout, n_out, Rc * Gf * OG)
         dst[..., r0 * Gf * OG : r1 * Gf * OG] = y
     return out
@@ -152,6 +204,91 @@ def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases,
     kernels.check_launch(err, "disco_band")
     kernels.count_launch("disco_band")
     return out
+
+
+def band_grad_rows(band_start, taps, Hin: int):
+    """K12's row lists of one phase, from K5's tables on the host: for each
+    input row hi, the output latitudes h whose band covers hi with a live
+    tap there (``band_start[h] <= hi < band_start[h] + BL``), as a CSR pair
+    (row_ptr (Hin + 1,), row_h) of int32, h ascending."""
+    band_start = np.asarray(band_start, np.int64)
+    taps = np.asarray(taps)
+    Hout, BL = taps.shape[:2]
+    h, j = np.nonzero(taps[..., 1] > taps[..., 0])
+    hi = band_start[h] + j
+    order = np.lexsort((h, hi))
+    row_ptr = np.zeros(Hin + 1, np.int64)
+    np.add.at(row_ptr, hi + 1, 1)
+    return np.cumsum(row_ptr).astype(np.int32), h[order].astype(np.int32)
+
+
+def band_contract_grad_plain(dout, F_, band_start, dx, *, a, off, n_out, phase, phases, Gf, IG, OG, accumulate, taps=None, rows=None):
+    """Plain K12: the transpose of ``band_contract_plain`` with respect to x
+    for ``out[:, :, phase::phases] = dout[:, :, phase::phases]``, written
+    (or, with ``accumulate``, added) into dx (B, Hin, Win, C) contiguous: a
+    grouped ``conv_transpose1d`` on the band, chunked over the channel axis,
+    scattered back to the band's rows and window columns with an indexed add.
+    ``taps`` and ``rows`` are not read."""
+    _check_band_args(dx, F_, dout, Gf, IG, OG)
+    if not accumulate:
+        dx.zero_()
+    B, Hin, Win, C = dx.shape
+    Hout, _, _, BL, WW, _ = F_.shape
+    R = C // (Gf * IG)
+    dev = dx.device
+    rows_ = (band_start.long()[:, None] + torch.arange(BL, device=dev)[None, :]).reshape(-1)  # (Hout*BL,)
+    span = (n_out - 1) * a + WW
+    cols = (off + torch.arange(span, device=dev)) % Win
+    flat = (rows_[:, None] * Win + cols[None, :]).reshape(-1)  # (Hout*BL*span,) input pixels, with repeats
+    filt = F_[..., :OG].permute(0, 1, 5, 2, 3, 4).reshape(Hout * Gf * OG, IG * BL, WW)
+    step = max(1, _PLAIN_CHUNK_BYTES // (B * Hout * BL * span * Gf * IG * 4))
+    src = dout[:, :, phase::phases][:, :, :n_out]
+    dxf = dx.view(B, Hin * Win, C)
+    for r0 in range(0, R, step):
+        r1 = min(R, r0 + step)
+        Rc = r1 - r0
+        y = src[..., r0 * Gf * OG : r1 * Gf * OG].reshape(B, Hout, n_out, Rc, Gf, OG).permute(0, 3, 1, 4, 5, 2).reshape(B * Rc, Hout * Gf * OG, n_out)
+        with fp32_exact():
+            gb = F.conv_transpose1d(y, filt, stride=a, groups=Hout * Gf)  # (B*Rc, Hout*Gf*IG*BL, span)
+        gb = gb.reshape(B, Rc, Hout, Gf, IG, BL, span).permute(0, 2, 5, 6, 1, 3, 4).reshape(B, Hout * BL * span, Rc * Gf * IG)
+        dxf[..., r0 * Gf * IG : r1 * Gf * IG].index_add_(1, flat, gb)
+    return dx
+
+
+def band_contract_grad(dout, F_, band_start, dx, *, taps, rows, a, off, n_out, phase, phases, Gf, IG, OG, accumulate):
+    """K12 on the card, the plain version on the CPU: dx (+)= the transpose
+    of K5 (same filter, tables and phase arguments) applied to dout; returns
+    dx.
+
+    dout: float32 (B, Hout, Wout, G*OG), contiguous but for its pixel stride
+    (``pixel_stride``), as K5 writes; F_, band_start, taps: K5's; rows: the
+    phase's ``band_grad_rows`` (row_ptr, row_h) int32 tensors; dx: float32
+    (B, Hin, Win, G*IG) contiguous, written (or added to, ``accumulate``)."""
+    row_ptr, row_h = rows
+    if kernels.takes_plain("disco_band_grad", dout, F_, band_start, taps, row_ptr, row_h, dx):
+        return band_contract_grad_plain(dout, F_, band_start, dx, a=a, off=off, n_out=n_out, phase=phase, phases=phases, Gf=Gf, IG=IG, OG=OG, accumulate=accumulate)
+    _check_band_args(dx, F_, dout, Gf, IG, OG, taps)
+    for t in (dout, F_, dx):
+        if t.dtype != torch.float32:
+            raise TypeError(f"disco_band_grad: takes float32 dout, F and dx, got {dout.dtype}, {F_.dtype}, {dx.dtype}")
+    if not (F_.is_contiguous() and dx.is_contiguous() and band_start.is_contiguous() and row_ptr.is_contiguous() and row_h.is_contiguous()):
+        raise ValueError("disco_band_grad: F, dx and the tables must be contiguous")
+    if row_ptr.dtype != torch.int32 or row_h.dtype != torch.int32 or band_start.dtype != torch.int32 or row_ptr.numel() != dx.shape[1] + 1:
+        raise ValueError(f"disco_band_grad: row_ptr must be int32 (Hin + 1,) and row_h and band_start int32, got {row_ptr.dtype} {tuple(row_ptr.shape)}, {row_h.dtype}")
+    sO = pixel_stride(dout)
+    B, Hin, Win, C = dx.shape
+    Hout, _, _, BL, WW, OGp = F_.shape
+    if dx.numel() == 0:
+        return dx
+    lib = kernels.library()
+    with torch.cuda.device(dx.device):
+        err = lib.mt_disco_band_grad(
+            dout.data_ptr(), F_.data_ptr(), band_start.data_ptr(), taps.data_ptr(), row_ptr.data_ptr(), row_h.data_ptr(), dx.data_ptr(),
+            B, Hin, Win, Hout, dout.shape[2], C, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, sO, int(accumulate), kernels.stream_ptr(dx.device),
+        )
+    kernels.check_launch(err, "disco_band_grad")
+    kernels.count_launch("disco_band_grad")
+    return dx
 
 
 def polar_psi_first_plain(X: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
@@ -215,6 +352,94 @@ def polar_mix_first(U: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
     return _polar_launch(1, U, Pt, (B, P, C, M, 2))
 
 
+def polar_psi_first_grad_plain(dY: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """dY (B, P, C, K, M, 2), Pt (P, BL, K, M, 2) ->
+    dX (B, P, BL, C, M, 2) = sum_k dY . Psi."""
+    Yr, Yi, Pr, Pi = dY[..., 0], dY[..., 1], Pt[..., 0], Pt[..., 1]
+    eq = "bpckm,pjkm->bpjcm"
+    with fp32_exact():
+        re = torch.einsum(eq, Yr, Pr) - torch.einsum(eq, Yi, Pi)
+        im = torch.einsum(eq, Yr, Pi) + torch.einsum(eq, Yi, Pr)
+    return torch.stack([re, im], dim=-1)
+
+
+def polar_mix_first_grad_plain(dY: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """dY (B, P, C, M, 2), Pt (P, BL, K, M, 2) ->
+    dU (B, P, BL, C, K, M, 2) = dY . Psi."""
+    Yr, Yi = dY[..., 0][:, :, None, :, None], dY[..., 1][:, :, None, :, None]
+    Pr, Pi = Pt[..., 0][None, :, :, None], Pt[..., 1][None, :, :, None]
+    return torch.stack([Yr * Pr - Yi * Pi, Yr * Pi + Yi * Pr], dim=-1)
+
+
+def _polar_grad_launch(mode: int, dY: torch.Tensor, Pt: torch.Tensor, BL: int, C: int, out_shape) -> torch.Tensor:
+    for t in (dY, Pt):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"disco_polar_grad: takes contiguous float32 tensors, got {t.dtype} contiguous={t.is_contiguous()}")
+    B, P = dY.shape[:2]
+    K, M = Pt.shape[2], Pt.shape[3]
+    if tuple(Pt.shape) != (P, BL, K, M, 2) or dY.shape[-2:] != (M, 2):
+        raise ValueError(f"disco_polar_grad: gradient {tuple(dY.shape)} and table {tuple(Pt.shape)} do not match")
+    dx = torch.empty(out_shape, dtype=torch.float32, device=dY.device)
+    if dx.numel() == 0:
+        return dx
+    lib = kernels.library()
+    with torch.cuda.device(dY.device):
+        err = lib.mt_disco_polar(mode, dY.data_ptr(), Pt.data_ptr(), dx.data_ptr(), B, P, BL, C, K, M, kernels.stream_ptr(dY.device))
+    kernels.check_launch(err, "disco_polar_grad")
+    kernels.count_launch("disco_polar_grad")
+    return dx
+
+
+def polar_psi_first_grad(dY: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """K13, the psi-first transpose: dY (B, P, C, K, M, 2), Pt
+    (P, BL, K, M, 2) -> dX (B, P, BL, C, M, 2); plain version on the CPU."""
+    if kernels.takes_plain("disco_polar_grad", dY, Pt):
+        return polar_psi_first_grad_plain(dY, Pt)
+    B, P, C, K, M, _ = dY.shape
+    if K != Pt.shape[2]:
+        raise ValueError(f"disco_polar_grad: dY has {K} basis functions, the table {Pt.shape[2]}")
+    return _polar_grad_launch(2, dY, Pt, Pt.shape[1], C, (B, P, Pt.shape[1], C, M, 2))
+
+
+def polar_mix_first_grad(dY: torch.Tensor, Pt: torch.Tensor) -> torch.Tensor:
+    """K13, the mix-first transpose: dY (B, P, C, M, 2), Pt (P, BL, K, M, 2)
+    -> dU (B, P, BL, C, K, M, 2); plain version on the CPU."""
+    if kernels.takes_plain("disco_polar_grad", dY, Pt):
+        return polar_mix_first_grad_plain(dY, Pt)
+    B, P, C, M, _ = dY.shape
+    BL, K = Pt.shape[1], Pt.shape[2]
+    return _polar_grad_launch(3, dY, Pt, BL, C, (B, P, BL, C, K, M, 2))
+
+
+class PolarPsiFirst(torch.autograd.Function):
+    """K6 psi-first (forward) and K13 (backward, with respect to X; the
+    table is a constant)."""
+
+    @staticmethod
+    def forward(ctx, X, Pt):
+        ctx.save_for_backward(Pt)
+        return polar_psi_first(X, Pt)
+
+    @staticmethod
+    def backward(ctx, dY):
+        (Pt,) = ctx.saved_tensors
+        return polar_psi_first_grad(dY.contiguous(), Pt), None
+
+
+class PolarMixFirst(torch.autograd.Function):
+    """K6 mix-first (forward) and K13 (backward, with respect to U)."""
+
+    @staticmethod
+    def forward(ctx, U, Pt):
+        ctx.save_for_backward(Pt)
+        return polar_mix_first(U, Pt)
+
+    @staticmethod
+    def backward(ctx, dY):
+        (Pt,) = ctx.saved_tensors
+        return polar_mix_first_grad(dY.contiguous(), Pt), None
+
+
 # K8's tiles (csrc/disco_mix.cu BN, BK): the weight planes are padded to them
 _MIX_COLS, _MIX_DEPTH = 136, 32
 
@@ -273,3 +498,29 @@ def channel_mix(t2: torch.Tensor, w2: torch.Tensor, cache: MixPlanes | None = No
     kernels.check_launch(err, "disco_mix")
     kernels.count_launch("disco_mix")
     return out
+
+
+class ChannelMix(torch.autograd.Function):
+    """K8 (forward) with its backward, two cuBLAS GEMMs in full fp32:
+    ``dt = dy . w2``, written with rows of ``t2``'s pixel stride (the
+    responses' padded layout, which K12 reads in place; the pad columns of
+    the product are the zero columns of the padded w2), and
+    ``dw2 = dy^T . t2``. ``cache`` keeps w2's K8 planes between calls."""
+
+    @staticmethod
+    def forward(ctx, t2, w2, cache):
+        ctx.save_for_backward(t2, w2)
+        return channel_mix(t2, w2, cache)
+
+    @staticmethod
+    def backward(ctx, dy):
+        t2, w2 = ctx.saved_tensors
+        dt = dw = None
+        with fp32_exact():
+            if ctx.needs_input_grad[0]:
+                R, D = t2.shape
+                ld = t2.stride(0) if R > 1 and t2.stride(0) >= D else D
+                dt = torch.matmul(dy, F.pad(w2, (0, ld - D)))[:, :D]
+            if ctx.needs_input_grad[1]:
+                dw = torch.matmul(dy.t(), t2)
+        return dt, dw, None

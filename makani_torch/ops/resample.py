@@ -16,6 +16,14 @@ field never reaches device memory. The wrapper picks the tile width from the spa
 give (``column_span``, computed once per table tensor). The matmul and
 ``auto`` methods serve the spatially sharded mesh and arrive with the
 spatial-parallel slice.
+
+Training: ``ResampleS2.resample_cl`` is differentiable. With the kernels it
+is an autograd function whose backward is kernel K14 (CUDA,
+``csrc/resample_grad.cu``), the transpose of K7 as a gather over the
+inverted tables (``inverse_tables``): for each input row the output rows
+that read it, for each input column the output columns, with their
+weights. Its plain version ``resample_cl_grad_plain`` is the two lerps'
+scatter-adds, as autograd derives them.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import torch
 from makani_torch import kernels
 from makani_torch.ops.quadrature import precompute_latitudes
 
-__all__ = ["ResampleS2", "make_resample", "resample_cl", "resample_cl_plain", "column_span"]
+__all__ = ["ResampleS2", "make_resample", "resample_cl", "resample_cl_plain", "resample_cl_grad", "resample_cl_grad_plain", "inverse_tables", "column_span"]
 
 
 def resample_cl_plain(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
@@ -39,6 +47,88 @@ def resample_cl_plain(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
     y0 = y[:, :, lon_idx0]
     y1 = y[:, :, lon_idx1]
     return y0 + (y1 - y0) * lon_w.to(x.dtype)[None, None, :, None]
+
+
+def resample_cl_grad_plain(dy, in_shape, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
+    """Plain K14: the transpose of ``resample_cl_plain``, dy (B, Hout, Wout,
+    C) -> dx (B, Hin, Win, C), the lerps' scatter-adds in reverse order (the
+    longitude lerp, then the latitude lerp)."""
+    B, Hout, Wout, C = dy.shape
+    Hin, Win = in_shape
+    v = lon_w.to(dy.dtype)[None, None, :, None]
+    dyl = dy.new_zeros(B, Hout, Win, C)
+    dyl.index_add_(2, lon_idx0, dy - dy * v)
+    dyl.index_add_(2, lon_idx1, dy * v)
+    u = lat_w.to(dy.dtype)[None, :, None, None]
+    dx = dy.new_zeros(B, Hin, Win, C)
+    dx.index_add_(1, lat_idx, dyl - dyl * u)
+    dx.index_add_(1, lat_idx + 1, dyl * u)
+    return dx
+
+
+def inverse_tables(lat_idx, lat_w, lon_idx0, lon_idx1, lon_w, nlat_in: int, nlon_in: int):
+    """K14's tables from the forward's, on the host: (row_ptr (Hin + 1,),
+    row_idx, row_w, col_ptr (Win + 1,), col_idx, col_w), for each input row
+    the output rows that read it with their latitude weights (1 - lat_w for
+    the row below, lat_w above), for each input column the output columns
+    with their longitude weights; int32 lists and float32 weights, output
+    index ascending."""
+
+    def csr(idx0, idx1, w, n):
+        w = np.asarray(w, np.float32)
+        dst = np.concatenate([np.asarray(idx0, np.int64), np.asarray(idx1, np.int64)])
+        src = np.concatenate([np.arange(len(w)), np.arange(len(w))])
+        wt = np.concatenate([np.float32(1.0) - w, w])
+        order = np.lexsort((src, dst))
+        ptr = np.zeros(n + 1, np.int64)
+        np.add.at(ptr, dst + 1, 1)
+        return np.cumsum(ptr).astype(np.int32), src[order].astype(np.int32), wt[order].astype(np.float32)
+
+    lat_idx = np.asarray(lat_idx, np.int64)
+    return (*csr(lat_idx, lat_idx + 1, lat_w, nlat_in), *csr(lon_idx0, lon_idx1, lon_w, nlon_in))
+
+
+def resample_cl_grad(dy, inverse, in_shape, tables):
+    """K14 on the card, the plain version on the CPU: dy (B, Hout, Wout, C)
+    float32 -> dx (B, Hin, Win, C) contiguous. ``inverse``: the
+    ``inverse_tables`` as tensors on dy's device; ``tables``: the forward's
+    (for the plain version)."""
+    if kernels.takes_plain("resample_grad", dy, *inverse):
+        li, lw, k0, k1, v = tables
+        return resample_cl_grad_plain(dy, in_shape, li.long(), lw, k0.long(), k1.long(), v)
+    if dy.dim() != 4 or dy.dtype != torch.float32:
+        raise TypeError(f"resample_grad: expected a float32 (B, H, W, C) gradient, got {dy.dtype} {tuple(dy.shape)}")
+    for t, dt in zip(inverse, (torch.int32, torch.int32, torch.float32) * 2):
+        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"resample_grad: the inverse tables must be contiguous 1-D int32 lists and float32 weights, got {t.dtype} {tuple(t.shape)}")
+    Hin, Win = in_shape
+    if inverse[0].numel() != Hin + 1 or inverse[3].numel() != Win + 1:
+        raise ValueError(f"resample_grad: inverse tables for {(inverse[0].numel() - 1, inverse[3].numel() - 1)} input rows and columns, expected {in_shape}")
+    dy = dy.contiguous()
+    B, Hout, Wout, C = dy.shape
+    dx = torch.empty(B, Hin, Win, C, dtype=torch.float32, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    lib = kernels.library()
+    with torch.cuda.device(dy.device):
+        err = lib.mt_resample_grad(dy.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in inverse), B, Hin, Win, Hout, Wout, C, kernels.stream_ptr(dy.device))
+    kernels.check_launch(err, "resample_grad")
+    kernels.count_launch("resample_grad")
+    return dx
+
+
+class _Resample(torch.autograd.Function):
+    """K7 (forward) and K14 (backward) of one ``ResampleS2``."""
+
+    @staticmethod
+    def forward(ctx, x, rs):
+        ctx.rs = rs
+        return resample_cl(x, *rs.tables(x.device))
+
+    @staticmethod
+    def backward(ctx, dy):
+        rs = ctx.rs
+        return resample_cl_grad(dy, rs.inverse_tables(dy.device), rs.in_shape, rs.tables(dy.device)), None
 
 
 def column_span(lon_idx0: np.ndarray, lon_idx1: np.ndarray, nlon_in: int, tw: int) -> int:
@@ -155,12 +245,22 @@ class ResampleS2:
             )
         return self._tables[device]
 
+    def inverse_tables(self, device):
+        """K14's ``inverse_tables`` as tensors on ``device``."""
+        device = torch.device(device)
+        key = ("inverse", device)
+        if key not in self._tables:
+            inv = inverse_tables(self.lat_idx, self.lat_w, self.lon_idx0, self.lon_idx1, self.lon_w, *self.in_shape)
+            self._tables[key] = tuple(torch.from_numpy(a).to(device) for a in inv)
+        return self._tables[key]
+
     def resample_cl(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
-        """Channels-last (B, Hin, Win, C) -> (B, Hout, Wout, C)."""
-        tabs = self.tables(x.device)
+        """Channels-last (B, Hin, Win, C) -> (B, Hout, Wout, C); with the
+        kernels an autograd function (K7, K14), else plain PyTorch ops that
+        autograd differentiates."""
         if use_kernels:
-            return resample_cl(x, *tabs)
-        li, lw, k0, k1, v = tabs
+            return _Resample.apply(x, self)
+        li, lw, k0, k1, v = self.tables(x.device)
         return resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

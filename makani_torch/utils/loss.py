@@ -6,7 +6,10 @@ the multistep lead-time weights and the ``tendency`` option, and reduces to a
 scalar: ``mean_b sum_c w_c * loss[b, c]``.
 
 Ported: the geometric Lp entries of the registry (``l1``, ``l2``,
-``geometric l2``, ``relative l2``, ``squared l2``). Every other loss type,
+``geometric l2``, ``relative l2``, ``squared l2``) and the ensemble CRPS
+(``crps``, ``ensemble_crps``: ``CRPSLoss``, skillspread). Ensemble
+predictions (B, E, C, H, W) score as in the JAX package: the probabilistic
+losses see the members, the deterministic ones their mean. Every other loss type,
 the running-statistics weightings (``uncertainty_weighting``,
 ``balanced_weighting``), ``temp_diff_normalization`` and the random options
 (``random_slice_loss``, ``randomized_loss_weights``) raise
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from makani_torch.utils.dataloaders.data_helpers import get_out_normalization, out_channel_names
-from makani_torch.utils.losses.base_loss import compute_channel_weighting
+from makani_torch.utils.losses.base_loss import LossType, compute_channel_weighting
+from makani_torch.utils.losses.crps_loss import CRPSLoss
 from makani_torch.utils.losses.lp_loss import GeometricLpLoss
 
 __all__ = ["LossHandler", "LOSS_REGISTRY"]
@@ -30,6 +34,8 @@ LOSS_REGISTRY = {
     "geometric l2": lambda **kw: GeometricLpLoss(p=2.0, **kw),
     "relative l2": lambda **kw: GeometricLpLoss(p=2.0, relative=True, **kw),
     "squared l2": lambda **kw: GeometricLpLoss(p=2.0, squared=True, **kw),
+    "crps": lambda **kw: CRPSLoss(**kw),
+    "ensemble_crps": lambda **kw: CRPSLoss(**kw),
 }
 
 _UNPORTED_OPTIONS = ("uncertainty_weighting", "balanced_weighting", "random_slice_loss", "randomized_loss_weights")
@@ -125,21 +131,27 @@ class LossHandler:
         return self._tensors[key]
 
     def __call__(self, prd: torch.Tensor, tar: torch.Tensor, wgt=None, inp=None, train: bool = True) -> torch.Tensor:
-        """prd, tar: (B, (n_future+1)*C, H, W); ``inp`` (B, (n_history+1)*C,
-        H, W) for the tendency losses. Returns the scalar loss."""
-        if prd.dim() == 5:
-            raise NotImplementedError("ensemble predictions (probabilistic losses) are not ported yet")
+        """prd: (B, (n_future+1)*C, H, W), or (B, E, (n_future+1)*C, H, W)
+        for an ensemble; tar: (B, (n_future+1)*C, H, W); ``inp`` (B,
+        (n_history+1)*C, H, W) for the tendency losses. Returns the scalar
+        loss."""
+        # the deterministic losses score the ensemble mean
+        prdm = prd.mean(dim=1) if prd.dim() == 5 else prd
         if inp is not None and any(self.loss_requires_input):
             # tendency space: subtract the most recent input state
             n_per_step = tar.shape[1] // (self.n_future + 1)
             inp_rep = inp[:, -n_per_step:].repeat(1, tar.shape[1] // n_per_step, 1, 1)
-            prd_t, tar_t = prd - inp_rep, tar - inp_rep
+            prdm_t, tar_t = prdm - inp_rep, tar - inp_rep
+            prd_t = prd - inp_rep[:, None] if prd.dim() == 5 else prdm_t
         else:
-            prd_t, tar_t = prd, tar
+            prdm_t, tar_t, prd_t = prdm, tar, prd
 
         vals = []
         for fn, req in zip(self.loss_fns, self.loss_requires_input):
-            vals.append(fn(prd_t if req else prd, tar_t if req else tar, wgt))
+            if fn.type == LossType.Deterministic:
+                vals.append(fn(prdm_t if req else prdm, tar_t if req else tar, wgt))
+            else:
+                vals.append(fn(prd_t if req else prd, tar_t if req else tar, wgt))
         all_losses = torch.cat(vals, dim=-1)
 
         chw = self._const("channel_weights", self.channel_weights, all_losses)

@@ -4,6 +4,7 @@
     python3 profile_step.py fcn3      # the FCN3 ensemble step (E=2), kernel path
     python3 profile_step.py sfno      # the SFNO flagship step (B=1)
     python3 profile_step.py train     # the SFNO training step of bench.py (B=3)
+    python3 profile_step.py fcn3-train  # the FCN3 ensemble-CRPS training step (B=1, E=4)
     python3 profile_step.py fcn3 --plain --out DIR
     python3 profile_step.py --trace build/profile/profile_fcn3_kernel.json
 
@@ -40,6 +41,10 @@ def group(name: str) -> str:
         ("dhconv_grad_weight", "K9 dhconv weight gradient (CUDA)"),
         ("instance_norm_grad", "K10 instance-norm backward (CUDA)"),
         ("factored_", "K11 factored Adam (CUDA)"),
+        ("disco_band_grad", "K12 disco_band transpose (CUDA)"),
+        ("first_grad", "K13 disco_polar transposes (CUDA)"),
+        ("resample_grad", "K14 resample transpose (CUDA)"),
+        ("crps_", "K15 CRPS forward and backward (CUDA)"),
         ("disco_band", "K5 disco_band (CUDA)"),
         ("disco_mix", "K8 disco_mix (CUDA, wgmma)"),
         ("psi_first", "K6 disco_polar psi-first (CUDA)"),
@@ -92,7 +97,7 @@ def copy_sources(trace_path: str, top: int = 10):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("model", choices=["fcn3", "sfno", "train"], nargs="?")
+    ap.add_argument("model", choices=["fcn3", "sfno", "train", "fcn3-train"], nargs="?")
     ap.add_argument("--plain", action="store_true", help="profile the plain PyTorch path instead of the kernels")
     ap.add_argument("--out", default="build/profile", help="directory for the Chrome trace")
     ap.add_argument("--trace", help="only attribute the copies of an existing trace")
@@ -101,7 +106,7 @@ def main() -> int:
         copy_sources(args.trace)
         return 0
     if args.model is None:
-        ap.error("name a model (fcn3, sfno or train) or pass --trace")
+        ap.error("name a model (fcn3, sfno, train or fcn3-train) or pass --trace")
     if not torch.cuda.is_available():
         print("profile_step: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -134,6 +139,18 @@ def main() -> int:
 
         def step():
             return train_step(model, loss_obj, opt, inp, tar, zen)
+
+    elif args.model == "fcn3-train":
+        from makani_torch.utils.training.ensemble_trainer import ensemble_train_step
+        from makani_torch.utils.training.optimizer import get_optimizer
+
+        params, model, loss_obj = cs.build_fcn3_train(dev)
+        opt = get_optimizer(params, model)
+        opt.use_kernels = loss_obj.loss_fns[0].use_kernels = not args.plain
+        inp, tar, unp = cs.fcn3_train_batch(dev, params)
+
+        def step():
+            return ensemble_train_step(model, loss_obj, opt, inp, tar, unp, cs.FCN3_TRAIN_ENSEMBLE)
 
     else:
         params, model, wrapper, x0 = cs.build_sfno(dev)

@@ -25,7 +25,7 @@ from makani_torch.models.common.layer_norm import instance_norm_cl, instance_nor
 from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
 from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
 from makani_torch.ops import disco_kernels, resample, sht
-from makani_torch.ops.disco import DiscoConvS2
+from makani_torch.ops.disco import DiscoConvS2, FusedFilterCache
 from makani_torch.ops.resample import ResampleS2
 from makani_torch.ops.sht import (
     InverseRealSHT,
@@ -575,4 +575,192 @@ def test_small_sfno_train_step_kernel_path_matches_plain(cuda):
         assert abs(lk - lp) <= 1e-5 * abs(lp), (step, lk, lp)
     torch.cuda.synchronize()
     for name in ("sht_analysis_grad", "dhconv_grad_input", "dhconv_grad_weight", "instance_norm_grad", "adam_factored"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# The FCN3 training step's kernels: K12 (K5's transpose), K13 (K6's
+# transposes), K14 (K7's transpose), K15 (the CRPS)
+
+
+def _band_grad_both(conv, dout, F_, C, Gf, IG, OG, dev):
+    """K12 and its plain version over every phase (the first written, the
+    rest added), from the same dout."""
+    Wout = conv.out_shape[1]
+    outs = []
+    for route in (disco_kernels.band_contract_grad, disco_kernels.band_contract_grad_plain):
+        dx = torch.full((dout.shape[0], *conv.in_shape, C), float("nan"), device=dev)
+        for p in range(conv.phases):
+            kw = dict(a=conv.stride, off=int(conv.bases[p]) - conv.halo, n_out=Wout // conv.phases, phase=p, phases=conv.phases, Gf=Gf, IG=IG, OG=OG,
+                      accumulate=p > 0)
+            if route is disco_kernels.band_contract_grad:
+                kw.update(taps=conv.tap_table(p, dev), rows=conv.grad_rows(p, dev))
+            route(dout, F_(p), conv.band_start_table(dev), dx, **kw)
+        outs.append(dx)
+    return outs
+
+
+@pytest.mark.parametrize("C", [37, 130])
+@pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
+def test_disco_band_grad_kernel_matches_plain(cuda, in_shape, out_shape, C):
+    """K12 in responses mode, reading the padded responses layout in place
+    (the pad holds NaN, which must never be read), stride 2, one phase and
+    three phases."""
+    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    CK = C * conv.K
+    buf = _randn((2, *out_shape, -(-CK // 4) * 4), torch.float32, cuda)
+    buf[..., CK:] = float("nan")
+    kernels.reset_launch_counts()
+    dx, ref = _band_grad_both(conv, buf[..., :CK], lambda p: conv.band_filter(p, cuda), C, 1, 1, conv.K, cuda)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["disco_band_grad"] == conv.phases
+    assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
+
+
+@pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
+@pytest.mark.parametrize("g,og,ig,R", [(3, 2, 4, 1), (5, 1, 9, 3), (5, 9, 1, 2), (8, 7, 1, 1), (9, 4, 1, 1)])
+def test_disco_band_grad_fused_kernel_matches_plain(cuda, in_shape, out_shape, g, og, ig, R):
+    """K12 in fused mode (the decoders' og 1 and ig 9 over R stacked inputs,
+    the encoders' og 9, 7 and 4) against its plain version."""
+    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    w = 0.2 * _randn((g, og, ig, conv.K), torch.float32, cuda, seed=1)
+    cache = FusedFilterCache()
+    dout = _randn((2, *out_shape, R * g * og), torch.float32, cuda)
+    dx, ref = _band_grad_both(conv, dout, lambda p: cache.get(conv, w, p), R * g * ig, g, ig, og, cuda)
+    torch.cuda.synchronize()
+    assert _agree(dx, ref, torch.float32)
+
+
+@pytest.mark.parametrize("K", [9, 7])
+@pytest.mark.parametrize("order", ["psi_first", "mix_first"])
+def test_disco_polar_grad_kernels_match_plain(cuda, order, K):
+    """K13 against its plain version at odd widths (C 37 and 70, M 25 and
+    361), K 9 (one pass) and 7 (the generic loop)."""
+    Pt = _randn((5, 7, K, 25, 2), torch.float32, cuda, seed=1)
+    if order == "psi_first":
+        dY = _randn((2, 5, 37, K, 25, 2), torch.float32, cuda)
+        kern, plain = disco_kernels.polar_psi_first_grad, disco_kernels.polar_psi_first_grad_plain
+    else:
+        dY = _randn((2, 5, 70, 25, 2), torch.float32, cuda)
+        kern, plain = disco_kernels.polar_mix_first_grad, disco_kernels.polar_mix_first_grad_plain
+    kernels.reset_launch_counts()
+    out = kern(dY, Pt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["disco_polar_grad"] == 1
+    assert _agree(out, plain(dY, Pt), torch.float32)
+
+
+@pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
+def test_disco_autograd_kernel_path_matches_plain(cuda, in_shape, out_shape):
+    """The gradients of responses_cl (x) and fused_cl (x and the weight, in
+    both polar orders) through K5, K6, K12, K13 against autograd through the
+    plain forward."""
+    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    x0 = _randn((2, *in_shape, 37), torch.float32, cuda)
+    grads = []
+    for use in (True, False):
+        x = x0.clone().requires_grad_()
+        t, tp = conv.responses_cl(x, use)
+        ((t * t.detach().sin()).sum() + (tp * tp.detach().cos()).sum()).backward()
+        grads.append(x.grad)
+    assert _agree(*grads, torch.float32)
+    for g, og, ig in ((3, 2, 4), (2, 1, 8)):
+        x0 = _randn((2, *in_shape, 2 * g * ig), torch.float32, cuda, seed=2)
+        w0 = 0.2 * _randn((g, og, ig, conv.K), torch.float32, cuda, seed=3)
+        out = []
+        for use in (True, False):
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            y = conv.fused_cl(x, w, use)
+            (y * y.detach().sin()).sum().backward()
+            out.append((x.grad, w.grad))
+        assert _agree(out[0][0], out[1][0], torch.float32) and _agree(out[0][1], out[1][1], torch.float32)
+
+
+@pytest.mark.parametrize("C", [37, 585])
+@pytest.mark.parametrize("shapes", [((18, 36, "legendre-gauss"), (37, 72, "equiangular")), ((37, 72, "equiangular"), (18, 36, "legendre-gauss"))])
+def test_resample_grad_kernel_matches_plain(cuda, shapes, C):
+    """K14 up onto a grid with pole rows (lat_w clamped) and a wrap column,
+    and down (output rows that clamp at the poles), against the plain
+    scatter-adds; and through autograd of ResampleS2.resample_cl."""
+    (hi, wi, gi), (ho, wo, go) = shapes
+    rs = ResampleS2(hi, wi, ho, wo, grid_in=gi, grid_out=go)
+    dy = _randn((2, ho, wo, C), torch.float32, cuda)
+    kernels.reset_launch_counts()
+    dx = resample.resample_cl_grad(dy, rs.inverse_tables(cuda), rs.in_shape, rs.tables(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["resample_grad"] == 1
+    li, lw, k0, k1, v = rs.tables(cuda)
+    assert _agree(dx, resample.resample_cl_grad_plain(dy, rs.in_shape, li.long(), lw, k0.long(), k1.long(), v), torch.float32)
+    x = _randn((2, hi, wi, C + 4), torch.float32, cuda, seed=1)[..., 2 : C + 2].requires_grad_()
+    (rs.resample_cl(x) * dy).sum().backward()
+    ref = x.detach().clone().requires_grad_()
+    (rs.resample_cl(ref, use_kernels=False) * dy).sum().backward()
+    assert _agree(x.grad, ref.grad, torch.float32)
+
+
+@pytest.mark.parametrize("E", [1, 2, 4, 5, 16])
+def test_crps_kernel_matches_plain(cuda, E):
+    """K15's forward and backward against the plain versions, with tied
+    members and observations equal to a member: the backward's ranks break
+    ties by member index, so it equals the plain gradient to rounding."""
+    from makani_torch.utils.losses.crps_loss import crps_skillspread, crps_skillspread_fwd, crps_skillspread_grad, crps_skillspread_grad_plain, crps_skillspread_plain
+
+    f = _randn((2, E, 3 * 1000 + 7), torch.float32, cuda)
+    obs = _randn((2, f.shape[-1]), torch.float32, cuda, seed=1)
+    f[:, :, :100] = f[:, :1, :100]
+    if E > 1:
+        f[:, 1, 100:200] = f[:, 0, 100:200]
+    obs[:, 200:300] = f[:, E - 1, 200:300]
+    g = _randn(obs.shape, torch.float32, cuda, seed=2)
+    kernels.reset_launch_counts()
+    y, dF = crps_skillspread_fwd(f, obs, 0.95), crps_skillspread_grad(f, obs, g, 0.95)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["crps"] == 2
+    assert _agree(y, crps_skillspread_plain(f, obs, 0.95), torch.float32)
+    assert _agree(dF, crps_skillspread_grad_plain(f, obs, g, 0.95), torch.float32)
+    fk = f.clone().requires_grad_()
+    fp = f.clone().requires_grad_()
+    (crps_skillspread(fk, obs, 0.95) * g).sum().backward()
+    (crps_skillspread(fp, obs, 0.95, use_kernels=False) * g).sum().backward()
+    assert _agree(fk.grad, fp.grad, torch.float32)
+
+
+def test_small_fcn3_train_step_kernel_path_matches_plain(cuda):
+    """One fp32 ensemble-CRPS step of a small FCN3 (the shrunk configuration
+    of tests/test_torch_fcn3_train.py, on the card), kernels against the
+    plain path from the same weights: the gradients within 1e-4 of each
+    leaf's max|ref| where the two forecasts rank the members alike
+    (chip_smoke.crps_order_weight), and every training kernel launched."""
+    import copy
+
+    from chip_smoke import crps_order_weight, fcn3_train_config
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.training.ensemble_trainer import fold_ensemble
+    from makani_torch.utils.yparams import ParamsBase
+
+    names = ["u10m", "v10m", "t2m", "tcwv", "u500", "v500", "z500", "t500", "q500", "u850", "v850", "z850", "t850", "q850"]
+    cfg = fcn3_train_config(img_shape_x=33, img_shape_y=64, channel_names=names, atmo_embed_dim=24, surf_embed_dim=16, aux_embed_dim=8,
+                            num_layers=2, compute_dtype="float32", input_noise=dict(fcn3_train_config()["input_noise"], n_channels=2))
+    model, _ = get_model(ParamsBase(copy.deepcopy(cfg)), multistep=True, device=cuda, seed=1)
+    plain = copy.deepcopy(model)
+    kernels.set_use_kernels(plain, False)
+    loss_k, loss_p = LossHandler(ParamsBase(copy.deepcopy(cfg))), LossHandler(ParamsBase(copy.deepcopy(cfg)))
+    loss_p.loss_fns[0].use_kernels = False
+    E = cfg["ensemble_size"]
+    inp = _randn((1, len(names), 33, 64), torch.float32, cuda).repeat_interleave(E, dim=0)
+    tar = _randn((1, len(names), 33, 64), torch.float32, cuda, seed=1)
+    unp = _randn((E, 1, 3, 33, 64), torch.float32, cuda, seed=2)
+    with torch.no_grad():
+        wgt = crps_order_weight(fold_ensemble(model(inp, unp, train=True), E), fold_ensemble(plain(inp, unp, train=True), E), tar)
+    assert wgt.mean() > 0.999
+    kernels.reset_launch_counts()
+    grads = []
+    for m, lo in ((model, loss_k), (plain, loss_p)):
+        lo(fold_ensemble(m(inp, unp, train=True), E), tar, wgt=wgt, train=True).backward()
+        grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
+    torch.cuda.synchronize()
+    for n in grads[1]:
+        assert (grads[0][n] - grads[1][n]).abs().max() <= 1e-4 * grads[1][n].abs().max(), n
+    for name in ("disco_band_grad", "disco_polar_grad", "resample_grad", "crps", "disco_mix"):
         assert kernels.LAUNCHES[name] > 0, name

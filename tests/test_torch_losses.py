@@ -86,7 +86,7 @@ def test_loss_handler_matches_jax(over):
 @pytest.mark.parametrize(
     "over,name",
     [
-        (dict(losses=[{"type": "crps"}]), "crps"),
+        (dict(losses=[{"type": "crps", "parameters": {"crps_type": "cdf"}}]), "crps"),
         (dict(losses=[{"type": "spectral l2"}]), "spectral l2"),
         (dict(uncertainty_weighting=True), "uncertainty_weighting"),
         (dict(balanced_weighting=True), "balanced_weighting"),
