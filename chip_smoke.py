@@ -58,7 +58,8 @@ each fatal on failure:
 14. compare each backward kernel with its plain version at its shapes: the
     Legendre gradients (K2's kernels on the analysis tables, K1's on the
     synthesis tables) at 361<->120 and 120<->120, the dhconv's dx (K3 on
-    the conjugate-transposed weight) and dw (K9), the instance-norm
+    the conjugate-transposed weight) and dw (K9, fp32 and bf16, also with
+    its blocks in other orders), the instance-norm
     backward (K10, bf16 at both grids, fp32 once), and the factored Adam
     (K11) on the model's parameters with its gradients; time each beside
     its bound, its plain version and the library's call where one exists;
@@ -87,9 +88,11 @@ each fatal on failure:
     and in fused mode at the atmo decoder and at the stride-2 atmo encoder;
     K13 (K6's transposes) psi first at the processor and mix first at the
     atmo decoder; K14 (K7's transpose) at both decoders; K15 (the CRPS,
-    forward and backward) on the step's forecasts; time each beside its
-    bound, its plain version and the library's call where one exists; and
-    time K8's backward, two cuBLAS GEMMs;
+    forward and backward) on the step's forecasts; the dhconv's dx and dw
+    (K3 on the conjugate-transposed weight, K9) at the global blocks'
+    internal grid; time each beside its bound, its plain version and the
+    library's call where one exists; and time K8's backward, two cuBLAS
+    GEMMs;
 19. take one bf16 training step's forward, loss and gradients through the
     kernels and through the plain path (autograd through the plain forward
     and the plain CRPS) from the same weights and batch;
@@ -1081,11 +1084,64 @@ def loss_and_grads(model, loss_obj, inp, tar, zen):
     return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
+def k9_library(x: torch.Tensor, g: torch.Tensor):
+    """The one library call that computes K9's product, on operands laid out
+    for it outside the timing: for fp32 a complex ``torch.bmm`` of conj(x)^T
+    and g per (l, g); for bf16 (no complex bf16 GEMM) the real bf16
+    ``torch.bmm`` of x^T (re, im interleaved along the depth) with gy's
+    [[gr, gi], [gi, -gr]] blocks, the product K9 computes."""
+    B, L, M, G, Ci, _ = x.shape
+    Co = g.shape[4]
+    if x.dtype == torch.float32:
+        xl = torch.view_as_complex(x.permute(1, 3, 0, 2, 4, 5).reshape(L * G, B * M, Ci, 2).contiguous()).conj().transpose(1, 2).contiguous()
+        gl = torch.view_as_complex(g.permute(1, 3, 0, 2, 4, 5).reshape(L * G, B * M, Co, 2).contiguous())
+    else:
+        xl = x.permute(1, 3, 4, 0, 2, 5).reshape(L * G, Ci, 2 * B * M).contiguous()
+        gr, gi = g[..., 0], g[..., 1]
+        blocks = torch.stack([torch.stack([gr, gi], -1), torch.stack([gi, -gr], -1)], -3)  # (B, L, M, G, 2, Co, 2)
+        gl = blocks.permute(1, 3, 0, 2, 4, 5, 6).reshape(L * G, 2 * B * M, 2 * Co).contiguous()
+    return lambda: torch.bmm(xl, gl)
+
+
+def dhconv_grad_cases(B, L, M, w, gen, label, bf16=True):
+    """K3 on the conjugate-transposed weight (dx, fp32) and K9 (dw, fp32, and
+    bf16 if ``bf16``) on seeded x and g (B, L, M, 1, C, 2) with the layer's
+    weight w; K9's extras time the library's bmm."""
+    from makani_torch.models.common.contractions import dhconv_grad_input, dhconv_grad_input_plain, dhconv_grad_weight, dhconv_grad_weight_plain
+
+    dev = w.device
+    f32 = torch.float32
+    C = w.shape[1]
+    x = randn((B, L, M, 1, C, 2), f32, gen, dev)
+    g = randn((B, L, M, 1, C, 2), f32, gen, dev)
+    wct = torch.stack([w[..., 0], -w[..., 1]], dim=-1).transpose(1, 2).contiguous()
+    ex_dx = dhconv_extras(g, wct)
+
+    def dw_extras(x, g):
+        def extras(out):
+            torch.cuda.empty_cache()
+            lib = time_ms(k9_library(x, g), 5, 1)
+            torch.cuda.empty_cache()
+            return dict(bound(8.0 * B * L * M * C * C, nbytes(x, g, out), x.dtype), library_ms=lib,
+                        library_note=kernel_regs("dhconv_grad_weight_tc_kernel<" + ("float" if x.dtype == f32 else "__nv_bfloat16")))
+        return extras
+
+    cases = [
+        ("dhconv_grad_input", label, f32, lambda: dhconv_grad_input(g, w), lambda: dhconv_grad_input_plain(g, w),
+         lambda out: dict(ex_dx(out), library_note=kernel_regs("dhconv_kernel<float>"))),
+        ("dhconv_grad_weight", label, f32, lambda: dhconv_grad_weight(x, g), lambda: dhconv_grad_weight_plain(x, g), dw_extras(x, g)),
+    ]
+    if bf16:
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        cases.append(("dhconv_grad_weight", label, torch.bfloat16, lambda: dhconv_grad_weight(xb, gb),
+                      lambda: dhconv_grad_weight_plain(xb, gb).float(), dw_extras(xb, gb)))
+    return cases
+
+
 def check_train_kernels(dev, card, model, loss_obj, batch):
     """The backward kernels and K11 against their plain versions at the
     training step's shapes; returns {(name, label, dtype): result}."""
     from makani_torch.models.common import layer_norm
-    from makani_torch.models.common.contractions import dhconv_grad_input, dhconv_grad_input_plain, dhconv_grad_weight, dhconv_grad_weight_plain
     from makani_torch.ops import sht
     from makani_torch.utils.training.optimizer import AdamFactored
 
@@ -1112,28 +1168,11 @@ def check_train_kernels(dev, card, model, loss_obj, batch):
     del cases
     torch.cuda.empty_cache()
 
-    # dhconv: dx (K3 on the conjugate-transposed weight) and dw (K9)
+    # dhconv: dx (K3 on the conjugate-transposed weight) and dw (K9), and K9
+    # in bf16
     L, M = itrans.lmax, itrans.mmax
     w = net.block1.filter_layer.filter.weight.detach()
-    x = randn((B, L, M, 1, C, 2), f32, gen, dev)
-    g = randn((B, L, M, 1, C, 2), f32, gen, dev)
-    wct = torch.stack([w[..., 0], -w[..., 1]], dim=-1).transpose(1, 2).contiguous()
-    ex_dx = dhconv_extras(g, wct)
-    xl = torch.view_as_complex(x.permute(1, 3, 0, 2, 4, 5).reshape(L, B * M, C, 2).contiguous()).conj().transpose(1, 2).contiguous()
-    gl = torch.view_as_complex(g.permute(1, 3, 0, 2, 4, 5).reshape(L, B * M, C, 2).contiguous())
-
-    def dw_extras(out):
-        flops = 8.0 * B * L * M * C * C
-        lib = time_ms(lambda: torch.bmm(xl, gl), 5, 1)
-        return dict(bound(flops, nbytes(x, g, out), f32), library_ms=lib, library_note=kernel_regs("dhconv_grad_weight_kernel<float>"))
-
-    cases = [
-        ("dhconv_grad_input", "internal", f32, lambda: dhconv_grad_input(g, w), lambda: dhconv_grad_input_plain(g, w),
-         lambda out: dict(ex_dx(out), library_note=kernel_regs("dhconv_kernel<float>"))),
-        ("dhconv_grad_weight", "internal", f32, lambda: dhconv_grad_weight(x, g), lambda: dhconv_grad_weight_plain(x, g), dw_extras),
-    ]
-    run_cases(cases, card, res, 5, 1)
-    del cases, x, g, xl, gl, wct
+    run_cases(dhconv_grad_cases(B, L, M, w, gen, "internal"), card, res, 5, 1)
     torch.cuda.empty_cache()
 
     # K10: bf16 at both grids (the model's), fp32 once
@@ -1481,7 +1520,7 @@ def polar_grad_case(dY, Pt, mode, label):
         n_mac = out.numel() // 2 * (Pt.shape[2] if mode == "psi_first" else 1)
         Yc, Pc = torch.view_as_complex(dY), torch.view_as_complex(Pt)
         return dict(bound(8.0 * n_mac, nbytes(dY, Pt, out)), library_ms=time_ms(lambda: torch.einsum(eq, Yc, Pc), 3, 1),
-                    library_note="library: one complex einsum")
+                    library_note=f"library: one complex einsum; {kernel_regs(mode + '_grad_kernel')}")
 
     return ("disco_polar_grad", label, torch.float32, lambda: kern(dY, Pt), lambda: plain(dY, Pt), extras)
 
@@ -1585,12 +1624,13 @@ def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
     # does not launch it there)
     cache = FusedFilterCache()
     dout = randn((BE, H, W, R * g * og), torch.float32, gen, dev)
-    run_cases([band_grad_case(dop, dout, cache.get(dop, dec.conv.weight, 0), R * g * ig, g, ig, og, "atmo-decoder")], card, results, 3, 1)
+    run_cases([band_grad_case(dop, dout, cache.get(dop, dec.conv.weight, 0), R * g * ig, g, ig, og, "atmo-decoder", library=True)], card, results, 3, 1)
     del dout
     enc = net.atmo_encoder.conv
     eg, eog, eig, _ = enc.weight.shape
     dout = randn((BE, *enc.conv_op.out_shape, R * eg * eog), torch.float32, gen, dev)
-    run_cases([band_grad_case(enc.conv_op, dout, FusedFilterCache().get(enc.conv_op, enc.weight, 0), R * eg * eig, eg, eig, eog, "atmo-encoder")], card, results, 3, 1)
+    run_cases([band_grad_case(enc.conv_op, dout, FusedFilterCache().get(enc.conv_op, enc.weight, 0), R * eg * eig, eg, eig, eog, "atmo-encoder",
+                              library=True)], card, results, 3, 1)
     del dout
     torch.cuda.empty_cache()
     # K14 at both decoders
@@ -1605,6 +1645,11 @@ def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
         pred = model(inp, unp, train=True).reshape(FCN3_TRAIN_BATCH, FCN3_TRAIN_ENSEMBLE, *tar.shape[1:])
     run_cases(crps_cases(pred, tar), card, results, 5, 1)
     del pred
+    torch.cuda.empty_cache()
+    # K9 and K3's dx at the global blocks' internal grid (2 launches a step each)
+    spec = net.block0.global_conv
+    fwd = spec.forward_transform
+    run_cases(dhconv_grad_cases(BE, fwd.lmax, fwd.mmax, spec.weight.detach(), gen, "fcn3-internal", bf16=False), card, results, 3, 1)
     torch.cuda.empty_cache()
     mix_grad_times(conv, BE, card)
     return results

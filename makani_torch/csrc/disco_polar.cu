@@ -40,14 +40,22 @@
 // complex products on the (re, im) views without the forward's conjugate (a
 // conjugate there would leave the real parts right and flip the sign of the
 // imaginary ones). The psi-first transpose reads the K values of dY of its
-// (channel, mode) once into registers and writes BL values of dX; the
-// mix-first one reads one dY and writes BL*K values of dU. Both are bound by
-// memory bandwidth like the forward: at the FCN3 processor the psi-first
-// transpose reads 2.32 GB and writes 2.32 GB; at the atmo decoder the
-// mix-first one reads 0.1 GB and writes 8.2 GB (B 4, P 50, BL 5, C 65, K 9,
-// M 721).
+// (channel, mode) once into registers and writes BL values of dX, on the
+// forward's grid. Both are bound by memory bandwidth like the forward: at
+// the FCN3 processor the psi-first transpose reads 2.32 GB and writes 2.32
+// GB. The mix-first one reads one dY and writes BL*K values of dU: at the
+// FCN3 training step's atmo decoder (B 4, P 58, BL 5, C 65, K 9, M 361) it
+// reads 54 MB and writes 1.96 GB, so only the writes count, and the
+// forward's grid fits them badly: its 64-channel tile would leave half the
+// blocks one channel of C = 65, each block staging Psi's tile behind a
+// barrier before its first store, and 361 modes fill a last 32-lane tile to
+// 9/32. So it is a stream over dU's flat layout (below): blocks of equal
+// spans, 16-byte streaming stores in runs of 512 bytes a warp, any K and M.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -199,30 +207,79 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// dU = dY Psi for every (j, k)
-__global__ void __launch_bounds__(THREADS)
-    mix_first_grad_kernel(const float2* __restrict__ dY, const float2* __restrict__ Pt, float2* __restrict__ dU, int P, int BL, int C, int K, int M) {
-  extern __shared__ float2 ps[];
-  const int c_lo = blockIdx.y * CB, c_hi = min(C, c_lo + CB);
-  const int bp = blockIdx.z, p = bp % P;
-  const int m0 = blockIdx.x * MB;
-  const int lane = threadIdx.x % MB, row = threadIdx.x / MB;
-  const int m = m0 + lane;
-  stage_psi(ps, Pt, p, BL, K, M, 0, K, m0);
-  __syncthreads();
-  if (m >= M) return;
+// dU = dY Psi for every (j, k), as a stream over dU's flat layout: block b
+// writes the elements [b per_block, (b + 1) per_block), each thread two
+// neighbouring ones a step (one 16-byte streaming store; a warp writes 512
+// contiguous bytes), its (bp, j, c, k, m) carried from step to step. The
+// channel tile, the mode tile and the staged Psi tile of the other modes
+// are gone: Psi (p, j) and dY's channel rows are read through L1 and L2.
+// A thread takes up to 16 steps (against 64 and 256 the fastest on an H100
+// at the FCN3 training step's atmo decoder: sweep_k9_k13.py, PERF.md),
+// fewer where the grid would not fill the card twice over (STREAM_SLOTS
+// resident blocks of 256 threads).
+constexpr int STREAM_THREADS = 256;
+constexpr int STREAM_STEPS = 16;
+constexpr long long STREAM_SLOTS = 2 * 132 * 8;
 
-  const long long j_stride = (long long)C * K * M;
-  for (int c = c_lo + row; c < c_hi; c += ROWS) {
-    const float2 v = dY[((long long)bp * C + c) * M + m];
-    float2* u = dU + ((long long)bp * BL * C + c) * K * M + m;
-    for (int j = 0; j < BL; ++j) {
-      const float2* q = ps + j * K * MB + lane;
-      for (int k = 0; k < K; ++k) {
-        float re = 0.f, im = 0.f;
-        cmac(re, im, v, q[k * MB]);
-        u[j * j_stride + (long long)k * M] = make_float2(re, im);
+// a position in dU (B P, BL, C, K, M) and Psi's p = bp % P
+struct Pos {
+  int m, k, c, j, p;
+  long long bp;
+  // the next (bp, j, c, k) row; m is the caller's
+  __device__ __forceinline__ void next_row(int P, int BL, int C, int K) {
+    if (++k < K) return;
+    k = 0;
+    if (++c < C) return;
+    c = 0;
+    if (++j < BL) return;
+    j = 0;
+    ++bp;
+    if (++p == P) p = 0;
+  }
+  __device__ __forceinline__ float2 value(const float2* __restrict__ dY, const float2* __restrict__ Pt, int P, int BL, int C, int K, int M) const {
+    const float2 v = __ldg(dY + (bp * C + c) * M + m);
+    const float2 q = __ldg(Pt + (((long long)p * BL + j) * K + k) * M + m);
+    float re = 0.f, im = 0.f;
+    cmac(re, im, v, q);
+    return make_float2(re, im);
+  }
+};
+
+__global__ void __launch_bounds__(STREAM_THREADS)
+    mix_first_grad_kernel(const float2* __restrict__ dY, const float2* __restrict__ Pt, float2* __restrict__ dU, int P, int BL, int C, int K, int M,
+                          long long total, long long per_block) {
+  const long long e0 = blockIdx.x * per_block;
+  const long long e1 = min(total, e0 + per_block);
+  long long e = e0 + 2 * threadIdx.x;
+  if (e >= e1) return;
+  Pos at;
+  long long r = e / M;
+  at.m = (int)(e - r * M);
+  at.k = (int)(r % K);
+  r /= K;
+  at.c = (int)(r % C);
+  r /= C;
+  at.j = (int)(r % BL);
+  at.bp = r / BL;
+  at.p = (int)(at.bp % P);
+  constexpr int STEP = 2 * STREAM_THREADS;
+  for (; e < e1; e += STEP) {
+    const float2 a = at.value(dY, Pt, P, BL, C, K, M);
+    if (e + 1 < e1) {
+      Pos nx = at;
+      if (++nx.m == M) {
+        nx.m = 0;
+        nx.next_row(P, BL, C, K);
       }
+      const float2 b = nx.value(dY, Pt, P, BL, C, K, M);
+      __stcs(reinterpret_cast<float4*>(dU + e), make_float4(a.x, a.y, b.x, b.y));
+    } else {
+      __stcs(dU + e, a);
+    }
+    at.m += STEP;
+    while (at.m >= M) {
+      at.m -= M;
+      at.next_row(P, BL, C, K);
     }
   }
 }
@@ -264,6 +321,15 @@ extern "C" int mt_disco_polar(int mode, const void* src, const void* Pt, void* Y
     if (K == 9) return launch(psi_first_grad_kernel<9>, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
     return launch(psi_first_grad_kernel<0>, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
   }
-  if (mode == 3) return launch(mix_first_grad_kernel, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
+  if (mode == 3) {
+    if (reinterpret_cast<uintptr_t>(Y) % 16) return (int)cudaErrorMisalignedAddress;
+    const long long total = (long long)B * P * BL * C * K * M;
+    const long long steps = std::min<long long>(STREAM_STEPS, std::max<long long>(1, total / (2 * STREAM_THREADS * STREAM_SLOTS)));
+    const long long per_block = 2 * STREAM_THREADS * steps;
+    const long long blocks = (total + per_block - 1) / per_block;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    mix_first_grad_kernel<<<(unsigned)blocks, STREAM_THREADS, 0, s>>>(s_, p_, y_, P, BL, C, K, M, total, per_block);
+    return (int)cudaGetLastError();
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (K1 in sht_legendre.cu, K3 in dhconv.cu) and the cp.async staging of K5:
-// asynchronous copies into shared memory, the TF32 split of 3xTF32, and the
-// wgmma fences and shared-memory matrix descriptors.
+// (K1 in sht_legendre.cu, K3 in dhconv.cu, K9 in dhconv_grad.cu) and the
+// cp.async staging of K5: asynchronous and bulk copies into shared memory,
+// mbarriers, the TF32 split of 3xTF32, and the wgmma fences and
+// shared-memory matrix descriptors.
 #pragma once
 
 #include <stdint.h>
@@ -30,6 +31,35 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // waits until at most N of this thread's committed groups are in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Bulk copies (the TMA without a tensor map): BYTES (a multiple of 16)
+// from a 16-byte aligned global address to a 16-byte aligned shared one,
+// completed on an mbarrier that expects the bytes
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+// makes the barriers' initialization visible to the copy engine
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// waits until the barrier's phase of the given parity has completed; traps
+// (a launch error, not a hung card) if it has not after ~2^30 polls
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 30)) __trap();
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"(smem_addr(bar)), "r"(parity)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+               "r"(smem_addr(bar))
+               : "memory");
+}
 
 // fp32 -> TF32 (round to nearest, ties away), as the 32-bit pattern wgmma reads
 __device__ __forceinline__ uint32_t tf32(float v) {

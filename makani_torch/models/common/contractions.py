@@ -177,6 +177,9 @@ def dhconv_grad_weight(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     out = torch.empty(G, Ci, Co, L, 2, dtype=torch.float32, device=x2.device)
     if out.numel() == 0:
         return out
+    # K9 copies each row from its 16-byte aligned start: a view at an odd
+    # offset goes in as an aligned copy
+    x2, g2 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x2, g2))
     lib = kernels.library()
     with torch.cuda.device(x2.device):
         err = lib.mt_dhconv_grad_weight(

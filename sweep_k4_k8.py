@@ -11,7 +11,8 @@ NVIDIA GPU:
 - K8 (``csrc/disco_mix.cu``): the kernel as built, and the same source with
   the weight tiles in the unswizzled core-matrix layout K1 and K3 use, and
   with a three-stage ring, compiled here from patched copies of the source
-  (``build/sweep_k4_k8/``), held to cuBLAS and timed in turns at FCN3's
+  (``build/sweep_k4_k8/``, ``patched_libraries``, which ``sweep_k9_k13.py``
+  shares), held to cuBLAS and timed in turns at FCN3's
   processor shape, 518400 x 6093 x 677.
 
 Each line names the card and its power limit.
@@ -66,33 +67,46 @@ def k4_groups(card: str, dev: torch.device):
         torch.cuda.empty_cache()
 
 
-def k8_library(name: str, patches) -> ctypes.CDLL:
+def patched_libraries(source: str, variants: dict[str, list[tuple[str, str]]], out: str) -> dict[str, ctypes.CDLL]:
+    """One shared library a patched copy of ``makani_torch/csrc/<source>``
+    (``variants``: name -> [(the text as built, its replacement)]), built in
+    ``build/<out>/`` by one nvcc a variant, all started together; prints each
+    one's registers and spills. Raises if a patch's text is not in the
+    source or nvcc fails."""
     from makani_torch import kernels
 
-    src = (REPO / "makani_torch" / "csrc" / "disco_mix.cu").read_text()
-    for old, new in patches:
-        if old not in src:
-            raise RuntimeError(f"K8 variant {name}: {old!r} is not in disco_mix.cu")
-        src = src.replace(old, new)
-    out = REPO / "build" / "sweep_k4_k8"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{name}.cu").write_text(src)
-    so = out / f"{name}.so"
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(REPO / "makani_torch" / "csrc"), "-o", str(so), str(out / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"K8 variant {name}: nvcc failed\n{res.stderr[-3000:]}")
-    regs = [line.split(":", 1)[-1].strip() for line in res.stdout.splitlines() + res.stderr.splitlines() if "registers" in line or "spill" in line]
-    print(f"K8 variant {name}: {'; '.join(regs[-2:])}", flush=True)
-    lib = ctypes.CDLL(str(so))
-    lib.mt_disco_mix.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    return lib
+    csrc = REPO / "makani_torch" / "csrc"
+    text = (csrc / source).read_text()
+    dest = REPO / "build" / out
+    dest.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for k, (name, patches) in enumerate(variants.items()):
+        src = text
+        for old, new in patches:
+            if old not in src:
+                raise RuntimeError(f"{source} variant {name}: {old!r} is not in the source")
+            src = src.replace(old, new)
+        cu, so = dest / f"{Path(source).stem}_{k}.cu", dest / f"{Path(source).stem}_{k}.so"
+        cu.write_text(src)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(csrc), "-o", str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{source} variant {name}: nvcc failed\n{stderr[-3000:]}")
+        regs = [line.split(":", 1)[-1].strip() for line in (stdout + stderr).splitlines() if "registers" in line or "spill" in line]
+        print(f"{source} variant {name}: {'; '.join(regs)}", flush=True)
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
 
 
 def k8_layouts(card: str, dev: torch.device):
     from makani_torch.ops import disco_kernels as dk
 
-    libs = {name: k8_library(name, patches) for name, patches in (("built", []), ("unswizzled", K8_UNSWIZZLED), ("stages3", K8_STAGES3))}
+    libs = patched_libraries("disco_mix.cu", {"built": [], "unswizzled": K8_UNSWIZZLED, "stages3": K8_STAGES3}, "sweep_k4_k8")
+    for lib in libs.values():
+        lib.mt_disco_mix.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     R, D, N = 518400, 6093, 677
     gen = torch.Generator(dev).manual_seed(1)
     t2 = randn((R, 6096), torch.float32, gen, dev)[:, :D]

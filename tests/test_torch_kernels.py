@@ -457,8 +457,26 @@ def test_legendre_grads_match_plain(cuda, nlat, nlon, grid, lmax, mmax, C, dtype
     assert c.grad.dtype == dtype and _agree(c.grad, analysis_contract_cl_s_plain(gs, p), dtype)
 
 
+# K9's edges: depth B*M not a multiple of its 16-row stage (21, 35, 42), one
+# stage exactly (16), channels not multiples of its 128 x 64 tile or of 4
+# (77 x 69: pair copies of x), two groups, several row and column tiles
+# (130 x 200), M below the stage (6, 7: a stage spans several b), odd L (a
+# block of one degree at the end), a deep depth (B*M 6050)
+DHCONV_GRAD_CASES = [
+    (2, 7, 6, 1, 5, 3),
+    (1, 9, 10, 1, 37, 45),
+    (3, 12, 13, 2, 48, 70),
+    (3, 20, 21, 1, 130, 64),
+    (3, 5, 7, 2, 77, 69),
+    (1, 4, 16, 1, 64, 64),
+    (5, 3, 7, 1, 130, 200),
+    (2, 6, 21, 2, 256, 131),
+    (50, 3, 121, 1, 20, 12),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,M,G,Ci,Co", [(2, 7, 6, 1, 5, 3), (1, 9, 10, 1, 37, 45), (3, 12, 13, 2, 48, 70), (3, 20, 21, 1, 130, 64)])
+@pytest.mark.parametrize("B,L,M,G,Ci,Co", DHCONV_GRAD_CASES)
 def test_dhconv_grads_match_plain(cuda, B, L, M, G, Ci, Co, dtype):
     from makani_torch.models.common.contractions import dhconv_grad_input, dhconv_grad_input_plain, dhconv_grad_weight, dhconv_grad_weight_plain
 
@@ -477,6 +495,23 @@ def test_dhconv_grads_match_plain(cuda, B, L, M, G, Ci, Co, dtype):
     contract_dense_s(xr, wr, False, "dhconv", True, weight_cache=_PermutedWeight()).backward(g)
     assert torch.equal(xr.grad, dx) and wr.grad.shape == w.shape
     assert torch.equal(wr.grad, dw if dtype == torch.float32 else dw.to(dtype).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dhconv_grad_weight_takes_unaligned_views(cuda, dtype):
+    """K9 copies each row from its 16-byte aligned start: contiguous views
+    one element past an aligned start give the aligned inputs' result."""
+    from makani_torch.models.common.contractions import dhconv_grad_weight
+
+    shape_x, shape_g = (2, 5, 7, 1, 77, 2), (2, 5, 7, 1, 69, 2)
+    x = _randn(shape_x, dtype, cuda)
+    g = _randn(shape_g, dtype, cuda, seed=1)
+    xv = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape_x)
+    gv = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape_g)
+    xv.copy_(x)
+    gv.copy_(g)
+    assert xv.data_ptr() % 16 and gv.data_ptr() % 16
+    assert torch.equal(dhconv_grad_weight(xv, gv), dhconv_grad_weight(x, g))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -632,16 +667,18 @@ def test_disco_band_grad_fused_kernel_matches_plain(cuda, in_shape, out_shape, g
 
 
 @pytest.mark.parametrize("K", [9, 7])
-@pytest.mark.parametrize("order", ["psi_first", "mix_first"])
-def test_disco_polar_grad_kernels_match_plain(cuda, order, K):
-    """K13 against its plain version at odd widths (C 37 and 70, M 25 and
-    361), K 9 (one pass) and 7 (the generic loop)."""
-    Pt = _randn((5, 7, K, 25, 2), torch.float32, cuda, seed=1)
+@pytest.mark.parametrize("order,C,BL,M", [("psi_first", 37, 7, 25), ("mix_first", 70, 7, 25), ("mix_first", 65, 5, 361), ("mix_first", 3, 1, 1)])
+def test_disco_polar_grad_kernels_match_plain(cuda, order, C, BL, M, K):
+    """K13 against its plain version at odd widths (C 37, 70 and 65, M 25
+    and 361: the FCN3 training step's atmo decoder, odd rows of dU that
+    start at either 16-byte parity; M 1), K 9 and 7; psi first the one-pass
+    and the generic loop."""
+    Pt = _randn((5, BL, K, M, 2), torch.float32, cuda, seed=1)
     if order == "psi_first":
-        dY = _randn((2, 5, 37, K, 25, 2), torch.float32, cuda)
+        dY = _randn((2, 5, C, K, M, 2), torch.float32, cuda)
         kern, plain = disco_kernels.polar_psi_first_grad, disco_kernels.polar_psi_first_grad_plain
     else:
-        dY = _randn((2, 5, 70, 25, 2), torch.float32, cuda)
+        dY = _randn((2, 5, C, M, 2), torch.float32, cuda)
         kern, plain = disco_kernels.polar_mix_first_grad, disco_kernels.polar_mix_first_grad_plain
     kernels.reset_launch_counts()
     out = kern(dY, Pt)
