@@ -186,7 +186,7 @@ TRAIN_BATCH = 3
 TRAIN_STEPS = 5  # timed after one warm-up; the loss must fall over them
 TRAIN_PLAIN_STEPS = 3
 # per training step: the forward's launches and their backward's (K11's,
-# three a factored leaf and one for the unfactored ones, from the model)
+# three for every 40 factored leaves and one for every 64 unfactored ones, from the model)
 TRAIN_EXPECTED_PER_STEP = dict(
     EXPECTED_PER_STEP, sht_analysis_grad=8, sht_synthesis_grad=10, dhconv_grad_input=8, dhconv_grad_weight=8, instance_norm_grad=16
 )
@@ -1064,12 +1064,13 @@ def train_batch(dev):
 
 
 def adam_launches(model) -> int:
-    """K11's launches a step: three a factored leaf, one a 64 unfactored."""
-    from makani_torch.utils.training.optimizer import _MAX_LEAVES, _factored_dims
+    """K11's launches a step: three for every 40 factored leaves, one for
+    every 64 unfactored ones."""
+    from makani_torch.utils.training.optimizer import _MAX_FACTORED, _MAX_LEAVES, _factored_dims
 
     shapes = [tuple(p.shape) for p in model.parameters()]
     n_f = sum(_factored_dims(s, 128) is not None for s in shapes)
-    return 3 * n_f + -(-(len(shapes) - n_f) // _MAX_LEAVES)
+    return 3 * -(-n_f // _MAX_FACTORED) + -(-(len(shapes) - n_f) // _MAX_LEAVES)
 
 
 def zero_in_exact_arithmetic(name: str) -> bool:
@@ -1143,7 +1144,6 @@ def check_train_kernels(dev, card, model, loss_obj, batch):
     training step's shapes; returns {(name, label, dtype): result}."""
     from makani_torch.models.common import layer_norm
     from makani_torch.ops import sht
-    from makani_torch.utils.training.optimizer import AdamFactored
 
     net = model.model
     trans_down, itrans_up, trans, itrans = net.trans_down, net.itrans_up, net.trans, net.itrans
@@ -1214,19 +1214,30 @@ def check_train_kernels(dev, card, model, loss_obj, batch):
         del xn, gn
         torch.cuda.empty_cache()
 
-    # K11 on the model's parameters with the model's gradients, one step
-    # from a fresh state, against the plain version on copies
+    # K11 on the model's parameters with the model's gradients
     model.zero_grad(set_to_none=True)
     loss_obj(model(*batch[0::2], train=True), batch[1], inp=batch[0], train=True).backward()
-    params = [p for p in model.parameters()]
-    grads = [p.grad.detach().clone() for p in params]
+    grads = [p.grad.detach().clone() for p in model.parameters()]
     model.zero_grad(set_to_none=True)
+    res[("adam_factored", "model", torch.float32)] = adam_case(card, model, grads, TRAIN_CONFIG["lr"], "model")
+    del grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def adam_case(card, model, grads, lr, label) -> dict:
+    """K11 on the model's parameters with the given gradients, one step from
+    a fresh state with a bf16 mu, against the plain version on copies; both
+    timed over the whole step (``AdamFactored.step``)."""
+    from makani_torch.utils.training.optimizer import AdamFactored
+
+    params = list(model.parameters())
 
     def fresh(use_kernels):
         ps = [torch.nn.Parameter(p.detach().clone()) for p in params]
         for p, g in zip(ps, grads):
             p.grad = g
-        opt = AdamFactored(ps, lr=TRAIN_CONFIG["lr"], mu_dtype=torch.bfloat16)
+        opt = AdamFactored(ps, lr=lr, mu_dtype=torch.bfloat16)
         opt.use_kernels = use_kernels
         return ps, opt
 
@@ -1253,16 +1264,13 @@ def check_train_kernels(dev, card, model, loss_obj, batch):
     moved = n_params * (4 + 4 + 2 + 4 + 2) + n_unf * 8
     ok = within(err, torch.float32)
     extra = dict(bound(6.0 * n_params, moved), library_ms=None)
-    print(f"kernel adam_factored     model params      float32  {n_params} parameters ({adam_launches(model)} launches): max|d| {err['max_abs_err']:.3e} "
+    print(f"kernel adam_factored     {label:17s} float32  {n_params} parameters ({adam_launches(model)} launches): max|d| {err['max_abs_err']:.3e} "
           f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; kernel {times[True]:.3f} ms, plain {times[False]:.3f} ms, "
           f"bound_ms {extra['bound_ms']:.3f} ms ({extra['bound_by']}); no library call computes the factored update (torch's Adam keeps the full nu); "
           f"{kernel_regs('factored_', 'unfactored_')}  [{card}]", flush=True)
     if not ok:
-        raise RuntimeError(f"adam_factored disagrees with its plain version: {err}")
-    res[("adam_factored", "model", torch.float32)] = dict(err, ms=times[True], plain_ms=times[False], **extra)
-    del grads
-    torch.cuda.empty_cache()
-    return res
+        raise RuntimeError(f"adam_factored ({label}) disagrees with its plain version: {err}")
+    return dict(err, ms=times[True], plain_ms=times[False], **extra)
 
 
 def compare_train_steps(dev, card, batch):
@@ -1502,7 +1510,7 @@ def band_grad_case(op, dout, F_, C, Gf, IG, OG, label, library=False):
             with fp32_exact():
                 res["library_ms"] = time_ms(lambda: torch.nn.functional.conv_transpose1d(y, filt, stride=op.stride, groups=Hout * Gf), 3, 1)
             del y
-            res["library_note"] = f"library: grouped conv_transpose1d on the band; {kernel_regs('disco_band_grad_kernel')}"
+            res["library_note"] = f"library: grouped conv_transpose1d on the band; {kernel_regs('disco_band_grad')}"
         return res
 
     return ("disco_band_grad", label, torch.float32, lambda: run(True), lambda: run(False), extras)
@@ -1588,7 +1596,11 @@ def mix_grad_times(conv, B, card):
 
 def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
     """Phase 18: K12-K15 against their plain versions at the training step's
-    shapes (B*E members), and K8's backward GEMMs timed."""
+    shapes (B*E members), K5 and the global blocks' K1-K3 at the shapes the
+    step gives them, K8's backward GEMMs timed, and K11 on the model's
+    parameters."""
+    from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
+    from makani_torch.ops import sht
     from makani_torch.ops.disco import FusedFilterCache
 
     net = model.model
@@ -1603,6 +1615,11 @@ def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
     dt.copy_(randn(dt.shape, torch.float32, gen, dev))
     run_cases([band_grad_case(op, dt, op.band_filter(0, dev), C, 1, 1, K, "processor", library=True)], card, results, 3, 1)
     del dt
+    torch.cuda.empty_cache()
+    # K5 forward at the same shape (8 launches a step, twice under remat)
+    x = randn((BE, *op.in_shape, C), torch.float32, gen, dev)
+    run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, K, "train-processor", library=True, padded=True)], card, results, 3, 1)
+    del x
     torch.cuda.empty_cache()
     # K13 psi-first at the processor, mix-first at the atmo decoder
     M = op.in_shape[1] // 2 + 1
@@ -1651,7 +1668,29 @@ def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
     fwd = spec.forward_transform
     run_cases(dhconv_grad_cases(BE, fwd.lmax, fwd.mmax, spec.weight.detach(), gen, "fcn3-internal", bf16=False), card, results, 3, 1)
     torch.cuda.empty_cache()
+    # the global blocks' forward K1, K3, K2 at the same grid (2 launches a step each, under remat)
+    inv = spec.inverse_transform
+    xf = randn((BE, fwd.nlat, fwd.mmax, C, 2), torch.float32, gen, dev)
+    wa = fwd.weights(dev)
+    c2 = randn((BE, inv.lmax, inv.mmax, C, 2), torch.float32, gen, dev)
+    pa = inv.pct(dev)
+    xs = randn((BE, inv.lmax, inv.mmax, 1, C, 2), torch.float32, gen, dev)
+    wcache = _PermutedWeight()
+    run_cases([
+        ("sht_analysis", "fcn3-train", torch.float32, lambda: sht.analysis_contract_cl_s(xf, wa), lambda: sht.analysis_contract_cl_s_plain(xf, wa), legendre_extras(xf, wa, 0, BE)),
+        ("sht_synthesis", "fcn3-train", torch.float32, lambda: sht.synthesis_contract_cl_s(c2, pa), lambda: sht.synthesis_contract_cl_s_plain(c2, pa), legendre_extras(c2, pa, 1, BE)),
+        ("dhconv", "fcn3-train", torch.float32, lambda: contract_dense_s(xs, spec.weight, False, "dhconv", True, weight_cache=wcache),
+         lambda: contract_dense_s_plain(xs, spec.weight, False, "dhconv", True), dhconv_extras(xs, spec.weight.detach())),
+    ], card, results, 3, 1)
+    del xf, c2, xs
+    torch.cuda.empty_cache()
     mix_grad_times(conv, BE, card)
+    # K11 on the model's parameters with one step's gradients
+    _, grads = fcn3_grads(model, loss_obj, batch)
+    grads = [grads[n] for n, _ in model.named_parameters()]
+    results[("adam_factored", "fcn3-model", torch.float32)] = adam_case(card, model, grads, fcn3_train_config()["lr"], "fcn3-model")
+    del grads
+    torch.cuda.empty_cache()
     return results
 
 

@@ -171,12 +171,10 @@ def library() -> ctypes.CDLL:
             lib.mt_dhconv_grad_weight.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_grad_weight.restype = i
             f = ctypes.c_float
-            lib.mt_adam_factored_reduce.argtypes = [vp, vp, vp] + [i] * 5 + [f, f, vp]
-            lib.mt_adam_factored_reduce.restype = i
-            lib.mt_adam_factored_rowmean.argtypes = [vp, vp] + [i] * 5 + [vp]
-            lib.mt_adam_factored_rowmean.restype = i
-            lib.mt_adam_factored_apply.argtypes = [i] + [vp] * 6 + [i] * 6 + [f] * 6 + [vp]
-            lib.mt_adam_factored_apply.restype = i
+            lib.mt_adam_factored_scratch.argtypes = [i] * 5
+            lib.mt_adam_factored_scratch.restype = ll
+            lib.mt_adam_factored.argtypes = [i, i, ctypes.POINTER(ll), ctypes.POINTER(f), i] + [f] * 6 + [vp]
+            lib.mt_adam_factored.restype = i
             lib.mt_adam_unfactored.argtypes = [i, ctypes.POINTER(ll), i] + [f] * 8 + [vp]
             lib.mt_adam_unfactored.restype = i
             lib.mt_disco_mix.argtypes = [vp, ll, vp, vp] + [i] * 5 + [vp]

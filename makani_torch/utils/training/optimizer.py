@@ -15,11 +15,13 @@ one rounding each, as XLA compiles the JAX step (on the CPU its results are
 bit-equal to those FMAs; the bracketed products are rounded first); every
 other operation rounds once. The port updates parameters and state in place.
 
-The step is kernel K11 (``csrc/adam_factored.cu``) on the card: for each
-factored leaf three launches (the two reductions of g^2 with the EMAs, the
-row mean of the new v_row, the elementwise update), and one launch for all
-unfactored leaves of a parameter group (up to 64 a launch); on the CPU the
-plain version, written as ``update_fn`` is. All count as ``adam_factored``.
+The step is kernel K11 (``csrc/adam_factored.cu``) on the card: three
+launches for all factored leaves of a parameter group (up to 40 a launch:
+one read of g for both reductions of g^2 into tile partials; the partials
+summed with the EMAs and the row mean of the new v_row; the elementwise
+update), and one launch for all unfactored leaves (up to 64 a launch); on
+the CPU the plain version, written as ``update_fn`` is. All count as
+``adam_factored``.
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ import torch
 
 from makani_torch import kernels
 
-__all__ = ["AdamFactored", "get_optimizer", "adam_factored_update_plain", "factored_layout"]
+__all__ = ["AdamFactored", "get_optimizer", "adam_factored_update_plain", "factored_layout", "factored_tables"]
 
-# unfactored leaves a K11 launch takes (the leaf table is a kernel argument;
-# csrc/adam_factored.cu MAX_LEAVES)
+# unfactored and factored leaves a K11 launch takes (the leaf table is a
+# kernel argument; csrc/adam_factored.cu MAX_LEAVES, MAX_FLEAVES)
 _MAX_LEAVES = 64
+_MAX_FACTORED = 40
 
 
 def _factored_dims(shape, min_dim_size_to_factor: int):
@@ -102,36 +105,61 @@ def _check_leaf(p, g, mu):
         raise ValueError(f"adam_factored: parameter, gradient and mu must be contiguous and of one shape, got {tuple(p.shape)}, {tuple(g.shape)}, {tuple(mu.shape)}")
 
 
-def adam_factored_update(p, g, mu, v_row, v_col, dims, c1, c2, b1, b2, eps, lr):
-    """K11 on one factored leaf on the card: three launches (reductions and
-    EMAs, row mean, elementwise update), in place."""
-    _check_leaf(p, g, mu)
-    P, R, Mi, S, Q, row_keeps_r = factored_layout(tuple(p.shape), dims)
-    vA, vB = (v_row, v_col) if row_keeps_r else (v_col, v_row)
-    if not (vA.is_contiguous() and vB.is_contiguous()) or vA.numel() != P * R * Mi * Q or vB.numel() != P * Mi * S * Q:
-        raise ValueError(f"adam_factored: second-moment state {tuple(v_row.shape)}, {tuple(v_col.shape)} does not match {tuple(p.shape)}")
-    rm = torch.empty(P * Mi * Q, dtype=torch.float32, device=p.device)
+def factored_tables(leaves, mu_dtype):
+    """K11's launch tables for factored leaves (p, g, mu, v_row, v_col, dims,
+    c1, c2), one for every 40: (table, corrections, leaf count, scratch), the
+    table's rows (p, g, mu, vA, vB, scratch, P, R, Mi, S, Q, row_keeps_r) as
+    64-bit integers, the corrections (c1, c2) a leaf, and one scratch buffer
+    for the chunk's partial sums and row means (each leaf's part 16-byte
+    aligned: the sizes are multiples of 4 floats)."""
     lib = kernels.library()
-    mu_code = kernels.dtype_code(mu.dtype)
-    with torch.cuda.device(p.device):
-        stream = kernels.stream_ptr(p.device)
-        err = lib.mt_adam_factored_reduce(g.data_ptr(), vA.data_ptr(), vB.data_ptr(), P, R, Mi, S, Q, b2, 1.0 - b2, stream)
-        kernels.check_launch(err, "adam_factored")
-        kernels.count_launch("adam_factored")
-        vr, X = (vA, R) if row_keeps_r else (vB, S)
-        err = lib.mt_adam_factored_rowmean(vr.data_ptr(), rm.data_ptr(), P, X, Mi, Q, int(row_keeps_r), stream)
-        kernels.check_launch(err, "adam_factored")
-        kernels.count_launch("adam_factored")
-        err = lib.mt_adam_factored_apply(
-            mu_code, p.data_ptr(), g.data_ptr(), mu.data_ptr(), vA.data_ptr(), vB.data_ptr(), rm.data_ptr(), P, R, Mi, S, Q, int(row_keeps_r),
-            b1, 1.0 - b1, c1, c2, eps, -lr, stream,
-        )
-        kernels.check_launch(err, "adam_factored")
-        kernels.count_launch("adam_factored")
+    out = []
+    for k in range(0, len(leaves), _MAX_FACTORED):
+        chunk = leaves[k : k + _MAX_FACTORED]
+        table = (ctypes.c_longlong * (12 * len(chunk)))()
+        corrections = (ctypes.c_float * (2 * len(chunk)))()
+        sizes, rows = [], []
+        for p, g, mu, v_row, v_col, dims, c1, c2 in chunk:
+            _check_leaf(p, g, mu)
+            if mu.dtype != mu_dtype:
+                raise ValueError(f"adam_factored: leaf {tuple(p.shape)} has mu {mu.dtype}, expected {mu_dtype}")
+            P, R, Mi, S, Q, row_keeps_r = factored_layout(tuple(p.shape), dims)
+            vA, vB = (v_row, v_col) if row_keeps_r else (v_col, v_row)
+            if not (vA.is_contiguous() and vB.is_contiguous()) or vA.numel() != P * R * Mi * Q or vB.numel() != P * Mi * S * Q:
+                raise ValueError(f"adam_factored: second-moment state {tuple(v_row.shape)}, {tuple(v_col.shape)} does not match {tuple(p.shape)}")
+            sizes.append(lib.mt_adam_factored_scratch(P, R, Mi, S, Q))
+            rows.append([p.data_ptr(), g.data_ptr(), mu.data_ptr(), vA.data_ptr(), vB.data_ptr(), 0, P, R, Mi, S, Q, int(row_keeps_r)])
+        scratch = torch.empty(sum(sizes), dtype=torch.float32, device=chunk[0][0].device)
+        offset = 0
+        for j, (row, n) in enumerate(zip(rows, sizes)):
+            row[5] = scratch.data_ptr() + 4 * offset
+            offset += n
+            table[12 * j : 12 * j + 12] = row
+            corrections[2 * j : 2 * j + 2] = [chunk[j][6], chunk[j][7]]
+        out.append((table, corrections, len(chunk), scratch))
+    return out
+
+
+def adam_factored_update(leaves, mu_dtype, b1, b2, eps, lr):
+    """K11 on factored leaves on the card, each leaf (p, g, mu, v_row, v_col,
+    dims, c1, c2): three launches for every 40 leaves (the reductions of g^2
+    into tile partials; the partials summed with the EMAs and the row mean;
+    the elementwise update), in place."""
+    if not leaves:
+        return
+    lib = kernels.library()
+    dev = leaves[0][0].device
+    for table, corrections, n, _scratch in factored_tables(leaves, mu_dtype):
+        with torch.cuda.device(dev):
+            stream = kernels.stream_ptr(dev)
+            for kind in range(3):
+                err = lib.mt_adam_factored(kind, kernels.dtype_code(mu_dtype), table, corrections, n, b1, 1.0 - b1, b2, 1.0 - b2, eps, -lr, stream)
+                kernels.check_launch(err, "adam_factored")
+                kernels.count_launch("adam_factored")
     # the kernels wrote through raw pointers: mark the tensors changed, as an
     # in-place op would, so that caches keyed on a tensor's version (K3's
     # permuted weight) see the new values
-    torch.autograd.graph.increment_version([p, mu, v_row, v_col])
+    torch.autograd.graph.increment_version([t for leaf in leaves for t in (leaf[0], leaf[2], leaf[3], leaf[4])])
 
 
 def adam_unfactored_update(leaves, mu_dtype, c1, c2, b1, b2, eps, lr):
@@ -214,7 +242,7 @@ class AdamFactored(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             b1, b2, eps, lr = group["b1"], group["b2"], group["eps"], group["lr"]
-            unfactored, corrections = [], None
+            unfactored, factored, corrections = [], [], None
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -232,7 +260,8 @@ class AdamFactored(torch.optim.Optimizer):
                     corrections = (c1, c2)
                     unfactored.append((p, g.contiguous(), mu, state["v"]))
                 else:
-                    adam_factored_update(p, g.contiguous(), mu, state["v_row"], state["v_col"], dims, c1, c2, b1, b2, eps, lr)
+                    factored.append((p, g.contiguous(), mu, state["v_row"], state["v_col"], dims, c1, c2))
+            adam_factored_update(factored, self.mu_dtype, b1, b2, eps, lr)
             if unfactored:
                 adam_unfactored_update(unfactored, self.mu_dtype, *corrections, b1, b2, eps, lr)
         return loss

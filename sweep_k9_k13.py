@@ -94,11 +94,13 @@ def k9_sass():
         print(f"K9 SASS {name}: " + (", ".join(f"{op} x {n}" for op, n in sorted(ops.items())) or "no HGMMA"), flush=True)
 
 
-def in_turns(fns: dict) -> dict[str, list[float]]:
+def in_turns(fns: dict, iters: int = 10, warmup: int = 2) -> dict[str, list[float]]:
+    """Each function timed twice, in turns: forward, then backward through
+    the list (``chip_smoke.time_ms``)."""
     times = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
-            times[name].append(time_ms(fns[name]))
+            times[name].append(time_ms(fns[name], iters, warmup))
     return times
 
 

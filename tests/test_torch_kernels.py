@@ -25,7 +25,7 @@ from makani_torch.models.common.layer_norm import instance_norm_cl, instance_nor
 from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
 from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
 from makani_torch.ops import disco_kernels, resample, sht
-from makani_torch.ops.disco import DiscoConvS2, FusedFilterCache
+from makani_torch.ops.disco import DiscoConvS2, FusedFilterCache, compute_cutoff_radius
 from makani_torch.ops.resample import ResampleS2
 from makani_torch.ops.sht import (
     InverseRealSHT,
@@ -532,34 +532,75 @@ def test_instance_norm_grad_matches_plain(cuda, shape, nlat_phys, dtype):
     assert _agree(w.grad, dw, dtype) and _agree(b.grad, db, dtype)
 
 
-@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
-def test_adam_factored_kernel_matches_plain(cuda, mu_dtype):
-    """Three steps of K11 against the plain update on the same gradients:
-    factored leaves with d0 < d1 (a dhconv-shaped 5-D weight, a 2-D one) and
-    d0 > d1, with Q >= 32 and Q = 1, and unfactored ones."""
+# K11's factored leaves: d0 < d1 (a dhconv-shaped 5-D weight with R 130 and
+# S 140 not multiples of the 32 of a reduce tile and Q 80 not a multiple of
+# 32 lanes, 2-D weights with Q 1) and d0 > d1, P 2 and Mi 3 with Q 5, Q 9
+# (FCN3's (677, 677, 9)); Q 1 and a run S*Q of 129 floats take the apply's
+# 4-byte path; and unfactored leaves
+ADAM_SHAPES = [(1, 130, 140, 40, 2), (1, 200, 300), (1, 300, 200), (130, 129), (2, 150, 3, 140, 5), (1, 141, 137, 9), (1, 74, 96), (96,), (7, 3)]
+
+
+def _adam_steps(cuda, shapes, mu_dtype, steps):
+    """``steps`` steps of the plain update (CPU) and of K11 (card) from the
+    same parameters and gradients; returns both parameter lists, optimizers
+    and the kernel launches of each step."""
     from makani_torch.utils.training.optimizer import AdamFactored
 
-    shapes = [(1, 130, 140, 40, 2), (1, 200, 300), (1, 300, 200), (130, 129), (1, 74, 96), (96,), (7, 3)]
     ref = [torch.nn.Parameter(_randn(s, torch.float32, "cpu", seed=k)) for k, s in enumerate(shapes)]
     dev = [torch.nn.Parameter(p.detach().to(cuda)) for p in ref]
     opt_ref, opt_dev = AdamFactored(ref, lr=1e-2, mu_dtype=mu_dtype), AdamFactored(dev, lr=1e-2, mu_dtype=mu_dtype)
-    for step in range(3):
+    launches = []
+    for step in range(steps):
         for k, (a, b) in enumerate(zip(ref, dev)):
-            grad = _randn(a.shape, torch.float32, "cpu", seed=100 * step + k) * (1.0 + k)
+            grad = _randn(a.shape, torch.float32, "cpu", seed=100 * step + k) * (1.0 + k % 7)
             a.grad, b.grad = grad, grad.to(cuda)
         opt_ref.step()
         kernels.reset_launch_counts()
         opt_dev.step()
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["adam_factored"] == 3 * 4 + 1
+        launches.append(kernels.LAUNCHES["adam_factored"])
+    return ref, dev, opt_ref, opt_dev, launches
+
+
+def _adam_agree(ref, dev, opt_ref, opt_dev, mu_dtype, steps):
     for a, b in zip(ref, dev):
-        assert _agree(b.detach(), a.detach().to(cuda), torch.float32)
+        assert _agree(b.detach(), a.detach().to(b.device), torch.float32)
         sa, sb = opt_ref.state[a], opt_dev.state[b]
-        assert int(sa["count"]) == int(sb["count"]) == 3
+        assert int(sa["count"]) == int(sb["count"]) == steps
         for key in ("v_row", "v_col", "v"):
             if sa[key].numel():
-                assert _agree(sb[key], sa[key].to(cuda), torch.float32), key
-        assert sb["mu"].dtype == mu_dtype and _agree(sb["mu"], sa["mu"].to(cuda), mu_dtype)
+                assert _agree(sb[key], sa[key].to(b.device), torch.float32), key
+        assert sb["mu"].dtype == mu_dtype and _agree(sb["mu"], sa["mu"].to(b.device), mu_dtype)
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+def test_adam_factored_kernel_matches_plain(cuda, mu_dtype):
+    """Three steps of K11 against the plain update on the same gradients, on
+    ADAM_SHAPES: three launches for the factored leaves and one for the
+    unfactored ones a step."""
+    ref, dev, opt_ref, opt_dev, launches = _adam_steps(cuda, ADAM_SHAPES, mu_dtype, 3)
+    assert launches == [3 + 1] * 3
+    _adam_agree(ref, dev, opt_ref, opt_dev, mu_dtype, 3)
+
+
+def test_adam_factored_kernel_takes_more_leaves_than_a_table(cuda):
+    """45 factored leaves (a launch's table holds 40) and 2 unfactored ones:
+    two rounds of three launches and one."""
+    shapes = [(130 + k % 5, 129 + k % 3) for k in range(45)] + [(96,), (7, 3)]
+    ref, dev, opt_ref, opt_dev, launches = _adam_steps(cuda, shapes, torch.bfloat16, 2)
+    assert launches == [2 * 3 + 1] * 2
+    _adam_agree(ref, dev, opt_ref, opt_dev, torch.bfloat16, 2)
+
+
+def test_adam_factored_kernel_is_deterministic(cuda):
+    """Two runs of K11 from the same state and gradients give bit-equal
+    parameters and state: the partial sums are added in a fixed order."""
+    runs = []
+    for _ in range(2):
+        _, dev, _, opt_dev, _ = _adam_steps(cuda, ADAM_SHAPES, torch.bfloat16, 2)
+        runs.append([t.detach().clone() for b in dev for t in (b, *[opt_dev.state[b][k] for k in ("mu", "v_row", "v_col", "v")])])
+    for x, y in zip(*runs):
+        assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x.view(torch.int32), y.view(torch.int16) if y.dtype == torch.bfloat16 else y.view(torch.int32))
 
 
 def test_small_sfno_train_step_kernel_path_matches_plain(cuda):
@@ -635,35 +676,74 @@ def _band_grad_both(conv, dout, F_, C, Gf, IG, OG, dev):
     return outs
 
 
-@pytest.mark.parametrize("C", [37, 130])
-@pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
-def test_disco_band_grad_kernel_matches_plain(cuda, in_shape, out_shape, C):
-    """K12 in responses mode, reading the padded responses layout in place
-    (the pad holds NaN, which must never be read), stride 2, one phase and
-    three phases."""
-    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+# K12's cases: DISCO_SHAPES (stride 2; stride 4 in three phases, the later
+# ones added), and stride 1 in one phase (the staged kernel) at its tiles'
+# edges: Win 40 and 100, not multiples of the 48 or 64 columns of a block,
+# live runs of up to 23 taps (a thread's window holds 6 or 8 columns); the
+# cutoff tripled (runs of 17 in a band of 13 rows, so a block stages more
+# columns than Win: they wrap); each has input rows that no output row
+# reaches with a live tap; and a cutoff at which no tap is live (dx is 0)
+BAND_GRAD_SHAPES = [(i, o, 1) for i, o in DISCO_SHAPES] + [((20, 40), (20, 40), 1), ((30, 100), (30, 100), 1), ((24, 48), (24, 48), 3), ((16, 30), (16, 30), 4)]
+
+
+def _band_grad_conv(in_shape, out_shape, cutoff_scale):
+    return DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean",
+                       theta_cutoff=cutoff_scale * compute_cutoff_radius(in_shape[0], (3, 3), "morlet th"))
+
+
+def _padded_responses(conv, C, dev, seed=0):
+    """dout in the processor's padded responses layout, NaN in the pad."""
     CK = C * conv.K
-    buf = _randn((2, *out_shape, -(-CK // 4) * 4), torch.float32, cuda)
+    buf = _randn((2, *conv.out_shape, -(-CK // 4) * 4), torch.float32, dev, seed)
     buf[..., CK:] = float("nan")
+    return buf[..., :CK]
+
+
+@pytest.mark.parametrize("C", [37, 101, 130])
+@pytest.mark.parametrize("in_shape,out_shape,cutoff_scale", BAND_GRAD_SHAPES)
+def test_disco_band_grad_kernel_matches_plain(cuda, in_shape, out_shape, cutoff_scale, C):
+    """K12 in responses mode, reading the padded responses layout in place
+    (the pad holds NaN, which must never be read), on BAND_GRAD_SHAPES; C
+    37, 101 and 130 are not multiples of the 32 channels of a block."""
+    conv = _band_grad_conv(in_shape, out_shape, cutoff_scale)
     kernels.reset_launch_counts()
-    dx, ref = _band_grad_both(conv, buf[..., :CK], lambda p: conv.band_filter(p, cuda), C, 1, 1, conv.K, cuda)
+    dx, ref = _band_grad_both(conv, _padded_responses(conv, C, cuda), lambda p: conv.band_filter(p, cuda), C, 1, 1, conv.K, cuda)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["disco_band_grad"] == conv.phases
     assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
 
 
-@pytest.mark.parametrize("in_shape,out_shape", DISCO_SHAPES)
+@pytest.mark.parametrize("in_shape,out_shape,cutoff_scale", BAND_GRAD_SHAPES)
 @pytest.mark.parametrize("g,og,ig,R", [(3, 2, 4, 1), (5, 1, 9, 3), (5, 9, 1, 2), (8, 7, 1, 1), (9, 4, 1, 1)])
-def test_disco_band_grad_fused_kernel_matches_plain(cuda, in_shape, out_shape, g, og, ig, R):
+def test_disco_band_grad_fused_kernel_matches_plain(cuda, in_shape, out_shape, cutoff_scale, g, og, ig, R):
     """K12 in fused mode (the decoders' og 1 and ig 9 over R stacked inputs,
     the encoders' og 9, 7 and 4) against its plain version."""
-    conv = DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    conv = _band_grad_conv(in_shape, out_shape, cutoff_scale)
     w = 0.2 * _randn((g, og, ig, conv.K), torch.float32, cuda, seed=1)
     cache = FusedFilterCache()
     dout = _randn((2, *out_shape, R * g * og), torch.float32, cuda)
     dx, ref = _band_grad_both(conv, dout, lambda p: cache.get(conv, w, p), R * g * ig, g, ig, og, cuda)
     torch.cuda.synchronize()
-    assert _agree(dx, ref, torch.float32)
+    assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["responses", "fused"])
+def test_disco_band_grad_kernel_is_deterministic(cuda, mode):
+    """The same K12 call twice gives bit-equal results: a gather in a fixed
+    order, no atomics."""
+    conv = _band_grad_conv((30, 100), (30, 100), 1)
+    if mode == "responses":
+        C, Gf, IG, OG = 101, 1, 1, conv.K
+        dout, F_ = _padded_responses(conv, C, cuda), lambda p: conv.band_filter(p, cuda)
+    else:
+        g, og, ig, R = 5, 1, 9, 3
+        C, Gf, IG, OG = R * g * ig, g, ig, og
+        cache, w = FusedFilterCache(), 0.2 * _randn((g, og, ig, conv.K), torch.float32, cuda, seed=1)
+        dout, F_ = _randn((2, *conv.out_shape, R * g * og), torch.float32, cuda), lambda p: cache.get(conv, w, p)
+    first, _ = _band_grad_both(conv, dout, F_, C, Gf, IG, OG, cuda)
+    second, _ = _band_grad_both(conv, dout, F_, C, Gf, IG, OG, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.parametrize("K", [9, 7])
