@@ -1104,19 +1104,58 @@ def k9_library(x: torch.Tensor, g: torch.Tensor):
     return lambda: torch.bmm(xl, gl)
 
 
+def allocated_beyond(fn) -> tuple[int, int]:
+    """What one call of ``fn`` leaves allocated (its output, as the caching
+    allocator rounds it: large blocks in 2 MiB steps) and what it allocated
+    beyond that at its peak (``torch.cuda.max_memory_allocated``): the
+    temporaries."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    extra = torch.cuda.max_memory_allocated() - base - held
+    del out
+    return held, extra
+
+
 def dhconv_grad_cases(B, L, M, w, gen, label, bf16=True):
-    """K3 on the conjugate-transposed weight (dx, fp32) and K9 (dw, fp32, and
-    bf16 if ``bf16``) on seeded x and g (B, L, M, 1, C, 2) with the layer's
-    weight w; K9's extras time the library's bmm."""
-    from makani_torch.models.common.contractions import dhconv_grad_input, dhconv_grad_input_plain, dhconv_grad_weight, dhconv_grad_weight_plain
+    """K3's input-gradient mode (dx, fp32) from a forward's weight cache, as
+    the training step runs it, and K9 (dw, fp32, and bf16 if ``bf16``) on
+    seeded x and g (B, L, M, 1, C, 2) with the layer's weight w; K9's extras
+    time the library's bmm. dx must hold nothing but its output (the
+    allocator's rounding aside) and allocate at most 1 MB more while it
+    runs: no weight is built in the backward."""
+    from makani_torch.models.common.contractions import (
+        _PermutedWeight,
+        contract_dense_s,
+        dhconv_grad_input,
+        dhconv_grad_input_plain,
+        dhconv_grad_weight,
+        dhconv_grad_weight_plain,
+    )
 
     dev = w.device
     f32 = torch.float32
     C = w.shape[1]
     x = randn((B, L, M, 1, C, 2), f32, gen, dev)
     g = randn((B, L, M, 1, C, 2), f32, gen, dev)
+    # the forward fills the layer's weight cache; the backward reads it
+    cache = _PermutedWeight()
+    with torch.no_grad():
+        contract_dense_s(x, w, False, "dhconv", True, weight_cache=cache)
+    w_perm = cache.get(w, f32)
     wct = torch.stack([w[..., 0], -w[..., 1]], dim=-1).transpose(1, 2).contiguous()
     ex_dx = dhconv_extras(g, wct)
+    del wct
+
+    def dx_extras(out):
+        held, extra = allocated_beyond(lambda: dhconv_grad_input(g, w_perm))
+        if held > nbytes(out) + 2**21 or extra > 2**20:
+            raise RuntimeError(f"dhconv_grad_input {label}: holds {held} bytes for a {nbytes(out)}-byte output and allocates {extra} more (at most 1 MB)")
+        return dict(ex_dx(out), library_note=f"holds {held} B for its {nbytes(out)}-byte output, {extra} B more at its peak; "
+                                             f"{kernel_regs('dhconv_kernel<float, true>')}")
 
     def dw_extras(x, g):
         def extras(out):
@@ -1128,8 +1167,7 @@ def dhconv_grad_cases(B, L, M, w, gen, label, bf16=True):
         return extras
 
     cases = [
-        ("dhconv_grad_input", label, f32, lambda: dhconv_grad_input(g, w), lambda: dhconv_grad_input_plain(g, w),
-         lambda out: dict(ex_dx(out), library_note=kernel_regs("dhconv_kernel<float>"))),
+        ("dhconv_grad_input", label, f32, lambda: dhconv_grad_input(g, w_perm), lambda: dhconv_grad_input_plain(g, w), dx_extras),
         ("dhconv_grad_weight", label, f32, lambda: dhconv_grad_weight(x, g), lambda: dhconv_grad_weight_plain(x, g), dw_extras(x, g)),
     ]
     if bf16:
@@ -1181,7 +1219,7 @@ def check_train_kernels(dev, card, model, loss_obj, batch):
         gn = randn((B, t.nlat, t.nlon, C), dtype, gen, dev)
         wn = (1.0 + 0.1 * randn((C,), f32, gen, dev)).to(dtype)
         mean, sd = layer_norm._norm_stats_plain(xn, None, 1e-6)
-        plan = layer_norm._plan(xn, gn)
+        plan = layer_norm._grad_plan(xn, gn)
         n = t.nlat * t.nlon
 
         def kern(xn=xn, gn=gn, wn=wn, mean=mean, sd=sd, plan=plan, n=n):
@@ -1922,6 +1960,10 @@ def main() -> int:
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         )
+    # K10 runs at both of the SFNO training step's grids; its line holds the full one
+    print("instance_norm_grad (K10), SFNO training step: " + "; ".join(
+        f"{lab} bf16 {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, two-read floor {r['two_read_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"library {r['library_ms']:.4f} ms" for lab, r in ((lab, train_res[("instance_norm_grad", lab, torch.bfloat16)]) for lab in ("full", "internal"))))
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -10,6 +10,22 @@
 // layout (L, G, Ci, Co, 2), which the Python wrapper makes once per weight,
 // not per call.
 //
+// The same kernel, in its input-gradient mode (GRAD_INPUT), is the dhconv's
+// dx, which the JAX package leaves to jax.grad through the same einsums:
+//
+//   dx[b, l, m, g, i] = sum_o g[b, l, m, g, o] * conj(w[l, g, i, o])
+//
+// reading the forward's cached weight (L, G, Ci, Co, 2) as it lies: for the
+// dx product the depth runs over o and the output columns over i, and the
+// cached layout holds the o of one i contiguous, which is the K-major order
+// wgmma's B operand wants. The weight tile's loads change their lanes (four
+// lanes along o, eight columns i a warp: 32-byte runs, whole sectors) and
+// the staging writes the conjugate's blocks [[wr, -wi], [wi, wr]] in place
+// of the forward's [[wr, wi], [-wi, wr]]; nothing else differs, and no
+// conjugate-transposed weight is made in device memory. (Eight lanes along
+// o, 64-byte runs, with the core matrices 16 bytes further apart to keep
+// the stores' banks apart, was no faster: sweep_k3dx_k10.py.)
+//
 // One real GEMM per (b, l, g) on the interleaved layout: the channels-last
 // input (M, Ci, 2) is already a row-major real (M x 2Ci) matrix and the
 // output (M, Co, 2) a real (M x 2Co) matrix, and the complex product is the
@@ -78,7 +94,7 @@ constexpr int B_LOADS = (BK / 2) * (BN / 2) / THREADS;  // complex weights per t
 // x rows in shared memory: 36 fp32 words or 40 bf16 halves, so that the
 // ldmatrix phases (8 rows x 16 bytes) hit 32 distinct banks. The weight in
 // wgmma's K-major core-matrix layout without swizzle: core matrices along k
-// CORE bytes apart (LBO), 8-column groups SBO bytes apart (padded by 16).
+// LBO bytes apart, 8-column groups SBO bytes apart (padded by 16).
 template <typename T>
 struct Tile;
 template <>
@@ -103,7 +119,8 @@ struct Tile<__nv_bfloat16> {
 template <typename T>
 struct Layout {
   static constexpr int E = 16 / (int)sizeof(T);                 // elements per core-matrix row
-  static constexpr int SBO = (BK / E) * CORE + 16;              // bytes between 8-column groups
+  static constexpr int LBO = CORE;                              // bytes between core matrices along k
+  static constexpr int SBO = (BK / E) * LBO + 16;               // bytes between 8-column groups
   static constexpr int PLANE = (BN / 8) * SBO;                  // bytes of one weight plane per stage
   static constexpr int A_BYTES = 2 * BM * Tile<T>::LD * (int)sizeof(T);
   static constexpr int SMEM = A_BYTES + 2 * Tile<T>::PLANES * PLANE;
@@ -122,7 +139,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
 // shared-memory matrix descriptor of the weight tile
 template <typename T>
 __device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
-  return sm90::descriptor(addr, CORE, Layout<T>::SBO);
+  return sm90::descriptor(addr, Layout<T>::LBO, Layout<T>::SBO);
 }
 
 // d (m64 x n128, fp32) = a (registers) . b (shared) + (scale_d ? d : 0)
@@ -142,8 +159,10 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[ACC], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// x: (B, L, M, G, Ci, 2); w: (L, G, Ci, Co, 2); out: (B, L, M, G, Co, 2)
-template <typename T>
+// x: (B, L, M, G, Ci, 2); out: (B, L, M, G, Co, 2); w: (L, G, Ci, Co, 2),
+// or for GRAD_INPUT (L, G, Co, Ci, 2), the forward's weight with the depth
+// Ci (its o) innermost, conjugated as it is staged
+template <typename T, bool GRAD_INPUT>
 __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
     dhconv_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int L, int M, int G, int Ci, int Co) {
   using BT = typename Tile<T>::B;
@@ -186,35 +205,38 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
     }
   };
 
-  // weight tile: 16 complex rows i x 64 complex columns o; each group of 8
-  // lanes reads 8 consecutive (wr, wi) pairs of one row
-  const int w_o = warp * 8 + lane % 8;
-  const int w_i = lane / 8;
+  // weight tile: 16 complex rows i x 64 complex columns o, load e of a
+  // thread at (w_i(e), w_o(e)); each group of 8 lanes reads 8 consecutive
+  // (wr, wi) pairs of one row, or for GRAD_INPUT (i innermost) each group of
+  // 4 lanes 4 consecutive pairs of one column. Either way a warp's stores
+  // below hit every bank pair twice at most
+  auto w_o = [&](int e) { return warp * 8 + (GRAD_INPUT ? lane / 4 : lane % 8); };
+  auto w_i = [&](int e) { return (GRAD_INPUT ? lane % 4 : lane / 8) + 4 * e; };
   Pair wreg[B_LOADS];
   auto fetch_w = [&](int i0) {
-    const int o = n0 / 2 + w_o;
 #pragma unroll
     for (int e = 0; e < B_LOADS; ++e) {
-      const int i = i0 + w_i + 4 * e;
+      const int o = n0 / 2 + w_o(e), i = i0 + w_i(e);
       if (i < Ci && o < Co) {
-        wreg[e] = *reinterpret_cast<const Pair*>(w_base + ((long long)i * Co + o) * 2);
+        const long long at = GRAD_INPUT ? (long long)o * Ci + i : (long long)i * Co + o;
+        wreg[e] = *reinterpret_cast<const Pair*>(w_base + at * 2);
       } else {
         wreg[e].x = wreg[e].y = T(0.f);
       }
     }
   };
-  // column 2o holds (wr, -wi) at depth (2i, 2i+1), column 2o+1 holds (wi, wr);
-  // both lie in one core matrix, 16 bytes apart
+  // column 2o holds (wr, -wi) at depth (2i, 2i+1), column 2o+1 holds (wi, wr)
+  // (GRAD_INPUT, the conjugate: (wr, wi) and (-wi, wr)); both lie in one core
+  // matrix, 16 bytes apart
   auto stage_w = [&](int stage) {
     unsigned char* dst = Bs + stage * PLANES * Lay::PLANE;
-    const int n = 2 * w_o;
 #pragma unroll
     for (int e = 0; e < B_LOADS; ++e) {
-      const int k = 2 * (w_i + 4 * e);
-      unsigned char* p = dst + (n / 8) * Lay::SBO + (k / Lay::E) * CORE + (n % 8) * 16 + (k % Lay::E) * (int)sizeof(BT);
+      const int n = 2 * w_o(e), k = 2 * w_i(e);
+      unsigned char* p = dst + (n / 8) * Lay::SBO + (k / Lay::E) * Lay::LBO + (n % 8) * 16 + (k % Lay::E) * (int)sizeof(BT);
       if constexpr (PLANES == 2) {
         const float wr = wreg[e].x, wi = wreg[e].y;
-        const float v[4] = {wr, -wi, wi, wr};
+        const float v[4] = {wr, GRAD_INPUT ? wi : -wi, GRAD_INPUT ? -wi : wi, wr};
         uint32_t hi[4], lo[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -227,8 +249,8 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
         *reinterpret_cast<uint2*>(p + Lay::PLANE + 16) = make_uint2(lo[2], lo[3]);
       } else {
         const __nv_bfloat16 wr = wreg[e].x, wi = wreg[e].y;
-        *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(wr, __hneg(wi));
-        *reinterpret_cast<__nv_bfloat162*>(p + 16) = __halves2bfloat162(wi, wr);
+        *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(wr, GRAD_INPUT ? wi : __hneg(wi));
+        *reinterpret_cast<__nv_bfloat162*>(p + 16) = __halves2bfloat162(GRAD_INPUT ? __hneg(wi) : wi, wr);
       }
     }
     fence_proxy_async();
@@ -276,9 +298,9 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
       // one wgmma spans two core matrices along k
-      const uint64_t bh = b_descriptor<T>(b_base + ks * 2 * CORE);
+      const uint64_t bh = b_descriptor<T>(b_base + ks * 2 * Lay::LBO);
       if constexpr (PLANES == 2) {
-        const uint64_t bl = b_descriptor<T>(b_base + Lay::PLANE + ks * 2 * CORE);
+        const uint64_t bl = b_descriptor<T>(b_base + Lay::PLANE + ks * 2 * Lay::LBO);
         wgmma_tf32(part, al[ks], bh, ks > 0);
         wgmma_tf32(part, ah[ks], bl, 1);
         wgmma_tf32(part, ah[ks], bh, 1);
@@ -332,23 +354,37 @@ __global__ void __launch_bounds__(THREADS, Tile<T>::MIN_BLOCKS)
   }
 }
 
-template <typename T>
+template <typename T, bool GRAD_INPUT>
 int launch(const void* x, const void* w, void* out, int B, int L, int M, int G, int Ci, int Co, cudaStream_t s) {
   const int smem = Layout<T>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(dhconv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = dhconv_kernel<T, GRAD_INPUT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((2 * Co + BN - 1) / BN, (M + BM - 1) / BM, B * L * G);
-  dhconv_kernel<T><<<grid, THREADS, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), L, M, G, Ci, Co);
+  kernel<<<grid, THREADS, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), L, M, G, Ci, Co);
   return (int)cudaGetLastError();
+}
+
+template <bool GRAD_INPUT>
+int dispatch(int dtype, const void* x, const void* w, void* out, int B, int L, int M, int G, int Ci, int Co, void* stream) {
+  if (B <= 0 || L <= 0 || M <= 0 || G <= 0 || Ci <= 0 || Co <= 0 || (long long)B * L * G > 65535 || (M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, GRAD_INPUT>(x, w, out, B, L, M, G, Ci, Co, s);
+  if (dtype == 1) return launch<__nv_bfloat16, GRAD_INPUT>(x, w, out, B, L, M, G, Ci, Co, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 float32, 1 bfloat16. x (B, L, M, G, Ci, 2), w (L, G, Ci, Co, 2),
+// out (B, L, M, G, Co, 2). Returns cudaGetLastError() after the launch.
 extern "C" int mt_dhconv_contract(int dtype, const void* x, const void* w, void* out, int B, int L, int M, int G, int Ci, int Co, void* stream) {
-  if (B <= 0 || L <= 0 || M <= 0 || G <= 0 || Ci <= 0 || Co <= 0 || (long long)B * L * G > 65535 || (M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, out, B, L, M, G, Ci, Co, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, B, L, M, G, Ci, Co, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(dtype, x, w, out, B, L, M, G, Ci, Co, stream);
+}
+
+// The input gradient: g (B, L, M, G, Co, 2) and the forward's weight w (L, G,
+// Ci, Co, 2) give dx (B, L, M, G, Ci, 2) = g . conj(w)^T. Returns
+// cudaGetLastError() after the launch.
+extern "C" int mt_dhconv_grad_input(int dtype, const void* g, const void* w, void* dx, int B, int L, int M, int G, int Ci, int Co, void* stream) {
+  return dispatch<true>(dtype, g, w, dx, B, L, M, G, Co, Ci, stream);
 }

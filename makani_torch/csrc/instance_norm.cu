@@ -52,6 +52,7 @@
 #include <stdint.h>
 
 #include "convert.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -338,23 +339,51 @@ extern "C" int mt_instance_norm(int dtype, int vec, const void* x, const void* w
 // What bounds it on the card: the bytes. It reads x and g twice (the sums,
 // then dx) and writes dx: at the SFNO training step's full resolution
 // (3, 361, 720, 384) bf16 each is 599 MB, a one-read bound of 0.54 ms and a
-// two-read floor of 0.89 ms; at its internal grid 66 MB each, where the fixed
-// cost of the launch and its barriers weighs as much (K4's lesson). So it
-// takes K4's shape: one cooperative launch, a persistent grid of one block
-// an SM walking (sample, channel group) in turn; each block sums its slice of
-// pixels, the grid meets at a barrier, one warp a channel merges the blocks'
-// partials in a fixed order, a second barrier, and every block writes dx for
-// its slice, the last pixel read first (the likeliest in L2). The per-(b, c)
-// sums are kept, and after the last group one warp a channel sums them over
-// the batch for dw and db: no atomics, the same result on every run.
+// two-read floor of 0.89 ms; at its internal grid 66 MB each (0.059 and
+// 0.099 ms), where the fixed cost of the launch, its barriers and each
+// phase's ramp weighs as much as the bytes. So it is one cooperative launch
+// of a persistent grid, one block an SM, that takes S samples a round:
+//
+// * The grid is split into S parts of blocks / S blocks, one a sample of
+//   the round, and each block sums its slice of its sample's pixels (S1, S2
+//   and the dw and db terms, per channel). One grid barrier; one warp a
+//   (sample, channel) adds the blocks' partials in a fixed order (no
+//   atomics: the same result on every run); a second barrier; every block
+//   writes dx for its slice. Two barriers a round: with S = B (the plan's
+//   choice where it was measured faster) two a launch, where walking the
+//   samples in turn (S = 1, the first design) costs 2B and B short phases.
+// * Loads that keep HBM busy while the divisions run: each thread streams
+//   its pixels of x and g through a ring of RING slots of its own in shared
+//   memory, RING - 1 pixels ahead, with asynchronous 16-byte copies
+//   (cp.async: no register holds a pixel in flight, and no barrier is needed,
+//   since a thread reads only its own slots). 8 slots of x and g for 480
+//   threads keep ~105 KB in flight an SM; rings of 4 to 10 slots time within
+//   about 1% of it (sweep_k3dx_k10.py).
+// * The second pass goes from the last pixel back: the likeliest in L2.
+// * The per-(b, c) sums are kept, and after the last round one warp a channel
+//   sums them over the batch for dw and db.
 
 namespace {
+
+constexpr int RING = 8;  // pixels of x and of g in flight a thread: its shared-memory slots
+
+// one pixel's R of src into a shared-memory slot: an asynchronous copy where
+// R is 4 or 16 bytes, a load and a store for a lone bf16 channel (cp.async
+// copies no 2-byte pieces)
+template <typename R>
+__device__ __forceinline__ void fetch(R* dst, const R* src) {
+  if constexpr (sizeof(R) >= 4) {
+    sm90::cp_async<sizeof(R)>(dst, src, true);
+  } else {
+    *dst = *src;
+  }
+}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     instance_norm_grad_kernel(const T* __restrict__ gy, const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ stats,
                               T* __restrict__ dx, float* __restrict__ dwdb, float* __restrict__ part, float* __restrict__ sums, int B, int HW, int C,
-                              int n_valid, int CG, int ppi, int chunk) {
+                              int n_valid, int CG, int ppi, int S, int chunk) {
   using P = Pack<T, VEC>;
   using R = typename P::R;
   cg::grid_group grid = cg::this_grid();
@@ -363,48 +392,59 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int TPP = CG / VEC;
   const int row = tid / TPP, cv = tid % TPP;
   float* s_q[4] = {smem, smem + nthreads * VEC, smem + 2 * nthreads * VEC, smem + 3 * nthreads * VEC};  // [ppi][CG] each
+  R* ring = reinterpret_cast<R*>(smem + 4 * nthreads * VEC);                                           // [RING][2][nthreads]
   const int nblocks = gridDim.x, blk = blockIdx.x;
-  const int p0 = blk * chunk, p1 = min(HW, p0 + chunk);
-  const int first = p0 + row, n_k = first < p1 ? (p1 - first + ppi - 1) / ppi : 0;
+  const int bps = nblocks / S;                   // blocks a sample
+  const int part_s = blk / bps, j = blk % bps;  // this block's sample of the round, and its slice
+  const int p0 = j * chunk, p1 = min(HW, p0 + chunk);
+  const int first = p0 + row, n_k = first < p1 ? (p1 - first + ppi - 1) / ppi : 0;  // this thread's pixels
   const int lane = tid % 32, warp = tid / 32, nwarps = nthreads / 32;
-  const int n_groups = C / CG;
-  // pixels a thread has in flight: (x, g) pairs, fewer for 16-byte bf16
-  // loads (their 8 channels' sums take the registers)
-  constexpr int GU = VEC == 8 ? 2 : 4;
+  const int n_groups = C / CG, n_rounds = (B + S - 1) / S;
 
-  for (int bg = 0; bg < B * n_groups; ++bg) {
-    const int b = bg / n_groups, c0 = (bg % n_groups) * CG;
-    const long long off = (long long)b * HW * C + c0 + cv * VEC + (long long)first * C;
+  for (int it = 0; it < n_rounds * n_groups; ++it) {
+    const int round = it / n_groups, c0 = (it % n_groups) * CG;
+    const int b = round * S + part_s;
+    const bool active = b < B;
+    const long long off = (long long)min(b, B - 1) * HW * C + c0 + cv * VEC + (long long)first * C;
     const T* xb = x + off;
     const T* gb = gy + off;
     T* db_ = dx + off;
     const long long step = (long long)ppi * C;
+    const int nk = active ? n_k : 0;
 
     float mu[VEC], sd[VEC], wv[VEC];
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
       const int c = c0 + cv * VEC + v;
-      mu[v] = stats[(long long)b * 2 * C + c];
-      sd[v] = stats[(long long)b * 2 * C + C + c];
+      mu[v] = active ? stats[(long long)b * 2 * C + c] : 0.f;
+      sd[v] = active ? stats[(long long)b * 2 * C + C + c] : 1.f;
       wv[v] = mt::to_f32(w[c]);
     }
-    // z, dz and the weight's term g * zr of one pixel's VEC channels
-    auto terms = [&](const R& rx, const R& rg, float (&z)[VEC], float (&dz)[VEC], float (&gv)[VEC], float (&gz)[VEC]) {
-      float xv[VEC];
-      P::unpack(rx, xv);
-      P::unpack(rg, gv);
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        z[v] = __fdiv_rn(__fsub_rn(xv[v], mu[v]), sd[v]);
-        if constexpr (sizeof(T) == 2) {
-          dz[v] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(gv[v], wv[v])));
-          const float zr = __bfloat162float(__float2bfloat16_rn(z[v]));
-          gz[v] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(gv[v], zr)));
-        } else {
-          dz[v] = __fmul_rn(gv[v], wv[v]);
-          gz[v] = __fmul_rn(gv[v], z[v]);
-        }
+    // z, dz and the weight's term g * zr of channel v of one pixel, one
+    // channel at a time (a pixel's VEC channels at once would hold 4 VEC
+    // more registers)
+    auto term = [&](float xv, float gv, int v, float& z, float& dz, float& gz) {
+      z = __fdiv_rn(__fsub_rn(xv, mu[v]), sd[v]);
+      if constexpr (sizeof(T) == 2) {
+        dz = __bfloat162float(__float2bfloat16_rn(__fmul_rn(gv, wv[v])));
+        const float zr = __bfloat162float(__float2bfloat16_rn(z));
+        gz = __bfloat162float(__float2bfloat16_rn(__fmul_rn(gv, zr)));
+      } else {
+        dz = __fmul_rn(gv, wv[v]);
+        gz = __fmul_rn(gv, z);
       }
+    };
+
+    // this thread's pixel k (of x and g) into its slot k % RING, and a copy
+    // group for it, empty past the slice's ends: one group a pixel
+    auto slot = [&](int k) { return ring + (k % RING) * 2 * nthreads + tid; };
+    auto copy_pixel = [&](int k) {
+      asm volatile("" ::: "memory");  // after the reads of the slot's last pixel
+      if (k >= 0 && k < nk) {
+        fetch(slot(k), reinterpret_cast<const R*>(xb + k * step));
+        fetch(slot(k) + nthreads, reinterpret_cast<const R*>(gb + k * step));
+      }
+      sm90::cp_async_commit();
     };
 
     // ---- pass 1: this thread's sums over its pixels (all rows, padded too)
@@ -413,29 +453,24 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int v = 0; v < VEC; ++v) acc[q][v] = 0.f;
-    auto accumulate = [&](const R& rx, const R& rg) {
-      float z[VEC], dz[VEC], gv[VEC], gz[VEC];
-      terms(rx, rg, z, dz, gv, gz);
+    for (int k = 0; k < RING - 1; ++k) copy_pixel(k);
+    for (int k = 0; k < nk; ++k) {
+      copy_pixel(k + RING - 1);
+      sm90::cp_async_wait<RING - 1>();
+      float xv[VEC], gv[VEC];
+      P::unpack(slot(k)[0], xv);
+      P::unpack(slot(k)[nthreads], gv);
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
-        acc[0][v] += dz[v];
-        acc[1][v] += dz[v] * z[v];
-        acc[2][v] += gz[v];
+        float z, dz, gz;
+        term(xv[v], gv[v], v, z, dz, gz);
+        acc[0][v] += dz;
+        acc[1][v] += dz * z;
+        acc[2][v] += gz;
         acc[3][v] += gv[v];
       }
-    };
-    int k = 0;
-    for (; k + GU <= n_k; k += GU) {
-      R rx[GU], rg[GU];
-#pragma unroll
-      for (int u = 0; u < GU; ++u) {
-        rx[u] = *reinterpret_cast<const R*>(xb + (k + u) * step);
-        rg[u] = *reinterpret_cast<const R*>(gb + (k + u) * step);
-      }
-#pragma unroll
-      for (int u = 0; u < GU; ++u) accumulate(rx[u], rg[u]);
     }
-    for (; k < n_k; ++k) accumulate(*reinterpret_cast<const R*>(xb + k * step), *reinterpret_cast<const R*>(gb + k * step));
+    sm90::cp_async_wait<0>();
 
     // ---- sum the block's rows (a tree over row pairs), then publish
 #pragma unroll
@@ -461,12 +496,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
     grid.sync();
 
-    // ---- one warp a channel sums the blocks' partials, in a fixed order
-    for (int c = blk * nwarps + warp; c < CG; c += nblocks * nwarps) {
+    // ---- one warp a (sample, channel) adds its blocks' partials, in a fixed
+    // order (read past L1, which other SMs' writes do not reach)
+    for (int sc = blk * nwarps + warp; sc < S * CG; sc += nblocks * nwarps) {
+      const int s = sc / CG, c = sc % CG, bs = round * S + s;
+      if (bs >= B) continue;
       float t[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = lane; j < nblocks; j += 32) {
+      for (int jj = lane; jj < bps; jj += 32) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) t[q] += __ldcg(part + ((long long)j * 4 + q) * CG + c);
+        for (int q = 0; q < 4; ++q) t[q] += __ldcg(part + ((long long)(s * bps + jj) * 4 + q) * CG + c);
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -474,43 +512,40 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         for (int o = 16; o >= 1; o /= 2) t[q] += __shfl_down_sync(0xFFFFFFFFu, t[q], o);
       if (lane == 0) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) sums[((long long)b * 4 + q) * C + c0 + c] = t[q];
+        for (int q = 0; q < 4; ++q) sums[((long long)bs * 4 + q) * C + c0 + c] = t[q];
       }
     }
     grid.sync();
 
-    // ---- dx for the slice, the last pixel read first
+    // ---- pass 2: dx for the slice, the last pixel read first (the
+    // likeliest in L2)
     float a[VEC], cc[VEC];
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
       const int c = c0 + cv * VEC + v;
-      a[v] = __fdiv_rn(__ldcg(sums + ((long long)b * 4 + 0) * C + c), (float)n_valid);
-      cc[v] = __fdiv_rn(__ldcg(sums + ((long long)b * 4 + 1) * C + c), (float)n_valid);
+      a[v] = active ? __fdiv_rn(__ldcg(sums + ((long long)b * 4 + 0) * C + c), (float)n_valid) : 0.f;
+      cc[v] = active ? __fdiv_rn(__ldcg(sums + ((long long)b * 4 + 1) * C + c), (float)n_valid) : 0.f;
     }
-    auto grad = [&](const R& rx, const R& rg, int kk) -> R {
-      float z[VEC], dz[VEC], gv[VEC], gz[VEC], out[VEC];
-      terms(rx, rg, z, dz, gv, gz);
-      const bool valid = first + kk * ppi < n_valid;
+    for (int k = nk - 1; k > nk - RING; --k) copy_pixel(k);
+    for (int k = nk - 1; k >= 0; --k) {
+      copy_pixel(k - RING + 1);
+      sm90::cp_async_wait<RING - 1>();
+      float xv[VEC], gv[VEC], out[VEC];
+      P::unpack(slot(k)[0], xv);
+      P::unpack(slot(k)[nthreads], gv);
+      const bool valid = first + k * ppi < n_valid;
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
+        float z, dz, gz;
+        term(xv[v], gv[v], v, z, dz, gz);
         const float av = valid ? a[v] : 0.f, cv_ = valid ? cc[v] : 0.f;
-        out[v] = __fdiv_rn(__fsub_rn(__fsub_rn(dz[v], av), __fmul_rn(z[v], cv_)), sd[v]);
+        out[v] = __fdiv_rn(__fsub_rn(__fsub_rn(dz, av), __fmul_rn(z, cv_)), sd[v]);
       }
-      return P::pack(out);
-    };
-    k = n_k - 1;
-    for (; k + 1 >= GU; k -= GU) {
-      R rx[GU], rg[GU];
-#pragma unroll
-      for (int u = 0; u < GU; ++u) {
-        rx[u] = *reinterpret_cast<const R*>(xb + (k - u) * step);
-        rg[u] = *reinterpret_cast<const R*>(gb + (k - u) * step);
-      }
-#pragma unroll
-      for (int u = 0; u < GU; ++u) __stcs(reinterpret_cast<R*>(db_ + (k - u) * step), grad(rx[u], rg[u], k - u));
+      __stcs(reinterpret_cast<R*>(db_ + k * step), P::pack(out));
     }
-    for (; k >= 0; --k)
-      __stcs(reinterpret_cast<R*>(db_ + k * step), grad(*reinterpret_cast<const R*>(xb + k * step), *reinterpret_cast<const R*>(gb + k * step), k));
+    sm90::cp_async_wait<0>();
+    // the next round's partials and sums are written only after the grid
+    // barrier that follows its pass 1, which every block reaches after this
   }
 
   // ---- dw and db: the per-sample sums over the batch, a warp's lane 0 a
@@ -531,13 +566,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
 }
 
+
 template <typename T, int VEC>
 int launch_grad(const void* g, const void* x, const void* w, const void* stats, void* dx, void* dwdb, void* part, void* sums, int B, int HW, int C,
-                int n_valid, int CG, int ppi, int chunk, int nblocks, cudaStream_t s) {
+                int n_valid, int CG, int ppi, int S, int chunk, int nblocks, cudaStream_t s) {
   const int nthreads = ppi * (CG / VEC);
-  if (CG % VEC || C % CG || nthreads > MAX_THREADS || nthreads % 32) return (int)cudaErrorInvalidValue;
-  // the rows' four sums
-  const size_t smem = (size_t)4 * nthreads * VEC * sizeof(float);
+  if (CG % VEC || C % CG || nthreads > MAX_THREADS || nthreads % 32 || nblocks % S || (long long)(nblocks / S) * chunk < HW)
+    return (int)cudaErrorInvalidValue;
+  // the rows' four sums, and the threads' rings of x and g
+  const size_t smem = (size_t)4 * nthreads * VEC * sizeof(float) + (size_t)RING * 2 * nthreads * sizeof(typename Pack<T, VEC>::R);
   auto kernel = instance_norm_grad_kernel<T, VEC>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -549,7 +586,7 @@ int launch_grad(const void* g, const void* x, const void* w, const void* stats, 
   float* dwp = static_cast<float*>(dwdb);
   float* pp = static_cast<float*>(part);
   float* su = static_cast<float*>(sums);
-  void* args[] = {&gp, &xp, &wp, &sp, &dxp, &dwp, &pp, &su, &B, &HW, &C, &n_valid, &CG, &ppi, &chunk};
+  void* args[] = {&gp, &xp, &wp, &sp, &dxp, &dwp, &pp, &su, &B, &HW, &C, &n_valid, &CG, &ppi, &S, &chunk};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblocks), dim3(nthreads), args, smem, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -561,22 +598,24 @@ int launch_grad(const void* g, const void* x, const void* w, const void* stats, 
 // g, x, dx: (B, HW, C) contiguous, 16-byte aligned for vec > 1; w: (C,) in
 // x's dtype; stats: float32 (B, 2, C), each (sample, channel)'s mean and
 // sqrt(var + eps) (K4's); dwdb: float32 (2, C) out; part: float32 (nblocks,
-// 4, CG) and sums: float32 (B, 4, C) scratch. The launch shape is K4's
-// (plan_instance_norm); the grid must fit on the card at once.
+// 4, CG) and sums: float32 (B, 4, C) scratch. S samples a round, each on
+// nblocks / S blocks of chunk pixels (nblocks a multiple of S); ppi * CG /
+// vec threads a block (models/common/layer_norm.py
+// plan_instance_norm_grad). The grid must fit on the card at once.
 // Returns cudaGetLastError() after the launch, or an argument error.
 extern "C" int mt_instance_norm_grad(int dtype, int vec, const void* g, const void* x, const void* w, const void* stats, void* dx, void* dwdb,
-                                     void* part, void* sums, int B, int HW, int C, int n_valid, int CG, int ppi, int chunk, int nblocks, void* stream) {
-  if (B <= 0 || HW <= 0 || C <= 0 || CG <= 0 || ppi <= 0 || chunk <= 0 || nblocks <= 0 || n_valid <= 0 || n_valid > HW ||
-      (long long)nblocks * chunk < HW)
+                                     void* part, void* sums, int B, int HW, int C, int n_valid, int CG, int ppi, int S, int chunk, int nblocks,
+                                     void* stream) {
+  if (B <= 0 || HW <= 0 || C <= 0 || CG <= 0 || ppi <= 0 || S <= 0 || S > nblocks || chunk <= 0 || nblocks <= 0 || n_valid <= 0 || n_valid > HW)
     return (int)cudaErrorInvalidValue;
   if (vec > 1 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx)) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && vec == 4) return launch_grad<float, 4>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
-  if (dtype == 0 && vec == 1) return launch_grad<float, 1>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
+  if (dtype == 0 && vec == 4) return launch_grad<float, 4>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, S, chunk, nblocks, s);
+  if (dtype == 0 && vec == 1) return launch_grad<float, 1>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, S, chunk, nblocks, s);
   if (dtype == 1 && vec == 8)
-    return launch_grad<__nv_bfloat16, 8>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
+    return launch_grad<__nv_bfloat16, 8>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, S, chunk, nblocks, s);
   if (dtype == 1 && vec == 1)
-    return launch_grad<__nv_bfloat16, 1>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, chunk, nblocks, s);
+    return launch_grad<__nv_bfloat16, 1>(g, x, w, stats, dx, dwdb, part, sums, B, HW, C, n_valid, CG, ppi, S, chunk, nblocks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -162,11 +162,13 @@ def library() -> ctypes.CDLL:
             lib.mt_legendre_synthesis_narrow.restype = i
             lib.mt_dhconv_contract.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_contract.restype = i
+            lib.mt_dhconv_grad_input.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.mt_dhconv_grad_input.restype = i
             lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [ll, vp]
             lib.mt_disco_band_contract.restype = i
             lib.mt_instance_norm.argtypes = [i, i] + [vp] * 6 + [i] * 8 + [ctypes.c_float, vp]
             lib.mt_instance_norm.restype = i
-            lib.mt_instance_norm_grad.argtypes = [i, i] + [vp] * 8 + [i] * 8 + [vp]
+            lib.mt_instance_norm_grad.argtypes = [i, i] + [vp] * 8 + [i] * 9 + [vp]
             lib.mt_instance_norm_grad.restype = i
             lib.mt_dhconv_grad_weight.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_grad_weight.restype = i

@@ -7,9 +7,10 @@ kernel K3 (``csrc/dhconv.cu``) on the card; ``cmul_einsum_s`` is its plain
 version (the JAX package's four real einsums). It is a
 ``torch.autograd.Function`` whose backward is
 
-  dx[b,l,m,g,i] = sum_o  g[b,l,m,g,o] * conj(w[g,i,o,l])   K3 again, on the
-                  conjugate-transposed weight (L, G, Co, Ci, 2), made in the
-                  backward (``dhconv_grad_input``);
+  dx[b,l,m,g,i] = sum_o  g[b,l,m,g,o] * conj(w[g,i,o,l])   K3 again, in its
+                  input-gradient mode: it reads the forward's cached weight
+                  (L, G, Ci, Co, 2) and conjugates it as it stages it
+                  (``dhconv_grad_input``);
   dw[g,i,o,l]   = sum_bm conj(x[b,l,m,g,i]) * g[b,l,m,g,o] kernel K9
                   (``csrc/dhconv_grad.cu``, ``dhconv_grad_weight``), written
                   in the parameter's own layout (G, Ci, Co, L, 2);
@@ -33,7 +34,6 @@ __all__ = [
     "dhconv_grad_input_plain",
     "dhconv_grad_weight",
     "dhconv_grad_weight_plain",
-    "conj_transposed_weight",
 ]
 
 
@@ -98,13 +98,6 @@ class _PermutedWeight:
         return self._value
 
 
-def conj_transposed_weight(w2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The dhconv weight (G, Ci, Co, L, 2) as K3 reads it for the input
-    gradient: conjugated and transposed to (L, G, Co, Ci, 2), in ``dtype``."""
-    wt = w2.detach().permute(3, 0, 2, 1, 4).to(dtype)
-    return torch.stack([wt[..., 0], -wt[..., 1]], dim=-1).contiguous()
-
-
 def dhconv_grad_input_plain(g2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """dx of the channels-last dense dhconv: g2 (B, L, M, G, Co, 2) times the
     conjugate of w2 (G, Ci, Co, L, 2) summed over Co, in plain PyTorch."""
@@ -120,25 +113,28 @@ def dhconv_grad_weight_plain(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor
     return cmul_einsum_s("bxygi,bxygo->giox", xc, g2)
 
 
-def _k3_launch(x2: torch.Tensor, w_perm: torch.Tensor, name: str) -> torch.Tensor:
+def _k3_launch(x2: torch.Tensor, w_perm: torch.Tensor, grad_input: bool) -> torch.Tensor:
+    """K3 on x2 (B, L, M, G, Ci, 2) and w_perm (L, G, Ci, Co, 2): the forward
+    gives (B, L, M, G, Co, 2); the input gradient takes x2 as g (B, L, M, G,
+    Co, 2) and gives (B, L, M, G, Ci, 2)."""
+    name = "dhconv_grad_input" if grad_input else "dhconv"
     if x2.dtype != w_perm.dtype:
         raise TypeError(f"{name}: input {x2.dtype} and weight {w_perm.dtype} differ")
     if x2.dim() != 6 or w_perm.dim() != 5 or x2.shape[-1] != 2 or w_perm.shape[-1] != 2:
-        raise ValueError(f"{name}: expected x (B,L,M,G,Ci,2) and w (L,G,Ci,Co,2), got {tuple(x2.shape)} and {tuple(w_perm.shape)}")
-    B, L, M, G, Ci, _ = x2.shape
-    if tuple(w_perm.shape[:3]) != (L, G, Ci):
+        raise ValueError(f"{name}: expected x (B,L,M,G,C,2) and w (L,G,Ci,Co,2), got {tuple(x2.shape)} and {tuple(w_perm.shape)}")
+    B, L, M, G, K, _ = x2.shape
+    Ci, Co = w_perm.shape[2], w_perm.shape[3]
+    if tuple(w_perm.shape[:2]) != (L, G) or K != (Co if grad_input else Ci):
         raise ValueError(f"{name}: x {tuple(x2.shape)} does not match w {tuple(w_perm.shape)}")
     if not (x2.is_contiguous() and w_perm.is_contiguous()):
         raise ValueError(f"{name}: x and w must be contiguous")
-    Co = w_perm.shape[3]
-    out = torch.empty(B, L, M, G, Co, 2, dtype=x2.dtype, device=x2.device)
+    out = torch.empty(B, L, M, G, Ci if grad_input else Co, 2, dtype=x2.dtype, device=x2.device)
     if out.numel() == 0:
         return out
     lib = kernels.library()
+    launch = lib.mt_dhconv_grad_input if grad_input else lib.mt_dhconv_contract
     with torch.cuda.device(x2.device):
-        err = lib.mt_dhconv_contract(
-            kernels.dtype_code(x2.dtype), x2.data_ptr(), w_perm.data_ptr(), out.data_ptr(), B, L, M, G, Ci, Co, kernels.stream_ptr(x2.device)
-        )
+        err = launch(kernels.dtype_code(x2.dtype), x2.data_ptr(), w_perm.data_ptr(), out.data_ptr(), B, L, M, G, Ci, Co, kernels.stream_ptr(x2.device))
     kernels.check_launch(err, name)
     kernels.count_launch(name)
     return out
@@ -149,15 +145,17 @@ def dhconv_contract_cl_s(x2: torch.Tensor, w_perm: torch.Tensor) -> torch.Tensor
     tensors. x2 (B, L, M, G, Ci, 2) and ``w_perm`` (L, G, Ci, Co, 2) in one
     dtype (float32 or bfloat16), both contiguous on one CUDA device; returns
     (B, L, M, G, Co, 2) in that dtype, accumulated in fp32."""
-    return _k3_launch(x2, w_perm, "dhconv")
+    return _k3_launch(x2, w_perm, grad_input=False)
 
 
-def dhconv_grad_input(g2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """dx of the dense channels-last dhconv on the card: K3 on the
-    conjugate-transposed weight, counted as ``dhconv_grad_input``. g2 (B, L,
-    M, G, Co, 2) float32 or bfloat16, w2 (G, Ci, Co, L, 2); returns (B, L,
-    M, G, Ci, 2) in g2's dtype."""
-    return _k3_launch(g2.contiguous(), conj_transposed_weight(w2, g2.dtype), "dhconv_grad_input")
+def dhconv_grad_input(g2: torch.Tensor, w_perm: torch.Tensor) -> torch.Tensor:
+    """dx of the dense channels-last dhconv on the card: K3 in its
+    input-gradient mode, counted as ``dhconv_grad_input``. g2 (B, L, M, G,
+    Co, 2) and the forward's permuted weight ``w_perm`` (L, G, Ci, Co, 2,
+    ``_PermutedWeight``) in one dtype (float32 or bfloat16), contiguous on
+    one CUDA device; returns (B, L, M, G, Ci, 2) in that dtype. K3 conjugates
+    the weight as it stages it: nothing but the output is allocated."""
+    return _k3_launch(g2, w_perm, grad_input=True)
 
 
 def dhconv_grad_weight(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
@@ -192,13 +190,16 @@ def dhconv_grad_weight(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
 
 class _DhconvContract(torch.autograd.Function):
     """The dense channels-last dhconv with its hand-written backward: K3
-    forward, K3 on the conjugate-transposed weight for dx and K9 for dw on
-    the card; the plain einsums of the same formulas on the CPU. The weight
-    is an input (the gradient flows to the parameter)."""
+    forward, K3's input-gradient mode on the forward's cached weight for dx
+    and K9 for dw on the card; the plain einsums of the same formulas on the
+    CPU. The weight is an input (the gradient flows to the parameter); the
+    weight cache rides on ``ctx`` (not a saved tensor), and the backward asks
+    it for the forward's key, so nothing is built there."""
 
     @staticmethod
     def forward(ctx, x2, w2, cache):
         ctx.save_for_backward(x2, w2)
+        ctx.cache = cache
         if kernels.takes_plain("dhconv", x2, w2):
             return contract_dense_s_plain(x2, w2, False, "dhconv", True)
         dtype = torch.bfloat16 if x2.dtype == torch.bfloat16 else w2.dtype
@@ -217,7 +218,7 @@ class _DhconvContract(torch.autograd.Function):
         dtype = torch.bfloat16 if x2.dtype == torch.bfloat16 else w2.dtype
         g2 = g2.to(dtype).contiguous()
         if ctx.needs_input_grad[0]:
-            dx = dhconv_grad_input(g2, w2)
+            dx = dhconv_grad_input(g2, ctx.cache.get(w2, dtype))
         if ctx.needs_input_grad[1]:
             dw = dhconv_grad_weight(x2.to(dtype).contiguous(), g2)
             if dtype == torch.bfloat16:
@@ -237,8 +238,8 @@ def contract_dense_s(
 
     The dense channels-last dhconv case (the SFNO's) is kernel K3 on the card,
     replacing ``makani_tpu/models/common/contractions.py`` ``contract_dense_s``
-    + ``cmul_einsum_s``, with its backward (K3 on the conjugate-transposed
-    weight for dx, K9 for dw); on the CPU the same ``autograd.Function`` runs
+    + ``cmul_einsum_s``, with its backward (K3's input-gradient mode on the
+    cached weight for dx, K9 for dw); on the CPU the same ``autograd.Function`` runs
     the plain einsums. The other cases have no kernel yet: on the CPU they
     run the plain version under autograd, on the card they raise rather than
     run unported code. ``weight_cache`` keeps K3's permuted weight between

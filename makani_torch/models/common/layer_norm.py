@@ -19,7 +19,9 @@ sqrt(var + eps) (B·C·2 floats), which the backward keeps.
 
 The backward is kernel K10 (same source, ``launch_instance_norm_grad``):
 the closed form of ``makani_tpu/ops/norm.py`` ``_bwd`` in one cooperative
-launch on K4's plan, ``instance_norm_grad_plain`` its plain version. Both
+launch, ``instance_norm_grad_plain`` its plain version. Its launch shape,
+``plan_instance_norm_grad``, takes K4's threads and adds how many samples a
+round the grid takes (all of them: two grid barriers a launch). Both
 sit in a ``torch.autograd.Function`` (``instance_norm_cl``) that takes the
 kernels for a CUDA tensor and the plain versions for a CPU one.
 """
@@ -44,6 +46,8 @@ __all__ = [
     "launch_instance_norm",
     "launch_instance_norm_grad",
     "NormPlan",
+    "GradPlan",
+    "plan_instance_norm_grad",
 ]
 
 
@@ -167,6 +171,29 @@ def plan_instance_norm(HW: int, C: int, itemsize: int, aligned: bool = True, sms
     return hit[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class GradPlan(NormPlan):
+    """A K10 launch: K4's threads (``vec``, ``group``, ``ppi``, ``threads``)
+    and ``samples`` a round, each on ``blocks / samples`` blocks of
+    ``chunk`` pixels."""
+
+    samples: int
+
+
+def plan_instance_norm_grad(B: int, HW: int, C: int, itemsize: int, aligned: bool = True, sms: int = _SMS) -> GradPlan:
+    """K10's launch for B samples of HW pixels of C channels: K4's threads
+    a block and all B samples a round (at most one a block: two grid
+    barriers a launch), the grid split evenly between them. A plan for one
+    sample, launched on B, walks the samples one a round, which was slower
+    at both of the SFNO training step's grids (PERF.md)."""
+    base = plan_instance_norm(HW, C, itemsize, aligned=aligned, sms=sms)
+    if B < 1:
+        raise ValueError(f"instance_norm_grad: {B} samples")
+    S = min(B, sms)
+    bps = sms // S
+    return GradPlan(base.vec, base.group, base.ppi, base.threads, S * bps, -(-HW // bps), S)
+
+
 @functools.cache
 def _card(index: int) -> dict:
     return {"sms": torch.cuda.get_device_properties(index).multi_processor_count}
@@ -193,10 +220,11 @@ def launch_instance_norm(x, w, b, n_valid: int, eps: float, plan: NormPlan):
     return y, stats[:, 0], stats[:, 1]
 
 
-def launch_instance_norm_grad(g, x, w, mean, sd, n_valid: int, plan: NormPlan):
-    """Launch K10 with a given plan (K4's for x): g and x (B, H, W, C)
-    contiguous in one dtype, w (C,) in that dtype, mean and sd (B, 1, 1, C)
-    fp32 from K4. Returns dx in x's dtype and dw, db (C,) fp32."""
+def launch_instance_norm_grad(g, x, w, mean, sd, n_valid: int, plan: GradPlan):
+    """Launch K10 with a given plan (``plan_instance_norm_grad``): g and x
+    (B, H, W, C) contiguous in one dtype, w (C,) in that dtype, mean and sd
+    (B, 1, 1, C) fp32 from K4. Returns dx in x's dtype and dw, db (C,)
+    fp32."""
     B, H, W, C = x.shape
     dx = torch.empty_like(x)
     part = torch.empty(plan.blocks, 4, plan.group, dtype=torch.float32, device=x.device)
@@ -207,7 +235,8 @@ def launch_instance_norm_grad(g, x, w, mean, sd, n_valid: int, plan: NormPlan):
     with torch.cuda.device(x.device):
         err = lib.mt_instance_norm_grad(
             kernels.dtype_code(x.dtype), plan.vec, g.data_ptr(), x.data_ptr(), w.data_ptr(), stats.data_ptr(), dx.data_ptr(), dwdb.data_ptr(),
-            part.data_ptr(), sums.data_ptr(), B, H * W, C, n_valid, plan.group, plan.ppi, plan.chunk, plan.blocks, kernels.stream_ptr(x.device),
+            part.data_ptr(), sums.data_ptr(), B, H * W, C, n_valid, plan.group, plan.ppi, plan.samples, plan.chunk, plan.blocks,
+            kernels.stream_ptr(x.device),
         )
     kernels.check_launch(err, "instance_norm_grad")
     kernels.count_launch("instance_norm_grad")
@@ -221,12 +250,21 @@ def _affine(x, weight, bias):
     return weight.to(x.dtype).contiguous(), bias.to(x.dtype).contiguous()
 
 
-def _plan(x, *others):
-    """K4's (and K10's) launch for x; 16-byte loads only where x and the
-    ``others`` read alongside it are 16-byte aligned."""
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _plan(x):
+    """K4's launch for x; 16-byte loads only where x is 16-byte aligned."""
     B, H, W, C = x.shape
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
-    return plan_instance_norm(H * W, C, x.element_size(), aligned=aligned, **_card(x.device.index or 0))
+    return plan_instance_norm(H * W, C, x.element_size(), aligned=_aligned(x), **_card(x.device.index or 0))
+
+
+def _grad_plan(x, g):
+    """K10's launch for x and g (16-byte loads where both are 16-byte
+    aligned; dx is a new tensor)."""
+    B, H, W, C = x.shape
+    return plan_instance_norm_grad(B, H * W, C, x.element_size(), aligned=_aligned(x, g), **_card(x.device.index or 0))
 
 
 class _InstanceNorm(torch.autograd.Function):
@@ -260,7 +298,7 @@ class _InstanceNorm(torch.autograd.Function):
         else:
             g = g.to(x.dtype).contiguous()
             w, _ = _affine(x, weight, weight)
-            dx, dw, db = launch_instance_norm_grad(g, x, w, mean, sd, ctx.n_valid, _plan(x, g))
+            dx, dw, db = launch_instance_norm_grad(g, x, w, mean, sd, ctx.n_valid, _grad_plan(x, g))
         if weight is None:
             dw = db = None
         return (dx if ctx.needs_input_grad[0] else None), dw, db, None, None

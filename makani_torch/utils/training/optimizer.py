@@ -197,9 +197,11 @@ class AdamFactored(torch.optim.Optimizer):
     as a ``torch.optim.Optimizer``. Per parameter its state holds ``count``
     (int32), ``mu`` (``mu_dtype``), and ``v_row``/``v_col`` for a factored
     leaf or ``v`` for an unfactored one (the other entries empty), with the
-    shapes of ``ScaleByAdamFactoredState``. A parameter without a gradient is
-    skipped. ``use_kernels = False`` runs the plain version on any device:
-    the reference path a comparison on the card runs."""
+    shapes of ``ScaleByAdamFactoredState``. As in the reference, a group
+    advances one count a step, kept equal in every parameter's ``count``,
+    and every parameter that requires a gradient is updated, a missing
+    ``grad`` taken as zeros. ``use_kernels = False`` runs the plain version
+    on any device: the reference path a comparison on the card runs."""
 
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, mu_dtype: torch.dtype | None = None, min_dim_size_to_factor: int = 128):
         self.mu_dtype = mu_dtype or torch.float32
@@ -242,28 +244,28 @@ class AdamFactored(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             b1, b2, eps, lr = group["b1"], group["b2"], group["eps"], group["lr"]
-            unfactored, factored, corrections = [], [], None
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self._state(p, group)
-                count = min(int(state["count"]) + 1, np.iinfo(np.int32).max)
+            params = [p for p in group["params"] if p.requires_grad]
+            if not params:
+                continue
+            # one count for the group, as the reference's one count for the tree
+            states = [self._state(p, group) for p in params]
+            count = min(max(int(s["count"]) for s in states) + 1, np.iinfo(np.int32).max)
+            c1, c2 = _bias_corrections(count, b1, b2)
+            unfactored, factored = [], []
+            for p, state in zip(params, states):
                 state["count"].fill_(count)
-                c1, c2 = _bias_corrections(count, b1, b2)
                 dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
-                g, mu = p.grad, state["mu"]
+                # the reference updates every leaf: an unused one with a zero gradient
+                g = p.grad if p.grad is not None else torch.zeros_like(p, memory_format=torch.contiguous_format)
+                mu = state["mu"]
                 if not self.use_kernels or kernels.takes_plain("adam_factored", p, g, mu):
                     adam_factored_update_plain(p, g, mu, state["v_row"], state["v_col"], state["v"], dims, c1, c2, b1, b2, eps, lr)
                 elif dims is None:
-                    if corrections not in (None, (c1, c2)):
-                        raise ValueError("adam_factored: the unfactored leaves of a group have different counts")
-                    corrections = (c1, c2)
                     unfactored.append((p, g.contiguous(), mu, state["v"]))
                 else:
                     factored.append((p, g.contiguous(), mu, state["v_row"], state["v_col"], dims, c1, c2))
             adam_factored_update(factored, self.mu_dtype, b1, b2, eps, lr)
-            if unfactored:
-                adam_unfactored_update(unfactored, self.mu_dtype, *corrections, b1, b2, eps, lr)
+            adam_unfactored_update(unfactored, self.mu_dtype, c1, c2, b1, b2, eps, lr)
         return loss
 
 

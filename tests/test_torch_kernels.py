@@ -483,8 +483,9 @@ def test_dhconv_grads_match_plain(cuda, B, L, M, G, Ci, Co, dtype):
     x = _randn((B, L, M, G, Ci, 2), dtype, cuda)
     g = _randn((B, L, M, G, Co, 2), dtype, cuda, seed=1)
     w = _randn((G, Ci, Co, L, 2), torch.float32, cuda, seed=2)
+    w_perm = _PermutedWeight().get(w, dtype)
     kernels.reset_launch_counts()
-    dx = dhconv_grad_input(g, w)
+    dx = dhconv_grad_input(g, w_perm)
     dw = dhconv_grad_weight(x, g)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["dhconv_grad_input"] == 1 and kernels.LAUNCHES["dhconv_grad_weight"] == 1
@@ -495,6 +496,34 @@ def test_dhconv_grads_match_plain(cuda, B, L, M, G, Ci, Co, dtype):
     contract_dense_s(xr, wr, False, "dhconv", True, weight_cache=_PermutedWeight()).backward(g)
     assert torch.equal(xr.grad, dx) and wr.grad.shape == w.shape
     assert torch.equal(wr.grad, dw if dtype == torch.float32 else dw.to(dtype).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dhconv_grad_input_reads_the_forward_cache(cuda, dtype):
+    """K3's dx reads the forward's cached weight: Ci 37 and Co 45 (a slip
+    between the two axes shows), 300 orders (three 128-row tiles), against
+    the plain version; the backward builds no weight (the cache's tensor is
+    the forward's); after an in-place update of the weight (a new version)
+    the next forward refreshes the cache and dx follows the new weight."""
+    from makani_torch.models.common.contractions import dhconv_grad_input, dhconv_grad_input_plain
+
+    B, L, M, G, Ci, Co = 2, 3, 300, 1, 37, 45
+    x = _randn((B, L, M, G, Ci, 2), dtype, cuda).requires_grad_()
+    g = _randn((B, L, M, G, Co, 2), dtype, cuda, seed=1)
+    w = _randn((G, Ci, Co, L, 2), torch.float32, cuda, seed=2).requires_grad_()
+    cache = _PermutedWeight()
+    for update in range(2):
+        y = contract_dense_s(x, w, False, "dhconv", True, weight_cache=cache)
+        w_perm = cache._value
+        kernels.reset_launch_counts()
+        dx, = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["dhconv_grad_input"] == 1 and cache._value is w_perm
+        ref = dhconv_grad_input_plain(g, w.detach())
+        assert dx.dtype == dtype and _agree(dx, ref, dtype)
+        assert torch.equal(dhconv_grad_input(g, w_perm), dx)
+        with torch.no_grad():
+            w.mul_(-0.5).add_(0.25)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -530,6 +559,32 @@ def test_instance_norm_grad_matches_plain(cuda, shape, nlat_phys, dtype):
     dx, dw, db = layer_norm.instance_norm_grad_plain(g, x.detach(), w.detach(), mean, sd, (nlat_phys or H) * W)
     assert x.grad.dtype == dtype and _agree(x.grad, dx, dtype)
     assert _agree(w.grad, dw, dtype) and _agree(b.grad, db, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H,W,C,nlat_phys", [(45, 90, 384, 40), (20, 30, 37, 17)])
+def test_instance_norm_grad_designs_match_plain(cuda, B, H, W, C, nlat_phys, dtype):
+    """K10 with every sample in one round (the plan) and walking the samples
+    one a round (a plan for one sample: the rounds a batch of more samples
+    than SMs takes): dx, dw and db against the plain version, with masked
+    rows and an odd C (one channel a load), and two launches bit-equal."""
+    x = 3.0 * _randn((B, H, W, C), dtype, cuda) + 1.5
+    g = _randn((B, H, W, C), dtype, cuda, seed=3)
+    w = (1.0 + 0.1 * _randn((C,), torch.float32, cuda, seed=1)).to(dtype)
+    mean, sd = layer_norm._norm_stats_plain(x, nlat_phys, 1e-6)
+    n = nlat_phys * W
+    ref = layer_norm.instance_norm_grad_plain(g, x, w, mean, sd, n)
+    default = layer_norm._grad_plan(x, g)
+    assert default.samples == B and (default.vec == 1) == (C == 37)
+    sms = layer_norm._card(0)["sms"]
+    for samples in (B, 1):
+        plan = layer_norm.plan_instance_norm_grad(samples, H * W, C, x.element_size(), sms=sms)
+        runs = [layer_norm.launch_instance_norm_grad(g, x, w, mean, sd, n, plan) for _ in range(2)]
+        torch.cuda.synchronize()
+        for out, again, r in zip(runs[0], runs[1], ref):
+            assert torch.equal(out, again), samples
+            assert _agree(out, r, dtype), samples
 
 
 # K11's factored leaves: d0 < d1 (a dhconv-shaped 5-D weight with R 130 and
@@ -601,6 +656,29 @@ def test_adam_factored_kernel_is_deterministic(cuda):
         runs.append([t.detach().clone() for b in dev for t in (b, *[opt_dev.state[b][k] for k in ("mu", "v_row", "v_col", "v")])])
     for x, y in zip(*runs):
         assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x.view(torch.int32), y.view(torch.int16) if y.dtype == torch.bfloat16 else y.view(torch.int32))
+
+
+def test_adam_factored_kernel_counts_a_group(cuda):
+    """One count for the group on the card: a parameter without a gradient
+    in the first step is updated as with a zero gradient (K11's tables take
+    a zero tensor), and two steps agree with the plain update on the CPU,
+    every parameter's count 2."""
+    from makani_torch.utils.training.optimizer import AdamFactored
+
+    shapes = [(1, 130, 140, 4, 2), (96,), (7, 3), (130, 129)]
+    ref = [torch.nn.Parameter(_randn(s, torch.float32, "cpu", seed=k)) for k, s in enumerate(shapes)]
+    dev = [torch.nn.Parameter(p.detach().to(cuda)) for p in ref]
+    opt_ref, opt_dev = AdamFactored(ref, lr=1e-2, mu_dtype=torch.bfloat16), AdamFactored(dev, lr=1e-2, mu_dtype=torch.bfloat16)
+    for step in range(2):
+        for k, (a, b) in enumerate(zip(ref, dev)):
+            grad = None if step == 0 and k in (0, 1) else _randn(a.shape, torch.float32, "cpu", seed=10 * step + k)
+            a.grad, b.grad = grad, None if grad is None else grad.to(cuda)
+        opt_ref.step()
+        kernels.reset_launch_counts()
+        opt_dev.step()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["adam_factored"] == 3 + 1
+    _adam_agree(ref, dev, opt_ref, opt_dev, torch.bfloat16, 2)
 
 
 def test_small_sfno_train_step_kernel_path_matches_plain(cuda):

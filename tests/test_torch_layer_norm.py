@@ -2,7 +2,8 @@
 with and without nlat_phys latitude padding, NCHW and channels-last.
 
 Tolerances: fp32 max|diff| <= 1e-5 * max|ref|; bf16 relative L2 <= 2e-2.
-K4's launch plan (``plan_instance_norm``) is checked without a card.
+K4's and K10's launch plans (``plan_instance_norm``,
+``plan_instance_norm_grad``) are checked without a card.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ from makani_tpu.models.common.layer_norm import InstanceNorm2d as JInstanceNorm2
 
 from makani_torch import kernels
 from makani_torch.convert_jax import load_from_jax
-from makani_torch.models.common.layer_norm import InstanceNorm2d, instance_norm_cl, instance_norm_cl_plain, plan_instance_norm
+from makani_torch.models.common.layer_norm import InstanceNorm2d, instance_norm_cl, instance_norm_cl_plain, plan_instance_norm, plan_instance_norm_grad
 
 C = 6
 
@@ -90,3 +91,21 @@ def test_instance_norm_plan_groups():
     assert plan_instance_norm(240 * 480, 384, 2, sms=7).blocks == 7
     with pytest.raises(ValueError):
         plan_instance_norm(240 * 480, 384, 2, group=100)
+
+
+@pytest.mark.parametrize(
+    "B,HW,C,itemsize,aligned",
+    [(3, 361 * 720, 384, 2, True), (3, 120 * 240, 384, 2, True), (3, 120 * 240, 384, 4, True), (1, 120 * 240, 384, 2, True),
+     (1, 37 * 50, 37, 2, True), (5, 37 * 50, 70, 4, True), (200, 8 * 16, 64, 2, True), (2, 3, 5, 4, False)],
+)
+def test_instance_norm_grad_plan(B, HW, C, itemsize, aligned):
+    """Every K10 plan is a launch the kernel takes: K4's threads and a grid
+    of whole parts of blocks, one part a sample of the round (all B, at
+    most one a block), whose chunks cover every pixel."""
+    k4 = plan_instance_norm(HW, C, itemsize, aligned=aligned)
+    p = plan_instance_norm_grad(B, HW, C, itemsize, aligned=aligned)
+    assert (p.vec, p.group, p.ppi, p.threads) == (k4.vec, k4.group, k4.ppi, k4.threads)
+    assert p.samples == min(B, 132) and p.blocks % p.samples == 0 and p.blocks > 132 - p.samples
+    assert (p.blocks // p.samples) * p.chunk >= HW and p.chunk == -(-HW // (p.blocks // p.samples))
+    with pytest.raises(ValueError):
+        plan_instance_norm_grad(0, HW, C, itemsize)

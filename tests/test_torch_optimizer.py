@@ -168,3 +168,49 @@ def test_get_optimizer_covers_the_bench_config():
     ):
         with pytest.raises(NotImplementedError, match=name):
             get_optimizer(ParamsBase(dict(params.to_dict(), **over)), _Leaves(_init()))
+
+
+# a factored leaf, a factored leaf with d0 > d1 and an unfactored one; one
+# of the first and the last sits out step 1 (no gradient in the port, a zero
+# gradient in the reference, which updates every leaf under one count)
+UNUSED_SHAPES = {"dhconv": (1, 130, 132, 3, 2), "flip": (140, 129), "bias": (7,)}
+
+
+def _unused_grads(step, unused):
+    r = np.random.default_rng(200 + step)
+    g = {k: (r.standard_normal(s) * (1 + i)).astype(np.float32) for i, (k, s) in enumerate(UNUSED_SHAPES.items())}
+    if step == 0:
+        g[unused] = None
+    return g
+
+
+@pytest.mark.parametrize("unused", ["dhconv", "bias"])
+@pytest.mark.parametrize("mu_dtype", ["bfloat16", "float32"])
+def test_adam_factored_matches_jax_with_a_parameter_unused(mu_dtype, unused):
+    """Two steps with one parameter unused in the first: the port advances
+    one count for the group and updates the unused parameter as the
+    reference does a zero gradient, so step 2's bias corrections are
+    count 2's for every leaf."""
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if mu_dtype == "bfloat16" else (None, torch.float32)
+    r = np.random.default_rng(3)
+    init = {k: r.standard_normal(s).astype(np.float32) for k, s in UNUSED_SHAPES.items()}
+    tx = optax.chain(scale_by_adam_factored(mu_dtype=jdt), optax.scale_by_learning_rate(LR))
+    p = jax.tree.map(jnp.asarray, init)
+    s = tx.init(p)
+    step = jax.jit(lambda p, s, g: (lambda u, s: (optax.apply_updates(p, u), s))(*tx.update(g, s, p)))
+    module = _Leaves(init)
+    opt = AdamFactored(module.parameters(), lr=LR, mu_dtype=tdt)
+    moved = {k: np.zeros(v.shape) for k, v in init.items()}
+    for k in range(2):
+        g = _unused_grads(k, unused)
+        q, s = step(p, s, {n: jnp.zeros(UNUSED_SHAPES[n], jnp.float32) if v is None else jnp.asarray(v) for n, v in g.items()})
+        for n in moved:
+            moved[n] += np.abs(np.asarray(q[n], np.float64) - np.asarray(p[n], np.float64))
+        p = q
+        for n, param in module.named_parameters():
+            param.grad = None if g[n] is None else torch.from_numpy(g[n])
+        opt.step()
+    assert int(s[0].count) == 2
+    for n, param in module.named_parameters():
+        assert int(opt.state[param]["count"]) == 2
+        _close(param.detach().numpy(), np.asarray(p[n]), extra=2.0**-7 * moved[n] if mu_dtype == "bfloat16" else 0.0)
