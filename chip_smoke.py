@@ -118,6 +118,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -414,7 +415,7 @@ def run_cases(cases, card, results, iters=10, warmup=2):
         ok = within(err, dtype)
         dt = str(dtype).replace("torch.", "")
         more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "two_read_ms", "library_ms") if extra.get(k) is not None)
-        more += "".join(f"; {extra[k]}" for k in ("route", "live", "library_note") if extra.get(k))
+        more += "".join(f"; {extra[k]}" for k in ("route", "live", "plan", "library_note") if extra.get(k))
         print(
             f"kernel {name:13s} {label:17s} {dt:8s} out {shape}: max|d| {err['max_abs_err']:.3e} "
             f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; "
@@ -825,6 +826,53 @@ def mix_case(conv, B, card):
     return ("disco_mix", "processor", torch.float32, lambda: disco_kernels.channel_mix(t2, w, planes), lambda: disco_kernels.channel_mix_plain(t2, w), extras)
 
 
+def resample_matrix(rs, batch: int, dev, transpose: bool = False) -> torch.Tensor:
+    """The resampling as one sparse CSR matrix over ``batch`` samples, block
+    diagonal: (batch Hout Wout) x (batch Hin Win), four entries a row
+    (lat weight x lon weight, zeros dropped), or its transpose; the
+    library yardstick of K7 and K14 (``torch.sparse.mm`` on a (pixels, C)
+    view)."""
+    li, lw, k0, k1, v = rs.tables(dev)
+    (Hin, Win), (Hout, Wout) = rs.in_shape, rs.out_shape
+    rows = li.long()[:, None] + torch.arange(2, device=dev)  # (Hout, 2)
+    cols = torch.stack([k0.long(), k1.long()], dim=1)  # (Wout, 2)
+    w = torch.stack([1 - lw, lw], dim=1)[:, None, :, None] * torch.stack([1 - v, v], dim=1)[None, :, None, :]
+    src = (rows[:, None, :, None] * Win + cols[None, :, None, :]).expand(Hout, Wout, 2, 2)
+    dst = torch.arange(Hout * Wout, device=dev).view(Hout, Wout, 1, 1).expand(Hout, Wout, 2, 2)
+    keep = w != 0
+    src, dst, w = src[keep], dst[keep], w[keep]
+    b = torch.arange(batch, device=dev)[:, None]
+    src, dst = (src + b * (Hin * Win)).reshape(-1), (dst + b * (Hout * Wout)).reshape(-1)
+    idx = torch.stack([src, dst]) if transpose else torch.stack([dst, src])
+    size = (batch * Hin * Win, batch * Hout * Wout) if transpose else (batch * Hout * Wout, batch * Hin * Win)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # CSR support is beta
+        return torch.sparse_coo_tensor(idx, w.repeat(batch), size, check_invariants=False).coalesce().to_sparse_csr()
+
+
+def sparse_yardstick(rs, src, ref_fn, transpose: bool, iters: int, warmup: int) -> dict:
+    """``torch.sparse.mm`` of ``resample_matrix`` on src (B, H, W, C) as a
+    (pixels, C) operand made beforehand: its time if it agrees with the
+    plain version within the fp32 gate, and a note with its error."""
+    B, C = src.shape[0], src.shape[-1]
+    (Hin, Win), (Hout, Wout) = rs.in_shape, rs.out_shape
+    mat = resample_matrix(rs, B, src.device, transpose)
+    dense = src.reshape(-1, C).contiguous()
+    shape = (B, Hin, Win, C) if transpose else (B, Hout, Wout, C)
+
+    def lib():
+        return torch.sparse.mm(mat, dense)
+
+    err = errors(lib().view(shape), ref_fn())
+    res = {"library_note": f"library: torch.sparse.mm (CSR, {mat.values().numel()} nonzeros), max|d|/max|ref| {err['max_rel']:.3e}"}
+    if err["max_rel"] <= FP32_TOL:
+        res["library_ms"] = time_ms(lib, iters, warmup)
+    else:
+        res["library_note"] = "no library yardstick: " + res["library_note"] + " misses the fp32 gate"
+    del mat, dense
+    return res
+
+
 def resample_case(rs, x, label):
     from makani_torch.ops.resample import resample_cl, resample_cl_plain
 
@@ -846,14 +894,16 @@ def resample_case(rs, x, label):
         def lib():
             return torch.nn.functional.grid_sample(xin, grid, mode="bilinear", padding_mode="border", align_corners=True)
 
-        err = errors(lib().permute(0, 2, 3, 1), resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v))
+        plain = lambda: resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v)
+        err = errors(lib().permute(0, 2, 3, 1), plain())
+        del xin, grid
         if err["max_rel"] <= FP32_TOL:
             res["library_ms"] = time_ms(lib, 3, 1)
             res["library_note"] = f"library: grid_sample, max|d|/max|ref| {err['max_rel']:.3e}"
         else:
-            res["library_note"] = (f"no library yardstick: grid_sample misses the fp32 gate (max|d|/max|ref| {err['max_rel']:.3e}): "
-                                   "it rebuilds the lerp weights from normalized fp32 coordinates")
-        del xin, grid
+            # grid_sample rebuilds the lerp weights from normalized fp32 coordinates
+            res.update(sparse_yardstick(rs, x, plain, False, 3, 1))
+            res["library_note"] += f" (grid_sample misses the fp32 gate: {err['max_rel']:.3e})"
         return res
 
     return ("resample", label, torch.float32, lambda: resample_cl(x, *tabs), lambda: resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v), extras)
@@ -1575,14 +1625,18 @@ def resample_grad_case(rs, dy, label):
     from makani_torch.ops.resample import resample_cl_grad, resample_cl_grad_plain
 
     dev = dy.device
-    inv, tabs = rs.inverse_tables(dev), rs.tables(dev)
-    li, lw, k0, k1, v = tabs
+    li, lw, k0, k1, v = rs.tables(dev)
+    B, Hout, Wout, C = dy.shape
+    plan = rs.grad_plan(dev, C, B)
 
     def extras(out):
-        return dict(bound(6.0 * dy.numel(), nbytes(dy, out, *inv)), library_ms=None,
-                    library_note=f"no one library call (the plain version is four index_add_); {kernel_regs('resample_grad_kernel')}")
+        plain = lambda: resample_cl_grad_plain(dy, rs.in_shape, li.long(), lw, k0.long(), k1.long(), v)
+        res = dict(bound(6.0 * dy.numel(), nbytes(dy, out, plan.table_on(dev), li, lw)), library_ms=None, plan=plan.describe())
+        res.update(sparse_yardstick(rs, dy, plain, True, 3, 1))
+        res["library_note"] += f"; {kernel_regs(f'resample_grad_walk_kernel<{plan.columns}, {plan.groups}>')}"
+        return res
 
-    return ("resample_grad", label, torch.float32, lambda: resample_cl_grad(dy, inv, rs.in_shape, tabs),
+    return ("resample_grad", label, torch.float32, lambda: resample_cl_grad(dy, rs),
             lambda: resample_cl_grad_plain(dy, rs.in_shape, li.long(), lw, k0.long(), k1.long(), v), extras)
 
 
@@ -1964,6 +2018,8 @@ def main() -> int:
     print("instance_norm_grad (K10), SFNO training step: " + "; ".join(
         f"{lab} bf16 {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, two-read floor {r['two_read_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"library {r['library_ms']:.4f} ms" for lab, r in ((lab, train_res[("instance_norm_grad", lab, torch.bfloat16)]) for lab in ("full", "internal"))))
+    print("resample_grad (K14) plans, FCN3 training step: " + "; ".join(
+        f"{lab}: {fcn3_train_res[('resample_grad', lab, f32)]['plan']}" for lab in ("atmo-decoder", "surf-decoder")))
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -187,7 +187,7 @@ def library() -> ctypes.CDLL:
             lib.mt_resample.restype = i
             lib.mt_disco_band_grad.argtypes = [vp] * 7 + [i] * 17 + [ll, i, vp]
             lib.mt_disco_band_grad.restype = i
-            lib.mt_resample_grad.argtypes = [vp] * 8 + [i] * 6 + [vp]
+            lib.mt_resample_grad.argtypes = [vp] * 5 + [i] * 17 + [vp]
             lib.mt_resample_grad.restype = i
             lib.mt_crps_skillspread.argtypes = [i, vp, vp, vp, vp, i, i, ll, f, vp]
             lib.mt_crps_skillspread.restype = i

@@ -19,15 +19,20 @@ spatial-parallel slice.
 
 Training: ``ResampleS2.resample_cl`` is differentiable. With the kernels it
 is an autograd function whose backward is kernel K14 (CUDA,
-``csrc/resample_grad.cu``), the transpose of K7 as a gather over the
-inverted tables (``inverse_tables``): for each input row the output rows
-that read it, for each input column the output columns, with their
-weights. Its plain version ``resample_cl_grad_plain`` is the two lerps'
-scatter-adds, as autograd derives them.
+``csrc/resample_grad.cu``), the transpose of K7 as a streamed walk down the
+output rows: a block owns a tile of input columns and a strip of input
+rows, stages each output row's segment of dy that the tile reads in a ring
+of shared-memory slots, folds it along the longitude over the inverted
+column lists (``column_lists``, zero weights dropped) and along the
+latitude into a window of two row accumulators. Its launch plan
+(``plan_resample_grad``) is made on the host once per resampler, device,
+channel count and batch. Its plain version ``resample_cl_grad_plain`` is
+the two lerps' scatter-adds, as autograd derives them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 
 import numpy as np
@@ -36,7 +41,18 @@ import torch
 from makani_torch import kernels
 from makani_torch.ops.quadrature import precompute_latitudes
 
-__all__ = ["ResampleS2", "make_resample", "resample_cl", "resample_cl_plain", "resample_cl_grad", "resample_cl_grad_plain", "inverse_tables", "column_span"]
+__all__ = [
+    "ResampleS2",
+    "ResampleGradPlan",
+    "make_resample",
+    "resample_cl",
+    "resample_cl_plain",
+    "resample_cl_grad",
+    "resample_cl_grad_plain",
+    "column_lists",
+    "plan_resample_grad",
+    "column_span",
+]
 
 
 def resample_cl_plain(x, lat_idx, lat_w, lon_idx0, lon_idx1, lon_w):
@@ -66,52 +82,275 @@ def resample_cl_grad_plain(dy, in_shape, lat_idx, lat_w, lon_idx0, lon_idx1, lon
     return dx
 
 
-def inverse_tables(lat_idx, lat_w, lon_idx0, lon_idx1, lon_w, nlat_in: int, nlon_in: int):
-    """K14's tables from the forward's, on the host: (row_ptr (Hin + 1,),
-    row_idx, row_w, col_ptr (Win + 1,), col_idx, col_w), for each input row
-    the output rows that read it with their latitude weights (1 - lat_w for
-    the row below, lat_w above), for each input column the output columns
-    with their longitude weights; int32 lists and float32 weights, output
-    index ascending."""
-
-    def csr(idx0, idx1, w, n):
-        w = np.asarray(w, np.float32)
-        dst = np.concatenate([np.asarray(idx0, np.int64), np.asarray(idx1, np.int64)])
-        src = np.concatenate([np.arange(len(w)), np.arange(len(w))])
-        wt = np.concatenate([np.float32(1.0) - w, w])
-        order = np.lexsort((src, dst))
-        ptr = np.zeros(n + 1, np.int64)
-        np.add.at(ptr, dst + 1, 1)
-        return np.cumsum(ptr).astype(np.int32), src[order].astype(np.int32), wt[order].astype(np.float32)
-
-    lat_idx = np.asarray(lat_idx, np.int64)
-    return (*csr(lat_idx, lat_idx + 1, lat_w, nlat_in), *csr(lon_idx0, lon_idx1, lon_w, nlon_in))
+def column_lists(lon_idx0, lon_idx1, lon_w, nlon_in: int):
+    """K14's longitude lists from the forward's tables, on the host: (ptr
+    (Win + 1,), idx, w), for each input column wi the output columns
+    idx[ptr[wi] : ptr[wi + 1]] that read it, ascending, with their weights
+    (1 - lon_w through lon_idx0, lon_w through lon_idx1); int64 lists,
+    float32 weights. Zero weights are dropped: for finite dy they add
+    exactly 0 (at a 2x upsampling the even output columns read the next
+    input column with weight 0)."""
+    w = np.asarray(lon_w, np.float32)
+    dst = np.concatenate([np.asarray(lon_idx0, np.int64), np.asarray(lon_idx1, np.int64)])
+    src = np.concatenate([np.arange(len(w)), np.arange(len(w))])
+    wt = np.concatenate([np.float32(1.0) - w, w])
+    keep = wt != 0
+    dst, src, wt = dst[keep], src[keep], wt[keep]
+    order = np.lexsort((src, dst))
+    ptr = np.zeros(nlon_in + 1, np.int64)
+    np.add.at(ptr, dst + 1, 1)
+    return np.cumsum(ptr), src[order], wt[order]
 
 
-def resample_cl_grad(dy, inverse, in_shape, tables):
-    """K14 on the card, the plain version on the CPU: dy (B, Hout, Wout, C)
-    float32 -> dx (B, Hin, Win, C) contiguous. ``inverse``: the
-    ``inverse_tables`` as tensors on dy's device; ``tables``: the forward's
-    (for the plain version)."""
-    if kernels.takes_plain("resample_grad", dy, *inverse):
-        li, lw, k0, k1, v = tables
-        return resample_cl_grad_plain(dy, in_shape, li.long(), lw, k0.long(), k1.long(), v)
-    if dy.dim() != 4 or dy.dtype != torch.float32:
-        raise TypeError(f"resample_grad: expected a float32 (B, H, W, C) gradient, got {dy.dtype} {tuple(dy.shape)}")
-    for t, dt in zip(inverse, (torch.int32, torch.int32, torch.float32) * 2):
-        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
-            raise TypeError(f"resample_grad: the inverse tables must be contiguous 1-D int32 lists and float32 weights, got {t.dtype} {tuple(t.shape)}")
+def _column_run(wos: np.ndarray, nlon_out: int) -> tuple[int, int]:
+    """The shortest run of output columns (start, length), modulo nlon_out,
+    that holds every column of ``wos`` (not empty): it leaves out the widest
+    gap between them."""
+    u = np.unique(wos)
+    gaps = np.diff(np.append(u, u[0] + nlon_out))
+    i = int(np.argmax(gaps))
+    return int(u[(i + 1) % len(u)]), nlon_out - int(gaps[i]) + 1
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+# K14's plan: the slot budget the default tile keeps to, the ring's depth,
+# the blocks a launch aims for (per SM), the shortest strip, and the
+# kernel's fixed shape (csrc/resample_grad.cu: THREADS / 32 warps, a warp's
+# columns NC, widest first, and a lane's 32-channel groups GU as
+# instantiated, NC x GU <= MAX_UNITS, MAX_RING, the record's header; the
+# launch refuses a plan whose shape or shared memory is not the kernel's).
+# Measured on an H100 (sweep_k14.py; PERF.md).
+_GRAD_SLOT_BUDGET = 16 * 1024
+_GRAD_RING = 3
+_GRAD_BLOCKS_PER_SM = 8
+_GRAD_MIN_STRIP = 16
+_GRAD_SMS = 132  # an H100 SXM's SMs: the plan's default off the card
+_GRAD_WARPS = 8
+_GRAD_COLUMNS = (8, 4, 2, 1)
+_GRAD_GROUPS = (1, 2, 4, 8, 12, 16, 20)
+_GRAD_MAX_UNITS = 20
+_GRAD_MAX_RING = 8
+_GRAD_HEADER = 8
+
+
+def _grad_smem_bytes(ring: int, slot_floats: int, tile_width: int, kt_max: int, groups: int) -> int:
+    """K14's shared memory: the ring's mbarriers, slots and tables, and 32
+    ``groups`` floats behind them that a lane past a pixel's channels may
+    read. The plan passes it to the launch, which refuses a size that is
+    not its layout's."""
+    return (8 * ring + 15) // 16 * 16 + 4 * ring * slot_floats + 4 * ring * (4 + 2 * tile_width * kt_max) + 128 * groups
+
+
+@dataclasses.dataclass(eq=False)
+class ResampleGradPlan:
+    """K14's launch plan (``csrc/resample_grad.cu``), made on the host by
+    ``plan_resample_grad``. ``table`` (int32): ``n_records`` records of
+    ``record_ints``, one per tile of ``tile_width`` input columns and
+    channel chunk of ``channel_chunk`` channels (tile-major): a header
+    {first column, width, first channel, channels, pieces, entries a column
+    at most, 0, 0}, ``pieces_max`` pieces {start in a dy row (floats),
+    floats, place in the slot}, and ``tile_width`` x ``kt_max`` column
+    entries {offset in the slot, the piece's start mod 4, weight bits}, a
+    column's list padded with zero weights; then ``n_strips`` strips {j0,
+    j1, ho0, ho1}: the input rows [j0, j1) and the output rows [ho0, ho1)
+    that reach them. A warp takes ``columns`` of a tile's columns
+    (``tile_width`` = 8 ``columns``), a lane ``groups`` 32-channel groups of
+    each."""
+
+    in_shape: tuple
+    out_shape: tuple
+    channels: int
+    tile_width: int
+    channel_chunk: int
+    strip_rows: int
+    ring: int
+    columns: int
+    groups: int
+    kt_max: int
+    pieces_max: int
+    slot_floats: int
+    record_ints: int
+    n_records: int
+    n_strips: int
+    smem_bytes: int
+    table: np.ndarray
+    _on: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def records(self) -> np.ndarray:
+        return self.table[: self.n_records * self.record_ints].reshape(self.n_records, self.record_ints)
+
+    def strips(self) -> np.ndarray:
+        return self.table[self.n_records * self.record_ints :].reshape(self.n_strips, 4)
+
+    def table_on(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        if device not in self._on:
+            self._on[device] = torch.from_numpy(self.table).to(device)
+        return self._on[device]
+
+    def describe(self) -> str:
+        return (
+            f"tiles of {self.tile_width} input columns x {self.channel_chunk} of {self.channels} channels ({self.n_records} records), "
+            f"{self.n_strips} strips of {self.strip_rows} rows, ring of {self.ring} slots of {4 * self.slot_floats / 1024:.1f} KB, "
+            f"{self.columns} columns x {self.groups} channel groups a warp, {self.kt_max} entries a column at most, "
+            f"{self.smem_bytes / 1024:.1f} KB of shared memory"
+        )
+
+
+def plan_resample_grad(lat_idx, lat_w, lon_idx0, lon_idx1, lon_w, in_shape, channels: int, batch: int, *, tile_width=None, channel_chunk=None,
+                       strip_rows=None, ring=None, sms: int = _GRAD_SMS) -> ResampleGradPlan:
+    """K14's launch plan for a (batch, Hout, Wout, channels) gradient of the
+    resampling with the forward's tables, on the host. By default: the
+    widest tile (8 input columns for each column a warp owns; all channels,
+    else the widest 32-channel chunk) whose (column, group) pairs fit the
+    kernel and whose slot fits ``_GRAD_SLOT_BUDGET`` (the narrowest such
+    tile whatever its slot), strips that give
+    ``_GRAD_BLOCKS_PER_SM`` blocks an SM (no shorter than
+    ``_GRAD_MIN_STRIP`` rows), a ring of ``_GRAD_RING``; any of them can be
+    given (a tile width a multiple of 8). Raises if lat_idx is not
+    nondecreasing in [0, Hin - 2] or nothing fits in shared memory."""
     Hin, Win = in_shape
-    if inverse[0].numel() != Hin + 1 or inverse[3].numel() != Win + 1:
-        raise ValueError(f"resample_grad: inverse tables for {(inverse[0].numel() - 1, inverse[3].numel() - 1)} input rows and columns, expected {in_shape}")
-    dy = dy.contiguous()
+    li = np.asarray(lat_idx, np.int64)
+    Hout, Wout, C = li.size, len(lon_idx0), int(channels)
+    if Hin < 2 or li.min() < 0 or li.max() > Hin - 2:
+        raise ValueError(f"resample_grad: lat_idx must lie in [0, {Hin - 2}]")
+    if np.any(np.diff(li) < 0):
+        raise ValueError("resample_grad: lat_idx must be nondecreasing (the kernel walks the output rows in order)")
+    ring = _GRAD_RING if ring is None else int(ring)
+    if not 2 <= ring <= _GRAD_MAX_RING:
+        raise ValueError(f"resample_grad: a ring of {ring} slots (2 to {_GRAD_MAX_RING})")
+    ptr, idx, w = column_lists(lon_idx0, lon_idx1, lon_w, Win)
+    counts = np.diff(ptr)
+    kt_max = max(1, int(counts.max()))
+
+    tiles_of = {}
+
+    def tiles(tw):
+        if tw not in tiles_of:
+            tl = []
+            for wi0 in range(0, Win, tw):
+                wi1 = min(wi0 + tw, Win)
+                wos = idx[ptr[wi0] : ptr[wi1]]
+                tl.append((wi0, wi1 - wi0, *(_column_run(wos, Wout) if wos.size else (0, 0))))
+            tiles_of[tw] = tl
+        return tiles_of[tw]
+
+    def slot_floats(tw, cc):
+        if cc == C:
+            spans = [(min(n, Wout - s), n - min(n, Wout - s)) for _, _, s, n in tiles(tw)]
+            need = max(_round4(na * C + 3) + (_round4(nb * C + 3) if nb else 0) for na, nb in spans)
+        else:
+            need = max(n for *_, n in tiles(tw)) * _round4(cc + 3)
+        return max(4, need)
+
+    chunks = [C] + [32 * k for k in range(min((C - 1) // 32, _GRAD_GROUPS[-1]), 0, -1)] if channel_chunk is None else [int(channel_chunk)]
+    chosen = None
+    for cc in chunks:
+        gu = next((g for g in _GRAD_GROUPS if 32 * g >= cc), None)
+        # a thread holds one entry of the tile's lists: tile_width * kt_max <= the block's threads
+        ncs = [nc for nc in _GRAD_COLUMNS if gu and nc * gu <= _GRAD_MAX_UNITS and 8 * nc * kt_max <= 32 * _GRAD_WARPS]
+        if tile_width is not None:
+            ncs = [nc for nc in ncs if 8 * nc == tile_width]
+        for nc in ncs:
+            tw = 8 * nc
+            sf = slot_floats(tw, cc)
+            if tile_width is None and 4 * sf > _GRAD_SLOT_BUDGET and nc > ncs[-1]:
+                continue
+            smem = _grad_smem_bytes(ring, sf, tw, kt_max, gu)
+            if smem <= _SMEM_MAX:
+                chosen = (tw, cc, nc, gu, sf, smem)
+                break
+        if chosen:
+            break
+    if chosen is None:
+        raise ValueError(f"resample_grad: no tile of {C} channels fits the kernel (tile width {tile_width}, chunk {channel_chunk}, ring {ring})")
+    tw, cc, nc, gu, sf, smem = chosen
+
+    tl = tiles(tw)
+    n_chunks = -(-C // cc)
+    n_records = len(tl) * n_chunks
+    if strip_rows is None:
+        n_strips = -(-_GRAD_BLOCKS_PER_SM * sms // (max(1, batch) * n_records))
+        strip_rows = max(_GRAD_MIN_STRIP, -(-Hin // n_strips))
+    strip_rows = min(max(1, int(strip_rows)), Hin)
+    n_strips = -(-Hin // strip_rows)
+
+    pieces_max = 2 if cc == C else max(1, max(n for *_, n in tl))
+    record_ints = _GRAD_HEADER + 3 * pieces_max + 3 * tw * kt_max
+    table = np.zeros(n_records * record_ints + 4 * n_strips, np.int32)
+    wbits = w.view(np.int32)
+    for t, (wi0, width, start, span) in enumerate(tl):
+        na = min(span, Wout - start)
+        for ci in range(n_chunks):
+            c0 = ci * cc
+            rec = table[(t * n_chunks + ci) * record_ints : (t * n_chunks + ci + 1) * record_ints]
+            if cc == C:
+                pcs = [(start * C, na * C, 0)] + ([(0, (span - na) * C, _round4(na * C + 3))] if span > na else []) if span else []
+            else:
+                stride = _round4(cc + 3)
+                pcs = [(((start + q) % Wout) * C + c0, min(cc, C - c0), q * stride) for q in range(span)]
+            rec[:6] = (wi0, width, c0, min(cc, C - c0), len(pcs), int(counts[wi0 : wi0 + width].max()))
+            rec[_GRAD_HEADER : _GRAD_HEADER + 3 * len(pcs)] = np.asarray(pcs, np.int64).reshape(-1)
+            ents = rec[_GRAD_HEADER + 3 * pieces_max :].reshape(tw, kt_max, 3)
+            if pcs:
+                ents[:, :, 1] = pcs[0][0] & 3
+            for wl in range(width):
+                for k, e in enumerate(range(ptr[wi0 + wl], ptr[wi0 + wl + 1])):
+                    q = (int(idx[e]) - start) % Wout
+                    if cc != C:
+                        ents[wl, k, :2] = (q * stride, (int(idx[e]) * C + c0) & 3)
+                    elif q < na:
+                        ents[wl, k, :2] = (q * C, (start * C) & 3)
+                    else:
+                        ents[wl, k, :2] = (_round4(na * C + 3) + (q - na) * C, 0)
+                    ents[wl, k, 2] = wbits[e]
+    strips = table[n_records * record_ints :].reshape(n_strips, 4)
+    j0 = np.arange(n_strips) * strip_rows
+    j1 = np.minimum(j0 + strip_rows, Hin)
+    strips[:] = np.stack([j0, j1, np.searchsorted(li, j0 - 1, "left"), np.searchsorted(li, j1 - 1, "right")], axis=1)
+    return ResampleGradPlan(
+        in_shape=(Hin, Win), out_shape=(Hout, Wout), channels=C, tile_width=tw, channel_chunk=cc, strip_rows=strip_rows, ring=ring, columns=nc, groups=gu,
+        kt_max=kt_max, pieces_max=pieces_max, slot_floats=sf, record_ints=record_ints, n_records=n_records, n_strips=n_strips, smem_bytes=smem,
+        table=table,
+    )
+
+
+def resample_cl_grad(dy, rs):
+    """K14 on the card, the plain version on the CPU: dy (B, Hout, Wout, C)
+    float32 -> dx (B, Hin, Win, C) contiguous, the transpose of the
+    resampler ``rs``, on its plan for dy's shape (``ResampleS2.grad_plan``)."""
+    tables = rs.tables(dy.device)
+    if kernels.takes_plain("resample_grad", dy, *tables):
+        li, lw, k0, k1, v = tables
+        return resample_cl_grad_plain(dy, rs.in_shape, li.long(), lw, k0.long(), k1.long(), v)
+    if dy.dim() != 4 or dy.dtype != torch.float32 or tuple(dy.shape[1:3]) != rs.out_shape:
+        raise TypeError(f"resample_grad: expected a float32 (B, {rs.out_shape[0]}, {rs.out_shape[1]}, C) gradient, got {dy.dtype} {tuple(dy.shape)}")
+    return _resample_grad_launch(dy, rs, rs.grad_plan(dy.device, dy.shape[3], dy.shape[0]))
+
+
+def _resample_grad_launch(dy, rs, plan):
+    """K14 on the card on ``plan`` (``plan_resample_grad`` for dy's shape)."""
     B, Hout, Wout, C = dy.shape
+    Hin, Win = rs.in_shape
+    tables = rs.tables(dy.device)
     dx = torch.empty(B, Hin, Win, C, dtype=torch.float32, device=dy.device)
     if dx.numel() == 0:
         return dx
+    if plan.channels != C or plan.in_shape != rs.in_shape or plan.out_shape != rs.out_shape:
+        raise ValueError(f"resample_grad: a plan for {plan.channels} channels {plan.out_shape} -> {plan.in_shape}, got {C} channels {rs.out_shape} -> {rs.in_shape}")
+    # the kernel copies dy's rows from their 16-byte aligned floors
+    dy = dy.contiguous()
+    dy = dy if dy.data_ptr() % 16 == 0 else dy.clone()
     lib = kernels.library()
     with torch.cuda.device(dy.device):
-        err = lib.mt_resample_grad(dy.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in inverse), B, Hin, Win, Hout, Wout, C, kernels.stream_ptr(dy.device))
+        err = lib.mt_resample_grad(
+            dy.data_ptr(), dx.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(), plan.table_on(dy.device).data_ptr(), B, Hin, Win, Hout, Wout, C,
+            plan.tile_width, plan.ring, plan.columns, plan.groups, plan.kt_max, plan.pieces_max, plan.slot_floats, plan.record_ints, plan.n_records,
+            plan.n_strips, plan.smem_bytes, kernels.stream_ptr(dy.device),
+        )
     kernels.check_launch(err, "resample_grad")
     kernels.count_launch("resample_grad")
     return dx
@@ -127,8 +366,7 @@ class _Resample(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        rs = ctx.rs
-        return resample_cl_grad(dy, rs.inverse_tables(dy.device), rs.in_shape, rs.tables(dy.device)), None
+        return resample_cl_grad(dy, ctx.rs), None
 
 
 def column_span(lon_idx0: np.ndarray, lon_idx1: np.ndarray, nlon_in: int, tw: int) -> int:
@@ -245,13 +483,16 @@ class ResampleS2:
             )
         return self._tables[device]
 
-    def inverse_tables(self, device):
-        """K14's ``inverse_tables`` as tensors on ``device``."""
+    def grad_plan(self, device, channels: int, batch: int) -> ResampleGradPlan:
+        """K14's launch plan for a (batch, Hout, Wout, channels) gradient on
+        ``device`` (``plan_resample_grad`` for its SMs), made once."""
         device = torch.device(device)
-        key = ("inverse", device)
+        key = ("grad", device, channels, batch)
         if key not in self._tables:
-            inv = inverse_tables(self.lat_idx, self.lat_w, self.lon_idx0, self.lon_idx1, self.lon_w, *self.in_shape)
-            self._tables[key] = tuple(torch.from_numpy(a).to(device) for a in inv)
+            sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else _GRAD_SMS
+            self._tables[key] = plan_resample_grad(
+                self.lat_idx, self.lat_w, self.lon_idx0, self.lon_idx1, self.lon_w, self.in_shape, channels, batch, sms=sms
+            )
         return self._tables[key]
 
     def resample_cl(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:

@@ -17,8 +17,11 @@ DFTs as matmuls on the CPU, the port ``torch.fft``).
 Two checks hold the index arithmetic that the CUDA kernels do on the host's
 tables, replayed here in numpy: K12's gather (for each input row the output
 latitudes of ``band_grad_rows``, their live taps, and the output column u
-with u*a = (win - off - w) mod Win) and K14's gather over
-``inverse_tables``, each against its plain version.
+with u*a = (win - off - w) mod Win) and K14's walk over its plan
+(``plan_resample_grad``: tiles, strips, the staged pieces with their
+aligned floors, the pruned column lists and the two-row window), each
+against its plain version; and K14's plan itself against loops over the
+forward's tables.
 """
 
 import jax
@@ -197,20 +200,138 @@ def test_band_grad_rows_are_the_live_band_rows():
     assert not set(conv.polar_rows) & set(row_h.tolist())
 
 
-def test_k14_gather_replays_the_plain_transpose():
-    """K14's inverted tables (csrc/resample_grad.cu's loops, in numpy)
-    against the plain scatter-adds, at a downsampling whose last output rows
-    clamp at the poles."""
-    rs = resample.ResampleS2(17, 32, 9, 20, grid_in="equiangular", grid_out="legendre-gauss")
+def _k14_walk(plan, dy, rs):
+    """csrc/resample_grad.cu's walk, block by block, in numpy: each output
+    row of a strip staged from its pieces' 16-byte aligned floors (a piece
+    lands lead floats in; zeros past its end), folded over the tile's column
+    entries at the row's offsets, and into the two-row window; a completed
+    row stored once, unread rows as zeros. Returns dx and the number of
+    times each element was stored."""
+    B, Hout, Wout, C = dy.shape
+    Hin, Win = plan.in_shape
+    flat = dy.reshape(-1)
+    dx = np.zeros((B, Hin, Win, C), np.float32)
+    stored = np.zeros(dx.shape, np.int64)
+    for b in range(B):
+        for rec in plan.records():
+            wi0, tw, c0, cc, n_pieces, kt = (int(v) for v in rec[:6])
+            pieces = rec[8 : 8 + 3 * plan.pieces_max].reshape(-1, 3)[:n_pieces]
+            ents = rec[8 + 3 * plan.pieces_max :].reshape(plan.tile_width, plan.kt_max, 3)
+            for j0, j1, ho0, ho1 in plan.strips():
+                nxt = j0
+
+                def store(q, acc):
+                    dx[b, q, wi0 : wi0 + tw, c0 : c0 + cc] = acc
+                    stored[b, q, wi0 : wi0 + tw, c0 : c0 + cc] += 1
+
+                def flush(q, acc):
+                    nonlocal nxt
+                    if q < j0:
+                        return
+                    for z in range(nxt, q):
+                        store(z, 0.0)
+                    store(q, acc)
+                    nxt = q + 1
+
+                a0, a1, r = np.zeros((tw, cc), np.float32), np.zeros((tw, cc), np.float32), None
+                for ho in range(ho0, ho1):
+                    row = ((b * Hout + ho) * Wout) * C
+                    slot = np.full(plan.slot_floats, np.nan, np.float32)
+                    for gs, length, sb in pieces:
+                        lead = (row + gs) % 4
+                        n16 = (lead + length + 3) // 4
+                        slot[sb : sb + 4 * n16] = 0.0
+                        slot[sb : sb + lead + length] = flat[row + gs - lead : row + gs + length]
+                    i, u = int(rs.lat_idx[ho]), np.float32(rs.lat_w[ho])
+                    if r is None:
+                        r = i
+                    elif i != r:
+                        flush(r, a0)
+                        if i == r + 1:
+                            a0, a1 = a1, np.zeros_like(a1)
+                        else:
+                            flush(r + 1, a1)
+                            a0, a1 = np.zeros_like(a0), np.zeros_like(a1)
+                        r = i
+                    for wl in range(tw):
+                        for k in range(kt):
+                            off, m, wb = ents[wl, k]
+                            o = off + (row % 4 + m) % 4
+                            assert o + cc <= plan.slot_floats
+                            v = np.int32(wb).view(np.float32)
+                            a0[wl] += (np.float32(1) - u) * v * slot[o : o + cc]
+                            a1[wl] += u * v * slot[o : o + cc]
+                if r is not None:
+                    flush(r, a0)
+                    if r + 1 < j1:
+                        flush(r + 1, a1)
+                for z in range(nxt, j1):
+                    store(z, 0.0)
+    return dx, stored
+
+
+# (input grid, output grid, channels, the plan's tile width, channel chunk,
+# strip rows and ring; None: the plan's default)
+K14_WALKS = [
+    # upsampling onto pole rows, the wrap column, tiles of 8 columns into 15, dy rows not 16-byte multiples (30 x 3 floats)
+    ((9, 15, "legendre-gauss"), (17, 30, "equiangular"), 3, dict(tile_width=8, strip_rows=2, ring=2)),
+    # downsampling: output rows clamped at the poles, input columns no output column reads
+    ((17, 36, "equiangular"), (9, 20, "legendre-gauss"), 3, dict(tile_width=16, strip_rows=3, ring=3)),
+    # channel chunks: one piece a pixel
+    ((9, 20, "legendre-gauss"), (17, 40, "equiangular"), 37, dict(tile_width=8, channel_chunk=16, strip_rows=4)),
+    # the default plan
+    ((18, 36, "legendre-gauss"), (37, 72, "equiangular"), 3, {}),
+]
+
+
+@pytest.mark.parametrize("grid_in,grid_out,C,choice", K14_WALKS)
+def test_k14_gather_replays_the_plain_transpose(grid_in, grid_out, C, choice):
+    """K14's walk over its plan (csrc/resample_grad.cu's loops, in numpy)
+    against the plain scatter-adds: every dx element stored once."""
+    (hi, wi, gi), (ho, wo, go) = grid_in, grid_out
+    rs = resample.ResampleS2(hi, wi, ho, wo, grid_in=gi, grid_out=go)
+    plan = resample.plan_resample_grad(rs.lat_idx, rs.lat_w, rs.lon_idx0, rs.lon_idx1, rs.lon_w, rs.in_shape, C, 2, **choice)
+    for key, value in choice.items():
+        assert getattr(plan, key) == value
     rng = np.random.default_rng(5)
-    dy = rng.standard_normal((2, 9, 20, 3)).astype(np.float32)
-    tabs = rs.tables("cpu")
-    ref = resample.resample_cl_grad(torch.from_numpy(dy), rs.inverse_tables("cpu"), rs.in_shape, tabs)
-    rp, ri, rw, cp, ci, cw = (t.numpy() for t in rs.inverse_tables("cpu"))
-    dx = np.zeros((2, 17, 32, 3))
-    for hi in range(17):
-        for r in range(rp[hi], rp[hi + 1]):
-            for wi in range(32):
-                s = sum(cw[k] * dy[:, ri[r], ci[k]] for k in range(cp[wi], cp[wi + 1]))
-                dx[:, hi, wi] += rw[r] * s
+    dy = rng.standard_normal((2, ho, wo, C)).astype(np.float32)
+    ref = resample.resample_cl_grad(torch.from_numpy(dy), rs)
+    dx, stored = _k14_walk(plan, dy, rs)
+    assert (stored == 1).all()
     _tol(dx, ref)
+
+
+def test_k14_plan_covers_the_grid_once():
+    """K14's plan against loops over the forward's tables: the records
+    cover every (input column, channel) once and the strips every input
+    row; each tile's pieces hold exactly the shortest run of output columns
+    that read it with a nonzero weight; each strip's output rows are those
+    whose lat_idx lies in [j0 - 1, j1 - 1]. A lat_idx that decreases
+    raises."""
+    for (hi, wi, gi), (ho, wo, go), C, choice in K14_WALKS:
+        rs = resample.ResampleS2(hi, wi, ho, wo, grid_in=gi, grid_out=go)
+        plan = resample.plan_resample_grad(rs.lat_idx, rs.lat_w, rs.lon_idx0, rs.lon_idx1, rs.lon_w, rs.in_shape, C, 2, **choice)
+        cover = np.zeros((wi, C), np.int64)
+        for rec in plan.records():
+            wi0, tw, c0, cc, n_pieces, kt = (int(v) for v in rec[:6])
+            cover[wi0 : wi0 + tw, c0 : c0 + cc] += 1
+            need = sorted({o for o in range(wo) for k, w in ((rs.lon_idx0[o], 1 - rs.lon_w[o]), (rs.lon_idx1[o], rs.lon_w[o])) if wi0 <= k < wi0 + tw and w != 0})
+            pieces = rec[8 : 8 + 3 * plan.pieces_max].reshape(-1, 3)[:n_pieces]
+            pixels = [(int(gs) - c0) // C + q for gs, length, _ in pieces for q in range(int(length) // min(cc, C))]
+            if not need:
+                assert n_pieces == 0 and kt == 0
+                continue
+            shortest = min(max((o - s) % wo for o in need) + 1 for s in need)
+            assert set(need) <= set(pixels) and len(pixels) == len(set(pixels)) == shortest
+            assert kt == max(sum(1 for o in range(wo) for k, w in ((rs.lon_idx0[o], 1 - rs.lon_w[o]), (rs.lon_idx1[o], rs.lon_w[o])) if k == c and w != 0)
+                             for c in range(wi0, wi0 + tw))
+        assert (cover == 1).all()
+        rows = np.zeros(hi, np.int64)
+        for j0, j1, ho0, ho1 in plan.strips():
+            rows[j0:j1] += 1
+            assert list(range(ho0, ho1)) == [h for h in range(ho) if j0 - 1 <= rs.lat_idx[h] <= j1 - 1]
+        assert (rows == 1).all()
+    li = rs.lat_idx.copy()
+    li[[3, 4]] = li[[4, 3]] if li[3] != li[4] else (li[3] + 1, li[3])
+    with pytest.raises(ValueError, match="nondecreasing"):
+        resample.plan_resample_grad(li, rs.lat_w, rs.lon_idx0, rs.lon_idx1, rs.lon_w, rs.in_shape, 3, 2)

@@ -9,6 +9,7 @@ Tolerances: fp32 max|diff| <= 1e-5 * max|ref| (summation order); bf16
 max|diff| within one bf16 ulp of max|ref|, or relative L2 <= 1e-2.
 """
 
+import dataclasses
 import math
 import subprocess
 import sys
@@ -871,21 +872,34 @@ def test_disco_autograd_kernel_path_matches_plain(cuda, in_shape, out_shape):
         assert _agree(out[0][0], out[1][0], torch.float32) and _agree(out[0][1], out[1][1], torch.float32)
 
 
-@pytest.mark.parametrize("C", [37, 585])
+@pytest.mark.parametrize("C", [37, 56, 585])
 @pytest.mark.parametrize("shapes", [((18, 36, "legendre-gauss"), (37, 72, "equiangular")), ((37, 72, "equiangular"), (18, 36, "legendre-gauss"))])
 def test_resample_grad_kernel_matches_plain(cuda, shapes, C):
     """K14 up onto a grid with pole rows (lat_w clamped) and a wrap column,
     and down (output rows that clamp at the poles), against the plain
-    scatter-adds; and through autograd of ResampleS2.resample_cl."""
+    scatter-adds on its default plan; two launches bit-equal; plans with
+    other tiles (a ragged last one), strips, rings and channel chunks, and
+    a dy that is not 16-byte aligned, bit-equal to it (the same sums in the
+    same order); a plan whose shared memory is not the kernel's layout is
+    refused; and through autograd of ResampleS2.resample_cl."""
     (hi, wi, gi), (ho, wo, go) = shapes
     rs = ResampleS2(hi, wi, ho, wo, grid_in=gi, grid_out=go)
     dy = _randn((2, ho, wo, C), torch.float32, cuda)
     kernels.reset_launch_counts()
-    dx = resample.resample_cl_grad(dy, rs.inverse_tables(cuda), rs.in_shape, rs.tables(cuda))
+    dx = resample.resample_cl_grad(dy, rs)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["resample_grad"] == 1
     li, lw, k0, k1, v = rs.tables(cuda)
     assert _agree(dx, resample.resample_cl_grad_plain(dy, rs.in_shape, li.long(), lw, k0.long(), k1.long(), v), torch.float32)
+    assert torch.equal(resample.resample_cl_grad(dy, rs), dx)
+    tables = (rs.lat_idx, rs.lat_w, rs.lon_idx0, rs.lon_idx1, rs.lon_w)
+    choices = (dict(tile_width=8, strip_rows=3, ring=2), dict(tile_width=8, channel_chunk=32, strip_rows=5, ring=4), dict(channel_chunk=64, strip_rows=1, ring=6))
+    for plan in [rs.grad_plan(cuda, C, 2)] + [resample.plan_resample_grad(*tables, rs.in_shape, C, 2, **c) for c in choices]:
+        assert torch.equal(resample._resample_grad_launch(dy, rs, plan), dx), plan.describe()
+    with pytest.raises(RuntimeError, match="resample_grad"):
+        resample._resample_grad_launch(dy, rs, dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16))
+    shifted = torch.empty(dy.numel() + 1, device=cuda)[1:].view(dy.shape).copy_(dy)
+    assert shifted.data_ptr() % 16 != 0 and torch.equal(resample.resample_cl_grad(shifted, rs), dx)
     x = _randn((2, hi, wi, C + 4), torch.float32, cuda, seed=1)[..., 2 : C + 2].requires_grad_()
     (rs.resample_cl(x) * dy).sum().backward()
     ref = x.detach().clone().requires_grad_()
