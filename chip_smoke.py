@@ -75,14 +75,16 @@ each fatal on failure:
     the plain path, whose losses the kernel path's must match step by step
     (relative 3e-2).
 
- The FCN3 ensemble-CRPS training step (slice 4):
-17. build bench.py's FCN3 row in its ensemble mode on the recipe's base
-    config (``fcn3_train_config``: 361x720, internal 180x360, 73 channels +
-    zenith + 8 centered diffusion-noise channels, embeds 45/56/36, 10 blocks
-    of which 0 and 5 spectral, bf16 compute with fp32 DISCO, E = 4 members
-    of B = 1 sample, skillspread CRPS with constant channel weights,
-    checkpointing_level 3) through ``get_model``, and fold a seeded batch
-    with its noise (``prepare_ensemble_batch``);
+ The FCN3 ensemble-CRPS training step (slice 4), the recipe's own:
+17. build the recipe's base config in bench.py's FCN3 ensemble mode
+    (``fcn3_train_config``: 361x720, internal 180x360, 73 channels + zenith
+    + 8 centered diffusion-noise channels, embeds 45/56/36, 10 blocks of
+    which 0 and 5 spectral, bf16 compute with fp32 DISCO, E = 4 members of
+    B = 1 sample, checkpointing_level 3; the skillspread CRPS with auto
+    channel weights and temp_diff_normalization over seeded statistics
+    files, ``stats_files``; Adam at lr 5e-4 clipped at 1.0 on the cosine
+    schedule) through ``get_model``, and fold a seeded batch with its noise
+    (``prepare_ensemble_batch``);
 18. compare each new backward kernel with its plain version at its shapes:
     K12 (K5's transpose) at the processor, reading the padded responses,
     and in fused mode at the atmo decoder and at the stride-2 atmo encoder;
@@ -90,18 +92,48 @@ each fatal on failure:
     atmo decoder; K14 (K7's transpose) at both decoders; K15 (the CRPS,
     forward and backward) on the step's forecasts; the dhconv's dx and dw
     (K3 on the conjugate-transposed weight, K9) at the global blocks'
-    internal grid; time each beside its bound, its plain version and the
-    library's call where one exists; and time K8's backward, two cuBLAS
-    GEMMs;
+    internal grid; K16 (the global norm and the clip) and K17 (Adam) on the
+    model's parameters with one step's gradients; time each beside its
+    bound, its plain version and the library's call where one exists; and
+    time K8's backward, two cuBLAS GEMMs;
 19. take one bf16 training step's forward, loss and gradients through the
     kernels and through the plain path (autograd through the plain forward
-    and the plain CRPS) from the same weights and batch;
-20. take 1 + 5 training steps (``ensemble_train_step``, the bench's factored
-    Adam) on the repeated batch through the kernels: check every kernel's
-    launches per step, and that the loss is finite and falls below its
-    first value; then 1 + 5 steps on the plain path, whose losses the
+    and the plain CRPS) from the same weights and batch, then the
+    optimizer's step through K16 and K17 and through the plain optimizer
+    from the same gradients (parameters within 1e-3 lr max(1, |u|));
+20. take 1 + 5 training steps (``ensemble_train_step``, the recipe's
+    optimizer, whose ``step`` runs under ``set_sync_debug_mode("error")``:
+    it does not wait for the card) on the repeated batch through the
+    kernels: check every kernel's launches per step, each step's learning
+    rate against the schedule, and that the loss is finite and falls below
+    its first value; then 1 + 5 steps on the plain path, whose losses the
     kernel path's must match step by step (relative 3e-2); print ms per
-    step, samples (members) per second and peak memory of both.
+    step, samples (members) per second, peak memory, the learning rate
+    and the global norm per step of both.
+
+ The SFNO recipe's training step (slice 5):
+21. build ``sfno_linear_73chq_sc3_layers8_edim384`` as config/sfnonet.yaml
+    gives it (721x1440, scale 3, internal 240x480, lmax 240, embed 384, 8
+    dhconv blocks, instance norm, bf16 compute; the l2 squared loss with
+    auto channel weights and temp_diff_normalization over seeded statistics
+    files; Adam with b2 0.95 clipped at 32 on the cosine schedule at lr
+    1e-3, 2 steps an epoch), cut to B = 1 (the recipe's 64 on 64 GPUs, one
+    card's share), through ``get_model`` on seeded weights;
+22. compare the backward kernels with their plain versions at its shapes
+    (K1/K2 on each other's tables at 721 <-> 240 and 240 <-> 240, K3's dx,
+    K9, K10 at (1, 721, 1440, 384) and (1, 240, 480, 384)) and K16 and K17
+    on the model's parameters with one step's gradients, each timed beside
+    its bound, plain version and library call;
+23. one recipe step through the kernels and the plain path, as 15 holds
+    the bench's: in fp32 compute the loss, every gradient leaf and the
+    parameters after the optimizer's step (K16 and K17 against the plain
+    optimizer from the same gradients), in bf16 compute (the recipe's) the
+    loss and every gradient leaf (a leaf that misses the bf16 gates held to
+    the fp32 gradient: the kernel path no farther from it than 1.25 times
+    the plain path);
+24. 1 + 5 recipe steps (``train_step``) through the kernels, checked as 20
+    (launches, learning rates, a falling loss, no wait for the card in the
+    optimizer's step), then 1 + 3 on the plain path, step by step.
 
 Prints the card line and the kernel table as one JSON line before the last
 line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -209,17 +241,21 @@ TRAIN_EXPECTED_PER_STEP = dict(
 #        held to rounding level instead.
 TRAIN_LOSS_FP32_TOL = 1e-5
 TRAIN_GRAD_BF16_REL_L2 = 1e-1
-# The FCN3 ensemble-CRPS training step: bench.py's FCN3 row in its ensemble
-# mode (BENCH_NETTYPE=FCN3 BENCH_ENSEMBLE=4 BENCH_CHECKPOINTING=3; :64-72,
-# :126-146, :190-213, :218-228) on the published recipe's base config
+# The FCN3 ensemble-CRPS training step: the published recipe's base config
 # (config/fourcastnet3.yaml: morlet th 3x3, embeds 45/56/36, 10 blocks of
 # which 0 and 5 spectral, clamp_water, 8 centered diffusion-noise channels,
-# bf16 compute with fp32 DISCO) at 0.5 degrees, cut to E = 4 members (two
-# centered pairs) of B = 1 sample, constant channel weights and the bench's
-# factored Adam with a bf16 mu at lr 1e-3, rematerializing the encoders,
-# decoders and blocks (checkpointing_level 3)
+# bf16 compute with fp32 DISCO; the skillspread CRPS with auto channel
+# weights and temp_diff_normalization; Adam at lr 5e-4 clipped at a global
+# norm of 1.0 on the cosine schedule) in bench.py's FCN3 ensemble mode
+# (BENCH_NETTYPE=FCN3 BENCH_ENSEMBLE=4 BENCH_CHECKPOINTING=3; :64-72,
+# :126-146, :190-213, :218-228): cut to 0.5 degrees and E = 4 members (two
+# centered pairs) of B = 1 sample, rematerializing the encoders, decoders
+# and blocks (checkpointing_level 3); the statistics files are the caller's
+# (chip_smoke.py writes seeded ones, ``stats_files``)
 FCN3_TRAIN_ENSEMBLE = 4
 FCN3_TRAIN_BATCH = 1
+# the recipe names no samples an epoch: the schedule counts one step an epoch
+FCN3_STEPS_PER_EPOCH = 1
 # FCN3 training step, kernel path vs plain path on the card, same weights
 # and batch, bf16 compute: the forecast within MODEL_BF16_REL_L2 relative
 # L2, the loss within MODEL_BF16_REL_L2 relative, each gradient leaf within
@@ -232,7 +268,8 @@ FCN3_TRAIN_BATCH = 1
 # (the encoders' input needs none), K13 at the same 10 convs, K14 at the 2
 # decoders, the global blocks' K1/K2/K3 transposes, K15 forward and
 # backward; K5's launches for the fused convs' weight gradients
-# (``fcn3_wgrad_launches``) and K11's are added from the model
+# (``fcn3_wgrad_launches``) and K16's and K17's (``optimizer_launches``)
+# are added from the model and the optimizer
 FCN3_TRAIN_EXPECTED_PER_STEP = dict(
     {k: 2 * v for k, v in FCN3_EXPECTED_PER_STEP.items()},
     sht_synthesis=4, sht_analysis_grad=2, sht_synthesis_grad=2, dhconv_grad_input=2, dhconv_grad_weight=2,
@@ -240,15 +277,39 @@ FCN3_TRAIN_EXPECTED_PER_STEP = dict(
 )
 
 
+# the statistics files a config names (the recipes' losses read them)
+STATS_KEYS = ("min_path", "max_path", "time_means_path", "global_means_path", "global_stds_path", "time_diff_means_path", "time_diff_stds_path")
+
+
+def stats_files(n_channels: int) -> dict:
+    """Seeded per-channel statistics (1, C, 1, 1) for the recipes' losses,
+    written under build/chip_smoke_stats (the repository holds no ERA5):
+    mins and maxs, global means and stds, and time-difference stds at 5-30%
+    of the stds (a six-hour change is a fraction of the climate's spread).
+    Returns every key of ``STATS_KEYS``, None where no file is written."""
+    r = np.random.default_rng(SEED + 20)
+    mins = r.uniform(-2.0, -0.5, (1, n_channels, 1, 1))
+    stds = r.uniform(0.5, 2.0, (1, n_channels, 1, 1))
+    arrays = {"min_path": mins, "max_path": mins + r.uniform(0.5, 3.0, mins.shape), "global_means_path": r.standard_normal(mins.shape),
+              "global_stds_path": stds, "time_diff_stds_path": stds * r.uniform(0.05, 0.3, mins.shape)}
+    out = os.path.join(REPO, "build", "chip_smoke_stats")
+    os.makedirs(out, exist_ok=True)
+    paths = dict.fromkeys(STATS_KEYS)
+    for key, value in arrays.items():
+        paths[key] = os.path.join(out, f"{key[:-5]}_{n_channels}.npy")
+        np.save(paths[key], value)
+    return paths
+
+
 def fcn3_train_config(**overrides) -> dict:
     """The FCN3 training configuration as a plain dict (shared with
     tests/test_torch_fcn3_train.py, which shrinks it): the recipe's base
     config with the cuts above, then ``overrides``; the in and out channels
     follow ``channel_names`` unless given."""
-    import yaml
+    from makani_torch.utils.yparams import YParams
 
-    with open(os.path.join(REPO, FCN3_CONFIG[0])) as f:
-        cfg = dict(yaml.safe_load(f)[FCN3_CONFIG[1]])
+    # the YAML's "5E-4" is read as a number, as the recipe means it
+    cfg = YParams(os.path.join(REPO, FCN3_CONFIG[0]), FCN3_CONFIG[1]).to_dict()
     cfg.update(
         img_shape_x=361,
         img_shape_y=720,
@@ -256,13 +317,7 @@ def fcn3_train_config(**overrides) -> dict:
         batch_size=FCN3_TRAIN_BATCH,
         n_future=0,
         checkpointing_level=3,
-        losses=[{"type": "crps", "channel_weights": "constant", "parameters": {"crps_type": "skillspread"}}],
-        lr=1e-3,
-        scheduler="none",
-        optimizer_type="Adam",
-        optimizer_nu_factored=True,
-        optimizer_mu_dtype="bfloat16",
-        optimizer_max_grad_norm=None,
+        **{key: None for key in STATS_KEYS},
     )
     cfg.update(overrides)
     n = len(cfg["channel_names"])
@@ -1227,15 +1282,16 @@ def dhconv_grad_cases(B, L, M, w, gen, label, bf16=True):
     return cases
 
 
-def check_train_kernels(dev, card, model, loss_obj, batch):
-    """The backward kernels and K11 against their plain versions at the
-    training step's shapes; returns {(name, label, dtype): result}."""
+def check_train_kernels(dev, card, model, loss_obj, batch, B=TRAIN_BATCH, adam=True):
+    """The backward kernels and (``adam``) K11 against their plain versions
+    at the training step's shapes, batch B; returns {(name, label, dtype):
+    result}."""
     from makani_torch.models.common import layer_norm
     from makani_torch.ops import sht
 
     net = model.model
     trans_down, itrans_up, trans, itrans = net.trans_down, net.itrans_up, net.trans, net.itrans
-    B, C = TRAIN_BATCH, net.embed_dim
+    C = net.embed_dim
     gen = torch.Generator(dev).manual_seed(SEED + 8)
     f32 = torch.float32
     cases = []
@@ -1302,6 +1358,8 @@ def check_train_kernels(dev, card, model, loss_obj, batch):
         del xn, gn
         torch.cuda.empty_cache()
 
+    if not adam:
+        return res
     # K11 on the model's parameters with the model's gradients
     model.zero_grad(set_to_none=True)
     loss_obj(model(*batch[0::2], train=True), batch[1], inp=batch[0], train=True).backward()
@@ -1544,6 +1602,7 @@ def build_fcn3_train(dev, compute_dtype="bfloat16"):
     from makani_torch.utils.yparams import ParamsBase
 
     cfg = fcn3_train_config(compute_dtype=compute_dtype)
+    cfg.update(stats_files(len(cfg["channel_names"])))
     params = ParamsBase(dict(cfg))
     model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
     return params, model, LossHandler(ParamsBase(dict(cfg)))
@@ -1686,11 +1745,11 @@ def mix_grad_times(conv, B, card):
     torch.cuda.empty_cache()
 
 
-def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
+def check_fcn3_train_kernels(dev, card, params, model, loss_obj, batch):
     """Phase 18: K12-K15 against their plain versions at the training step's
     shapes (B*E members), K5 and the global blocks' K1-K3 at the shapes the
-    step gives them, K8's backward GEMMs timed, and K11 on the model's
-    parameters."""
+    step gives them, K8's backward GEMMs timed, and K16 and K17 on the
+    model's parameters with one step's gradients."""
     from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
     from makani_torch.ops import sht
     from makani_torch.ops.disco import FusedFilterCache
@@ -1777,10 +1836,10 @@ def check_fcn3_train_kernels(dev, card, model, loss_obj, batch):
     del xf, c2, xs
     torch.cuda.empty_cache()
     mix_grad_times(conv, BE, card)
-    # K11 on the model's parameters with one step's gradients
+    # K16 and K17 on the model's parameters with one step's gradients
     _, grads = fcn3_grads(model, loss_obj, batch)
     grads = [grads[n] for n, _ in model.named_parameters()]
-    results[("adam_factored", "fcn3-model", torch.float32)] = adam_case(card, model, grads, fcn3_train_config()["lr"], "fcn3-model")
+    results.update(optimizer_cases(card, model, grads, params, FCN3_STEPS_PER_EPOCH, "fcn3-recipe"))
     del grads
     torch.cuda.empty_cache()
     return results
@@ -1810,13 +1869,14 @@ def compare_fcn3_train_steps(dev, card, batch):
     """Phase 19: one full-width training step's loss and gradients in bf16
     compute, through the kernels and through the plain path (autograd
     through the plain forward and the plain CRPS), from the same weights and
-    batch."""
+    batch; then the optimizer step from the same gradients
+    (``compare_optimizer_step``)."""
     import copy
 
     from makani_torch import kernels
     from makani_torch.utils.training.ensemble_trainer import fold_ensemble
 
-    _, model, loss_obj = build_fcn3_train(dev)
+    params, model, loss_obj = build_fcn3_train(dev)
     plain, plain_loss = copy.deepcopy(model), copy.deepcopy(loss_obj)
     kernels.set_use_kernels(plain, False)
     plain_loss.loss_fns[0].use_kernels = False
@@ -1831,13 +1891,11 @@ def compare_fcn3_train_steps(dev, card, batch):
     lk, gk = fcn3_grads(model, loss_obj, batch)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    del model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lp, gp = fcn3_grads(plain, plain_loss, batch)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
-    del plain
     torch.cuda.empty_cache()
     worst = max((((gk[n].float() - gp[n].float()).norm() / gp[n].float().norm()).item(), n) for n in gp)
     ok = abs(lk - lp) <= MODEL_BF16_REL_L2 * abs(lp) and worst[0] <= TRAIN_GRAD_BF16_REL_L2 and err["rel_l2"] <= MODEL_BF16_REL_L2
@@ -1848,59 +1906,49 @@ def compare_fcn3_train_steps(dev, card, batch):
           f"warm-up) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise RuntimeError("FCN3 bf16 training step: the kernel path disagrees with the plain path")
-    del gk, gp
+    del gp
+    compare_optimizer_step(card, "FCN3 recipe", params, FCN3_STEPS_PER_EPOCH, model, plain, gk)
+    del model, plain, gk
     torch.cuda.empty_cache()
 
 
 def time_fcn3_train(dev, card, batch, use_kernels, steps):
-    """``steps`` + 1 training steps (``ensemble_train_step``, the bench's
-    factored Adam) on the repeated batch, through the kernels or the plain
-    path; returns (the losses, the step times in ms, the peak memory, the
-    launch counts, K11's launches a step, K5's launches a step for the
-    weight gradients)."""
+    """``steps`` + 1 training steps (``ensemble_train_step`` with the
+    recipe's optimizer) on the repeated batch, through the kernels or the
+    plain path; returns ``timed_recipe_steps``' record, the optimizer's
+    launches a step and K5's launches a step for the weight gradients."""
     from makani_torch import kernels
     from makani_torch.utils.training.ensemble_trainer import ensemble_train_step
-    from makani_torch.utils.training.optimizer import get_optimizer
 
     params, model, loss_obj = build_fcn3_train(dev)
     kernels.set_use_kernels(model, use_kernels)
-    opt = get_optimizer(params, model)
-    opt.use_kernels = loss_obj.loss_fns[0].use_kernels = use_kernels
+    opt = recipe_optimizer(params, model, FCN3_STEPS_PER_EPOCH, use_kernels)
+    loss_obj.loss_fns[0].use_kernels = use_kernels
     inp, tar, unp = batch
-    losses, times = [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    for _ in range(steps + 1):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        loss = ensemble_train_step(model, loss_obj, opt, inp, tar, unp, FCN3_TRAIN_ENSEMBLE)
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-        losses.append(loss.item())
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    n_adam, n_wgrad = adam_launches(model), fcn3_wgrad_launches(model.model, FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE)
+    out = timed_recipe_steps(lambda: ensemble_train_step(model, loss_obj, opt, inp, tar, unp, FCN3_TRAIN_ENSEMBLE), opt, steps)
+    per_step, n_wgrad = optimizer_launches(opt), fcn3_wgrad_launches(model.model, FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE)
     del model, opt
     torch.cuda.empty_cache()
-    return losses, times, peak, launches, n_adam, n_wgrad
+    return out + (per_step, n_wgrad)
 
 
 def fcn3_train_phases(dev, card):
     """Phases 17-20; returns (kernel results, launch counts of the timed
     training steps)."""
+    from makani_torch.utils.training.optimizer import get_schedule
+
     t0 = time.perf_counter()
     params, model, loss_obj = build_fcn3_train(dev)
     net = model.model
     nparam = sum(p.numel() for p in model.parameters())
     print(f"built the FCN3 training step ({nparam} parameters, compute {params.compute_dtype}, {params.img_shape_x}x{params.img_shape_y} -> internal "
           f"{net.h}x{net.w}, {net.num_layers} blocks, {params.N_in_channels} in / {params.N_out_channels} out channels, B={FCN3_TRAIN_BATCH} "
-          f"E={FCN3_TRAIN_ENSEMBLE}, checkpointing_level {net.checkpointing_level}, K11 launches a step {adam_launches(model)}) in "
+          f"E={FCN3_TRAIN_ENSEMBLE}, checkpointing_level {net.checkpointing_level}; loss {params.losses}; Adam, clip {params.optimizer_max_grad_norm}, "
+          f"{params.scheduler} over {params.scheduler_T_max} epochs of {FCN3_STEPS_PER_EPOCH} steps at lr {params.lr}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     batch = fcn3_train_batch(dev, params)
     t0 = time.perf_counter()
-    kres = check_fcn3_train_kernels(dev, card, model, loss_obj, batch)
+    kres = check_fcn3_train_kernels(dev, card, params, model, loss_obj, batch)
     print(f"phase 18 (FCN3 training kernel checks) {time.perf_counter() - t0:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
@@ -1909,30 +1957,435 @@ def fcn3_train_phases(dev, card):
     print(f"phase 19 (FCN3 training step, kernel vs plain) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 20: the main path, timed
-    losses, times, peak, launches, n_adam, n_wgrad = time_fcn3_train(dev, card, batch, True, TRAIN_STEPS)
+    losses, times, peak, launches, lrs, norms, per_step, n_wgrad = time_fcn3_train(dev, card, batch, True, TRAIN_STEPS)
     n = TRAIN_STEPS + 1
-    expected = {k: FCN3_TRAIN_EXPECTED_PER_STEP.get(k, 0) * n for k in launches}
-    expected["adam_factored"] = n_adam * n
+    expected = {k: (FCN3_TRAIN_EXPECTED_PER_STEP.get(k, 0) + per_step.get(k, 0)) * n for k in launches}
     expected["disco_band"] += n_wgrad * n
     print(f"FCN3 training launches over {n} steps: {launches} (per step {({k: v / n for k, v in launches.items()})})")
     if launches != expected:
         raise RuntimeError(f"FCN3 training launch counts {launches} != expected {expected}")
     members = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
-    p_losses, p_times, p_peak = time_fcn3_train(dev, card, batch, False, TRAIN_STEPS)[:3]
-    for label, ls, ts, pk in (("kernel", losses, times, peak), ("plain", p_losses, p_times, p_peak)):
+    p_losses, p_times, p_peak, _, p_lrs, p_norms = time_fcn3_train(dev, card, batch, False, TRAIN_STEPS)[:6]
+    for label, ls, ts, pk, lr_, nm in (("kernel", losses, times, peak, lrs, norms), ("plain", p_losses, p_times, p_peak, p_lrs, p_norms)):
         med = statistics.median(ts[1:])
-        print(f"FCN3 training step ({label} path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {TRAIN_STEPS} steps "
-              f"after a warm-up {[round(t, 2) for t in ts]}, {members / med * 1e3:.3f} samples/s (members), peak memory {pk / 2**30:.2f} GiB; "
-              f"loss per step {[round(v, 6) for v in ls]}  [{card}]", flush=True)
-    # the losses of a random target fall to the CRPS of a matching Gaussian
-    # ensemble, 1/sqrt(pi) ~ 0.564, within five steps, where Adam at lr 1e-3
-    # overshoots once (on both paths alike): the loss must fall below its
-    # first value, and each step's loss must be the plain path's (each step's
+        print(f"FCN3 recipe training step ({label} path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {TRAIN_STEPS} "
+              f"steps after a warm-up {[round(t, 2) for t in ts]}, {members / med * 1e3:.3f} samples/s (members), peak memory {pk / 2**30:.2f} GiB; "
+              f"loss per step {[round(v, 6) for v in ls]}; lr per step {[f'{v:.6e}' for v in lr_]}; grad norm per step {[round(v, 4) for v in nm]}  "
+              f"[{card}]", flush=True)
+    # the loss must fall below its first value, each step's learning rate be
+    # the schedule's, and each step's loss the plain path's (each step's
     # forward reads the weights that the previous step's optimizer wrote)
     if not all(math.isfinite(v) for v in losses) or not min(losses[1:]) < losses[0]:
         raise RuntimeError(f"FCN3 training loss not finite or not falling over {TRAIN_STEPS} steps: {losses}")
+    if lrs != p_lrs or lrs != [get_schedule(params, FCN3_STEPS_PER_EPOCH)(k) for k in range(n)]:
+        raise RuntimeError(f"FCN3 recipe learning rates {lrs} (plain path {p_lrs}) are not the schedule's")
     if not all(abs(a - b) <= MODEL_BF16_REL_L2 * abs(b) for a, b in zip(losses, p_losses)):
         raise RuntimeError(f"FCN3 training losses of the kernel path {losses} and the plain path {p_losses} part")
+    return kres, launches
+
+
+# ---------------------------------------------------------------------------
+# The recipes' optimizer: K16 (global-norm clipping) and K17 (Adam), shared
+# by the FCN3 recipe step (slice 4) and the SFNO recipe step (slice 5)
+
+
+def recipe_optimizer(params, model, steps_per_epoch, use_kernels=True):
+    """``get_optimizer`` on the recipe's settings; on the kernel path its
+    ``step`` runs under ``torch.cuda.set_sync_debug_mode("error")``: a step
+    that waits for the card (a copy to the host, a synchronising call)
+    raises."""
+    from makani_torch.utils.training.optimizer import get_optimizer
+
+    opt = get_optimizer(params, model, steps_per_epoch)
+    opt.use_kernels = use_kernels
+    if use_kernels:
+        step = opt.step
+
+        def checked(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        opt.step = checked
+    return opt
+
+
+def optimizer_launches(opt) -> dict:
+    """K16's and K17's launches a step: two for every 128 trainable leaves
+    (where the recipe clips), one for every 64."""
+    from makani_torch.utils.training.optimizer import _MAX_ADAM_LEAVES, _MAX_NORM_LEAVES
+
+    n = sum(len(g["params"]) for g in opt.param_groups if not g["frozen"])
+    return {"grad_norm": 2 * -(-n // _MAX_NORM_LEAVES) if opt.max_grad_norm else 0, "adam": -(-n // _MAX_ADAM_LEAVES)}
+
+
+def leaf_errors(outs, refs) -> dict:
+    """``errors`` over lists of leaves, one leaf at a time (no temporary the
+    size of the model)."""
+    d2 = r2 = max_abs = scale = 0.0
+    for o, r in zip(outs, refs):
+        d = o.float() - r.float()
+        d2 += float(d.square().sum())
+        r2 += float(r.float().square().sum())
+        max_abs = max(max_abs, float(d.abs().max()))
+        scale = max(scale, float(r.abs().max()))
+    return {"max_abs_err": max_abs, "max_rel": max_abs / scale, "rel_l2": math.sqrt(d2 / r2), "max_ref": scale}
+
+
+def timed_restoring(fn, work, source, iters=5, warmup=1) -> float:
+    """Mean ms of ``fn`` (CUDA events around each call alone), ``work``
+    restored from ``source`` before each call: an in-place function sees
+    the same inputs every time."""
+    total = 0.0
+    for i in range(warmup + iters):
+        for w, g in zip(work, source):
+            w.copy_(g)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            total += s.elapsed_time(e)
+    return total / iters
+
+
+def optimizer_cases(card, model, grads, params, steps_per_epoch, label) -> dict:
+    """K16 and K17 on the model's parameters with one step's gradients
+    (a list in ``model.parameters()`` order), each against its plain version
+    on copies, timed beside its bound and the library's call; returns
+    {(name, label, float32): result}."""
+    from makani_torch.utils.training.optimizer import _bias_corrections, adam_update, adam_update_plain, clip_by_global_norm, get_schedule
+
+    res = {}
+    ps = [p.detach() for p in model.parameters()]
+    n = sum(p.numel() for p in ps)
+    max_norm = params.optimizer_max_grad_norm
+    # K16: the norm and the clip
+    gk, gp = [g.clone() for g in grads], [g.clone() for g in grads]
+    nk, npl = clip_by_global_norm(gk, max_norm), clip_by_global_norm(gp, max_norm, use_kernels=False)
+    torch.cuda.synchronize()
+    nk, npl = nk.item(), npl.item()
+    err = leaf_errors(gk, gp)
+    clipped = not npl < max_norm
+    del gp
+    lib_ms = timed_restoring(lambda: torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gk))), gk, grads)
+    ms = timed_restoring(lambda: clip_by_global_norm(gk, max_norm), gk, grads)
+    plain_ms = timed_restoring(lambda: clip_by_global_norm(gk, max_norm, use_kernels=False), gk, grads)
+    # bytes: g read once for the sum, and written once where it clips
+    b = bound((4.0 if clipped else 2.0) * n, (8 if clipped else 4) * n)
+    norm_rel = abs(nk - npl) / npl
+    ok = norm_rel <= FP32_TOL and err["max_rel"] <= FP32_TOL
+    print(f"kernel grad_norm         {label:17s} float32  {len(grads)} leaves, {n} parameters: norm {nk:.6f} vs plain {npl:.6f} (rel {norm_rel:.2e}), "
+          f"{'clipped' if clipped else 'kept'} at {max_norm}; g max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound_ms {b['bound_ms']:.3f} ms ({b['bound_by']}), library_ms {lib_ms:.3f} ms "
+          f"(torch._foreach_norm + vector_norm, the norm alone); {kernel_regs('sumsq_kernel', 'clip_kernel')}  [{card}]", flush=True)
+    if not ok:
+        raise RuntimeError(f"grad_norm ({label}) disagrees with its plain version: norm {nk} vs {npl}, {err}")
+    res[("grad_norm", label, torch.float32)] = dict(err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, norm=nk, plain_norm=npl, clipped=clipped, **b)
+    if not clipped:
+        # the clip pass too, on the same gradients at half their norm
+        half = npl / 2
+        ck, cp = [g.clone() for g in grads], [g.clone() for g in grads]
+        clip_by_global_norm(ck, half)
+        clip_by_global_norm(cp, half, use_kernels=False)
+        cerr = leaf_errors(ck, cp)
+        del cp
+        c_ms = timed_restoring(lambda: clip_by_global_norm(ck, half), ck, grads)
+        c_plain = timed_restoring(lambda: clip_by_global_norm(ck, half, use_kernels=False), ck, grads)
+        del ck
+        cb = bound(4.0 * n, 8 * n)
+        print(f"kernel grad_norm         {label + ' clipping':17s} float32  max_norm {half:.6f} (half the norm): g max|d|/max|ref| {cerr['max_rel']:.3e} "
+              f"relL2 {cerr['rel_l2']:.3e} {'ok' if cerr['max_rel'] <= FP32_TOL else 'FAIL'}; kernel {c_ms:.3f} ms, plain {c_plain:.3f} ms, bound_ms "
+              f"{cb['bound_ms']:.3f} ms ({cb['bound_by']})  [{card}]", flush=True)
+        if cerr["max_rel"] > FP32_TOL:
+            raise RuntimeError(f"grad_norm ({label}, clipping) disagrees with its plain version: {cerr}")
+    # K17: one step from a fresh fp32 state on the clipped gradients
+    b1, b2, eps = params.get("optimizer_beta1", 0.9), params.get("optimizer_beta2", 0.999), params.get("optimizer_eps", 1e-8)
+    lr = get_schedule(params, steps_per_epoch)(0)
+    c1, c2 = _bias_corrections(1, b1, b2)
+
+    def fresh():
+        return [(p.clone(), g, torch.zeros_like(p), torch.zeros_like(p), 0.0) for p, g in zip(ps, gk)]
+
+    kern = fresh()
+    adam_update(kern, torch.float32, c1, c2, b1, b2, eps, lr)
+    plain = fresh()
+    for leaf in plain:
+        adam_update_plain(*leaf[:4], c1, c2, b1, b2, eps, lr)
+    torch.cuda.synchronize()
+    errs = [leaf_errors([a[i] for a in kern], [b_[i] for b_ in plain]) for i in (0, 2, 3)]
+    err = errs[0]
+    del plain
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: adam_update(kern, torch.float32, c1, c2, b1, b2, eps, lr), 5, 1)
+    del kern
+    torch.cuda.empty_cache()
+    plain = fresh()
+    plain_ms = time_ms(lambda: [adam_update_plain(*leaf[:4], c1, c2, b1, b2, eps, lr) for leaf in plain], 2, 1)
+    del plain
+    torch.cuda.empty_cache()
+    lib_ps = [torch.nn.Parameter(p.clone()) for p in ps]
+    for p, g in zip(lib_ps, gk):
+        p.grad = g
+    lib_opt = torch.optim.Adam(lib_ps, lr=lr, betas=(b1, b2), eps=eps, fused=True)
+    lib_ms = time_ms(lib_opt.step, 5, 1)
+    del lib_ps, lib_opt
+    torch.cuda.empty_cache()
+    # bytes: p, g, mu, v read, p, mu, v written (fp32 mu); about 14
+    # operations a parameter
+    b = bound(14.0 * n, 28 * n)
+    ok = all(e["max_rel"] <= FP32_TOL for e in errs)
+    print(f"kernel adam              {label:17s} float32  {len(ps)} leaves, {n} parameters, lr {lr:.6e}: p max|d|/max|ref| {errs[0]['max_rel']:.3e}, "
+          f"mu {errs[1]['max_rel']:.3e}, v {errs[2]['max_rel']:.3e} {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound_ms {b['bound_ms']:.3f} ms ({b['bound_by']}), library_ms {lib_ms:.3f} ms (torch.optim.Adam(fused=True), fp32 state); "
+          f"{kernel_regs('adam_kernel')}  [{card}]", flush=True)
+    if not ok:
+        raise RuntimeError(f"adam ({label}) disagrees with its plain version: {errs}")
+    res[("adam", label, torch.float32)] = dict(err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+    del gk
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_optimizer_step(card, label, params, steps_per_epoch, model, plain, grads):
+    """The recipe's optimizer step through K16 and K17 and through its plain
+    versions, on ``model`` and ``plain`` (the same weights) with the same
+    gradients (by name) from a fresh state: the norms within FP32_TOL, the
+    same learning rate, each parameter within 1e-3 lr max(1, |u|) of the
+    plain path's where |g| > 1e-3 of its leaf's max (the fp32 step's gate)."""
+    opts = []
+    for m, use in ((model, True), (plain, False)):
+        for name, p in m.named_parameters():
+            p.grad = grads[name].clone()
+        opts.append(recipe_optimizer(params, m, steps_per_epoch, use))
+    p0 = {name: p.detach().clone() for name, p in plain.named_parameters()}
+    for opt in opts:
+        opt.step()
+    torch.cuda.synchronize()
+    (ok_, op_) = opts
+    nk, npl = ok_.last_grad_norm.item(), op_.last_grad_norm.item()
+    lr = op_.last_lr
+    pk = dict(model.named_parameters())
+    worst = (0.0, "")
+    for name, pp in plain.named_parameters():
+        g = grads[name].float().abs()
+        mask = g > 1e-3 * g.max()
+        u = ((pp.detach() - p0[name]) / lr).abs()
+        r = ((pk[name].detach() - pp.detach()).abs() / lr / torch.clamp_min(u, 1.0))[mask]
+        worst = max(worst, (r.max().item() if r.numel() else 0.0, name))
+    ok = abs(nk - npl) <= FP32_TOL * npl and ok_.last_lr == lr and worst[0] <= 1e-3
+    print(f"{label} optimizer step (K16 + K17 vs plain, same gradients): grad norm {nk:.6f} vs {npl:.6f} (clip at {params.optimizer_max_grad_norm}), "
+          f"lr {ok_.last_lr:.6e} vs {lr:.6e}; worst parameter after the step {worst[1]} {worst[0]:.3e} lr max(1, |u|) (tol 1e-3) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    for m in (model, plain):
+        m.zero_grad(set_to_none=True)
+    if not ok:
+        raise RuntimeError(f"{label}: the optimizer step through the kernels disagrees with the plain path")
+
+
+def timed_recipe_steps(step, opt, steps):
+    """``steps`` + 1 training steps (the first a warm-up) through ``step()``;
+    returns (the losses, the step times in ms, the peak memory, the launch
+    counts of all steps, each step's learning rate and global norm)."""
+    from makani_torch import kernels
+
+    losses, times, lrs, norms = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(steps + 1):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        loss = step()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+        losses.append(loss.item())
+        lrs.append(opt.last_lr)
+        norms.append(opt.last_grad_norm.item() if opt.last_grad_norm is not None else None)
+    return losses, times, torch.cuda.max_memory_allocated(), dict(kernels.LAUNCHES), lrs, norms
+
+
+# ---------------------------------------------------------------------------
+# The SFNO recipe's training step (slice 5)
+
+RECIPE_BATCH = 1  # the recipe's batch of 64 on 64 GPUs, one card's share
+RECIPE_STEPS = 5
+RECIPE_PLAIN_STEPS = 3
+
+
+def recipe_params(compute_dtype="bfloat16"):
+    """``sfno_linear_73chq_sc3_layers8_edim384`` of config/sfnonet.yaml as
+    it stands, on the seeded statistics files."""
+    from makani_torch.utils.yparams import YParams
+
+    params = YParams(os.path.join(REPO, CONFIG[0]), CONFIG[1])
+    n = len(params.channel_names)
+    params["in_channels"] = list(range(n))
+    params["out_channels"] = list(range(n))
+    params["compute_dtype"] = compute_dtype
+    for key, path in stats_files(n).items():
+        params[key] = path
+    return params
+
+
+def recipe_steps_per_epoch(params) -> int:
+    """The recipe's steps an epoch: its samples an epoch over its batch."""
+    return params.n_train_samples_per_epoch // params.batch_size
+
+
+def build_recipe(dev, compute_dtype="bfloat16"):
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.loss import LossHandler
+
+    params = recipe_params(compute_dtype)
+    model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
+    return params, model, LossHandler(recipe_params(compute_dtype))
+
+
+def recipe_batch(dev, params):
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    H, W, C = params.img_shape_x, params.img_shape_y, len(params.channel_names)
+    inp = randn((RECIPE_BATCH, C, H, W), torch.float32, gen, dev)
+    tar = randn((RECIPE_BATCH, C, H, W), torch.float32, gen, dev)
+    zen = randn((RECIPE_BATCH, 1, 1, H, W), torch.float32, gen, dev)
+    return inp, tar, zen
+
+
+def compare_recipe_steps(dev, card, batch):
+    """One recipe step through the kernels and through the plain path from
+    the same weights and batch, as phase 15 holds the bench's step: in fp32
+    compute the loss, every gradient leaf and (``compare_optimizer_step``)
+    the parameters after the optimizer's step, at the fp32 gates; in bf16
+    compute (the recipe's) the loss and every gradient leaf at the bf16
+    gates. A bf16 leaf that misses them is held against the fp32 gradient
+    of the same weights instead: the kernel path's bf16 rounding may not
+    move it farther from there than 1.25 times the plain path's does. Both
+    round in bf16, at other places; a leaf whose exact gradient cancels (a
+    sum over every pixel of terms that nearly cancel, as in front of the
+    first block's instance norm) magnifies either path's rounding alike."""
+    import copy
+
+    from makani_torch import kernels
+
+    rel_l2 = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        params, model, loss_obj = build_recipe(dev, dtype)
+        plain = copy.deepcopy(model)
+        kernels.set_use_kernels(plain, False)
+        lk, gk = loss_and_grads(model, loss_obj, *batch)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        lp, gp = loss_and_grads(plain, loss_obj, *batch)
+        plain.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        largest = max(g.abs().max().item() for g in gp.values())
+        worst, held = (0.0, ""), []
+        for name in gp:
+            a, b = gk[name], gp[name]
+            if zero_in_exact_arithmetic(name):
+                if max(a.abs().max().item(), b.abs().max().item()) > (1e-5 if dtype == "float32" else 1e-2) * largest:
+                    raise RuntimeError(f"SFNO recipe step ({dtype}): {name}'s gradient is not at rounding level")
+                continue
+            if dtype == "float32":
+                worst = max(worst, (((a - b).abs().max() / b.abs().max()).item(), name))
+                continue
+            rel = rel_l2(a, b)
+            if rel > TRAIN_GRAD_BF16_REL_L2:
+                ek, ep = rel_l2(a, runs["float32"][name]), rel_l2(b, runs["float32"][name])
+                held.append((name, rel, ek, ep))
+                if ek > 1.25 * ep:
+                    raise RuntimeError(f"SFNO recipe step (bf16): gradient {name} relL2 {rel:.3e} against the plain path, {ek:.3e} from the fp32 "
+                                       f"gradient against the plain path's {ep:.3e}")
+                continue
+            worst = max(worst, (rel, name))
+        tol_l, tol_g = (TRAIN_LOSS_FP32_TOL, MODEL_FP32_TOL) if dtype == "float32" else (MODEL_BF16_REL_L2, TRAIN_GRAD_BF16_REL_L2)
+        ok = abs(lk - lp) <= tol_l * abs(lp) and worst[0] <= tol_g
+        print(f"SFNO recipe training step ({dtype} compute, {params.img_shape_x}x{params.img_shape_y}, B={RECIPE_BATCH}), kernel path vs plain "
+              f"path: loss {lk:.7f} vs {lp:.7f} (rel {abs(lk - lp) / abs(lp):.2e}, tol {tol_l}); worst gradient leaf {worst[1]} "
+              f"{'max|d|/max|ref|' if dtype == 'float32' else 'relL2'} {worst[0]:.3e} (tol {tol_g}); held to the fp32 gradient instead "
+              f"(relL2 kernel-plain, kernel-fp32, plain-fp32): {[(n, f'{r:.3e}', f'{k:.3e}', f'{p:.3e}') for n, r, k, p in held]} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"SFNO recipe step ({dtype}): the kernel path disagrees with the plain path")
+        if dtype == "float32":
+            compare_optimizer_step(card, "SFNO recipe (float32 compute)", params, recipe_steps_per_epoch(params), model, plain, gp)
+            runs[dtype] = gp
+        del model, plain, gk
+        torch.cuda.empty_cache()
+    del runs
+    torch.cuda.empty_cache()
+
+
+def time_recipe(dev, card, batch, use_kernels, steps):
+    """``steps`` + 1 recipe training steps (``train_step`` with the recipe's
+    optimizer) on the repeated batch; ``timed_recipe_steps``' record and the
+    optimizer's launches a step."""
+    from makani_torch import kernels
+    from makani_torch.utils.training.deterministic_trainer import train_step
+
+    params, model, loss_obj = build_recipe(dev)
+    kernels.set_use_kernels(model, use_kernels)
+    opt = recipe_optimizer(params, model, recipe_steps_per_epoch(params), use_kernels)
+    out = timed_recipe_steps(lambda: train_step(model, loss_obj, opt, *batch), opt, steps)
+    per_step = optimizer_launches(opt)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out + (per_step,)
+
+
+def recipe_phases(dev, card):
+    """Phases 21-24; returns (kernel results, launch counts of the timed
+    recipe steps)."""
+    from makani_torch.utils.training.optimizer import get_schedule
+
+    t0 = time.perf_counter()
+    params, model, loss_obj = build_recipe(dev)
+    net = model.model
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"built the SFNO recipe's training step ({CONFIG[1]}: {nparam} parameters in {len(list(model.parameters()))} leaves, compute "
+          f"{params.compute_dtype}, {params.img_shape_x}x{params.img_shape_y} -> internal {net.h}x{net.w}, lmax/mmax {net.trans.lmax}/{net.trans.mmax}, "
+          f"embed {net.embed_dim}, {net.num_layers} blocks, B={RECIPE_BATCH}; loss {params.losses}; Adam b2 {params.optimizer_beta2}, clip "
+          f"{params.optimizer_max_grad_norm}, {params.scheduler} over {params.scheduler_T_max} epochs of {recipe_steps_per_epoch(params)} steps at "
+          f"lr {params.lr}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = recipe_batch(dev, params)
+    t0 = time.perf_counter()
+    kres = check_train_kernels(dev, card, model, loss_obj, batch, B=RECIPE_BATCH, adam=False)
+    _, grads = loss_and_grads(model, loss_obj, *batch)
+    model.zero_grad(set_to_none=True)
+    kres.update(optimizer_cases(card, model, [grads[n] for n, _ in model.named_parameters()], params, recipe_steps_per_epoch(params), "sfno-recipe"))
+    del grads
+    print(f"phase 22 (SFNO recipe kernel checks) {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    compare_recipe_steps(dev, card, batch)
+    print(f"phase 23 (SFNO recipe step, kernel vs plain) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 24: the main path, timed; then the plain path
+    losses, times, peak, launches, lrs, norms, per_step = time_recipe(dev, card, batch, True, RECIPE_STEPS)
+    n = RECIPE_STEPS + 1
+    expected = {k: (TRAIN_EXPECTED_PER_STEP.get(k, 0) + per_step.get(k, 0)) * n for k in launches}
+    print(f"SFNO recipe launches over {n} steps: {launches} (per step {({k: v / n for k, v in launches.items()})})")
+    if launches != expected:
+        raise RuntimeError(f"SFNO recipe launch counts {launches} != expected {expected}")
+    if lrs != [get_schedule(params, recipe_steps_per_epoch(params))(k) for k in range(n)]:
+        raise RuntimeError(f"SFNO recipe learning rates {lrs} are not the schedule's")
+    if not all(math.isfinite(v) for v in losses) or not min(losses[1:]) < losses[0]:
+        raise RuntimeError(f"SFNO recipe loss not finite or not falling over {RECIPE_STEPS} steps: {losses}")
+    p_losses, p_times, p_peak, _, p_lrs, p_norms, _ = time_recipe(dev, card, batch, False, RECIPE_PLAIN_STEPS)
+    for label, ls, ts, pk, lr_, nm in (("kernel", losses, times, peak, lrs, norms), ("plain", p_losses, p_times, p_peak, p_lrs, p_norms)):
+        med = statistics.median(ts[1:])
+        print(f"SFNO recipe training step ({label} path, bf16, {params.img_shape_x}x{params.img_shape_y}, B={RECIPE_BATCH}): median {med:.2f} ms over "
+              f"{len(ts) - 1} steps after a "
+              f"warm-up {[round(t, 2) for t in ts]}, {RECIPE_BATCH / med * 1e3:.3f} samples/s, peak memory {pk / 2**30:.2f} GiB; loss per step "
+              f"{[round(v, 6) for v in ls]}; lr per step {[f'{v:.6e}' for v in lr_]}; grad norm per step {[round(v, 4) for v in nm]}  [{card}]", flush=True)
+    if not all(abs(a - b) <= MODEL_BF16_REL_L2 * abs(b) for a, b in zip(losses, p_losses)) or lrs[: len(p_lrs)] != p_lrs:
+        raise RuntimeError(f"SFNO recipe losses of the kernel path {losses} and the plain path {p_losses} part, or their learning rates")
     return kres, launches
 
 
@@ -1975,6 +2428,10 @@ def main() -> int:
     t0 = time.perf_counter()
     fcn3_train_res, fcn3_train_launches = fcn3_train_phases(dev, card)
     print(f"FCN3 training phases {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recipe_res, recipe_launches = recipe_phases(dev, card)
+    print(f"SFNO recipe training phases {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- result: each kernel at its path's main shape, with that path's launches
     io = transform_io_dtype()
@@ -1998,6 +2455,8 @@ def main() -> int:
         ("disco_polar_grad", "cuda", "makani_torch/csrc/disco_polar.cu", "makani_tpu/ops/disco.py:638", fcn3_train_res, ("processor", f32), fcn3_train_launches),
         ("resample_grad", "cuda", "makani_torch/csrc/resample_grad.cu", "makani_tpu/ops/resample.py:81", fcn3_train_res, ("atmo-decoder", f32), fcn3_train_launches),
         ("crps", "cuda", "makani_torch/csrc/crps.cu", "makani_tpu/utils/losses/crps_loss.py:136", fcn3_train_res, ("forward+backward", f32), fcn3_train_launches),
+        ("grad_norm", "cuda", "makani_torch/csrc/grad_norm.cu", "makani_tpu/utils/training/optimizer.py:410", recipe_res, ("sfno-recipe", f32), recipe_launches),
+        ("adam", "cuda", "makani_torch/csrc/adam.cu", "makani_tpu/utils/training/optimizer.py:371", recipe_res, ("sfno-recipe", f32), recipe_launches),
     ]
     # K15: its forward and backward launch once each a step; the line sums them
     fwd, bwd = fcn3_train_res[("crps", "forward", f32)], fcn3_train_res[("crps", "backward", f32)]
@@ -2018,6 +2477,9 @@ def main() -> int:
     print("instance_norm_grad (K10), SFNO training step: " + "; ".join(
         f"{lab} bf16 {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, two-read floor {r['two_read_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"library {r['library_ms']:.4f} ms" for lab, r in ((lab, train_res[("instance_norm_grad", lab, torch.bfloat16)]) for lab in ("full", "internal"))))
+    print("grad_norm (K16) and adam (K17), FCN3 recipe step: " + "; ".join(
+        f"{nm}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+        for nm, r in ((nm, fcn3_train_res[(nm, "fcn3-recipe", f32)]) for nm in ("grad_norm", "adam"))))
     print("resample_grad (K14) plans, FCN3 training step: " + "; ".join(
         f"{lab}: {fcn3_train_res[('resample_grad', lab, f32)]['plan']}" for lab in ("atmo-decoder", "surf-decoder")))
     print(card)

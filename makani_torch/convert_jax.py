@@ -7,9 +7,11 @@ dots (``params/model/block0/norm0/weight`` -> ``model.block0.norm0.weight``).
 The same holds for FCN3's tree: ``atmo_encoder.conv.weight`` (g, og, ig, K),
 ``block1.local_conv.weight``, ``block0.global_conv.weight``,
 ``block0.layer_scale.gamma``, ``atmo_decoder.conv.weight``, ...
-``opt_state_from_jax`` carries a ``ScaleByAdamFactoredState`` (the factored
-Adam's count, mu and per-leaf nu) into ``AdamFactored``'s ``state_dict`` the
-same way, leaf by leaf under the parameter's name.
+``opt_state_from_jax`` carries the optax state of ``get_optimizer``'s chains
+(the plain or factored Adam's count, mu and nu, the schedule's count, the
+gradient accumulation's mini-step and running mean, the freeze partition)
+into ``Adam``'s or ``AdamFactored``'s ``state_dict`` the same way, leaf by
+leaf under the parameter's name.
 This module needs numpy and torch only; the caller produces the numpy tree.
 """
 
@@ -56,38 +58,86 @@ def params_from_jax(flax_params_as_numpy: Mapping) -> dict:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in _flatten(flax_params_as_numpy).items()}
 
 
-def _factored_state(tree):
-    """The ``ScaleByAdamFactoredState`` (count, mu, nu) in an optax state,
-    which nests it in the tuples of ``chain``."""
-    if hasattr(tree, "_fields") and {"count", "mu", "nu"} <= set(tree._fields):
-        return tree
-    if isinstance(tree, (tuple, list)):
-        for t in tree:
-            hit = _factored_state(t)
-            if hit is not None:
-                return hit
+def _find(tree, fields):
+    """The first namedtuple holding ``fields`` in an optax state (which nests
+    them in ``chain``'s tuples, ``multi_transform``'s ``PartitionState``
+    dict and ``MaskedState``), depth first, or None."""
+    if hasattr(tree, "_fields"):
+        if set(fields) <= set(tree._fields):
+            return tree
+        tree = tuple(tree)
+    children = tree.values() if isinstance(tree, Mapping) else tree if isinstance(tree, (tuple, list)) else ()
+    for t in children:
+        hit = _find(t, fields)
+        if hit is not None:
+            return hit
     return None
 
 
+def _counts(tree, out):
+    """Every ``count`` of the namedtuples in an optax state (the Adam
+    state's and the schedule's ``ScaleByScheduleState``)."""
+    if hasattr(tree, "_fields"):
+        if "count" in tree._fields:
+            out.append(int(np.asarray(tree.count)))
+        tree = tuple(tree)
+    children = tree.values() if isinstance(tree, Mapping) else tree if isinstance(tree, (tuple, list)) else ()
+    for t in children:
+        _counts(t, out)
+    return out
+
+
+def _leaves(tree) -> dict:
+    """{dotted name: leaf} of a moment tree, without the leaves that
+    ``multi_transform`` masked out (``MaskedNode``, an empty namedtuple)."""
+    return {k: v for k, v in _flatten(tree).items() if not (hasattr(v, "_fields") and not v._fields)}
+
+
 def opt_state_from_jax(opt_state_as_numpy, module: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
-    """The numpy tree of an optax state holding a ``ScaleByAdamFactoredState``
-    (``jax.tree.map(np.asarray, opt_state)``) -> ``optimizer``'s
-    ``state_dict`` (an ``AdamFactored`` over ``module``'s parameters): per
-    parameter its ``count``, ``mu`` (in mu's dtype) and the ``v_row``,
-    ``v_col`` and ``v`` of its ``_Nu``. Every parameter of the optimizer must
-    be in the tree."""
-    st = _factored_state(opt_state_as_numpy)
+    """The numpy tree of an optax state (``jax.tree.map(np.asarray,
+    opt_state)``) of the chains that ``get_optimizer`` builds -> the
+    ``state_dict`` of ``optimizer`` (an ``Adam`` or ``AdamFactored`` over
+    ``module``'s parameters), so that both packages continue one training:
+
+    - ``ScaleByAdamState`` (count, mu, nu) -> each parameter's ``count``,
+      ``mu`` (in mu's dtype) and ``v``; ``ScaleByAdamFactoredState`` ->
+      ``count``, ``mu`` and the ``v_row``, ``v_col`` and ``v`` of its
+      ``_Nu``;
+    - the schedule's ``ScaleByScheduleState`` count, which must equal the
+      Adam state's;
+    - ``MultiStepsState`` -> ``mini_step`` and ``acc`` (``acc_grads``), the
+      inner state as above (its count advances on applied steps only, as
+      ``gradient_step``);
+    - ``multi_transform``'s ``PartitionState``: the trainable leaves' states;
+      the frozen parameters (a ``frozen`` group) have none.
+
+    Every trainable parameter of the optimizer must be in the tree."""
+    multi = _find(opt_state_as_numpy, ("mini_step", "gradient_step", "inner_opt_state", "acc_grads"))
+    inner = multi.inner_opt_state if multi is not None else opt_state_as_numpy
+    st = _find(inner, ("count", "mu", "nu"))
     if st is None:
-        raise ValueError("no ScaleByAdamFactoredState (count, mu, nu) in the optimizer state")
-    mu, nu = _flatten(st.mu), _flatten(st.nu)
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    counts = set(_counts(inner, []))
+    if len(counts) != 1:
+        raise ValueError(f"the optimizer state's counts disagree: {sorted(counts)}")
+    mu, nu = _leaves(st.mu), _leaves(st.nu)
+    acc = _leaves(multi.acc_grads) if multi is not None else None
     names = {id(p): n for n, p in module.named_parameters()}
     count = _tensor(st.count).to(torch.int32)
     state, idx = {}, 0
     for group in optimizer.param_groups:
         for p in group["params"]:
-            name = names[id(p)]
-            leaf = nu[name]
-            state[idx] = {"count": count.clone(), "mu": _tensor(mu[name]), "v_row": _tensor(leaf.v_row), "v_col": _tensor(leaf.v_col), "v": _tensor(leaf.v)}
+            if not group.get("frozen", False):
+                name = names[id(p)]
+                leaf = nu[name]
+                entry = {"count": count.clone(), "mu": _tensor(mu[name])}
+                if hasattr(leaf, "v_row"):
+                    entry.update(v_row=_tensor(leaf.v_row), v_col=_tensor(leaf.v_col), v=_tensor(leaf.v))
+                else:
+                    entry["v"] = _tensor(leaf)
+                if multi is not None:
+                    entry.update(mini_step=_tensor(multi.mini_step).to(torch.int32), acc=_tensor(acc[name]))
+                state[idx] = entry
             idx += 1
     return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
 

@@ -10,10 +10,10 @@
 //                            v_col' = b2 v_col + (1 - b2) mean_d0(g^2)
 //                            vhat = (v_row' / max(mean_d0(v_row'), 1e-30)) (x) v_col' / c2
 //   unfactored:              v' = b2 v + (1 - b2) g^2,  vhat = v' / c2
-//   u = (mu' / c1) / (sqrt(vhat) + eps),  p' = p + (-lr) u
+//   u = (mu' / c1) / (sqrt(vhat) + eps),  u += wd p (a decayed leaf),  p' = p + (-lr) u
 //
-// The three multiply-adds b1 mu + [(1 - b1) g], b2 v + [(1 - b2) g^2] (and
-// the factored EMAs) and p + u (-lr) are fused multiply-adds (__fmaf_rn), the
+// The multiply-adds b1 mu + [(1 - b1) g], b2 v + [(1 - b2) g^2] (and the
+// factored EMAs), u + wd p and p + u (-lr) are fused multiply-adds (__fmaf_rn), the
 // bracketed products rounded first, as XLA compiles the JAX step (bit-equal
 // to those FMAs on the CPU); every other operation rounds once (__fmul_rn,
 // __fdiv_rn, ...: no other contraction), as the plain version
@@ -78,7 +78,7 @@ struct FLeaf {
   float* vB;       // (P, Mi, S, Q)
   float* scratch;  // partials over s tiles (nst, P, R, Mi, Q), over r tiles (nrt, P, Mi, S, Q), row mean (P, Mi, Q)
   int P, R, Mi, S, Q, row_keeps_r;
-  float c1, c2;
+  float c1, c2, wd;
   int nst, nrt;
   int first;  // this leaf's first block in the launch
 };
@@ -235,10 +235,12 @@ __global__ void __launch_bounds__(COMBINE_THREADS) factored_combine_kernel(const
 
 // mu' and the parameter's update from the second-moment estimate vhat
 template <typename MU>
-__device__ __forceinline__ void adam_apply(float& p, const float g, MU& mu, const float vhat, float b1, float omb1, float c1, float eps, float neg_lr) {
+__device__ __forceinline__ void adam_apply(float& p, const float g, MU& mu, const float vhat, float b1, float omb1, float c1, float eps, float wd,
+                                           float neg_lr) {
   const MU m = mt::from_f32<MU>(__fmaf_rn(b1, mt::to_f32(mu), __fmul_rn(omb1, g)));
   mu = m;
-  const float u = __fdiv_rn(__fdiv_rn(mt::to_f32(m), c1), __fadd_rn(__fsqrt_rn(vhat), eps));
+  float u = __fdiv_rn(__fdiv_rn(mt::to_f32(m), c1), __fadd_rn(__fsqrt_rn(vhat), eps));
+  if (wd != 0.f) u = __fmaf_rn(wd, p, u);
   p = __fmaf_rn(u, neg_lr, p);
 }
 
@@ -283,11 +285,11 @@ __global__ void __launch_bounds__(THREADS) factored_apply_kernel(const __grid_co
   const float* vB = L.vB + pm * SQ;
   const float* rm = sc.rm + pm * Q;
   const bool rk = L.row_keeps_r;
-  const float c1 = L.c1, c2 = L.c2;
+  const float c1 = L.c1, c2 = L.c2, wd = L.wd;
   auto one = [&](float& pv, float gv, MU& m, float bv, int q) {
     const float a = vA[q], vr = rk ? a : bv, vc = rk ? bv : a;
     const float vhat = __fdiv_rn(__fmul_rn(__fdiv_rn(vr, rm[q]), vc), c2);
-    adam_apply(pv, gv, m, vhat, b1, omb1, c1, eps, neg_lr);
+    adam_apply(pv, gv, m, vhat, b1, omb1, c1, eps, wd, neg_lr);
   };
   // 16-byte pieces where the run and the pointers allow (every main-path
   // leaf but the FCN3 MLP's (1354, 641)), else one element a step
@@ -337,6 +339,7 @@ struct Leaf {
   void* mu;
   float* v;
   long long n;
+  float wd;
 };
 struct Leaves {
   Leaf leaf[MAX_LEAVES];
@@ -353,7 +356,7 @@ __global__ void __launch_bounds__(THREADS)
     L.v[e] = v;
     float pv = L.p[e];
     MU m = mu[e];
-    adam_apply(pv, gv, m, __fdiv_rn(v, c2), b1, omb1, c1, eps, neg_lr);
+    adam_apply(pv, gv, m, __fdiv_rn(v, c2), b1, omb1, c1, eps, L.wd, neg_lr);
     L.p[e] = pv;
     mu[e] = m;
   }
@@ -381,7 +384,8 @@ extern "C" long long mt_adam_factored_scratch(int P, int R, int Mi, int S, int Q
 
 // One of the three launches (kind 0 reduce, 1 combine, 2 apply) over n <=
 // MAX_FLEAVES factored leaves, table: n rows of (p, g, mu, vA, vB, scratch,
-// P, R, Mi, S, Q, row_keeps_r) as 64-bit integers, and c1, c2 (fp32) a leaf.
+// P, R, Mi, S, Q, row_keeps_r) as 64-bit integers, and c1, c2, wd (fp32) a
+// leaf: the bias corrections and the weight decay (0: none).
 // p, g fp32 (P, R, Mi, S, Q) contiguous, mu float32 (mu_dtype 0) or
 // bfloat16 (1), vA (P, R, Mi, Q) and vB (P, Mi, S, Q) fp32, scratch
 // mt_adam_factored_scratch(...) floats, 16-byte aligned; v_row is vA where
@@ -404,7 +408,7 @@ extern "C" int mt_adam_factored(int kind, int mu_dtype, const long long* table, 
       if (row[k] <= 0 || row[k] > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
     L.P = (int)row[6], L.R = (int)row[7], L.Mi = (int)row[8], L.S = (int)row[9], L.Q = (int)row[10], L.row_keeps_r = row[11] != 0;
     if ((long long)L.S * L.Q > 0x7FFFFFFF || reinterpret_cast<uintptr_t>(L.scratch) % 16) return (int)cudaErrorInvalidValue;
-    L.c1 = corrections[2 * j], L.c2 = corrections[2 * j + 1];
+    L.c1 = corrections[3 * j], L.c2 = corrections[3 * j + 1], L.wd = corrections[3 * j + 2];
     L.nst = (L.S + s_tile(L.Q) - 1) / s_tile(L.Q);
     L.nrt = (L.R + TR - 1) / TR;
     L.first = (int)blocks;
@@ -425,19 +429,19 @@ extern "C" int mt_adam_factored(int kind, int mu_dtype, const long long* table, 
 
 // The update of n <= 64 unfactored leaves, table: n rows of (p, g, mu, v,
 // numel) (pointers as 64-bit integers; p, g, v fp32, mu float32 or
-// bfloat16), all in place, in one launch.
-extern "C" int mt_adam_unfactored(int mu_dtype, const long long* table, int n, float b1, float omb1, float b2, float omb2, float c1, float c2, float eps,
-                                  float neg_lr, void* stream) {
+// bfloat16) and a weight decay a leaf (0: none), all in place, in one launch.
+extern "C" int mt_adam_unfactored(int mu_dtype, const long long* table, const float* decay, int n, float b1, float omb1, float b2, float omb2, float c1,
+                                  float c2, float eps, float neg_lr, void* stream) {
   if (n <= 0 || n > MAX_LEAVES || (mu_dtype != 0 && mu_dtype != 1)) return (int)cudaErrorInvalidValue;
   Leaves leaves;
   long long most = 0;
   for (int j = 0; j < n; ++j) {
     const long long* row = table + 5 * j;
     leaves.leaf[j] = Leaf{reinterpret_cast<float*>(row[0]), reinterpret_cast<const float*>(row[1]), reinterpret_cast<void*>(row[2]),
-                          reinterpret_cast<float*>(row[3]), row[4]};
+                          reinterpret_cast<float*>(row[3]), row[4], decay[j]};
     most = row[4] > most ? row[4] : most;
   }
-  for (int j = n; j < MAX_LEAVES; ++j) leaves.leaf[j] = Leaf{nullptr, nullptr, nullptr, nullptr, 0};
+  for (int j = n; j < MAX_LEAVES; ++j) leaves.leaf[j] = Leaf{nullptr, nullptr, nullptr, nullptr, 0, 0.f};
   const long long bx = most > 0 ? (most + THREADS - 1) / THREADS : 1;
   dim3 grid((unsigned)(bx < 1024 ? bx : 1024), n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

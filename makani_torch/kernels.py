@@ -33,6 +33,8 @@ _SOURCES = (
     "dhconv_grad.cu",
     "instance_norm.cu",
     "adam_factored.cu",
+    "adam.cu",
+    "grad_norm.cu",
     "disco_band.cu",
     "disco_band_grad.cu",
     "disco_polar.cu",
@@ -72,6 +74,8 @@ LAUNCHES = {
     "disco_polar_grad": 0,
     "resample_grad": 0,
     "crps": 0,
+    "grad_norm": 0,
+    "adam": 0,
 }
 
 
@@ -177,8 +181,14 @@ def library() -> ctypes.CDLL:
             lib.mt_adam_factored_scratch.restype = ll
             lib.mt_adam_factored.argtypes = [i, i, ctypes.POINTER(ll), ctypes.POINTER(f), i] + [f] * 6 + [vp]
             lib.mt_adam_factored.restype = i
-            lib.mt_adam_unfactored.argtypes = [i, ctypes.POINTER(ll), i] + [f] * 8 + [vp]
+            lib.mt_adam_unfactored.argtypes = [i, ctypes.POINTER(ll), ctypes.POINTER(f), i] + [f] * 8 + [vp]
             lib.mt_adam_unfactored.restype = i
+            lib.mt_adam.argtypes = [i, ctypes.POINTER(ll), ctypes.POINTER(f), i] + [f] * 8 + [vp]
+            lib.mt_adam.restype = i
+            lib.mt_grad_norm_blocks.argtypes = [ll]
+            lib.mt_grad_norm_blocks.restype = ll
+            lib.mt_grad_norm.argtypes = [i, ctypes.POINTER(ll), i, vp, i, i, i, vp, vp, f, vp]
+            lib.mt_grad_norm.restype = i
             lib.mt_disco_mix.argtypes = [vp, ll, vp, vp] + [i] * 5 + [vp]
             lib.mt_disco_mix.restype = i
             lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]

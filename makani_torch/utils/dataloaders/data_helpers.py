@@ -1,6 +1,7 @@
 """Normalization statistics in the out-channel order (counterpart of
-``get_data_normalization``, ``out_channel_names`` and
-``get_out_normalization`` in ``makani_tpu/utils/dataloaders/data_helpers.py``).
+``get_data_normalization``, ``out_channel_names``, ``get_out_normalization``
+and ``get_time_diff_stds`` in
+``makani_tpu/utils/dataloaders/data_helpers.py``).
 
 Statistics are ``.npy`` files of shape (1, C_data, 1, 1) over the dataset's
 full channel set; these select the configured channels and honour the
@@ -14,7 +15,7 @@ import os
 
 import numpy as np
 
-__all__ = ["get_data_normalization", "out_channel_names", "get_out_normalization"]
+__all__ = ["get_data_normalization", "out_channel_names", "get_out_normalization", "get_time_diff_stds"]
 
 
 def _load(path):
@@ -82,3 +83,18 @@ def get_out_normalization(params):
     if names is not None:
         view["channel_names"] = names
     return get_data_normalization(view)
+
+
+def get_time_diff_stds(params):
+    """Per-channel std of the time difference x(t + dt) - x(t) over the
+    dataset's full channel set, fp32; ones (1, C_data, 1, 1) where the stats
+    file is absent. A 5-D file holds one row of stds for each dt stride
+    along its first axis and is indexed by ``dt``."""
+    stds = _load(params.get("time_diff_stds_path"))
+    if stds is None:
+        nch = len(params.get("data_channel_names", params.get("channel_names")))
+        return np.ones((1, nch, 1, 1), dtype=np.float32)
+    dt = params.get("dt", 1)
+    if stds.ndim == 5:
+        stds = stds[min(dt, stds.shape[0]) - 1]
+    return stds.astype(np.float32)

@@ -2,8 +2,11 @@
 
 Builds the configured loss terms with their static channel weights
 (constant/auto/"new auto"/pangu or an explicit list, times ``relative_weight``),
-the multistep lead-time weights and the ``tendency`` option, and reduces to a
-scalar: ``mean_b sum_c w_c * loss[b, c]``.
+with ``temp_diff_normalization`` (each channel's weight times scale / tds, or
+1 / tds without a scale, tds its time-difference std from
+``time_diff_stds_path``, clipped at 1e-4), the multistep lead-time weights
+and the ``tendency`` option, and reduces to a scalar: ``mean_b sum_c w_c *
+loss[b, c]``.
 
 Ported: the geometric Lp entries of the registry (``l1``, ``l2``,
 ``geometric l2``, ``relative l2``, ``squared l2``) and the ensemble CRPS
@@ -11,9 +14,9 @@ Ported: the geometric Lp entries of the registry (``l1``, ``l2``,
 predictions (B, E, C, H, W) score as in the JAX package: the probabilistic
 losses see the members, the deterministic ones their mean. Every other loss type,
 the running-statistics weightings (``uncertainty_weighting``,
-``balanced_weighting``), ``temp_diff_normalization`` and the random options
-(``random_slice_loss``, ``randomized_loss_weights``) raise
-``NotImplementedError`` naming the option.
+``balanced_weighting``) and the random options (``random_slice_loss``,
+``randomized_loss_weights``) raise ``NotImplementedError`` naming the
+option.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from makani_torch.utils.dataloaders.data_helpers import get_out_normalization, out_channel_names
+from makani_torch.utils.dataloaders.data_helpers import get_out_normalization, get_time_diff_stds, out_channel_names
 from makani_torch.utils.losses.base_loss import LossType, compute_channel_weighting
 from makani_torch.utils.losses.crps_loss import CRPSLoss
 from makani_torch.utils.losses.lp_loss import GeometricLpLoss
@@ -92,8 +95,6 @@ class LossHandler:
         for loss in losses:
             if loss["type"] not in LOSS_REGISTRY:
                 raise NotImplementedError(f"loss type {loss['type']!r} is not ported yet (ported: {sorted(LOSS_REGISTRY)})")
-            if loss.get("temp_diff_normalization", False):
-                raise NotImplementedError("loss option 'temp_diff_normalization' is not ported yet")
             fn = LOSS_REGISTRY[loss["type"]](
                 img_shape=self.img_shape,
                 channel_names=channel_names,
@@ -106,10 +107,18 @@ class LossHandler:
             self.loss_requires_input.append(loss.get("tendency", False))
 
             cw_type = loss.get("channel_weights", "constant")
+            time_diff_scale = None
+            if loss.get("temp_diff_normalization", False):
+                tds = get_time_diff_stds(params).reshape(-1)
+                out_ch = np.asarray(params.get("out_channels", range(len(channel_names))))
+                tds = np.clip(tds[out_ch] if tds.shape[0] > len(out_ch) - 1 else tds, 1e-4, None)
+                time_diff_scale = scale.reshape(-1) / tds if scale is not None else 1.0 / tds
             if isinstance(cw_type, (list, tuple)):
                 chw = np.asarray(cw_type, dtype=np.float32).reshape(-1)
+                if time_diff_scale is not None:
+                    chw = chw * time_diff_scale
             else:
-                chw = compute_channel_weighting(channel_names, cw_type)
+                chw = compute_channel_weighting(channel_names, cw_type, time_diff_scale=time_diff_scale)
             chw = chw * loss.get("relative_weight", 1.0)
             channel_weights.append(chw.reshape(1, -1))
 

@@ -4,7 +4,8 @@
     python3 profile_step.py fcn3      # the FCN3 ensemble step (E=2), kernel path
     python3 profile_step.py sfno      # the SFNO flagship step (B=1)
     python3 profile_step.py train     # the SFNO training step of bench.py (B=3)
-    python3 profile_step.py fcn3-train  # the FCN3 ensemble-CRPS training step (B=1, E=4)
+    python3 profile_step.py fcn3-train  # the FCN3 recipe's ensemble-CRPS training step (B=1, E=4)
+    python3 profile_step.py recipe    # the SFNO recipe's training step (721x1440, B=1)
     python3 profile_step.py fcn3 --plain --out DIR
     python3 profile_step.py --trace build/profile/profile_fcn3_kernel.json
 
@@ -41,6 +42,9 @@ def group(name: str) -> str:
         ("dhconv_grad_weight", "K9 dhconv weight gradient (CUDA)"),
         ("instance_norm_grad", "K10 instance-norm backward (CUDA)"),
         ("factored_", "K11 factored Adam (CUDA)"),
+        ("sumsq_kernel", "K16 global norm and clip (CUDA)"),
+        ("clip_kernel", "K16 global norm and clip (CUDA)"),
+        ("adam_kernel", "K17 Adam (CUDA)"),
         ("disco_band_grad", "K12 disco_band transpose (CUDA)"),
         ("first_grad", "K13 disco_polar transposes (CUDA)"),
         ("resample_grad", "K14 resample transpose (CUDA)"),
@@ -97,7 +101,7 @@ def copy_sources(trace_path: str, top: int = 10):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("model", choices=["fcn3", "sfno", "train", "fcn3-train"], nargs="?")
+    ap.add_argument("model", choices=["fcn3", "sfno", "train", "fcn3-train", "recipe"], nargs="?")
     ap.add_argument("--plain", action="store_true", help="profile the plain PyTorch path instead of the kernels")
     ap.add_argument("--out", default="build/profile", help="directory for the Chrome trace")
     ap.add_argument("--trace", help="only attribute the copies of an existing trace")
@@ -106,7 +110,7 @@ def main() -> int:
         copy_sources(args.trace)
         return 0
     if args.model is None:
-        ap.error("name a model (fcn3, sfno, train or fcn3-train) or pass --trace")
+        ap.error("name a model (fcn3, sfno, train, fcn3-train or recipe) or pass --trace")
     if not torch.cuda.is_available():
         print("profile_step: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -140,12 +144,24 @@ def main() -> int:
         def step():
             return train_step(model, loss_obj, opt, inp, tar, zen)
 
+    elif args.model == "recipe":
+        from makani_torch.utils.training.deterministic_trainer import train_step
+        from makani_torch.utils.training.optimizer import get_optimizer
+
+        params, model, loss_obj = cs.build_recipe(dev)
+        opt = get_optimizer(params, model, cs.recipe_steps_per_epoch(params))
+        opt.use_kernels = not args.plain
+        batch = cs.recipe_batch(dev, params)
+
+        def step():
+            return train_step(model, loss_obj, opt, *batch)
+
     elif args.model == "fcn3-train":
         from makani_torch.utils.training.ensemble_trainer import ensemble_train_step
         from makani_torch.utils.training.optimizer import get_optimizer
 
         params, model, loss_obj = cs.build_fcn3_train(dev)
-        opt = get_optimizer(params, model)
+        opt = get_optimizer(params, model, cs.FCN3_STEPS_PER_EPOCH)
         opt.use_kernels = loss_obj.loss_fns[0].use_kernels = not args.plain
         inp, tar, unp = cs.fcn3_train_batch(dev, params)
 

@@ -241,14 +241,14 @@ def k11(card: str, dev: torch.device):
 
         c1, c2 = opt._bias_corrections(1, b1, b2)
         ps, mus, vs, umus, uvs = state()
-        leaves = [(p, g, m, vr, vc, d, c1, c2) for p, g, m, (vr, vc), d in zip(ps, grads, mus, vs, dims)]
-        unf = list(zip(unf_p, unf_g, umus, uvs))
+        leaves = [(p, g, m, vr, vc, d, c1, c2, 0.0) for p, g, m, (vr, vc), d in zip(ps, grads, mus, vs, dims)]
+        unf = [(p, g, m, v, 0.0) for p, g, m, v in zip(unf_p, unf_g, umus, uvs)]
 
         # the batched update against the plain version, one step from zero state
         opt.adam_factored_update(leaves, torch.bfloat16, b1, b2, eps, lr)
         torch.cuda.synchronize()
         worst = 0.0
-        for p0, g, (p, _, m, vr, vc, d, _, _) in zip(params, grads, leaves):
+        for p0, g, (p, _, m, vr, vc, d, *_) in zip(params, grads, leaves):
             rp, rm_, rvr, rvc = p0.clone(), torch.zeros_like(m), torch.zeros_like(vr), torch.zeros_like(vc)
             opt.adam_factored_update_plain(rp, g, rm_, rvr, rvc, None, d, c1, c2, b1, b2, eps, lr)
             for out, ref in ((p, rp), (vr, rvr), (vc, rvc)):

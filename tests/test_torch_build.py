@@ -73,5 +73,7 @@ def test_launch_counts_reset():
         "disco_polar_grad",
         "resample_grad",
         "crps",
+        "grad_norm",
+        "adam",
     }
     assert not any(kernels.LAUNCHES.values())

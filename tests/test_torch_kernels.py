@@ -682,6 +682,135 @@ def test_adam_factored_kernel_counts_a_group(cuda):
     _adam_agree(ref, dev, opt_ref, opt_dev, torch.bfloat16, 2)
 
 
+# K16 and K17's leaves: ragged sizes (not multiples of a block's chunk or of
+# 4), a leaf not 16-byte aligned (a view one float in), and 1-element leaves
+GRAD_NORM_SIZES = [1, 3, 4097, 16384, 16385, 70001, 5, 130 * 129]
+
+
+def _leaves(cuda, sizes, seed=0, scale=1.0):
+    """fp32 leaves of the given sizes on the card, the second a view one
+    float into a larger buffer (4-byte aligned only)."""
+    out = []
+    for k, n in enumerate(sizes):
+        t = _randn((n + (k == 1),), torch.float32, cuda, seed=seed + k) * scale * (1 + k % 5)
+        out.append(t[1:] if k == 1 else t)
+    return out
+
+
+@pytest.mark.parametrize("max_norm", [1.0, 1e6])
+def test_grad_norm_kernel_matches_plain(cuda, max_norm):
+    """K16 against the plain norm and clip on ragged leaves, clipping (norm
+    above max_norm) and keeping: the norm within 1e-6, the clipped leaves
+    within the fp32 tolerance, kept leaves bit-equal; two launches."""
+    from makani_torch.utils.training.optimizer import clip_by_global_norm
+
+    src = _leaves(cuda, GRAD_NORM_SIZES)
+    gk, gp = [g.clone() for g in src], [g.clone() for g in src]
+    kernels.reset_launch_counts()
+    nk = clip_by_global_norm(gk, max_norm)
+    assert kernels.LAUNCHES["grad_norm"] == 2
+    npl = clip_by_global_norm(gp, max_norm, use_kernels=False)
+    assert nk.device == src[0].device and abs(nk.item() - npl.item()) <= 1e-6 * npl.item()
+    for a, b, g in zip(gk, gp, src):
+        if max_norm < npl.item():
+            assert _agree(a, b, torch.float32)
+        else:
+            assert torch.equal(a, g)
+
+
+def test_grad_norm_kernel_takes_more_leaves_than_a_table(cuda):
+    """300 leaves (a launch's table holds 128): three launches of each kind,
+    the norm summed over all of them, deterministic from run to run."""
+    from makani_torch.utils.training.optimizer import clip_by_global_norm, global_norm_plain
+
+    src = _leaves(cuda, [100 + 37 * k for k in range(300)], seed=5)
+    norms = []
+    for _ in range(2):
+        g = [t.clone() for t in src]
+        kernels.reset_launch_counts()
+        norms.append(clip_by_global_norm(g, 1.0).item())
+        assert kernels.LAUNCHES["grad_norm"] == 6
+    ref = global_norm_plain(src).item()
+    assert norms[0] == norms[1] and abs(norms[0] - ref) <= 1e-6 * ref
+    assert _agree(g[-1], src[-1] / ref, torch.float32)
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+def test_adam_kernel_matches_plain(cuda, mu_dtype):
+    """Three steps of K17 against the plain update on the same gradients,
+    70 leaves (a launch's table holds 64: two launches a step), ragged and
+    4-byte aligned, half of them decayed: parameters, mu and v within the
+    fp32 tolerance (mu within one bf16 ulp for a bf16 mu)."""
+    from makani_torch.utils.training.optimizer import _bias_corrections, adam_update, adam_update_plain
+
+    sizes = [GRAD_NORM_SIZES[k % len(GRAD_NORM_SIZES)] + k for k in range(70)]
+    ps = _leaves(cuda, sizes, seed=1)
+    ref = [(p.clone(), torch.zeros_like(p, dtype=mu_dtype), torch.zeros_like(p)) for p in ps]
+    dev = [(p, torch.zeros_like(p, dtype=mu_dtype), torch.zeros_like(p)) for p in ps]
+    wds = [0.1 * (k % 2) for k in range(len(ps))]
+    b1, b2, eps, lr = 0.9, 0.95, 1e-8, 1e-2
+    for step in range(1, 4):
+        grads = _leaves(cuda, sizes, seed=100 * step)
+        c1, c2 = _bias_corrections(step, b1, b2)
+        for (p, mu, v), g, wd in zip(ref, grads, wds):
+            adam_update_plain(p, g, mu, v, c1, c2, b1, b2, eps, lr, wd)
+        kernels.reset_launch_counts()
+        adam_update([(p, g.contiguous(), mu, v, wd) for (p, mu, v), g, wd in zip(dev, grads, wds)], mu_dtype, c1, c2, b1, b2, eps, lr)
+        assert kernels.LAUNCHES["adam"] == 2
+    torch.cuda.synchronize()
+    for (p, mu, v), (rp, rmu, rv) in zip(dev, ref):
+        assert _agree(p, rp, torch.float32) and _agree(v, rv, torch.float32) and _agree(mu, rmu, mu_dtype)
+
+
+def test_recipe_optimizer_step_does_not_wait_for_the_card(cuda):
+    """``get_optimizer``'s recipe chain (K16 clipping, K17 with decay, the
+    cosine schedule) steps under ``set_sync_debug_mode("error")``: nothing
+    of the step is read back; and it agrees with the plain path."""
+    from makani_torch.utils.training.optimizer import get_optimizer
+
+    cfg = dict(optimizer_type="AdamW", weight_decay=0.1, optimizer_max_grad_norm=1.0, scheduler="CosineAnnealingLR", scheduler_T_max=3, lr=1e-2)
+    mods = [torch.nn.Sequential(torch.nn.Linear(33, 70), torch.nn.LayerNorm(70), torch.nn.Linear(70, 5)).to(cuda) for _ in range(2)]
+    mods[1].load_state_dict(mods[0].state_dict())
+    opts = [get_optimizer(cfg, m) for m in mods]
+    opts[1].use_kernels = False
+    x = _randn((8, 33), torch.float32, cuda)
+    for _ in range(2):
+        for m, opt in zip(mods, opts):
+            m(x).square().sum().backward()
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opts[0].step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert kernels.LAUNCHES["grad_norm"] == 2 and kernels.LAUNCHES["adam"] == 1
+        opts[1].step()
+        for opt in opts:
+            opt.zero_grad(set_to_none=True)
+    assert opts[0].last_grad_norm.item() > 1.0 and opts[0].last_lr == opts[1].last_lr
+    for a, b in zip(mods[0].parameters(), mods[1].parameters()):
+        assert _agree(a.detach(), b.detach(), torch.float32)
+
+
+def test_adam_factored_kernel_takes_the_decay(cuda):
+    """K11 with a weight decay on some leaves (the factored path of AdamW):
+    two steps against the plain update on the CPU."""
+    from makani_torch.utils.training.optimizer import AdamFactored
+
+    shapes = [(1, 130, 140, 4, 2), (96,), (7, 3), (130, 129)]
+    ref = [torch.nn.Parameter(_randn(s, torch.float32, "cpu", seed=k)) for k, s in enumerate(shapes)]
+    dev = [torch.nn.Parameter(p.detach().to(cuda)) for p in ref]
+    groups = lambda ps: [{"params": [ps[0], ps[3]], "weight_decay": 0.1}, {"params": [ps[1], ps[2]]}]
+    opt_ref, opt_dev = AdamFactored(groups(ref), lr=1e-2, mu_dtype=torch.bfloat16), AdamFactored(groups(dev), lr=1e-2, mu_dtype=torch.bfloat16)
+    for step in range(2):
+        for k, (a, b) in enumerate(zip(ref, dev)):
+            grad = _randn(a.shape, torch.float32, "cpu", seed=10 * step + k)
+            a.grad, b.grad = grad, grad.to(cuda)
+        opt_ref.step()
+        opt_dev.step()
+    _adam_agree(ref, dev, opt_ref, opt_dev, torch.bfloat16, 2)
+
+
 def test_small_sfno_train_step_kernel_path_matches_plain(cuda):
     """One fp32 training step of a small SFNO, kernels against the plain
     path (PyTorch autograd through the plain forward, the plain optimizer),

@@ -91,7 +91,7 @@ def test_loss_handler_matches_jax(over):
         (dict(uncertainty_weighting=True), "uncertainty_weighting"),
         (dict(balanced_weighting=True), "balanced_weighting"),
         (dict(random_slice_loss=True), "random_slice_loss"),
-        (dict(losses=[{"type": "l2", "temp_diff_normalization": True}]), "temp_diff_normalization"),
+        (dict(randomized_loss_weights=True), "randomized_loss_weights"),
     ],
 )
 def test_unported_loss_options_raise(over, name):
