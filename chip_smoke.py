@@ -48,7 +48,8 @@ each fatal on failure:
     K7 2, K1 2, K3 2, K2 3);
 11. run step 1 through the plain versions on the card and compare, in bf16
     and with fp32 compute on the same weights;
-12. time an ensemble forecast step on both paths and report peak memory.
+12. time an ensemble forecast step on both paths (the plain path one step
+    after its warm-up) and report peak memory.
 
  The SFNO training step (slice 3):
 13. build bench.py's training configuration (:97-123: 361x720, scale 3,
@@ -106,7 +107,7 @@ each fatal on failure:
     it does not wait for the card) on the repeated batch through the
     kernels: check every kernel's launches per step, each step's learning
     rate against the schedule, and that the loss is finite and falls below
-    its first value; then 1 + 5 steps on the plain path, whose losses the
+    its first value; then 1 + 3 steps on the plain path, whose losses the
     kernel path's must match step by step (relative 3e-2); print ms per
     step, samples (members) per second, peak memory, the learning rate
     and the global norm per step of both.
@@ -135,8 +136,50 @@ each fatal on failure:
     (launches, learning rates, a falling loss, no wait for the card in the
     optimizer's step), then 1 + 3 on the plain path, step by step.
 
+ FCN3.1 (slice 6), each path entered through ``get_model(multistep=True)``:
+25. build ``fcn31_sc2_edim256_layers10`` (config/fourcastnet3.yaml: 721x1440,
+    73 channels + zenith + 8 diffusion-noise channels, scale 2 onto a
+    360x720 Legendre-Gauss grid, lmax 90 and the DISCO cutoff 3 pi / 90 from
+    it, the harmonic basis under nodal normalization, embed 256, aux embed
+    16, latitude embedding 8, 10 blocks of which 0 and 5 global, sin
+    activations, bf16 compute with fp32 DISCO) on seeded weights, one
+    centered pair (E=2); print every DISCO conv's band (BL rows of WW
+    longitudes) and K5's route for it;
+26. compare its kernels with their plain versions at its shapes: K5 in
+    responses mode at the unified encoder (BL 48), the processor (BL 25;
+    both of K5's routes timed there) and the decoder (BL 49), in fused mode
+    at the aux encoder, K6 at the same convs, K8 at the two-stage convs (D =
+    511, 1960, 1792), K7 at the decoder, K1-K3 at the internal grid; the
+    full-resolution plain versions run once each;
+27. roll the ensemble out for 4 steps (``ModelWrapper`` + ``rollout``) and
+    check the frames and the launch counts, computed from the model's convs;
+28. run step 1 once through the plain path and compare (bf16), and time the
+    kernel path (1 + 3 steps: ms a step, members/s, peak memory);
+29-32. the same for ``fcn31_sc2_edim256_layers10_history`` (the
+    fourier-bessel basis, BL 72-73 at the encoder and decoder, a window of
+    2 states sliding over the rollout, the unified encoder a grouped
+    two-stage conv: groups 2 of 73 -> 128, each group's responses K5, K6
+    and K8 apart);
+33. build the FCN3.1 recipe's training step (``fcn31_train_config``: the
+    recipe at 361x720, internal 180x360, lmax 45, E = 4 of B = 1,
+    checkpointing_level 3, the base config's skillspread CRPS with auto
+    weights and temp_diff_normalization, clipped Adam on the cosine
+    schedule);
+34. compare K12 (the generic gather at K 7) and K13 at the processor and
+    the decoder, K5 at both, K8 and its backward GEMMs, K14 at the decoder,
+    K15, K9, K3's dx and K1-K3 at the global blocks, K16 and K17 with their
+    plain versions;
+35. one bf16 step through the kernels and the plain path: the forecast,
+    loss and every gradient leaf, then the optimizer step from the same
+    gradients;
+36. 1 + 5 steps through the kernels: launches (computed from the model),
+    the schedule's learning rates, a falling loss, ms a step, members/s and
+    peak memory (the plain path is compared in 35, not timed).
+
 Prints the card line and the kernel table as one JSON line before the last
-line, and as the last line ``{"ok": true, "device": {...}}``.
+line (each kernel at its path's main shape, then FCN3.1's as
+``kernel@shape`` with the launches of that FCN3.1 path), and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -158,6 +201,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = ("config/sfnonet.yaml", "sfno_linear_73chq_sc3_layers8_edim384")
 FCN3_CONFIG = ("config/fourcastnet3.yaml", "base_config")
+FCN31_CONFIG = ("config/fourcastnet3.yaml", "fcn31_sc2_edim256_layers10")
+FCN31_HISTORY_CONFIG = ("config/fourcastnet3.yaml", "fcn31_sc2_edim256_layers10_history")
 FCN3_ENSEMBLE = 2
 SEED = 0
 STEPS = 4
@@ -326,6 +371,21 @@ def fcn3_train_config(**overrides) -> dict:
     return cfg
 
 
+def fcn31_train_config(**overrides) -> dict:
+    """The FCN3.1 training configuration as a plain dict (shared with
+    tests/test_torch_fcn31.py, which shrinks it): the recipe
+    ``fcn31_sc2_edim256_layers10`` (the base config's loss, optimizer and
+    schedule; its own network keys) with the FCN3 training step's cuts
+    (``fcn3_train_config``: 361x720, E = 4 members of B = 1 sample,
+    checkpointing_level 3), then ``overrides``."""
+    from makani_torch.utils.yparams import YParams
+
+    recipe = YParams(os.path.join(REPO, FCN31_CONFIG[0]), FCN31_CONFIG[1]).to_dict()
+    own = ("nettype", "embed_dim", "aux_embed_dim", "pos_embed_dim", "filter_basis_type", "filter_basis_norm_mode", "activation_function", "encoder_bias",
+           "hard_thresholding_fraction", "lmax")
+    return fcn3_train_config(**{**{k: recipe[k] for k in own if k in recipe}, **overrides})
+
+
 def crps_order_weight(pred_a: torch.Tensor, pred_b: torch.Tensor, tar: torch.Tensor) -> torch.Tensor:
     """Weights (B, C, H, W), 0 where two computations of one ensemble
     forecast, pred_a and pred_b (B, E, C, H, W), may order two members, or a
@@ -392,11 +452,14 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
-    # one temporary the size of the output (the K5 responses are 12.6 GB)
+    # one temporary the size of the output (FCN3.1's decoder responses are
+    # 14.9 GB, beside the kernel's and the plain version's own)
     d = out.float() - ref.float()
     rel_l2 = (d.norm() / ref.float().norm()).item()
     max_abs = d.abs_().max().item()
-    scale = ref.abs().max().item()
+    del d
+    lo, hi = ref.aminmax()
+    scale = max(-lo.item(), hi.item())
     return {"max_abs_err": max_abs, "max_rel": max_abs / scale, "rel_l2": rel_l2, "max_ref": scale}
 
 
@@ -447,16 +510,22 @@ def randn(shape, dtype, gen, device):
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dtype)
 
 
-def run_cases(cases, card, results, iters=10, warmup=2):
+def run_cases(cases, card, results, iters=10, warmup=2, plain_iters=None, plain_warmup=None):
     """Each case: (name, label, dtype, kernel fn, plain fn, extras fn or
     None). The kernel runs once and is held to its plain version on the same
-    inputs; both are timed; extras(out) adds the bound and the library
-    yardstick."""
+    inputs; both are timed (the plain version ``plain_iters`` times after
+    ``plain_warmup``, by default as the kernel; ``plain_iters`` 0 times the
+    comparison's call, for plain versions that take seconds); extras(out)
+    adds the bound and the library yardstick."""
     for name, label, dtype, kern, plain, extras in cases:
         out = kern()
         torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
         ref = plain()
+        e.record()
         torch.cuda.synchronize()
+        first_plain_ms = s.elapsed_time(e)
         if out.shape != ref.shape or out.dtype != ref.dtype:
             raise RuntimeError(f"{name} {label} {dtype}: kernel gave {tuple(out.shape)} {out.dtype}, plain {tuple(ref.shape)} {ref.dtype}")
         err = errors(out, ref)
@@ -466,11 +535,17 @@ def run_cases(cases, card, results, iters=10, warmup=2):
         extra = extras(out) if extras is not None else {}
         del out
         torch.cuda.empty_cache()
-        ms, plain_ms = time_ms(kern, iters, warmup), time_ms(plain, iters, warmup)
+        ms = time_ms(kern, iters, warmup)
+        if plain_iters == 0:
+            plain_ms = first_plain_ms
+        else:
+            plain_ms = time_ms(plain, plain_iters or iters, warmup if plain_warmup is None else plain_warmup)
         ok = within(err, dtype)
         dt = str(dtype).replace("torch.", "")
         more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "two_read_ms", "library_ms") if extra.get(k) is not None)
         more += "".join(f"; {extra[k]}" for k in ("route", "live", "plan", "library_note") if extra.get(k))
+        if name == "disco_band":
+            more += "; bit-equal to the plain version" if err["max_abs_err"] == 0.0 else "; NOT bit-equal to the plain version"
         print(
             f"kernel {name:13s} {label:17s} {dt:8s} out {shape}: max|d| {err['max_abs_err']:.3e} "
             f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; "
@@ -661,19 +736,20 @@ def small_model_check(dev):
         raise RuntimeError(f"small SFNO kernel path disagrees with the plain path: {err}")
 
 
-def time_steps(model, step, card, label):
-    """Step latency of both paths, in turns (kernel, plain, kernel, plain),
-    and peak memory; CUDA events around each step."""
+def time_steps(model, step, card, label, rounds=2, plain_steps=3):
+    """Step latency of both paths, in turns (kernel, plain) ``rounds`` times,
+    each turn a warm-up step then 3 steps (``plain_steps`` on the plain
+    path), and peak memory; CUDA events around each step."""
     from makani_torch import kernels
 
     times = {"kernel": [], "plain": []}
     peaks = {}
-    for path in ("kernel", "plain", "kernel", "plain"):
+    for path in ("kernel", "plain") * rounds:
         kernels.set_use_kernels(model, path == "kernel")
         step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
+        for _ in range(3 if path == "kernel" else plain_steps):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             step()
@@ -777,12 +853,15 @@ def build_fcn3(dev, compute_dtype=None, with_noise=True):
     return params, model, ModelWrapper(model, bias=bias, scale=scale), x0, noise
 
 
-def band_case(op, x, F_, Gf, IG, OG, label, library=False, padded=False):
+def band_case(op, x, F_, Gf, IG, OG, label, library=False, padded=False, routes=False):
     """A K5 case on x with the op's tables; extras count the nonzero filter
     taps (the work this data needs) and time one grouped conv1d on the
     pre-gathered band (the library yardstick). ``padded``: the output's
     pixels lie a multiple of 4 floats apart, as the processor's responses
-    (``DiscoConvS2.responses_cl``)."""
+    (``DiscoConvS2.responses_cl``). The route the kernel takes (its shared
+    memory layout, ``disco_kernels.band_route``) is reported; ``routes``:
+    the other route too, where it fits, timed and held bit for bit to the
+    kernel's own."""
     from makani_torch.ops import disco_kernels
     from makani_torch.ops.disco import RESPONSE_ALIGN
     from makani_torch.ops.precision import fp32_exact
@@ -812,6 +891,19 @@ def band_case(op, x, F_, Gf, IG, OG, label, library=False, padded=False):
             raise RuntimeError(f"{label}: K5 wrote something other than +0 at a latitude with no live tap")
         live = (f"live taps {runs.sum().item() / taps[..., 0].numel() / op.WW:.1%} of the {op.BL}x{op.WW} window, "
                 f"dead latitudes {dead.numel()} of {Hout} (polar rows {len(op.polar_rows)}, equal: {dead.tolist() == list(op.polar_rows)}), +0 there")
+        route, smem = disco_kernels.band_route(C // IG, Gf, IG, OG, op.BL, op.WW, op.stride, Wout // op.phases)
+        live += f"; route {route} ({smem / 1024:.1f} KB of shared memory a block)"
+        if routes:
+            other = 3 - route
+            _, smem2 = disco_kernels.band_route(C // IG, Gf, IG, OG, op.BL, op.WW, op.stride, Wout // op.phases, other)
+            if smem2 <= 227 * 1024:
+                alt = lambda: run(lambda *a, **k: disco_kernels.band_contract(*a, route=other, **k))
+                same = torch.equal(alt(), out)
+                live += f"; route {other} ({smem2 / 1024:.1f} KB): {time_ms(alt, 3, 1):.3f} ms, {'bit-equal' if same else 'DIFFERS'}"
+                if not same:
+                    raise RuntimeError(f"{label}: K5's routes 1 and 2 disagree")
+            else:
+                live += f"; route {other} needs {smem2 / 1024:.1f} KB: does not fit"
         res = dict(bound(flops, nbytes(x, F_[..., :OG], bs, out), torch.float32), library_ms=None, nnz_fraction=nnz / F_[..., :OG].numel(), live=live)
         if library:
             # grouped conv1d over the gathered band rows, a group per output
@@ -851,23 +943,24 @@ def polar_case(src, Pt, mode, label):
     return ("disco_polar", label, torch.float32, lambda: kern(src, Pt), lambda: plain(src, Pt), extras)
 
 
-def mix_case(conv, B, card):
-    """K8 at the processor: the responses of B pixels grids (R = B*H*W rows
-    of C*K floats, laid out as ``responses_cl`` lays them out) mixed by the
-    conv's weight. Its plain version is the library call (cuBLAS SGEMM, TF32
-    off), timed again as the yardstick; the polar rows' mix (a cuBLAS bmm,
-    no kernel of the port) is timed at its shape beside it."""
+def mix_case(conv, B, card, label="processor"):
+    """K8 at a two-stage conv: the responses of B pixels grids (R = B*H*W
+    rows of ig*K floats, laid out as ``responses_cl`` lays them out) mixed
+    by the weight of the conv's first group (every group of a grouped conv
+    is one such launch). Its plain version is the library call (cuBLAS
+    SGEMM, TF32 off), timed again as the yardstick; the polar rows' mix (a
+    cuBLAS bmm, no kernel of the port) is timed at its shape beside it."""
     from makani_torch.ops import disco_kernels
     from makani_torch.ops.disco import RESPONSE_ALIGN
 
     op = conv.conv_op
     dev = conv.weight.device
     H, W = op.out_shape
-    C, K, N = conv.in_channels, op.K, conv.out_channels
+    C, K, N = conv.in_channels // conv.groups, op.K, conv.out_channels // conv.groups
     D = C * K
     gen = torch.Generator(dev).manual_seed(SEED + 6)
     t2 = randn((B * H * W, -(-D // RESPONSE_ALIGN) * RESPONSE_ALIGN), torch.float32, gen, dev)[:, :D]
-    w = conv.weight.detach().float().reshape(N, D)
+    w = conv.weight[0].detach().float().reshape(N, D)
     planes = disco_kernels.MixPlanes()
 
     def extras(out):
@@ -878,7 +971,7 @@ def mix_case(conv, B, card):
         return dict(bound(2.0 * t2.shape[0] * D * N, nbytes(t2, w, out), torch.float32), library_ms=lib,
                     library_note=f"polar rows' mix (cuBLAS bmm, {B}x{len(op.polar_rows)}x{W} columns) {polar_ms:.3f} ms")
 
-    return ("disco_mix", "processor", torch.float32, lambda: disco_kernels.channel_mix(t2, w, planes), lambda: disco_kernels.channel_mix_plain(t2, w), extras)
+    return ("disco_mix", label, torch.float32, lambda: disco_kernels.channel_mix(t2, w, planes), lambda: disco_kernels.channel_mix_plain(t2, w), extras)
 
 
 def resample_matrix(rs, batch: int, dev, transpose: bool = False) -> torch.Tensor:
@@ -951,11 +1044,12 @@ def resample_case(rs, x, label):
 
         plain = lambda: resample_cl_plain(x, li.long(), lw, k0.long(), k1.long(), v)
         err = errors(lib().permute(0, 2, 3, 1), plain())
-        del xin, grid
         if err["max_rel"] <= FP32_TOL:
             res["library_ms"] = time_ms(lib, 3, 1)
             res["library_note"] = f"library: grid_sample, max|d|/max|ref| {err['max_rel']:.3e}"
+            del xin, grid
         else:
+            del xin, grid
             # grid_sample rebuilds the lerp weights from normalized fp32 coordinates
             res.update(sparse_yardstick(rs, x, plain, False, 3, 1))
             res["library_note"] += f" (grid_sample misses the fp32 gate: {err['max_rel']:.3e})"
@@ -1128,7 +1222,8 @@ def fcn3_phases(dev, card):
         raise RuntimeError(f"FCN3 fp32 kernel path disagrees with the plain path: {err}")
     del model32, wrapper32
     torch.cuda.empty_cache()
-    time_steps(model, lambda: wrapper(xm, unp), card, f"FCN3 ensemble forecast (E={FCN3_ENSEMBLE})")
+    # the plain path takes ~9.4 s a step: one turn, one step after its warm-up
+    time_steps(model, lambda: wrapper(xm, unp), card, f"FCN3 ensemble forecast (E={FCN3_ENSEMBLE})", rounds=1, plain_steps=1)
     return kres, launches
 
 
@@ -1965,10 +2060,11 @@ def fcn3_train_phases(dev, card):
     if launches != expected:
         raise RuntimeError(f"FCN3 training launch counts {launches} != expected {expected}")
     members = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
-    p_losses, p_times, p_peak, _, p_lrs, p_norms = time_fcn3_train(dev, card, batch, False, TRAIN_STEPS)[:6]
+    # the plain path (~12 s a step) takes 1 + TRAIN_PLAIN_STEPS steps, held to the kernel path's first ones
+    p_losses, p_times, p_peak, _, p_lrs, p_norms = time_fcn3_train(dev, card, batch, False, TRAIN_PLAIN_STEPS)[:6]
     for label, ls, ts, pk, lr_, nm in (("kernel", losses, times, peak, lrs, norms), ("plain", p_losses, p_times, p_peak, p_lrs, p_norms)):
         med = statistics.median(ts[1:])
-        print(f"FCN3 recipe training step ({label} path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {TRAIN_STEPS} "
+        print(f"FCN3 recipe training step ({label} path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {len(ts) - 1} "
               f"steps after a warm-up {[round(t, 2) for t in ts]}, {members / med * 1e3:.3f} samples/s (members), peak memory {pk / 2**30:.2f} GiB; "
               f"loss per step {[round(v, 6) for v in ls]}; lr per step {[f'{v:.6e}' for v in lr_]}; grad norm per step {[round(v, 4) for v in nm]}  "
               f"[{card}]", flush=True)
@@ -1977,7 +2073,7 @@ def fcn3_train_phases(dev, card):
     # forward reads the weights that the previous step's optimizer wrote)
     if not all(math.isfinite(v) for v in losses) or not min(losses[1:]) < losses[0]:
         raise RuntimeError(f"FCN3 training loss not finite or not falling over {TRAIN_STEPS} steps: {losses}")
-    if lrs != p_lrs or lrs != [get_schedule(params, FCN3_STEPS_PER_EPOCH)(k) for k in range(n)]:
+    if lrs[: len(p_lrs)] != p_lrs or lrs != [get_schedule(params, FCN3_STEPS_PER_EPOCH)(k) for k in range(n)]:
         raise RuntimeError(f"FCN3 recipe learning rates {lrs} (plain path {p_lrs}) are not the schedule's")
     if not all(abs(a - b) <= MODEL_BF16_REL_L2 * abs(b) for a, b in zip(losses, p_losses)):
         raise RuntimeError(f"FCN3 training losses of the kernel path {losses} and the plain path {p_losses} part")
@@ -2389,6 +2485,546 @@ def recipe_phases(dev, card):
     return kres, launches
 
 
+# ---------------------------------------------------------------------------
+# FCN3.1 (slice 6): both published forecasts and the recipe's training step
+
+# the noise modules of the forecast paths, built once a configuration (the
+# 721-degree synthesis table takes a while)
+_NOISE: dict = {}
+
+
+def forecast_noise(params):
+    from makani_torch.models.noise import build_noise
+
+    H, W = params.img_shape_x, params.img_shape_y
+    key = (repr(sorted(params.input_noise.items())), params.model_grid_type, H, W)
+    if key not in _NOISE:
+        _NOISE[key] = build_noise(dict(params.input_noise, grid_type=params.model_grid_type), (H, W), num_time_steps=1)
+    return _NOISE[key]
+
+
+class HostTables:
+    """The FCN3.1 paths' host-side tables (the DISCO psi tables of every
+    conv, 40-60 s each forecast config, and the Legendre tables), built on
+    the CPU in a background thread while the earlier phases hold the card:
+    a CPU-built model (``get_model(..., device="cpu")``) fills the same
+    caches (``ops.disco._precompute_psi``, ``sfnonet._TRANSFORM_CACHE``)
+    that the card's models then read. ``join`` waits and re-raises the
+    thread's error."""
+
+    def __init__(self):
+        import threading
+
+        self.error = None
+        self.seconds = None
+        self.thread = threading.Thread(target=self._build, daemon=True)
+        self.thread.start()
+
+    def _build(self):
+        from makani_torch.models.model_registry import get_model
+        from makani_torch.utils.yparams import ParamsBase
+
+        t0 = time.perf_counter()
+        try:
+            for config in (FCN31_CONFIG, FCN31_HISTORY_CONFIG):
+                get_model(fcn31_params(config), multistep=True, device="cpu")
+            get_model(ParamsBase(fcn31_train_config()), multistep=True, device="cpu")
+        except BaseException as e:  # re-raised by join
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise RuntimeError("building the FCN3.1 host tables failed") from self.error
+        print(f"FCN3.1 host tables built in the background in {self.seconds:.1f} s", flush=True)
+
+
+def fcn31_params(config, compute_dtype=None):
+    from makani_torch.utils.yparams import YParams
+
+    params = YParams(os.path.join(REPO, config[0]), config[1])
+    if compute_dtype is not None:
+        params["compute_dtype"] = compute_dtype
+    n_chan = len(params.channel_names)
+    params["in_channels"] = list(range(n_chan))
+    params["out_channels"] = list(range(n_chan))
+    params["ensemble_size"] = FCN3_ENSEMBLE
+    return params
+
+
+def build_fcn31(dev, config, compute_dtype=None):
+    """An FCN3.1 forecast through get_model on seeded weights, ModelWrapper
+    with seeded per-channel stats, a seeded initial window of T = n_history
+    + 1 states and the configured noise."""
+    from makani_torch.models.model_package import ModelWrapper
+    from makani_torch.models.model_registry import get_model
+
+    params = fcn31_params(config, compute_dtype)
+    n_chan = len(params.channel_names)
+    model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    bias = randn((1, n_chan, 1, 1), torch.float32, gen, dev)
+    scale = 0.5 + torch.rand((1, n_chan, 1, 1), generator=gen, device=dev)
+    H, W = params.img_shape_x, params.img_shape_y
+    T = params.get("n_history", 0) + 1
+    x0 = bias.repeat(1, T, 1, 1) + scale.repeat(1, T, 1, 1) * randn((1, T * n_chan, H, W), torch.float32, gen, dev)
+    return params, model, ModelWrapper(model, bias=bias, scale=scale), x0, forecast_noise(params)
+
+
+def fcn31_convs(net) -> list:
+    """(label, DiscoConv, input channels) of every DISCO conv of an FCN3.1,
+    one local block standing for all."""
+    local = next(getattr(net, f"block{i}") for i in range(net.num_layers) if hasattr(getattr(net, f"block{i}"), "local_conv"))
+    return [("encoder", net.encoder.conv, net.n_in), ("aux-encoder", net.aux_encoder.conv, net.n_aux), ("processor", local.local_conv, local.local_conv.in_channels),
+            ("decoder", net.decoder.conv, net.embed_dim)]
+
+
+def print_fcn31_convs(net):
+    from makani_torch.ops import disco_kernels
+
+    for name, conv, n_in in fcn31_convs(net):
+        op, g = conv.conv_op, conv.groups
+        ig, og = conv.in_channels // g, conv.out_channels // g
+        G, Gf, IG, OG = (ig, 1, 1, op.K) if not conv.fused else (g, g, ig, og)
+        route, smem = disco_kernels.band_route(G, Gf, IG, OG, op.BL, op.WW, op.stride, op.out_shape[1] // op.phases)
+        print(f"  DISCO {name}: {op.in_shape} -> {op.out_shape}, cutoff {op.theta_cutoff:.4f} rad, K {op.K}, BL {op.BL}, WW {op.WW}, stride a {op.stride}, "
+              f"phases b {op.phases}, polar rows {len(op.polar_rows)}, weight {tuple(conv.weight.shape)} (groups {g}), "
+              f"{'fused' if conv.fused else 'two-stage'}; K5 route {route}, {smem / 1024:.1f} KB a block", flush=True)
+
+
+def polar_launches(conv, B: int) -> int:
+    """K6's (or K13's) launches of one DISCO conv on B samples: a phase (of
+    a fused conv), or a phase, group and run of polar rows
+    (``DiscoConvS2.polar_chunks``) of a two-stage conv's responses."""
+    op = conv.conv_op
+    if not op.polar_rows:
+        return 0
+    if conv.fused:
+        return op.phases
+    return op.phases * conv.groups * len(op.polar_chunks(B, conv.in_channels // conv.groups))
+
+
+def fcn31_launches_per_step(net, B: int, noise_draws: int = 0) -> dict:
+    """Kernel launches of one FCN3.1 forward on B samples: every DISCO conv
+    one K5 a group and phase of its responses (two-stage) or a phase
+    (fused), and its K6 launches (``polar_launches``), one K8 a group of a
+    two-stage conv; the decoder one K7; each global block one K1, K3 and K2;
+    plus ``noise_draws`` noise syntheses (K2)."""
+    out = dict.fromkeys(("disco_band", "disco_polar", "disco_mix", "resample", "sht_analysis", "dhconv", "sht_synthesis"), 0)
+    convs = [net.encoder.conv, net.decoder.conv] + ([net.aux_encoder.conv] if net.n_aux > 0 else [])
+    for i in range(net.num_layers):
+        blk = getattr(net, f"block{i}")
+        if hasattr(blk, "local_conv"):
+            convs.append(blk.local_conv)
+        else:
+            for k in ("sht_analysis", "dhconv", "sht_synthesis"):
+                out[k] += 1
+    for conv in convs:
+        out["disco_band"] += conv.conv_op.phases * (1 if conv.fused else conv.groups)
+        out["disco_polar"] += polar_launches(conv, B)
+        out["disco_mix"] += 0 if conv.fused else conv.groups
+    out["resample"] += 1
+    out["sht_synthesis"] += noise_draws
+    return out
+
+
+def check_fcn31_kernels(dev, card, net, noise, B, tag):
+    """The FCN3.1 forecast's kernels at its shapes (B = the folded
+    ensemble), against their plain versions: K5 (responses mode at the
+    unified encoder, each group's at the history encoder, the processor and
+    the decoder; fused at the aux encoder), K6 at the same convs, K8 at the
+    two-stage convs (per group), K7 at the decoder, K1-K3 at the global
+    blocks' internal grid. The plain versions of the full-resolution
+    convs take seconds: each runs once (its comparison) and is timed once."""
+    from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
+    from makani_torch.ops import sht
+
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    H, W = net.inp_shape
+    results = {}
+    slow = dict(plain_iters=0)
+    for name, conv, n_in in fcn31_convs(net):
+        op = conv.conv_op
+        label = f"{tag}-{name}"
+        g = conv.groups
+        if name == "decoder":
+            xo = randn((B, H, W, n_in), torch.float32, gen, dev)
+        elif name == "processor":
+            xo = randn((B, *op.in_shape, n_in), torch.float32, gen, dev)
+        else:  # the encoders read a permuted view of the NCHW input
+            xo = randn((B, n_in, H, W), torch.float32, gen, dev).permute(0, 2, 3, 1)
+        if conv.fused:
+            run_cases(fused_conv_cases(conv, xo, label, gen), card, results, 3, 1)
+        else:
+            ig = conv.in_channels // g
+            xg = xo[..., :ig]  # one group's channels (the history encoder's groups are alike)
+            run_cases([band_case(op, xg, op.band_filter(0, dev), 1, 1, op.K, label, library=name == "processor", padded=True, routes=True)], card, results,
+                      3, 1, **({} if name == "processor" else slow))
+            # K6 on the first run of polar rows (the whole of them but at the decoder)
+            r0, r1 = op.polar_chunks(B, ig)[0]
+            X = torch.view_as_real(torch.fft.rfft(op.polar_bands(xg, r0, r1), dim=-1))
+            run_cases([polar_case(X, op.polar_table(0, dev)[r0:r1], "psi_first", label)], card, results, 3, 1)
+            del X, xg
+            torch.cuda.empty_cache()
+            run_cases([mix_case(conv, B, card, label)], card, results, 3, 1)
+        del xo
+        torch.cuda.empty_cache()
+    # the decoder's resampling (K7) of the embedding
+    dec = net.decoder
+    z = randn((B, net.h, net.w, net.embed_dim), torch.float32, gen, dev)
+    run_cases([resample_case(dec.resample, z, f"{tag}-decoder")], card, results, 3, 1)
+    del z
+    torch.cuda.empty_cache()
+    # the global blocks' K1, K3, K2 at the internal grid
+    blk = net.block0.global_conv
+    fwd, inv = blk.forward_transform, blk.inverse_transform
+    C = blk.weight.shape[2]
+    xf = randn((B, fwd.nlat, fwd.mmax, C, 2), torch.float32, gen, dev)
+    wa = fwd.weights(dev)
+    c2 = randn((B, inv.lmax, inv.mmax, C, 2), torch.float32, gen, dev)
+    pa = inv.pct(dev)
+    xs = randn((B, inv.lmax, inv.mmax, 1, C, 2), torch.float32, gen, dev)
+    cache = _PermutedWeight()
+    run_cases([
+        ("sht_analysis", f"{tag}-internal", torch.float32, lambda: sht.analysis_contract_cl_s(xf, wa), lambda: sht.analysis_contract_cl_s_plain(xf, wa), legendre_extras(xf, wa, 0, B)),
+        ("sht_synthesis", f"{tag}-internal", torch.float32, lambda: sht.synthesis_contract_cl_s(c2, pa), lambda: sht.synthesis_contract_cl_s_plain(c2, pa), legendre_extras(c2, pa, 1, B)),
+        ("dhconv", f"{tag}-internal", torch.float32, lambda: contract_dense_s(xs, blk.weight, False, "dhconv", True, weight_cache=cache), lambda: contract_dense_s_plain(xs, blk.weight, False, "dhconv", True), dhconv_extras(xs, blk.weight.detach())),
+    ], card, results, 3, 1)
+    del xf, c2, xs
+    torch.cuda.empty_cache()
+    return results
+
+
+def first_unpredicted(params, noise, members, dev, t0, seed):
+    """The first step's zenith and noise channels of a window of T states,
+    (members, T, 1 + C_noise, H, W), as ``rollout`` draws them."""
+    from makani_torch.utils.zenith_angle import cos_zenith_angle_from_timestamp
+
+    H, W = params.img_shape_x, params.img_shape_y
+    T = params.get("n_history", 0) + 1
+    lon2d, lat2d = np.meshgrid(360.0 * np.arange(W) / W, 90.0 - 180.0 * np.arange(H) / (H - 1))
+    dt = params.dhours * 3600.0
+    zen = np.stack([cos_zenith_angle_from_timestamp(t0 - (T - 1 - k) * dt, lon2d, lat2d) for k in range(T)]).astype(np.float32)
+    gen = torch.Generator(dev).manual_seed(seed)
+    state, fields = None, []
+    for _ in range(T):
+        state = noise.init_state(gen, members // 2) if state is None else noise.update(state, gen)
+        eta = noise.sample(state)[:, 0]
+        fields.append(torch.stack([eta, -eta], dim=1).reshape(members, *eta.shape[1:]))
+    zt = torch.from_numpy(zen).to(dev)[None, :, None].expand(members, T, 1, H, W)
+    return torch.cat([zt, torch.stack(fields, dim=1).to(dev)], dim=2)
+
+
+def time_kernel_steps(step, card, label, members, steps=3):
+    """Step latency of the kernel path (the plain path is compared, not
+    timed: it takes tens of seconds a step at full width): one warm-up, then
+    ``steps`` steps between CUDA events; members/s and peak memory."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        step()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    med = statistics.median(times)
+    print(f"{label} step (kernel path): median {med:.2f} ms over {steps} steps {[round(t, 2) for t in times]}, {members / med * 1e3:.3f} members/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]", flush=True)
+    return med
+
+
+def fcn31_phases(dev, card, config, tag):
+    """One FCN3.1 forecast path (phases 25-28 for ``fcn31_sc2_edim256_layers10``,
+    29-32 for its history variant); returns (kernel results, launch counts
+    of the rollout)."""
+    from makani_torch import kernels
+    from makani_torch.models.model_package import rollout
+
+    t0 = time.perf_counter()
+    params, model, wrapper, x0, noise = build_fcn31(dev, config)
+    net = model.model
+    T = params.get("n_history", 0) + 1
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"built FCN3.1 {config[1]} of {config[0]} ({nparam} parameters, compute {params.compute_dtype}, {params.img_shape_x}x{params.img_shape_y} -> "
+          f"internal {net.h}x{net.w}, lmax {net.lmax}, {net.num_layers} blocks, window of {T} states, {params.N_in_channels} in / {params.N_out_channels} out "
+          f"channels, embed {net.embed_dim}, {params.filter_basis_type} basis ({params.filter_basis_norm_mode}), ensemble {FCN3_ENSEMBLE} centered) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print_fcn31_convs(net)
+
+    t0 = time.perf_counter()
+    kres = check_fcn31_kernels(dev, card, net, noise, FCN3_ENSEMBLE, tag)
+    torch.cuda.empty_cache()
+    print(f"{tag} kernel checks {time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after them", flush=True)
+
+    H, W = params.img_shape_x, params.img_shape_y
+    lat = 90.0 - 180.0 * np.arange(H) / (H - 1)
+    lon = 360.0 * np.arange(W) / W
+    t_start = 1.5e9
+    noise_seed = SEED + 98
+    steps = max(STEPS, 3)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    frames = rollout(wrapper, x0, lat, lon, t_start, params.dhours, steps, noise=noise, ensemble_size=FCN3_ENSEMBLE, centered=True,
+                     generator=torch.Generator(dev).manual_seed(noise_seed))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"{tag} rollout: {steps} steps of {FCN3_ENSEMBLE} members from a window of {T} states in {time.perf_counter() - t0:.1f} s  [{card}]")
+    for i, f in enumerate(frames):
+        if f.shape != (FCN3_ENSEMBLE, len(params.channel_names), H, W) or not bool(torch.isfinite(f).all()):
+            raise RuntimeError(f"{tag} rollout step {i + 1}: shape {tuple(f.shape)} or non-finite values")
+        spread = ((f[0] - f[1]) / wrapper.scale[0]).norm().item() / math.sqrt(f[0].numel())
+        if not spread > 1e-6:
+            raise RuntimeError(f"{tag} rollout step {i + 1}: the two members do not differ (rms normalized difference {spread})")
+        print(f"{tag} rollout step {i + 1} (+{(i + 1) * params.dhours} h): shape {tuple(f.shape)}, finite, mean {f.mean().item():.4f}, "
+              f"std {f.std().item():.4f}, member rms difference (normalized) {spread:.4f}")
+    per_step = fcn31_launches_per_step(net, FCN3_ENSEMBLE)
+    expected = {k: per_step.get(k, 0) * steps for k in kernels.LAUNCHES}
+    expected["sht_synthesis"] += steps + T - 1  # the noise sequence's syntheses
+    print(f"{tag} launches over {steps} steps: {launches} (per forward {per_step}, noise syntheses {steps + T - 1})")
+    if launches != expected:
+        raise RuntimeError(f"{tag} launch counts {launches} != expected {expected}")
+    del frames
+    torch.cuda.empty_cache()
+
+    # the whole model once against its plain path, from the first step's input
+    xm = x0.repeat_interleave(FCN3_ENSEMBLE, dim=0)
+    unp = first_unpredicted(params, noise, FCN3_ENSEMBLE, dev, t_start, noise_seed)
+    t0 = time.perf_counter()
+    err = compare_paths(model, wrapper, xm, unp)
+    ok = err["rel_l2"] <= MODEL_BF16_REL_L2
+    print(f"{tag} step 1 ({params.compute_dtype}), kernel path vs plain path (normalized units): relL2 {err['rel_l2']:.3e} "
+          f"(tol {MODEL_BF16_REL_L2}), max|d|/max|ref| {err['max_rel']:.3e} {'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not ok:
+        raise RuntimeError(f"{tag} kernel path disagrees with the plain path: {err}")
+    torch.cuda.empty_cache()
+    time_kernel_steps(lambda: wrapper(xm, unp), card, f"{tag} ensemble forecast (E={FCN3_ENSEMBLE})", FCN3_ENSEMBLE)
+    del model, wrapper
+    torch.cuda.empty_cache()
+    return kres, launches
+
+
+def build_fcn31_train(dev, compute_dtype="bfloat16"):
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.yparams import ParamsBase
+
+    cfg = fcn31_train_config(compute_dtype=compute_dtype)
+    cfg.update(stats_files(len(cfg["channel_names"])))
+    params = ParamsBase(dict(cfg))
+    model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
+    return params, model, LossHandler(ParamsBase(dict(cfg)))
+
+
+def fcn31_train_launches_per_step(net, members: int) -> dict:
+    """Kernel launches of one FCN3.1 training step but the optimizer's:
+    the forward's twice (checkpointing_level 3 recomputes all of it but the
+    aux encoder, which the JAX package does not rematerialize either), the
+    backward's K12 and K13 at every conv whose input needs a gradient (the
+    local blocks and the decoder: the encoders read the data), K14 at the
+    decoder, the global blocks' transposes, K15 forward and backward, and
+    K5 for the fused convs' weight gradients (the aux encoder), one a chunk
+    of its responses and phase."""
+    fwd = fcn31_launches_per_step(net, members)
+    out = {k: 2 * v for k, v in fwd.items()}
+    n_global = fwd["dhconv"]
+    convs = [getattr(net, f"block{i}").local_conv for i in range(net.num_layers) if hasattr(getattr(net, f"block{i}"), "local_conv")] + [net.decoder.conv]
+    out["disco_band_grad"] = sum(c.conv_op.phases * (1 if c.fused else c.groups) for c in convs)
+    out["disco_polar_grad"] = sum(polar_launches(c, members) for c in convs)
+    out.update(resample_grad=1, crps=2, sht_analysis_grad=n_global, sht_synthesis_grad=n_global, dhconv_grad_input=n_global, dhconv_grad_weight=n_global)
+    aux = net.aux_encoder.conv
+    out["disco_band"] -= aux.conv_op.phases
+    out["disco_polar"] -= polar_launches(aux, members)
+    out["disco_band"] += len(aux.conv_op.weight_grad_chunks(members, net.n_aux)) * aux.conv_op.phases
+    return out
+
+
+def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
+    """The FCN3.1 training step's backward kernels at its shapes (B*E
+    members): K12 (the generic gather at K 7) and K13 at the processor and
+    the decoder (responses mode, reading the padded responses), K5 forward
+    at both, K14 at the decoder, K15 on the step's forecasts, K9 and K3's dx
+    and the forward K1-K3 at the global blocks' grid, K8 and its backward
+    GEMMs at the processor, and K16 and K17 on the model's parameters with
+    one step's gradients."""
+    from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s, contract_dense_s_plain
+    from makani_torch.ops import sht
+
+    net = model.model
+    BE = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    results = {}
+    slow = dict(plain_iters=0)
+    for name, conv, n_in in fcn31_convs(net):
+        if name not in ("processor", "decoder"):
+            continue
+        op = conv.conv_op
+        C, K = conv.in_channels, op.K
+        label = f"fcn31-train-{name}"
+        dt = op.response_buffer(BE, C, dev)
+        dt.copy_(randn(dt.shape, torch.float32, gen, dev))
+        run_cases([band_grad_case(op, dt, op.band_filter(0, dev), C, 1, 1, K, label, library=name == "processor")], card, results, 3, 1, **slow)
+        del dt
+        torch.cuda.empty_cache()
+        x = randn((BE, *op.in_shape, C), torch.float32, gen, dev)
+        run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, K, label, padded=True, routes=name == "processor")], card, results, 3, 1, **slow)
+        del x
+        torch.cuda.empty_cache()
+        M = op.in_shape[1] // 2 + 1
+        r0, r1 = op.polar_chunks(BE, C)[0]
+        dY = randn((BE, r1 - r0, C, K, M, 2), torch.float32, gen, dev)
+        run_cases([polar_grad_case(dY, op.polar_table(0, dev)[r0:r1], "psi_first", label)], card, results, 3, 1)
+        del dY
+        torch.cuda.empty_cache()
+        if name == "processor":
+            run_cases([mix_case(conv, BE, card, label)], card, results, 3, 1)
+            mix_grad_times(conv, BE, card)
+    dec = net.decoder
+    dy = randn((BE, *dec.resample.out_shape, net.embed_dim), torch.float32, gen, dev)
+    run_cases([resample_grad_case(dec.resample, dy, "fcn31-train-decoder")], card, results, 3, 1)
+    del dy
+    torch.cuda.empty_cache()
+    inp, tar, unp = batch
+    with torch.no_grad():
+        pred = model(inp, unp, train=True).reshape(FCN3_TRAIN_BATCH, FCN3_TRAIN_ENSEMBLE, *tar.shape[1:])
+    crps = crps_cases(pred, tar)
+    run_cases([(n, f"fcn31-{lab}", *rest) for n, lab, *rest in crps], card, results, 5, 1)
+    del pred
+    torch.cuda.empty_cache()
+    spec = net.block0.global_conv
+    fwd, inv = spec.forward_transform, spec.inverse_transform
+    C = spec.weight.shape[2]
+    run_cases(dhconv_grad_cases(BE, fwd.lmax, fwd.mmax, spec.weight.detach(), gen, "fcn31-internal", bf16=False), card, results, 3, 1)
+    torch.cuda.empty_cache()
+    xf = randn((BE, fwd.nlat, fwd.mmax, C, 2), torch.float32, gen, dev)
+    wa = fwd.weights(dev)
+    c2 = randn((BE, inv.lmax, inv.mmax, C, 2), torch.float32, gen, dev)
+    pa = inv.pct(dev)
+    xs = randn((BE, inv.lmax, inv.mmax, 1, C, 2), torch.float32, gen, dev)
+    wcache = _PermutedWeight()
+    run_cases([
+        ("sht_analysis", "fcn31-train", torch.float32, lambda: sht.analysis_contract_cl_s(xf, wa), lambda: sht.analysis_contract_cl_s_plain(xf, wa), legendre_extras(xf, wa, 0, BE)),
+        ("sht_synthesis", "fcn31-train", torch.float32, lambda: sht.synthesis_contract_cl_s(c2, pa), lambda: sht.synthesis_contract_cl_s_plain(c2, pa), legendre_extras(c2, pa, 1, BE)),
+        ("dhconv", "fcn31-train", torch.float32, lambda: contract_dense_s(xs, spec.weight, False, "dhconv", True, weight_cache=wcache),
+         lambda: contract_dense_s_plain(xs, spec.weight, False, "dhconv", True), dhconv_extras(xs, spec.weight.detach())),
+    ], card, results, 3, 1)
+    del xf, c2, xs
+    torch.cuda.empty_cache()
+    _, grads = fcn3_grads(model, loss_obj, batch)
+    grads = [grads[n] for n, _ in model.named_parameters()]
+    results.update(optimizer_cases(card, model, grads, params, FCN3_STEPS_PER_EPOCH, "fcn31-recipe"))
+    del grads
+    torch.cuda.empty_cache()
+    return results
+
+
+def fcn31_train_phases(dev, card):
+    """Phases 33-36: the FCN3.1 recipe's ensemble-CRPS training step;
+    returns (kernel results, launch counts of the timed training steps)."""
+    import copy
+
+    from makani_torch import kernels
+    from makani_torch.utils.training.ensemble_trainer import ensemble_train_step, fold_ensemble
+    from makani_torch.utils.training.optimizer import get_schedule
+
+    t0 = time.perf_counter()
+    params, model, loss_obj = build_fcn31_train(dev)
+    net = model.model
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"built the FCN3.1 training step ({nparam} parameters in {len(list(model.parameters()))} leaves, compute {params.compute_dtype}, "
+          f"{params.img_shape_x}x{params.img_shape_y} -> internal {net.h}x{net.w}, lmax {net.lmax}, {net.num_layers} blocks, embed {net.embed_dim}, "
+          f"B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}, checkpointing_level {net.checkpointing_level}; loss {params.losses}; Adam, clip "
+          f"{params.optimizer_max_grad_norm}, {params.scheduler} at lr {params.lr}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_fcn31_convs(net)
+    batch = fcn3_train_batch(dev, params)
+    t0 = time.perf_counter()
+    kres = check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch)
+    print(f"fcn31-train kernel checks {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # one step, kernel path vs plain path, from the same weights and batch
+    t0 = time.perf_counter()
+    plain, plain_loss = copy.deepcopy(model), copy.deepcopy(loss_obj)
+    kernels.set_use_kernels(plain, False)
+    plain_loss.loss_fns[0].use_kernels = False
+    inp, tar, unp = batch
+    with torch.no_grad():
+        pk = model(inp, unp, train=True)
+        pp = plain(inp, unp, train=True)
+    err = errors(pk, pp)
+    wgt = crps_order_weight(fold_ensemble(pk, FCN3_TRAIN_ENSEMBLE), fold_ensemble(pp, FCN3_TRAIN_ENSEMBLE), tar)
+    del pk, pp
+    lk, gk = fcn3_grads(model, loss_obj, batch)
+    lp, gp = fcn3_grads(plain, plain_loss, batch)
+    torch.cuda.synchronize()
+    worst = max((((gk[n].float() - gp[n].float()).norm() / gp[n].float().norm().clamp_min(1e-30)).item(), n) for n in gp)
+    ok = abs(lk - lp) <= MODEL_BF16_REL_L2 * abs(lp) and worst[0] <= TRAIN_GRAD_BF16_REL_L2 and err["rel_l2"] <= MODEL_BF16_REL_L2
+    print(f"FCN3.1 training step (bfloat16 compute, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}), kernel path vs plain path: forecast relL2 "
+          f"{err['rel_l2']:.3e} (tol {MODEL_BF16_REL_L2}); loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / abs(lp):.2e}, tol {MODEL_BF16_REL_L2}); "
+          f"worst gradient leaf {worst[1]} relL2 {worst[0]:.3e} (tol {TRAIN_GRAD_BF16_REL_L2}); pixels the two forecasts may rank differently "
+          f"{1.0 - wgt.mean().item():.2%} (counted, not excluded); {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("FCN3.1 bf16 training step: the kernel path disagrees with the plain path")
+    del gp
+    compare_optimizer_step(card, "FCN3.1 recipe", params, FCN3_STEPS_PER_EPOCH, model, plain, gk)
+    del model, plain, gk
+    torch.cuda.empty_cache()
+
+    # the main path, timed: 1 + TRAIN_STEPS steps through the kernels
+    params, model, loss_obj = build_fcn31_train(dev)
+    opt = recipe_optimizer(params, model, FCN3_STEPS_PER_EPOCH, True)
+    losses, times, peak, launches, lrs, norms = timed_recipe_steps(
+        lambda: ensemble_train_step(model, loss_obj, opt, inp, tar, unp, FCN3_TRAIN_ENSEMBLE), opt, TRAIN_STEPS)
+    n = TRAIN_STEPS + 1
+    members = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
+    per_step = fcn31_train_launches_per_step(model.model, members)
+    for k, v in optimizer_launches(opt).items():
+        per_step[k] = per_step.get(k, 0) + v
+    expected = {k: per_step.get(k, 0) * n for k in launches}
+    print(f"FCN3.1 training launches over {n} steps: {launches} (per step {({k: v / n for k, v in launches.items()})})")
+    if launches != expected:
+        raise RuntimeError(f"FCN3.1 training launch counts {launches} != expected {expected}")
+    med = statistics.median(times[1:])
+    print(f"FCN3.1 recipe training step (kernel path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {TRAIN_STEPS} steps "
+          f"after a warm-up {[round(t, 2) for t in times]}, {members / med * 1e3:.3f} samples/s (members), peak memory {peak / 2**30:.2f} GiB; loss per "
+          f"step {[round(v, 6) for v in losses]}; lr per step {[f'{v:.6e}' for v in lrs]}; grad norm per step {[round(v, 4) for v in norms]}  [{card}]",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses) or not min(losses[1:]) < losses[0]:
+        raise RuntimeError(f"FCN3.1 training loss not finite or not falling over {TRAIN_STEPS} steps: {losses}")
+    if lrs != [get_schedule(params, FCN3_STEPS_PER_EPOCH)(k) for k in range(n)]:
+        raise RuntimeError(f"FCN3.1 recipe learning rates {lrs} are not the schedule's")
+    del model, opt
+    torch.cuda.empty_cache()
+    return kres, launches
+
+
+def fcn31_rows(meta, fcn31) -> list:
+    """The kernels line's FCN3.1 entries: every kernel at each of its shapes
+    on FCN3.1's paths, named kernel@shape, with the launches of that path's
+    run; K15's forward and backward in one entry, as its main line."""
+    where = {m[0]: m[1:4] for m in meta}
+    rows = []
+    for tag, (res, launches) in fcn31.items():
+        for (name, label, dtype), r in res.items():
+            if name not in where or name == "crps" and label.endswith("backward"):
+                continue
+            if name == "crps":
+                bwd = res[("crps", label.replace("forward", "backward"), dtype)]
+                r = dict(r, max_abs_err=max(r["max_abs_err"], bwd["max_abs_err"]), **{k: r[k] + bwd[k] for k in ("ms", "plain_ms", "bound_ms")})
+                label = label.replace("forward", "forward+backward")
+            route, source, replaces = where[name]
+            rows.append(
+                {"name": f"{name}@{label}", "route": route, "source": source, "replaces": replaces, "launches": launches.get(name, 0),
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r.get("library_ms")}
+            )
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs only on an NVIDIA GPU", file=sys.stderr)
@@ -2412,6 +3048,7 @@ def main() -> int:
     PTXAS[:] = ptxas_lines(so.with_suffix(".log").read_text())
     for line in PTXAS:
         print("  ptxas:", line)
+    host_tables = HostTables()
 
     t0 = time.perf_counter()
     sfno_res, sfno_launches = sfno_phases(dev, card)
@@ -2432,6 +3069,17 @@ def main() -> int:
     t0 = time.perf_counter()
     recipe_res, recipe_launches = recipe_phases(dev, card)
     print(f"SFNO recipe training phases {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    host_tables.join()
+    fcn31 = {}
+    for tag, config in (("fcn31", FCN31_CONFIG), ("fcn31h", FCN31_HISTORY_CONFIG)):
+        t0 = time.perf_counter()
+        fcn31[tag] = fcn31_phases(dev, card, config, tag)
+        print(f"FCN3.1 forecast phases ({config[1]}) {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fcn31["fcn31-train"] = fcn31_train_phases(dev, card)
+    print(f"FCN3.1 training phases {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- result: each kernel at its path's main shape, with that path's launches
     io = transform_io_dtype()
@@ -2473,6 +3121,7 @@ def main() -> int:
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         )
+    table += fcn31_rows(meta, fcn31)
     # K10 runs at both of the SFNO training step's grids; its line holds the full one
     print("instance_norm_grad (K10), SFNO training step: " + "; ".join(
         f"{lab} bf16 {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, two-read floor {r['two_read_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "

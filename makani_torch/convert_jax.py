@@ -22,7 +22,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "load_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "load_from_jax", "opt_state_from_jax"]
 
 
 def _flatten(tree: Mapping) -> dict:
@@ -140,6 +140,21 @@ def opt_state_from_jax(opt_state_as_numpy, module: torch.nn.Module, optimizer: t
                 state[idx] = entry
             idx += 1
     return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def params_to_jax(module: torch.nn.Module) -> dict:
+    """The inverse of ``params_from_jax``: ``module``'s parameters as a flax
+    variables tree of fp32 numpy arrays, ``{"params": {...}}`` nested by the
+    dotted names (the weights of a port model for the JAX package's
+    ``apply``)."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach().float().cpu().numpy().copy()
+    return {"params": tree}
 
 
 def load_from_jax(module: torch.nn.Module, flax_params_as_numpy: Mapping) -> torch.nn.Module:

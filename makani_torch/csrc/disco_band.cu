@@ -66,6 +66,22 @@
 // OG = 1) the copies dominate: one input channel of each group is a
 // 4-byte gather at a stride of IG floats. Tensor cores (3xTF32 mma with
 // N = K = 9 padded to 16) are later work.
+//
+// Wide bands. A cutoff taken from the spectral truncation (FCN3.1's lmax
+// rule) gives bands of 25 to ~74 rows and windows of 75 to ~210 longitudes
+// at 0.25 degrees: a latitude's whole filter (BL x WW x 12 floats a filter
+// group, 327 KB at BL 49, WW 139) no longer fits in shared memory. The live
+// rows are compacted 32 band rows a ballot, so any BL works, and a second
+// layout (route 2) stages the filter with the rows: each stage of the ring
+// carries, beside its ROWS input rows, those rows' live filter spans (all
+// Gf filter groups of channel i), so the shared memory grows with
+// ROWS x WW, not BL x WW. The sums keep the dense (i, j, w) order in both
+// layouts, so finite outputs stay bit-equal to the plain version. The
+// entry point takes the first layout (route 1) where BL <= 32 and two of its
+// blocks fit on an SM (every FCN3 conv: 103 KB at the processor), else
+// route 2 (at the FCN3.1 processor, BL 25, route 1 needs 219 KB, one block
+// an SM, and took 49.2 ms against route 2's 46.1 on an H100); either can be
+// asked for by name.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,7 +133,9 @@ __device__ __forceinline__ void load_f(const float* p, float (&f)[OT]) {
   }
 }
 
-template <int OT, bool A1, int TG, int ROWS, int RING>
+// WIDE: the filter is staged per stage with its rows (route 2), else once per
+// latitude (once per input channel where IG > 1; route 1)
+template <int OT, bool A1, int TG, int ROWS, int RING, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
     disco_band_kernel(const float* __restrict__ x, const float* __restrict__ F, const int* __restrict__ band_start, const int* __restrict__ taps,
                       float* __restrict__ out, Params p) {
@@ -128,7 +146,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   extern __shared__ __align__(16) float smem[];
   int* s_run = reinterpret_cast<int*>(smem);  // (lo, hi) of the live rows in j order
   int* s_j = s_run + 2 * p.BL;                // their j, and their count at [BL]
-  float* Fs = smem + p.off_f;                 // filter of channel i: (Gf, BL, WW, OP), one buffer, or RING where IG > 1
+  float* Fs = smem + p.off_f;                 // filter of channel i: (Gf, BL, WW, OP), one buffer, or RING where IG > 1;
+                                              // WIDE: RING stages of (Gf, ROWS, WW, OP), the stage's rows' live spans
   float* Xs = smem + p.off_x;                 // RING window rows (cols, TGP)
   float* Os = smem + p.off_o;                 // output staging, SEGS columns of SEG floats a warp
 
@@ -144,18 +163,22 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int g0 = gt * TG;
   const int BL = p.BL, WW = p.WW;
 
-  if (warp == 0) {  // the live rows of latitude h, compacted in j order (BL <= 32)
-    const int j = lane;
-    const int lo = j < BL ? max(0, min(taps[(h * BL + j) * 2], WW)) : 0;
-    const int hi = j < BL ? max(lo, min(taps[(h * BL + j) * 2 + 1], WW)) : 0;
-    const unsigned live = __ballot_sync(0xffffffffu, hi > lo);
-    if (hi > lo) {
-      const int k = __popc(live & ((1u << lane) - 1u));
-      s_run[2 * k] = lo;
-      s_run[2 * k + 1] = hi;
-      s_j[k] = j;
+  if (warp == 0) {  // the live rows of latitude h, compacted in j order, 32 band rows a ballot
+    int n = 0;
+    for (int j0 = 0; j0 < BL; j0 += 32) {
+      const int j = j0 + lane;
+      const int lo = j < BL ? max(0, min(taps[(h * BL + j) * 2], WW)) : 0;
+      const int hi = j < BL ? max(lo, min(taps[(h * BL + j) * 2 + 1], WW)) : 0;
+      const unsigned live = __ballot_sync(0xffffffffu, hi > lo);
+      if (hi > lo) {
+        const int k = n + __popc(live & ((1u << lane) - 1u));
+        s_run[2 * k] = lo;
+        s_run[2 * k + 1] = hi;
+        s_j[k] = j;
+      }
+      n += __popc(live);
     }
-    if (lane == 0) s_j[BL] = __popc(live);
+    if (lane == 0) s_j[BL] = n;
   }
   __syncthreads();
   const int n_live = s_j[BL];
@@ -181,12 +204,30 @@ __global__ void __launch_bounds__(THREADS, 2)
       cp_async<4>(dst + e * OP + o, Fh + ((long long)(gfi * p.IG + i) * BL * WW + jw) * p.OGp + o, true);
     }
   };
+  // WIDE: the live filter spans of channel i at the rows of stage s (row
+  // group gi), in slot s % RING: (Gf, ROWS, WW, OP), w at its own column
+  auto stage_fw = [&](int s, int i, int gi) {
+    float* dst = Fs + (s % RING) * p.fbuf;
+    const int l0 = gi * ROWS, nl = min(n_live, l0 + ROWS) - l0;
+    for (int r = 0; r < nl; ++r) {
+      const int lo = s_run[2 * (l0 + r)], span = s_run[2 * (l0 + r) + 1] - lo, j = s_j[l0 + r];
+      const int n = p.Gf * span * OT;
+      for (int idx = tid; idx < n; idx += THREADS) {
+        const int o = idx % OT, e = idx / OT, gfi = e / span, w = lo + e % span;
+        cp_async<4>(dst + ((gfi * ROWS + r) * WW + w) * OP + o, Fh + ((long long)((gfi * p.IG + i) * BL + j) * WW + w) * p.OGp + o, true);
+      }
+    }
+  };
   // stage s: the live column span of one row of channel i of groups g0 ..
   // g0+TG-1, for column tile s / NSU; the filter of channel i with its
-  // first row (once, where IG == 1)
+  // first row (once, where IG == 1), or (WIDE) the rows' filter spans
   auto stage = [&](int s) {
     const int k = s / NSU, r = s - k * NSU, i = r / n_grp, gi = r - i * n_grp;
-    if (gi == 0 && (p.IG > 1 || s == 0)) stage_f(k, i);
+    if constexpr (WIDE) {
+      stage_fw(s, i, gi);
+    } else if (gi == 0 && (p.IG > 1 || s == 0)) {
+      stage_f(k, i);
+    }
     const int u0 = k * TU, n_valid = min(TU, p.n_out - u0);
     for (int li = gi * ROWS; li < min(n_live, gi * ROWS + ROWS); ++li) {
       const int lo = s_run[2 * li], hi = s_run[2 * li + 1];
@@ -290,7 +331,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int li = gi * ROWS; li < min(n_live, gi * ROWS + ROWS); ++li) {
       const int lo = s_run[2 * li], hi = s_run[2 * li + 1];
       const float* Xq = Xs + (s % RING) * p.xbuf + (li - gi * ROWS) * p.xrow + nu * UT * p.a * TGP + tg;  // column nu*UT*a + (w - lo)
-      const float* Fw = Fs + ((k * p.IG + i) % n_fbuf) * p.fbuf + ((gf * BL + s_j[li]) * WW) * OP;
+      const float* Fw = WIDE ? Fs + (s % RING) * p.fbuf + ((gf * ROWS + li - gi * ROWS) * WW) * OP
+                             : Fs + ((k * p.IG + i) % n_fbuf) * p.fbuf + ((gf * BL + s_j[li]) * WW) * OP;
       if (u0 + nu * UT < p.n_out) {
         if constexpr (A1) {
           float xr[UT];
@@ -351,22 +393,31 @@ __global__ void __launch_bounds__(THREADS, 2)
   sm90::cp_async_wait<0>();
 }
 
-template <int OT, bool A1, int TG, int ROWS, int RING>
-int launch(const float* x, const float* F, const int* band_start, const int* taps, float* out, Params p, int B, cudaStream_t s) {
+constexpr size_t SMEM_MAX = 227 * 1024;
+constexpr size_t SMEM_TWO_BLOCKS = 113 * 1024;  // two blocks an SM (the launch bounds' 2)
+
+// the shared-memory layout of a tiling into p; returns its bytes
+template <int OT, int TG, int ROWS, int RING, bool WIDE>
+size_t layout(Params& p) {
   using GT = GroupTile<OT, TG>;
   constexpr int OP = FilterTile<OT>::OP;
   p.n_utiles = (p.n_out + GT::TU - 1) / GT::TU;
   p.n_gtiles = (p.G + TG - 1) / TG;
   p.xcols = (GT::TU - 1) * p.a + p.WW;
   p.off_f = round_up4(3 * p.BL + 1);
-  p.fbuf = round_up4(p.Gf * p.BL * p.WW * OP);
-  p.off_x = p.off_f + (p.IG > 1 ? RING : 1) * p.fbuf;
+  p.fbuf = round_up4(p.Gf * (WIDE ? ROWS : p.BL) * p.WW * OP);
+  p.off_x = p.off_f + (WIDE || p.IG > 1 ? RING : 1) * p.fbuf;
   p.xrow = round_up4(p.xcols * GT::TGP);
   p.xbuf = ROWS * p.xrow;
   p.off_o = p.off_x + RING * p.xbuf;
-  const size_t smem = (size_t)(p.off_o + (THREADS / 32) * GT::SEGS * (TG * OT + 4)) * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kern = disco_band_kernel<OT, A1, TG, ROWS, RING>;
+  return (size_t)(p.off_o + (THREADS / 32) * GT::SEGS * (TG * OT + 4)) * sizeof(float);
+}
+
+template <int OT, bool A1, int TG, int ROWS, int RING, bool WIDE>
+int launch(const float* x, const float* F, const int* band_start, const int* taps, float* out, Params p, int B, cudaStream_t s) {
+  const size_t smem = layout<OT, TG, ROWS, RING, WIDE>(p);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = disco_band_kernel<OT, A1, TG, ROWS, RING, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long nb = (long long)p.n_gtiles * p.n_oc * p.Hout * B;
@@ -375,15 +426,54 @@ int launch(const float* x, const float* F, const int* band_start, const int* tap
   return (int)cudaGetLastError();
 }
 
-// 32-channel tiles stage four live rows a stage in a ring of two (the
-// fastest at the FCN3 processor of the shapes tried: two or three rows in
-// three buffers, four in two, all in two); 8-channel tiles, whose windows
-// are four times as wide, two rows in a ring of three
-template <int OT>
+// Route 1: 32-channel tiles stage four live rows a stage in a ring of two
+// (the fastest at the FCN3 processor of the shapes tried: two or three rows
+// in three buffers, four in two, all in two); 8-channel tiles, whose
+// windows are four times as wide, two rows in a ring of three. Route 2
+// (WIDE) stages two rows a stage with their filter spans, in the same rings
+// (at BL ~74 and WW ~200 a 32-channel tile's ring is ~180 KB), or one row a
+// stage where two do not fit (wider windows, or a stride of 2 with them).
+template <int OT, bool WIDE, int TG>
+bool two_rows(const Params& p) {
+  Params q = p;
+  return !WIDE || (TG == 32 ? layout<OT, 32, 2, 2, true>(q) : layout<OT, 8, 2, 3, true>(q)) <= SMEM_MAX;
+}
+
+template <int OT, bool WIDE>
+size_t smem_of(const Params& p) {
+  Params q = p;
+  if (p.G >= 96) return two_rows<OT, WIDE, 32>(p) ? layout<OT, 32, WIDE ? 2 : 4, 2, WIDE>(q) : layout<OT, 32, 1, 2, WIDE>(q);
+  return two_rows<OT, WIDE, 8>(p) ? layout<OT, 8, 2, 3, WIDE>(q) : layout<OT, 8, 1, 3, WIDE>(q);
+}
+
+// the route the entry point takes: the one asked for (1 or 2), or 0 for
+// route 1 where BL <= 32 and two of its blocks fit on an SM, else route 2
+int choose_route(const Params& p, int OT, int route) {
+  if (route == 0) {
+    const size_t s1 = OT == 1 ? smem_of<1, false>(p) : smem_of<9, false>(p);
+    route = p.BL <= 32 && s1 <= SMEM_TWO_BLOCKS ? 1 : 2;
+  }
+  return route;
+}
+
+template <int OT, int TG, int ROWS, int RING, bool WIDE>
+int launch_a(const float* x, const float* F, const int* band_start, const int* taps, float* out, const Params& p, int B, cudaStream_t s) {
+  return p.a == 1 ? launch<OT, true, TG, ROWS, RING, WIDE>(x, F, band_start, taps, out, p, B, s)
+                  : launch<OT, false, TG, ROWS, RING, WIDE>(x, F, band_start, taps, out, p, B, s);
+}
+
+template <int OT, bool WIDE>
 int dispatch(const float* x, const float* F, const int* band_start, const int* taps, float* out, const Params& p, int B, cudaStream_t s) {
-  if (p.G >= 96)
-    return p.a == 1 ? launch<OT, true, 32, 4, 2>(x, F, band_start, taps, out, p, B, s) : launch<OT, false, 32, 4, 2>(x, F, band_start, taps, out, p, B, s);
-  return p.a == 1 ? launch<OT, true, 8, 2, 3>(x, F, band_start, taps, out, p, B, s) : launch<OT, false, 8, 2, 3>(x, F, band_start, taps, out, p, B, s);
+  if constexpr (!WIDE) {
+    if (p.G >= 96) return launch_a<OT, 32, 4, 2, false>(x, F, band_start, taps, out, p, B, s);
+    return launch_a<OT, 8, 2, 3, false>(x, F, band_start, taps, out, p, B, s);
+  } else {
+    if (p.G >= 96)
+      return two_rows<OT, true, 32>(p) ? launch_a<OT, 32, 2, 2, true>(x, F, band_start, taps, out, p, B, s)
+                                       : launch_a<OT, 32, 1, 2, true>(x, F, band_start, taps, out, p, B, s);
+    return two_rows<OT, true, 8>(p) ? launch_a<OT, 8, 2, 3, true>(x, F, band_start, taps, out, p, B, s)
+                                    : launch_a<OT, 8, 1, 3, true>(x, F, band_start, taps, out, p, B, s);
+  }
 }
 
 }  // namespace
@@ -394,14 +484,16 @@ int dispatch(const float* x, const float* F, const int* band_start, const int* t
 // zero-padded; band_start: int32 (Hout,); taps: int32 (Hout, BL, 2), the
 // live run [lo, hi) of w of each (h, j), empty where lo >= hi; out: float32
 // (B, Hout, Wout, G*OG), contiguous but for sO >= G*OG floats between
-// pixels. Returns cudaGetLastError() after the launch, or an argument error
-// without launching.
+// pixels; route: 0 (the route above), 1 or 2. Returns cudaGetLastError()
+// after the launch, or an argument error without launching (a route whose
+// shared memory exceeds 227 KB is one).
 extern "C" int mt_disco_band_contract(const void* x, const void* F, const void* band_start, const void* taps, void* out, int B, int Hin, int Win,
                                       long long sB, long long sH, long long sW, long long sC, int Hout, int Wout, int G, int Gf, int IG, int OG,
                                       int OGp, int BL, int WW, int a, int off, int n_out, int phase, int phases, long long sO,
-                                      void* stream) {
-  if (B <= 0 || Hin <= 0 || Win <= 0 || Hout <= 0 || G <= 0 || Gf <= 0 || G % Gf || IG <= 0 || OG <= 0 || BL <= 0 || BL > 32 || WW <= 0 || a <= 0 ||
-      n_out <= 0 || phases <= 0 || phase < 0 || phase >= phases || phase + phases * (n_out - 1) >= Wout || sO < (long long)G * OG)
+                                      int route, void* stream) {
+  if (B <= 0 || Hin <= 0 || Win <= 0 || Hout <= 0 || G <= 0 || Gf <= 0 || G % Gf || IG <= 0 || OG <= 0 || BL <= 0 || WW <= 0 || a <= 0 ||
+      n_out <= 0 || phases <= 0 || phase < 0 || phase >= phases || phase + phases * (n_out - 1) >= Wout || sO < (long long)G * OG || route < 0 ||
+      route > 2)
     return (int)cudaErrorInvalidValue;
   const int OT = OG == 1 ? 1 : 9;
   if (OGp % OT || OGp < OG || OGp - OG >= OT) return (int)cudaErrorInvalidValue;
@@ -419,6 +511,21 @@ extern "C" int mt_disco_band_contract(const void* x, const void* F, const void* 
   const int* tp = static_cast<const int*>(taps);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (OT == 1) return dispatch<1>(xf, Ff, bs, tp, of, p, B, s);
-  return dispatch<9>(xf, Ff, bs, tp, of, p, B, s);
+  const bool wide = choose_route(p, OT, route) == 2;
+  if (OT == 1) return wide ? dispatch<1, true>(xf, Ff, bs, tp, of, p, B, s) : dispatch<1, false>(xf, Ff, bs, tp, of, p, B, s);
+  return wide ? dispatch<9, true>(xf, Ff, bs, tp, of, p, B, s) : dispatch<9, false>(xf, Ff, bs, tp, of, p, B, s);
+}
+
+// The route (1 or 2, see above) that mt_disco_band_contract takes for these
+// sizes when asked for route 0 (or the one asked for), and in *smem the
+// bytes of shared memory a block of it takes.
+extern "C" int mt_disco_band_route(int G, int Gf, int IG, int OG, int BL, int WW, int a, int n_out, int route, long long* smem) {
+  if (G <= 0 || Gf <= 0 || IG <= 0 || OG <= 0 || BL <= 0 || WW <= 0 || a <= 0 || n_out <= 0 || route < 0 || route > 2) return -1;
+  Params p = {};
+  p.G = G, p.Gf = Gf, p.IG = IG, p.OG = OG, p.BL = BL, p.WW = WW, p.a = a, p.n_out = n_out;
+  const int OT = OG == 1 ? 1 : 9;
+  route = choose_route(p, OT, route);
+  const size_t bytes = OT == 1 ? (route == 2 ? smem_of<1, true>(p) : smem_of<1, false>(p)) : (route == 2 ? smem_of<9, true>(p) : smem_of<9, false>(p));
+  *smem = (long long)bytes;
+  return route;
 }

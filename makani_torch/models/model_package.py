@@ -34,8 +34,11 @@ class ModelWrapper:
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, zenith: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, T*C, H, W): a window of T states, oldest first (T = 1 without
+        history), each normalized with the per-channel stats."""
         if self.bias is not None:
-            x = (x - self.bias) / self.scale
+            reps = x.shape[1] // self.bias.shape[1]
+            x = (x - self.bias.repeat(1, reps, 1, 1)) / self.scale.repeat(1, reps, 1, 1)
         y = self.model(x, zenith, train=False)
         if self.out_bias is not None:
             y = y * self.out_scale + self.out_bias
@@ -62,41 +65,56 @@ def rollout(
 ) -> list:
     """Autoregressive rollout in physical units, recomputing the zenith angle
     for each step (counterpart of ``rollout`` in
-    ``examples/inference_model_package.py``). ``x0`` is (B, C, H, W) on the
-    model's device; returns the ``steps`` predictions.
+    ``examples/inference_model_package.py``). ``x0`` is (B, T*C, H, W) on the
+    model's device, T = n_history + 1 states oldest first, the newest at
+    ``base_time``; returns the ``steps`` predictions (B, C, H, W).
+
+    Each step feeds the window and, per state, its zenith angle (at its own
+    time, ``dhours`` apart) and noise fields; then the window slides, the
+    prediction appended and the oldest state dropped
+    (``Preprocessor2D.append_history``), as the JAX package's inferencer
+    steps a history window.
 
     With a noise module (``models.noise``), each of the B initial conditions
-    runs as ``ensemble_size`` members folded b-major into the batch, and each
-    step appends the noise fields after the zenith channel, drawn as the JAX
-    package's inferencer draws them (``utils/inference/inferencer.py``):
-    ``init_state`` before the first step, ``update`` before each later one,
-    ``sample`` every step, all from ``generator``. ``centered`` draws half the
-    members and gives each pair the fields +eta and -eta."""
+    runs as ``ensemble_size`` members folded b-major into the batch, and the
+    noise fields are drawn as the JAX package's inferencer draws them
+    (``utils/inference/inferencer.py``): a sequence of n_history + steps
+    fields, ``init_state`` for the first and ``update`` for each later one,
+    ``sample`` each, all from ``generator``; step s reads fields s to
+    s + n_history. ``centered`` draws half the members and gives each pair
+    the fields +eta and -eta."""
+    pre = wrapper.model.preprocessor
+    T = pre.n_history + 1
     lon2d, lat2d = np.meshgrid(lon, lat)
-    pred = x0
+    window = x0
     draw = state = None
+    fields: list = []
     if noise is not None:
-        pred = x0.repeat_interleave(ensemble_size, dim=0)
-        n = pred.shape[0]
+        window = x0.repeat_interleave(ensemble_size, dim=0)
+        n = window.shape[0]
         if centered and n % 2:
             raise ValueError(f"centered noise pairs members; {n} members is odd")
         draw = n // 2 if centered else n
         generator = generator if generator is not None else torch.Generator(x0.device).manual_seed(0)
     frames = []
     t = float(base_time)
-    for _ in range(steps):
+    dt = dhours * 3600.0
+    for step in range(steps):
         unp = None
         if needs_zenith:
-            z = cos_zenith_angle_from_timestamp(t, lon2d, lat2d).astype(np.float32)
-            unp = torch.from_numpy(z).to(x0.device)[None, None, None].expand(pred.shape[0], 1, 1, *z.shape)
+            z = np.stack([cos_zenith_angle_from_timestamp(t - (T - 1 - k) * dt, lon2d, lat2d) for k in range(T)]).astype(np.float32)
+            unp = torch.from_numpy(z).to(x0.device)[None, :, None].expand(window.shape[0], T, 1, *z.shape[1:])
         if noise is not None:
-            state = noise.init_state(generator, draw) if state is None else noise.update(state, generator)
-            eta = noise.sample(state)[:, 0]  # (draw, C_noise, H, W)
-            if centered:
-                eta = torch.stack([eta, -eta], dim=1).reshape(2 * draw, *eta.shape[1:])
-            eta = eta[:, None].to(x0.device)
+            while len(fields) < step + T:
+                state = noise.init_state(generator, draw) if state is None else noise.update(state, generator)
+                eta = noise.sample(state)[:, 0]  # (draw, C_noise, H, W)
+                if centered:
+                    eta = torch.stack([eta, -eta], dim=1).reshape(2 * draw, *eta.shape[1:])
+                fields.append(eta.to(x0.device))
+            eta = torch.stack(fields[step : step + T], dim=1)  # (members, T, C_noise, H, W)
             unp = eta if unp is None else torch.cat([unp, eta], dim=2)
-        pred = wrapper(pred, unp)
-        t += dhours * 3600.0
+        pred = wrapper(window, unp)
+        window = pre.append_history(window, pred, step)
+        t += dt
         frames.append(pred)
     return frames

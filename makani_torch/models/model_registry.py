@@ -2,8 +2,8 @@
 
 Derives the effective input/output channel counts from the config (history,
 zenith), builds the core network and wraps it with its preprocessor in the
-single- or multi-step wrapper. The SFNO and FCN3 are ported so far. The
-model is built on the card unless the caller names another device.
+single- or multi-step wrapper. The SFNO, FCN3 and FCN3.1 are ported so
+far. The model is built on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -29,7 +29,11 @@ def get_model_handle(nettype: str):
         from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
 
         return AtmoSphericNeuralOperatorNet
-    raise NotImplementedError(f"nettype {nettype!r} is not ported yet (only SFNO and FCN3)")
+    if nettype == "FCN3.1":
+        from makani_torch.models.networks.fourcastnet3_1 import AtmoSphericNeuralOperatorNet31
+
+        return AtmoSphericNeuralOperatorNet31
+    raise NotImplementedError(f"nettype {nettype!r} is not ported yet (only SFNO, FCN3 and FCN3.1)")
 
 
 def _noise_channels(params) -> int:
@@ -92,6 +96,11 @@ _MODEL_KEYS = (
     "atmo_embed_dim",
     "surf_embed_dim",
     "aux_embed_dim",
+    "pos_embed_dim",
+    "lmax",
+    "n_history",
+    "resample_sht",
+    "encoder_bias",
     "layer_scale",
     "clamp_water",
     "filter_basis_type",

@@ -68,10 +68,15 @@ class DiscoConv(nn.Module):
 
     The input is a (B, Hin, Win, R*in_channels) view of any strides; R > 1
     applies the conv to R stacked inputs with shared weights (the JAX
-    package's batch fold). Channel-grouped convs (g*og*ig <= 4096: the
-    encoders and decoders) take the weight-fused path; full-mixing convs (the
-    processor's) compute the basis responses (K5, K6) and mix them with one
-    fp32 GEMM (K8), inserting the mixed polar rows with an indexed add."""
+    package's batch fold). Small convs (g*og*ig <= 4096: FCN3's encoders and
+    decoders) take the weight-fused path; the others (FCN3's processor,
+    FCN3.1's encoders, decoders and processor) compute the basis responses
+    (K5, K6) and mix them with one fp32 GEMM (K8), inserting the mixed polar
+    rows with an indexed add. A grouped two-stage conv (FCN3.1's history
+    encoder, groups 2) does so group by group: each group's responses are
+    a buffer of their own, pixels ``RESPONSE_ALIGN`` floats apart, so K8
+    reads every group's rows 16 bytes at a time, and the groups' outputs
+    are concatenated on the channel axis."""
 
     def __init__(self, conv_op, in_channels: int, out_channels: int, groups: int = 1, use_bias: bool = False, gain: float = 1.0, device=None):
         super().__init__()
@@ -92,7 +97,7 @@ class DiscoConv(nn.Module):
         else:
             self.register_parameter("bias", None)
         self._filters = FusedFilterCache()
-        self._mix_planes = disco_kernels.MixPlanes()
+        self._mix_planes = [disco_kernels.MixPlanes() for _ in range(g)]
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -117,38 +122,44 @@ class DiscoConv(nn.Module):
             y = (y.reshape(*y.shape[:-1], -1, self.out_channels) + self.bias).reshape(y.shape)
         return y.to(dtype)
 
-    def _mix(self, t: torch.Tensor) -> torch.Tensor:
-        """t (..., C, K) fp32 -> (..., out_channels): ``bik,oik->bo``, one GEMM
-        (K8, or its plain version), reading t's rows through their pixel
+    def _mix(self, t: torch.Tensor, gi: int = 0) -> torch.Tensor:
+        """t (..., ig, K) fp32 -> (..., og): group gi's ``bik,oik->bo``, one
+        GEMM (K8, or its plain version), reading t's rows through their pixel
         stride (no copy)."""
-        w = self.weight.float().reshape(self.out_channels, -1)
+        og = self.out_channels // self.groups
+        w = self.weight[gi].float().reshape(og, -1)
         t2 = t.reshape(-1, w.shape[1])
-        y = disco_kernels.ChannelMix.apply(t2, w, self._mix_planes) if self.use_kernels else disco_kernels.channel_mix_plain(t2, w)
-        return y.reshape(*t.shape[:-2], self.out_channels)
+        y = disco_kernels.ChannelMix.apply(t2, w, self._mix_planes[gi]) if self.use_kernels else disco_kernels.channel_mix_plain(t2, w)
+        return y.reshape(*t.shape[:-2], og)
 
-    def _mix_polar(self, t_pol: torch.Tensor) -> torch.Tensor:
-        """t_pol (B, P, C, K, W) fp32 -> (B, P, W, out_channels), a
-        transposed view: ``oik,bpikw->bpow``, one batched GEMM that reads
-        t_pol in the irFFT's layout (no copy); the indexed add reads the
-        result through the view."""
+    def _mix_polar(self, t_pol: torch.Tensor, gi: int = 0) -> torch.Tensor:
+        """t_pol (B, P, ig, K, W) fp32 -> (B, P, W, og), a transposed view:
+        group gi's ``oik,bpikw->bpow``, one batched GEMM that reads t_pol in
+        the irFFT's layout (no copy); the indexed add reads the result
+        through the view."""
         B, P, C, K, W = t_pol.shape
-        w = self.weight.float().reshape(self.out_channels, C * K)
+        og = self.out_channels // self.groups
+        w = self.weight[gi].float().reshape(og, C * K)
         with fp32_exact():
-            y = torch.bmm(w.expand(B * P, self.out_channels, C * K), t_pol.reshape(B * P, C * K, W))
-        return y.view(B, P, self.out_channels, W).transpose(2, 3)
+            y = torch.bmm(w.expand(B * P, og, C * K), t_pol.reshape(B * P, C * K, W))
+        return y.view(B, P, og, W).transpose(2, 3)
 
     def _two_stage(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"the two-stage DISCO conv takes {self.in_channels} channels, got {x.shape[-1]}")
-        if self.groups != 1:
-            raise NotImplementedError("grouped two-stage DISCO convs are not ported yet (FCN3's processor mixes all channels)")
-        t, t_pol = self.conv_op.responses_cl(x, self.use_kernels)
-        y = self._mix(t)
-        del t
-        if t_pol is not None:
-            _, rows = self.conv_op.polar_index(x.device)
-            y.index_add_(1, rows, self._mix_polar(t_pol))
-        return y
+        g = self.groups
+        ig = self.in_channels // g
+        ys = []
+        for gi in range(g):
+            xg = x if g == 1 else x[..., gi * ig : (gi + 1) * ig]
+            t, t_pol = self.conv_op.responses_cl(xg, self.use_kernels)
+            y = self._mix(t, gi)
+            del t
+            if t_pol is not None:
+                _, rows = self.conv_op.polar_index(x.device)
+                y.index_add_(1, rows, self._mix_polar(t_pol, gi))
+            ys.append(y)
+        return ys[0] if g == 1 else torch.cat(ys, dim=-1)
 
 
 class DiscreteContinuousEncoder(nn.Module):

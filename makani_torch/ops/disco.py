@@ -38,7 +38,9 @@ once). The polar rows go through autograd: the gather, ``torch.fft``'s own
 backward (which doubles the interior modes of an rFFT), K6 with its
 transpose K13 (``disco_kernels.PolarPsiFirst``/``PolarMixFirst``), the
 column sampling and the indexed add. With ``use_kernels=False`` every
-step is a plain PyTorch op and autograd differentiates the plain forward.
+step is a plain PyTorch op: autograd differentiates the plain forward, but
+for the responses' banded part, whose backward is K12's plain version (the
+transposed conv), so that it keeps x and not the gathered band.
 
 Activations are channels-last here: ``responses_cl`` and ``fused_cl`` read a
 logical (B, H, W, C) view of any strides (an NCHW tensor is passed as its
@@ -501,6 +503,9 @@ def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_
         psi_band[p] = pb
         psi_polar_l.append(pf[:, polar_rows] if polar_rows else np.zeros((K, 0, BL, nlon_in)))
         bases[p] = base
+        if p == 0:
+            pf0 = pf  # the normalization's full-support tables (the JAX package evaluates them again)
+        del pf
 
     # basis normalization, measured on the full-support (phase 0) tables
     # (our conventions; they reparametrize the learned weights):
@@ -509,7 +514,6 @@ def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_
     #             (the quadrature-weighted psi evaluated at the grid nodes),
     #   "support" — unit mean support measure (quadrature mass of the
     #             nonzero set), "none" — raw basis values.
-    _, pf0, _ = build_tables(0)
     if basis_norm_mode in ("mean", "nodal", "support"):
         if basis_norm_mode == "mean":
             mass = np.abs(pf0).sum(axis=(2, 3)).mean(axis=1)
@@ -587,6 +591,10 @@ RESPONSE_ALIGN = 4
 # the fused conv's weight gradient makes the input's responses in chunks of
 # at most this many bytes
 _WGRAD_CHUNK_BYTES = 1 << 30
+
+# the responses' polar rows gather at most this many bytes of band rows at
+# once (and transform, contract and sample them) before the next run
+_POLAR_CHUNK_BYTES = 4 << 30
 
 
 class FusedFilterCache:
@@ -706,16 +714,19 @@ class DiscoConvS2:
             )
         return out
 
-    def _banded_grad(self, dout, F, dx, Gf, IG, OG):
-        """K12 of every phase into dx (B, Hin, Win, C) contiguous, the first
-        phase written, the others added."""
+    def _banded_grad(self, dout, F, dx, Gf, IG, OG, use_kernels=True):
+        """K12 (or its plain version) of every phase into dx (B, Hin, Win, C)
+        contiguous, the first phase written, the others added."""
         Wout = self.out_shape[1]
         b, a = self.phases, self.stride
         for p in range(b):
-            disco_kernels.band_contract_grad(
-                dout, F(p), self.band_start_table(dx.device), dx, taps=self.tap_table(p, dx.device), rows=self.grad_rows(p, dx.device), a=a,
-                off=int(self.bases[p]) - self.halo, n_out=Wout // b, phase=p, phases=b, Gf=Gf, IG=IG, OG=OG, accumulate=p > 0,
-            )
+            kw = dict(a=a, off=int(self.bases[p]) - self.halo, n_out=Wout // b, phase=p, phases=b, Gf=Gf, IG=IG, OG=OG, accumulate=p > 0)
+            if use_kernels:
+                disco_kernels.band_contract_grad(
+                    dout, F(p), self.band_start_table(dx.device), dx, taps=self.tap_table(p, dx.device), rows=self.grad_rows(p, dx.device), **kw
+                )
+            else:
+                disco_kernels.band_contract_grad_plain(dout, F(p), self.band_start_table(dx.device), dx, **kw)
         return dx
 
     def _fused_weight_grad(self, x, dy, w_shape):
@@ -756,13 +767,27 @@ class DiscoConvS2:
         n_h = Hout if n_b > 1 else max(1, min(Hout, _WGRAD_CHUNK_BYTES // per_row))
         return [(b0, min(B, b0 + n_b), h0, min(Hout, h0 + n_h)) for b0 in range(0, B, n_b) for h0 in range(0, Hout, n_h)]
 
-    def polar_bands(self, x):
-        """x (B, Hin, Win, C) view of any strides -> its polar band rows with
-        the longitude last, (B, P, BL, C, Win) contiguous: one transposing
-        gather (for an NCHW-backed view, nearly a plain one)."""
+    def polar_bands(self, x, r0: int = 0, r1: int | None = None):
+        """x (B, Hin, Win, C) view of any strides -> the band rows of polar
+        rows r0 .. r1 - 1 (all by default) with the longitude last,
+        (B, r1 - r0, BL, C, Win) contiguous: one transposing gather (for an
+        NCHW-backed view, nearly a plain one)."""
         band_rows, _ = self.polar_index(x.device)
+        r1 = len(self.polar_rows) if r1 is None else r1
         B, _, Win, C = x.shape
-        return torch.index_select(x.transpose(2, 3), 1, band_rows).view(B, len(self.polar_rows), self.BL, C, Win)
+        rows = band_rows[r0 * self.BL : r1 * self.BL]
+        return torch.index_select(x.transpose(2, 3), 1, rows).view(B, r1 - r0, self.BL, C, Win)
+
+    def polar_chunks(self, B: int, C: int) -> list:
+        """The (r0, r1) runs of polar rows that ``responses_cl`` takes at once
+        for B samples of C channels: all of them while their band rows fit
+        in ``_POLAR_CHUNK_BYTES``, else equal runs that do (FCN3.1's
+        decoders: 22.6 GB of band rows at 0.25 degrees in one piece)."""
+        P = len(self.polar_rows)
+        per_row = B * self.BL * C * self.in_shape[1] * 4
+        n = max(1, min(P, -(-P * per_row // _POLAR_CHUNK_BYTES)))
+        step = -(-P // n)
+        return [(r0, min(P, r0 + step)) for r0 in range(0, P, step)]
 
     def _sample_cols(self, corr, p, out):
         """Write phase p's columns u*a of a full-longitude correlation
@@ -797,22 +822,21 @@ class DiscoConvS2:
         B, Hin, Win, C = x.shape
         Hout, Wout = self.out_shape
         K = self.K
-        if use_kernels:
-            t = _BandResponses.apply(x, self)
-        else:
-            t = self.response_buffer(B, C, x.device)
-            self._banded(x, lambda p: self.band_filter(p, x.device), t, 1, 1, K, False)
-        t = t.view(B, Hout, Wout, C, K)
+        t = _BandResponses.apply(x, self, use_kernels).view(B, Hout, Wout, C, K)
         if not self.polar_rows:
             return t, None
         polar = disco_kernels.PolarPsiFirst.apply if use_kernels else disco_kernels.polar_psi_first_plain
-        X = torch.view_as_real(torch.fft.rfft(self.polar_bands(x), dim=-1))  # (B, P, BL, C, M, 2)
-        t_pol = None
-        for p in range(self.phases):
-            Y = polar(X, self.polar_table(p, x.device))  # (B, P, C, K, M, 2)
-            corr = torch.fft.irfft(torch.view_as_complex(Y), n=Win, dim=-1)  # (B, P, C, K, Win)
-            t_pol = self._sample_cols(corr, p, t_pol)
-        return t, t_pol
+        parts = []
+        for r0, r1 in self.polar_chunks(B, C):
+            X = torch.view_as_real(torch.fft.rfft(self.polar_bands(x, r0, r1), dim=-1))  # (B, Pc, BL, C, M, 2)
+            t_pol = None
+            for p in range(self.phases):
+                Y = polar(X, self.polar_table(p, x.device)[r0:r1])  # (B, Pc, C, K, M, 2)
+                corr = torch.fft.irfft(torch.view_as_complex(Y), n=Win, dim=-1)  # (B, Pc, C, K, Win)
+                t_pol = self._sample_cols(corr, p, t_pol)
+            parts.append(t_pol)
+            del X
+        return t, parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
     def fused_cl(self, x: torch.Tensor, w: torch.Tensor, use_kernels: bool = True, cache: FusedFilterCache | None = None) -> torch.Tensor:
         """Weight-fused DISCO conv, channels-last: x (B, Hin, Win, R*g*ig)
@@ -896,13 +920,16 @@ class DiscoConvS2:
 class _BandResponses(torch.autograd.Function):
     """The banded responses (K5 with psi, every phase) of x (B, Hin, Win, C),
     as ``DiscoConvS2.response_buffer``'s padded view; backward K12 in
-    responses mode, reading the gradient through its pixel stride."""
+    responses mode, reading the gradient through its pixel stride. With
+    ``use_kernels`` False, the plain versions of both (K5's grouped
+    ``conv1d`` and K12's ``conv_transpose1d``): the backward keeps x only,
+    not the conv1d's gathered band (tens of GB at FCN3.1's decoders)."""
 
     @staticmethod
-    def forward(ctx, x, conv):
-        ctx.conv, ctx.x_shape = conv, x.shape
+    def forward(ctx, x, conv, use_kernels=True):
+        ctx.conv, ctx.x_shape, ctx.use_kernels = conv, x.shape, use_kernels
         t = conv.response_buffer(x.shape[0], x.shape[-1], x.device)
-        return conv._banded(x, lambda p: conv.band_filter(p, x.device), t, 1, 1, conv.K, True)
+        return conv._banded(x, lambda p: conv.band_filter(p, x.device), t, 1, 1, conv.K, use_kernels)
 
     @staticmethod
     def backward(ctx, dt):
@@ -912,7 +939,7 @@ class _BandResponses(torch.autograd.Function):
         except ValueError:
             dt = dt.contiguous()
         dx = torch.empty(ctx.x_shape, dtype=torch.float32, device=dt.device)
-        return conv._banded_grad(dt, lambda p: conv.band_filter(p, dt.device), dx, 1, 1, conv.K), None
+        return conv._banded_grad(dt, lambda p: conv.band_filter(p, dt.device), dx, 1, 1, conv.K, ctx.use_kernels), None, None
 
 
 class _BandFused(torch.autograd.Function):

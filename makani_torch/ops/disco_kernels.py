@@ -42,8 +42,9 @@ transpose of K5 with respect to x, for one phase, added into dx (the VJP
 that JAX derives for ``DiscoConvS2.__call__`` and ``.fused``). It gathers:
 ``band_grad_rows`` lists, for each input row, the output latitudes whose
 band reads it through a live tap. Its plain version is the transposed
-grouped convolution (``conv_transpose1d``) on the band, scattered back to
-the input rows and columns with an indexed add.
+grouped convolution (``conv_transpose1d``) on the band, a run of output
+latitudes at a time, scattered back to the input rows and columns with an
+indexed add of whole channel rows.
 
 K13 (``polar_psi_first_grad`` / ``polar_mix_first_grad``, modes 2 and 3 of
 ``csrc/disco_polar.cu``): the transposes of K6, ``dX = sum_k dY Psi`` and
@@ -61,6 +62,8 @@ runs the plain version; on a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -70,6 +73,7 @@ from makani_torch.ops.precision import fp32_exact
 from makani_torch.ops.sht import tf32_split
 
 __all__ = [
+    "band_route",
     "band_contract",
     "band_contract_plain",
     "band_contract_grad",
@@ -171,7 +175,20 @@ def pixel_stride(out: torch.Tensor) -> int:
     return sO
 
 
-def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases, Gf, IG, OG):
+def band_route(G: int, Gf: int, IG: int, OG: int, BL: int, WW: int, a: int, n_out: int, route: int = 0) -> tuple[int, int]:
+    """The layout K5 takes for these sizes, (route, shared-memory bytes a
+    block): route 1 stages a latitude's whole filter once (BL <= 32 where two
+    blocks of it fit on an SM: every FCN3 conv), route 2 stages the filter
+    with each stage's band rows (FCN3.1's bands); ``route`` 0 asks for the
+    kernel's own choice, 1 or 2 for that layout."""
+    smem = ctypes.c_longlong(0)
+    got = kernels.library().mt_disco_band_route(G, Gf, IG, OG, BL, WW, a, n_out, route, ctypes.byref(smem))
+    if got < 0:
+        raise ValueError(f"disco_band: no route for G {G}, Gf {Gf}, IG {IG}, OG {OG}, BL {BL}, WW {WW}, a {a}, n_out {n_out}, route {route}")
+    return got, smem.value
+
+
+def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases, Gf, IG, OG, route: int = 0):
     """K5 on the card, the plain version on the CPU; writes
     ``out[:, :, phase::phases]`` and returns out.
 
@@ -180,7 +197,9 @@ def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases,
     OGp (1 for OG == 1, else a multiple of 9); band_start: int32 (Hout,);
     taps: int32 (Hout, BL, 2), the live run [lo, hi) of w of each (h, j),
     F zero outside it; out: float32 (B, Hout, Wout, G*OG), contiguous but
-    for its pixel stride (``pixel_stride``)."""
+    for its pixel stride (``pixel_stride``); ``route``: the layout
+    (``band_route``), 0 for the kernel's own choice. Any BL: a band wider
+    than 32 rows takes route 2."""
     if kernels.takes_plain("disco_band", x, F_, band_start, taps, out):
         return band_contract_plain(x, F_, band_start, out, taps=taps, a=a, off=off, n_out=n_out, phase=phase, phases=phases, Gf=Gf, IG=IG, OG=OG)
     _check_band_args(x, F_, out, Gf, IG, OG, taps)
@@ -199,7 +218,7 @@ def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases,
     with torch.cuda.device(x.device):
         err = lib.mt_disco_band_contract(
             x.data_ptr(), F_.data_ptr(), band_start.data_ptr(), taps.data_ptr(), out.data_ptr(), B, Hin, Win, sB, sH, sW, sC, Hout, Wout,
-            C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, sO, kernels.stream_ptr(x.device),
+            C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, sO, route, kernels.stream_ptr(x.device),
         )
     kernels.check_launch(err, "disco_band")
     kernels.count_launch("disco_band")
@@ -226,9 +245,9 @@ def band_contract_grad_plain(dout, F_, band_start, dx, *, a, off, n_out, phase, 
     """Plain K12: the transpose of ``band_contract_plain`` with respect to x
     for ``out[:, :, phase::phases] = dout[:, :, phase::phases]``, written
     (or, with ``accumulate``, added) into dx (B, Hin, Win, C) contiguous: a
-    grouped ``conv_transpose1d`` on the band, chunked over the channel axis,
-    scattered back to the band's rows and window columns with an indexed add.
-    ``taps`` and ``rows`` are not read."""
+    grouped ``conv_transpose1d`` on the band, chunked over the output
+    latitudes, scattered back to the band's rows and window columns with an
+    indexed add of whole channel rows. ``taps`` and ``rows`` are not read."""
     _check_band_args(dx, F_, dout, Gf, IG, OG)
     if not accumulate:
         dx.zero_()
@@ -239,19 +258,19 @@ def band_contract_grad_plain(dout, F_, band_start, dx, *, a, off, n_out, phase, 
     rows_ = (band_start.long()[:, None] + torch.arange(BL, device=dev)[None, :]).reshape(-1)  # (Hout*BL,)
     span = (n_out - 1) * a + WW
     cols = (off + torch.arange(span, device=dev)) % Win
-    flat = (rows_[:, None] * Win + cols[None, :]).reshape(-1)  # (Hout*BL*span,) input pixels, with repeats
     filt = F_[..., :OG].permute(0, 1, 5, 2, 3, 4).reshape(Hout * Gf * OG, IG * BL, WW)
-    step = max(1, _PLAIN_CHUNK_BYTES // (B * Hout * BL * span * Gf * IG * 4))
+    step = max(1, _PLAIN_CHUNK_BYTES // (B * C * BL * span * 4))
     src = dout[:, :, phase::phases][:, :, :n_out]
     dxf = dx.view(B, Hin * Win, C)
-    for r0 in range(0, R, step):
-        r1 = min(R, r0 + step)
-        Rc = r1 - r0
-        y = src[..., r0 * Gf * OG : r1 * Gf * OG].reshape(B, Hout, n_out, Rc, Gf, OG).permute(0, 3, 1, 4, 5, 2).reshape(B * Rc, Hout * Gf * OG, n_out)
+    for h0 in range(0, Hout, step):
+        h1 = min(Hout, h0 + step)
+        hc = h1 - h0
+        y = src[:, h0:h1].reshape(B, hc, n_out, R, Gf, OG).permute(0, 3, 1, 4, 5, 2).reshape(B * R, hc * Gf * OG, n_out)
         with fp32_exact():
-            gb = F.conv_transpose1d(y, filt, stride=a, groups=Hout * Gf)  # (B*Rc, Hout*Gf*IG*BL, span)
-        gb = gb.reshape(B, Rc, Hout, Gf, IG, BL, span).permute(0, 2, 5, 6, 1, 3, 4).reshape(B, Hout * BL * span, Rc * Gf * IG)
-        dxf[..., r0 * Gf * IG : r1 * Gf * IG].index_add_(1, flat, gb)
+            gb = F.conv_transpose1d(y, filt[h0 * Gf * OG : h1 * Gf * OG], stride=a, groups=hc * Gf)  # (B*R, hc*Gf*IG*BL, span)
+        gb = gb.reshape(B, R, hc, Gf, IG, BL, span).permute(0, 2, 5, 6, 1, 3, 4).reshape(B, hc * BL * span, C)
+        flat = (rows_[h0 * BL : h1 * BL, None] * Win + cols[None, :]).reshape(-1)  # input pixels, with repeats
+        dxf.index_add_(1, flat, gb)
     return dx
 
 

@@ -6,6 +6,9 @@
     python3 profile_step.py train     # the SFNO training step of bench.py (B=3)
     python3 profile_step.py fcn3-train  # the FCN3 recipe's ensemble-CRPS training step (B=1, E=4)
     python3 profile_step.py recipe    # the SFNO recipe's training step (721x1440, B=1)
+    python3 profile_step.py fcn31     # the FCN3.1 forecast step (fcn31_sc2_edim256_layers10, E=2)
+    python3 profile_step.py fcn31-history  # its history variant (a window of 2 states, E=2)
+    python3 profile_step.py fcn31-train  # the FCN3.1 recipe's ensemble-CRPS training step (361x720, B=1, E=4)
     python3 profile_step.py fcn3 --plain --out DIR
     python3 profile_step.py --trace build/profile/profile_fcn3_kernel.json
 
@@ -101,7 +104,7 @@ def copy_sources(trace_path: str, top: int = 10):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("model", choices=["fcn3", "sfno", "train", "fcn3-train", "recipe"], nargs="?")
+    ap.add_argument("model", choices=["fcn3", "sfno", "train", "fcn3-train", "recipe", "fcn31", "fcn31-history", "fcn31-train"], nargs="?")
     ap.add_argument("--plain", action="store_true", help="profile the plain PyTorch path instead of the kernels")
     ap.add_argument("--out", default="build/profile", help="directory for the Chrome trace")
     ap.add_argument("--trace", help="only attribute the copies of an existing trace")
@@ -110,7 +113,7 @@ def main() -> int:
         copy_sources(args.trace)
         return 0
     if args.model is None:
-        ap.error("name a model (fcn3, sfno, train, fcn3-train or recipe) or pass --trace")
+        ap.error("name a model (fcn3, sfno, train, fcn3-train, recipe, fcn31, fcn31-history or fcn31-train) or pass --trace")
     if not torch.cuda.is_available():
         print("profile_step: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -131,6 +134,28 @@ def main() -> int:
 
         def step():
             return wrapper(xm, unp)
+
+    elif args.model in ("fcn31", "fcn31-history"):
+        config = cs.FCN31_CONFIG if args.model == "fcn31" else cs.FCN31_HISTORY_CONFIG
+        params, model, wrapper, x0, noise = cs.build_fcn31(dev, config)
+        E = cs.FCN3_ENSEMBLE
+        xm = x0.repeat_interleave(E, dim=0)
+        unp = cs.first_unpredicted(params, noise, E, dev, 1.5e9, cs.SEED + 98)
+
+        def step():
+            return wrapper(xm, unp)
+
+    elif args.model == "fcn31-train":
+        from makani_torch.utils.training.ensemble_trainer import ensemble_train_step
+        from makani_torch.utils.training.optimizer import get_optimizer
+
+        params, model, loss_obj = cs.build_fcn31_train(dev)
+        opt = get_optimizer(params, model, cs.FCN3_STEPS_PER_EPOCH)
+        opt.use_kernels = loss_obj.loss_fns[0].use_kernels = not args.plain
+        inp, tar, unp = cs.fcn3_train_batch(dev, params)
+
+        def step():
+            return ensemble_train_step(model, loss_obj, opt, inp, tar, unp, cs.FCN3_TRAIN_ENSEMBLE)
 
     elif args.model == "train":
         from makani_torch.utils.training.deterministic_trainer import train_step

@@ -1102,3 +1102,155 @@ def test_small_fcn3_train_step_kernel_path_matches_plain(cuda):
         assert (grads[0][n] - grads[1][n]).abs().max() <= 1e-4 * grads[1][n].abs().max(), n
     for name in ("disco_band_grad", "disco_polar_grad", "resample_grad", "crps", "disco_mix"):
         assert kernels.LAUNCHES[name] > 0, name
+
+
+# FCN3.1: bands wider than 32 rows (the lmax cutoff), K 7 (the harmonic and
+# fourier-bessel bases), grouped two-stage convs
+
+
+def _wide_conv(in_shape, out_shape, cutoff, grid_out="equiangular"):
+    return DiscoConvS2(in_shape, out_shape, (3, 3), basis_type="harmonic", basis_norm_mode="nodal", grid_out=grid_out, theta_cutoff=cutoff)
+
+
+# band rows BL ~40 (91x180 at 0.69 rad) and ~73 (145x288 at 0.785 rad; and
+# to 72x144 at stride 2, as FCN3.1's encoder), K 7
+WIDE_BANDS = {
+    "bl40": ((91, 180), (91, 180), 0.69, "equiangular"),
+    "bl73": ((145, 288), (145, 288), 0.785, "equiangular"),
+    "bl73-stride2": ((145, 288), (72, 144), 0.785, "legendre-gauss"),
+}
+
+
+def _band_routes(conv, x, F_, Gf, IG, OG, Cout, dev):
+    """K5 by its own route, by each layout that fits, and the plain version:
+    {route: out}."""
+    Hout, Wout = conv.out_shape
+    kw = dict(taps=conv.tap_table(0, dev), a=conv.stride, off=int(conv.bases[0]) - conv.halo, n_out=Wout, phase=0, phases=1, Gf=Gf, IG=IG, OG=OG)
+    outs = {}
+    for route in (0, 1, 2):
+        if route:
+            _, smem = disco_kernels.band_route(x.shape[-1] // IG, Gf, IG, OG, conv.BL, conv.WW, conv.stride, Wout, route)
+            if smem > 227 * 1024:
+                continue
+        out = torch.full((x.shape[0], Hout, Wout, Cout), float("nan"), device=dev)
+        outs[route] = disco_kernels.band_contract(x, F_, conv.band_start_table(dev), out, route=route, **kw)
+    out = torch.full((x.shape[0], Hout, Wout, Cout), float("nan"), device=dev)
+    outs["plain"] = disco_kernels.band_contract_plain(x, F_, conv.band_start_table(dev), out, **kw)
+    return outs
+
+
+@pytest.mark.parametrize("C", [37, 130])
+@pytest.mark.parametrize("band", list(WIDE_BANDS))
+def test_disco_band_kernel_takes_wide_bands(cuda, band, C):
+    """K5 at BL > 32 in responses mode (K 7, OG padded to 9) and fused mode
+    (the aux encoder's g 2 x og 16 x ig 9 and a 3 x 2 x 4 grouping): its
+    own route is route 2, whose sums keep the dense (i, j, w) order, so its
+    finite outputs are bit-equal to the plain version's and to route 1's
+    where route 1 fits."""
+    in_shape, out_shape, cutoff, grid_out = WIDE_BANDS[band]
+    conv = _wide_conv(in_shape, out_shape, cutoff, grid_out)
+    assert conv.BL > 32 and conv.K == 7 and conv.phases == 1
+    cases = [(C, lambda: conv.band_filter(0, cuda), 1, 1, conv.K, C * conv.K)]
+    for g, og, ig in ((2, 16, 9), (3, 2, 4)):
+        w = 0.2 * _randn((g, og, ig, conv.K), torch.float32, cuda, seed=1)
+        cases.append((g * ig, lambda w=w: FusedFilterCache().get(conv, w, 0), g, ig, og, g * og))
+    for Cin, F_, Gf, IG, OG, Cout in cases:
+        x = _randn((2, Cin, *in_shape), torch.float32, cuda).permute(0, 2, 3, 1)
+        route, _ = disco_kernels.band_route(Cin // IG, Gf, IG, OG, conv.BL, conv.WW, conv.stride, out_shape[1])
+        assert route == 2
+        kernels.reset_launch_counts()
+        outs = _band_routes(conv, x, F_(), Gf, IG, OG, Cout, cuda)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["disco_band"] == len(outs) - 1
+        ref = outs.pop("plain")
+        assert torch.isfinite(ref).all()
+        for r, out in outs.items():
+            assert torch.equal(out, ref), (r, (out - ref).abs().max().item())
+
+
+def test_disco_band_route_1_unchanged_at_fcn3_bands(cuda):
+    """At FCN3's bands (BL <= 32) K5 takes route 1 as before, and route 2
+    gives the same bits."""
+    conv = DiscoConvS2((24, 48), (24, 48), (3, 3), basis_type="morlet th", basis_norm_mode="mean")
+    x = _randn((2, 130, 24, 48), torch.float32, cuda).permute(0, 2, 3, 1)
+    assert disco_kernels.band_route(130, 1, 1, conv.K, conv.BL, conv.WW, 1, 48)[0] == 1
+    outs = _band_routes(conv, x, conv.band_filter(0, cuda), 1, 1, conv.K, 130 * conv.K, cuda)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.parametrize("band", ["bl40", "bl73-stride2"])
+def test_disco_band_grad_kernel_at_k7_wide_bands(cuda, band):
+    """K12 (the generic gather at K 7) at BL > 32, responses mode reading
+    the padded layout, and fused mode."""
+    in_shape, out_shape, cutoff, grid_out = WIDE_BANDS[band]
+    conv = _wide_conv(in_shape, out_shape, cutoff, grid_out)
+    dx, ref = _band_grad_both(conv, _padded_responses(conv, 37, cuda), lambda p: conv.band_filter(p, cuda), 37, 1, 1, conv.K, cuda)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
+    w = 0.2 * _randn((2, 16, 9, conv.K), torch.float32, cuda, seed=1)
+    cache = FusedFilterCache()
+    dx, ref = _band_grad_both(conv, _randn((2, *out_shape, 32), torch.float32, cuda), lambda p: cache.get(conv, w, p), 18, 2, 9, 16, cuda)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
+
+
+@pytest.mark.parametrize("BL", [40, 74])
+@pytest.mark.parametrize("order", ["psi_first", "mix_first"])
+def test_disco_polar_kernels_at_k7_wide_bands(cuda, order, BL):
+    """K6 and K13 at K 7 with BL > 32 (a Psi tile of up to 74 x 7 x 32
+    modes: 132 KB of shared memory), 77 channels, 91 modes."""
+    K, M, C = 7, 91, 77
+    Pt = _randn((3, BL, K, M, 2), torch.float32, cuda, seed=1)
+    if order == "psi_first":
+        src = _randn((2, 3, BL, C, M, 2), torch.float32, cuda)
+        fwd, fwd_plain = disco_kernels.polar_psi_first, disco_kernels.polar_psi_first_plain
+        dY = _randn((2, 3, C, K, M, 2), torch.float32, cuda, seed=2)
+        bwd, bwd_plain = disco_kernels.polar_psi_first_grad, disco_kernels.polar_psi_first_grad_plain
+    else:
+        src = _randn((2, 3, BL, C, K, M, 2), torch.float32, cuda)
+        fwd, fwd_plain = disco_kernels.polar_mix_first, disco_kernels.polar_mix_first_plain
+        dY = _randn((2, 3, C, M, 2), torch.float32, cuda, seed=2)
+        bwd, bwd_plain = disco_kernels.polar_mix_first_grad, disco_kernels.polar_mix_first_grad_plain
+    kernels.reset_launch_counts()
+    out, grad = fwd(src, Pt), bwd(dY, Pt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["disco_polar"] == 1 and kernels.LAUNCHES["disco_polar_grad"] == 1
+    assert _agree(out, fwd_plain(src, Pt), torch.float32) and _agree(grad, bwd_plain(dY, Pt), torch.float32)
+
+
+@pytest.mark.parametrize("R,D,N", [(1000, 511, 128), (1000, 1792, 73), (1000, 1960, 280)])
+def test_disco_mix_kernel_at_fcn31_widths(cuda, R, D, N):
+    """K8 at FCN3.1's depths and widths: a history-encoder group (73 x 7 =
+    511, to 128), the decoder (256 x 7, to 73), the processor (280 x 7)."""
+    test_disco_mix_kernel_matches_plain(cuda, R, D, N)
+
+
+def test_grouped_two_stage_disco_conv_kernel_path(cuda):
+    """A grouped two-stage DiscoConv (groups 2 of 73 -> 128 channels, the
+    history encoder's groups, at stride 2 with polar rows), kernels against
+    the plain path, forward and the gradients of x and the weight: each
+    group's responses K5 (padded to 512 floats a pixel), K6, K8, and in the
+    backward K12, K13 and K8's GEMMs."""
+    from makani_torch.models.networks.fourcastnet3 import DiscoConv
+
+    conv_op = _wide_conv((145, 288), (72, 144), 0.2, "legendre-gauss")
+    conv = DiscoConv(conv_op, 146, 256, groups=2, device=cuda)
+    assert not conv.fused and conv_op.polar_rows
+    x0 = _randn((2, 145, 288, 146), torch.float32, cuda)
+    dy = _randn((2, 72, 144, 256), torch.float32, cuda, seed=1)
+    res = []
+    for use in (True, False):
+        kernels.set_use_kernels(conv, use)
+        kernels.reset_launch_counts()
+        x = x0.clone().requires_grad_()
+        conv.weight.grad = None
+        y = conv(x)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        if use:
+            counts = dict(kernels.LAUNCHES)
+        res.append((y.detach(), x.grad, conv.weight.grad.clone()))
+    assert counts["disco_band"] == 2 and counts["disco_mix"] == 2 and counts["disco_polar"] == 2
+    assert counts["disco_band_grad"] == 2 and counts["disco_polar_grad"] == 2
+    for a, b in zip(*res):
+        assert _agree(a, b, torch.float32)
