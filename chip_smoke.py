@@ -48,8 +48,7 @@ each fatal on failure:
     K7 2, K1 2, K3 2, K2 3);
 11. run step 1 through the plain versions on the card and compare, in bf16
     and with fp32 compute on the same weights;
-12. time an ensemble forecast step on both paths (the plain path one step
-    after its warm-up) and report peak memory.
+12. time an ensemble forecast step on both paths and report peak memory.
 
  The SFNO training step (slice 3):
 13. build bench.py's training configuration (:97-123: 361x720, scale 3,
@@ -107,7 +106,7 @@ each fatal on failure:
     it does not wait for the card) on the repeated batch through the
     kernels: check every kernel's launches per step, each step's learning
     rate against the schedule, and that the loss is finite and falls below
-    its first value; then 1 + 3 steps on the plain path, whose losses the
+    its first value; then 1 + 5 steps on the plain path, whose losses the
     kernel path's must match step by step (relative 3e-2); print ms per
     step, samples (members) per second, peak memory, the learning rate
     and the global norm per step of both.
@@ -146,11 +145,11 @@ each fatal on failure:
     centered pair (E=2); print every DISCO conv's band (BL rows of WW
     longitudes) and K5's route for it;
 26. compare its kernels with their plain versions at its shapes: K5 in
-    responses mode at the unified encoder (BL 48), the processor (BL 25;
-    both of K5's routes timed there) and the decoder (BL 49), in fused mode
-    at the aux encoder, K6 at the same convs, K8 at the two-stage convs (D =
-    511, 1960, 1792), K7 at the decoder, K1-K3 at the internal grid; the
-    full-resolution plain versions run once each;
+    responses mode at the unified encoder (BL 48), the processor (BL 25)
+    and the decoder (BL 49), in fused mode at the aux encoder, K6 at the
+    same convs, K8 at the two-stage convs (D = 511, 1960, 1792), K7 at the
+    decoder, K1-K3 at the internal grid; the full-resolution plain versions
+    of K5 run once each (``run_cases(plain_once=True)``);
 27. roll the ensemble out for 4 steps (``ModelWrapper`` + ``rollout``) and
     check the frames and the launch counts, computed from the model's convs;
 28. run step 1 once through the plain path and compare (bf16), and time the
@@ -510,13 +509,12 @@ def randn(shape, dtype, gen, device):
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dtype)
 
 
-def run_cases(cases, card, results, iters=10, warmup=2, plain_iters=None, plain_warmup=None):
+def run_cases(cases, card, results, iters=10, warmup=2, plain_once=False):
     """Each case: (name, label, dtype, kernel fn, plain fn, extras fn or
     None). The kernel runs once and is held to its plain version on the same
-    inputs; both are timed (the plain version ``plain_iters`` times after
-    ``plain_warmup``, by default as the kernel; ``plain_iters`` 0 times the
-    comparison's call, for plain versions that take seconds); extras(out)
-    adds the bound and the library yardstick."""
+    inputs; both are timed (``plain_once``: the plain version by the
+    comparison's own call alone, one cold sample, for plain versions that
+    take seconds); extras(out) adds the bound and the library yardstick."""
     for name, label, dtype, kern, plain, extras in cases:
         out = kern()
         torch.cuda.synchronize()
@@ -525,7 +523,6 @@ def run_cases(cases, card, results, iters=10, warmup=2, plain_iters=None, plain_
         ref = plain()
         e.record()
         torch.cuda.synchronize()
-        first_plain_ms = s.elapsed_time(e)
         if out.shape != ref.shape or out.dtype != ref.dtype:
             raise RuntimeError(f"{name} {label} {dtype}: kernel gave {tuple(out.shape)} {out.dtype}, plain {tuple(ref.shape)} {ref.dtype}")
         err = errors(out, ref)
@@ -536,10 +533,7 @@ def run_cases(cases, card, results, iters=10, warmup=2, plain_iters=None, plain_
         del out
         torch.cuda.empty_cache()
         ms = time_ms(kern, iters, warmup)
-        if plain_iters == 0:
-            plain_ms = first_plain_ms
-        else:
-            plain_ms = time_ms(plain, plain_iters or iters, warmup if plain_warmup is None else plain_warmup)
+        plain_ms = s.elapsed_time(e) if plain_once else time_ms(plain, iters, warmup)
         ok = within(err, dtype)
         dt = str(dtype).replace("torch.", "")
         more = "".join(f", {k} {extra[k]:.3f} ms" for k in ("bound_ms", "fma_bound_ms", "tc_bound_ms", "two_read_ms", "library_ms") if extra.get(k) is not None)
@@ -549,7 +543,7 @@ def run_cases(cases, card, results, iters=10, warmup=2, plain_iters=None, plain_
         print(
             f"kernel {name:13s} {label:17s} {dt:8s} out {shape}: max|d| {err['max_abs_err']:.3e} "
             f"max|d|/max|ref| {err['max_rel']:.3e} relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{more}  [{card}]",
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{' (one cold call)' if plain_once else ''}{more}  [{card}]",
             flush=True,
         )
         if not ok:
@@ -736,20 +730,19 @@ def small_model_check(dev):
         raise RuntimeError(f"small SFNO kernel path disagrees with the plain path: {err}")
 
 
-def time_steps(model, step, card, label, rounds=2, plain_steps=3):
-    """Step latency of both paths, in turns (kernel, plain) ``rounds`` times,
-    each turn a warm-up step then 3 steps (``plain_steps`` on the plain
-    path), and peak memory; CUDA events around each step."""
+def time_steps(model, step, card, label):
+    """Step latency of both paths, in turns (kernel, plain, kernel, plain),
+    and peak memory; CUDA events around each step."""
     from makani_torch import kernels
 
     times = {"kernel": [], "plain": []}
     peaks = {}
-    for path in ("kernel", "plain") * rounds:
+    for path in ("kernel", "plain", "kernel", "plain"):
         kernels.set_use_kernels(model, path == "kernel")
         step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(3 if path == "kernel" else plain_steps):
+        for _ in range(3):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             step()
@@ -853,15 +846,13 @@ def build_fcn3(dev, compute_dtype=None, with_noise=True):
     return params, model, ModelWrapper(model, bias=bias, scale=scale), x0, noise
 
 
-def band_case(op, x, F_, Gf, IG, OG, label, library=False, padded=False, routes=False):
+def band_case(op, x, F_, Gf, IG, OG, label, library=False, padded=False):
     """A K5 case on x with the op's tables; extras count the nonzero filter
     taps (the work this data needs) and time one grouped conv1d on the
     pre-gathered band (the library yardstick). ``padded``: the output's
     pixels lie a multiple of 4 floats apart, as the processor's responses
     (``DiscoConvS2.responses_cl``). The route the kernel takes (its shared
-    memory layout, ``disco_kernels.band_route``) is reported; ``routes``:
-    the other route too, where it fits, timed and held bit for bit to the
-    kernel's own."""
+    memory layout, ``disco_kernels.band_route``) is reported."""
     from makani_torch.ops import disco_kernels
     from makani_torch.ops.disco import RESPONSE_ALIGN
     from makani_torch.ops.precision import fp32_exact
@@ -893,17 +884,6 @@ def band_case(op, x, F_, Gf, IG, OG, label, library=False, padded=False, routes=
                 f"dead latitudes {dead.numel()} of {Hout} (polar rows {len(op.polar_rows)}, equal: {dead.tolist() == list(op.polar_rows)}), +0 there")
         route, smem = disco_kernels.band_route(C // IG, Gf, IG, OG, op.BL, op.WW, op.stride, Wout // op.phases)
         live += f"; route {route} ({smem / 1024:.1f} KB of shared memory a block)"
-        if routes:
-            other = 3 - route
-            _, smem2 = disco_kernels.band_route(C // IG, Gf, IG, OG, op.BL, op.WW, op.stride, Wout // op.phases, other)
-            if smem2 <= 227 * 1024:
-                alt = lambda: run(lambda *a, **k: disco_kernels.band_contract(*a, route=other, **k))
-                same = torch.equal(alt(), out)
-                live += f"; route {other} ({smem2 / 1024:.1f} KB): {time_ms(alt, 3, 1):.3f} ms, {'bit-equal' if same else 'DIFFERS'}"
-                if not same:
-                    raise RuntimeError(f"{label}: K5's routes 1 and 2 disagree")
-            else:
-                live += f"; route {other} needs {smem2 / 1024:.1f} KB: does not fit"
         res = dict(bound(flops, nbytes(x, F_[..., :OG], bs, out), torch.float32), library_ms=None, nnz_fraction=nnz / F_[..., :OG].numel(), live=live)
         if library:
             # grouped conv1d over the gathered band rows, a group per output
@@ -1222,8 +1202,7 @@ def fcn3_phases(dev, card):
         raise RuntimeError(f"FCN3 fp32 kernel path disagrees with the plain path: {err}")
     del model32, wrapper32
     torch.cuda.empty_cache()
-    # the plain path takes ~9.4 s a step: one turn, one step after its warm-up
-    time_steps(model, lambda: wrapper(xm, unp), card, f"FCN3 ensemble forecast (E={FCN3_ENSEMBLE})", rounds=1, plain_steps=1)
+    time_steps(model, lambda: wrapper(xm, unp), card, f"FCN3 ensemble forecast (E={FCN3_ENSEMBLE})")
     return kres, launches
 
 
@@ -1932,7 +1911,7 @@ def check_fcn3_train_kernels(dev, card, params, model, loss_obj, batch):
     torch.cuda.empty_cache()
     mix_grad_times(conv, BE, card)
     # K16 and K17 on the model's parameters with one step's gradients
-    _, grads = fcn3_grads(model, loss_obj, batch)
+    _, grads, _ = fcn3_grads(model, loss_obj, batch)
     grads = [grads[n] for n, _ in model.named_parameters()]
     results.update(optimizer_cases(card, model, grads, params, FCN3_STEPS_PER_EPOCH, "fcn3-recipe"))
     del grads
@@ -1953,11 +1932,12 @@ def fcn3_grads(model, loss_obj, batch):
     from makani_torch.utils.training.ensemble_trainer import fold_ensemble
 
     inp, tar, unp = batch
-    loss = loss_obj(fold_ensemble(model(inp, unp, train=True), FCN3_TRAIN_ENSEMBLE), tar, train=True)
+    pred = model(inp, unp, train=True)
+    loss = loss_obj(fold_ensemble(pred, FCN3_TRAIN_ENSEMBLE), tar, train=True)
     loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    return loss.item(), grads
+    return loss.item(), grads, pred.detach()
 
 
 def compare_fcn3_train_steps(dev, card, batch):
@@ -1975,23 +1955,21 @@ def compare_fcn3_train_steps(dev, card, batch):
     plain, plain_loss = copy.deepcopy(model), copy.deepcopy(loss_obj)
     kernels.set_use_kernels(plain, False)
     plain_loss.loss_fns[0].use_kernels = False
-    inp, tar, unp = batch
-    with torch.no_grad():
-        pk = model(inp, unp, train=True)
-        pp = plain(inp, unp, train=True)
-    err = errors(pk, pp)
-    wgt = crps_order_weight(fold_ensemble(pk, FCN3_TRAIN_ENSEMBLE), fold_ensemble(pp, FCN3_TRAIN_ENSEMBLE), tar)
-    del pk, pp
+    tar = batch[1]
     t0 = time.perf_counter()
-    lk, gk = fcn3_grads(model, loss_obj, batch)
+    lk, gk, pk = fcn3_grads(model, loss_obj, batch)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    lp, gp = fcn3_grads(plain, plain_loss, batch)
+    lp, gp, pp = fcn3_grads(plain, plain_loss, batch)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    # the forecasts of the gradients' own forwards
+    err = errors(pk, pp)
+    wgt = crps_order_weight(fold_ensemble(pk, FCN3_TRAIN_ENSEMBLE), fold_ensemble(pp, FCN3_TRAIN_ENSEMBLE), tar)
+    del pk, pp
     worst = max((((gk[n].float() - gp[n].float()).norm() / gp[n].float().norm()).item(), n) for n in gp)
     ok = abs(lk - lp) <= MODEL_BF16_REL_L2 * abs(lp) and worst[0] <= TRAIN_GRAD_BF16_REL_L2 and err["rel_l2"] <= MODEL_BF16_REL_L2
     print(f"FCN3 training step (bfloat16 compute, full width, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}), kernel path vs plain path: forecast relL2 "
@@ -2060,11 +2038,10 @@ def fcn3_train_phases(dev, card):
     if launches != expected:
         raise RuntimeError(f"FCN3 training launch counts {launches} != expected {expected}")
     members = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
-    # the plain path (~12 s a step) takes 1 + TRAIN_PLAIN_STEPS steps, held to the kernel path's first ones
-    p_losses, p_times, p_peak, _, p_lrs, p_norms = time_fcn3_train(dev, card, batch, False, TRAIN_PLAIN_STEPS)[:6]
+    p_losses, p_times, p_peak, _, p_lrs, p_norms = time_fcn3_train(dev, card, batch, False, TRAIN_STEPS)[:6]
     for label, ls, ts, pk, lr_, nm in (("kernel", losses, times, peak, lrs, norms), ("plain", p_losses, p_times, p_peak, p_lrs, p_norms)):
         med = statistics.median(ts[1:])
-        print(f"FCN3 recipe training step ({label} path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {len(ts) - 1} "
+        print(f"FCN3 recipe training step ({label} path, bf16, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}): median {med:.2f} ms over {TRAIN_STEPS} "
               f"steps after a warm-up {[round(t, 2) for t in ts]}, {members / med * 1e3:.3f} samples/s (members), peak memory {pk / 2**30:.2f} GiB; "
               f"loss per step {[round(v, 6) for v in ls]}; lr per step {[f'{v:.6e}' for v in lr_]}; grad norm per step {[round(v, 4) for v in nm]}  "
               f"[{card}]", flush=True)
@@ -2073,7 +2050,7 @@ def fcn3_train_phases(dev, card):
     # forward reads the weights that the previous step's optimizer wrote)
     if not all(math.isfinite(v) for v in losses) or not min(losses[1:]) < losses[0]:
         raise RuntimeError(f"FCN3 training loss not finite or not falling over {TRAIN_STEPS} steps: {losses}")
-    if lrs[: len(p_lrs)] != p_lrs or lrs != [get_schedule(params, FCN3_STEPS_PER_EPOCH)(k) for k in range(n)]:
+    if lrs != p_lrs or lrs != [get_schedule(params, FCN3_STEPS_PER_EPOCH)(k) for k in range(n)]:
         raise RuntimeError(f"FCN3 recipe learning rates {lrs} (plain path {p_lrs}) are not the schedule's")
     if not all(abs(a - b) <= MODEL_BF16_REL_L2 * abs(b) for a, b in zip(losses, p_losses)):
         raise RuntimeError(f"FCN3 training losses of the kernel path {losses} and the plain path {p_losses} part")
@@ -2503,43 +2480,6 @@ def forecast_noise(params):
     return _NOISE[key]
 
 
-class HostTables:
-    """The FCN3.1 paths' host-side tables (the DISCO psi tables of every
-    conv, 40-60 s each forecast config, and the Legendre tables), built on
-    the CPU in a background thread while the earlier phases hold the card:
-    a CPU-built model (``get_model(..., device="cpu")``) fills the same
-    caches (``ops.disco._precompute_psi``, ``sfnonet._TRANSFORM_CACHE``)
-    that the card's models then read. ``join`` waits and re-raises the
-    thread's error."""
-
-    def __init__(self):
-        import threading
-
-        self.error = None
-        self.seconds = None
-        self.thread = threading.Thread(target=self._build, daemon=True)
-        self.thread.start()
-
-    def _build(self):
-        from makani_torch.models.model_registry import get_model
-        from makani_torch.utils.yparams import ParamsBase
-
-        t0 = time.perf_counter()
-        try:
-            for config in (FCN31_CONFIG, FCN31_HISTORY_CONFIG):
-                get_model(fcn31_params(config), multistep=True, device="cpu")
-            get_model(ParamsBase(fcn31_train_config()), multistep=True, device="cpu")
-        except BaseException as e:  # re-raised by join
-            self.error = e
-        self.seconds = time.perf_counter() - t0
-
-    def join(self):
-        self.thread.join()
-        if self.error is not None:
-            raise RuntimeError("building the FCN3.1 host tables failed") from self.error
-        print(f"FCN3.1 host tables built in the background in {self.seconds:.1f} s", flush=True)
-
-
 def fcn31_params(config, compute_dtype=None):
     from makani_torch.utils.yparams import YParams
 
@@ -2643,7 +2583,6 @@ def check_fcn31_kernels(dev, card, net, noise, B, tag):
     gen = torch.Generator(dev).manual_seed(SEED + 15)
     H, W = net.inp_shape
     results = {}
-    slow = dict(plain_iters=0)
     for name, conv, n_in in fcn31_convs(net):
         op = conv.conv_op
         label = f"{tag}-{name}"
@@ -2659,8 +2598,8 @@ def check_fcn31_kernels(dev, card, net, noise, B, tag):
         else:
             ig = conv.in_channels // g
             xg = xo[..., :ig]  # one group's channels (the history encoder's groups are alike)
-            run_cases([band_case(op, xg, op.band_filter(0, dev), 1, 1, op.K, label, library=name == "processor", padded=True, routes=True)], card, results,
-                      3, 1, **({} if name == "processor" else slow))
+            run_cases([band_case(op, xg, op.band_filter(0, dev), 1, 1, op.K, label, library=name == "processor", padded=True)], card, results,
+                      3, 1, plain_once=name != "processor")
             # K6 on the first run of polar rows (the whole of them but at the decoder)
             r0, r1 = op.polar_chunks(B, ig)[0]
             X = torch.view_as_real(torch.fft.rfft(op.polar_bands(xg, r0, r1), dim=-1))
@@ -2858,7 +2797,6 @@ def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
     BE = FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE
     gen = torch.Generator(dev).manual_seed(SEED + 16)
     results = {}
-    slow = dict(plain_iters=0)
     for name, conv, n_in in fcn31_convs(net):
         if name not in ("processor", "decoder"):
             continue
@@ -2867,11 +2805,11 @@ def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
         label = f"fcn31-train-{name}"
         dt = op.response_buffer(BE, C, dev)
         dt.copy_(randn(dt.shape, torch.float32, gen, dev))
-        run_cases([band_grad_case(op, dt, op.band_filter(0, dev), C, 1, 1, K, label, library=name == "processor")], card, results, 3, 1, **slow)
+        run_cases([band_grad_case(op, dt, op.band_filter(0, dev), C, 1, 1, K, label, library=name == "processor")], card, results, 3, 1, plain_once=True)
         del dt
         torch.cuda.empty_cache()
         x = randn((BE, *op.in_shape, C), torch.float32, gen, dev)
-        run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, K, label, padded=True, routes=name == "processor")], card, results, 3, 1, **slow)
+        run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, K, label, padded=True)], card, results, 3, 1, plain_once=True)
         del x
         torch.cuda.empty_cache()
         M = op.in_shape[1] // 2 + 1
@@ -2914,7 +2852,7 @@ def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
     ], card, results, 3, 1)
     del xf, c2, xs
     torch.cuda.empty_cache()
-    _, grads = fcn3_grads(model, loss_obj, batch)
+    _, grads, _ = fcn3_grads(model, loss_obj, batch)
     grads = [grads[n] for n, _ in model.named_parameters()]
     results.update(optimizer_cases(card, model, grads, params, FCN3_STEPS_PER_EPOCH, "fcn31-recipe"))
     del grads
@@ -2952,15 +2890,13 @@ def fcn31_train_phases(dev, card):
     kernels.set_use_kernels(plain, False)
     plain_loss.loss_fns[0].use_kernels = False
     inp, tar, unp = batch
-    with torch.no_grad():
-        pk = model(inp, unp, train=True)
-        pp = plain(inp, unp, train=True)
+    lk, gk, pk = fcn3_grads(model, loss_obj, batch)
+    lp, gp, pp = fcn3_grads(plain, plain_loss, batch)
+    torch.cuda.synchronize()
+    # the forecasts of the gradients' own forwards
     err = errors(pk, pp)
     wgt = crps_order_weight(fold_ensemble(pk, FCN3_TRAIN_ENSEMBLE), fold_ensemble(pp, FCN3_TRAIN_ENSEMBLE), tar)
     del pk, pp
-    lk, gk = fcn3_grads(model, loss_obj, batch)
-    lp, gp = fcn3_grads(plain, plain_loss, batch)
-    torch.cuda.synchronize()
     worst = max((((gk[n].float() - gp[n].float()).norm() / gp[n].float().norm().clamp_min(1e-30)).item(), n) for n in gp)
     ok = abs(lk - lp) <= MODEL_BF16_REL_L2 * abs(lp) and worst[0] <= TRAIN_GRAD_BF16_REL_L2 and err["rel_l2"] <= MODEL_BF16_REL_L2
     print(f"FCN3.1 training step (bfloat16 compute, B={FCN3_TRAIN_BATCH} E={FCN3_TRAIN_ENSEMBLE}), kernel path vs plain path: forecast relL2 "
@@ -3048,7 +2984,6 @@ def main() -> int:
     PTXAS[:] = ptxas_lines(so.with_suffix(".log").read_text())
     for line in PTXAS:
         print("  ptxas:", line)
-    host_tables = HostTables()
 
     t0 = time.perf_counter()
     sfno_res, sfno_launches = sfno_phases(dev, card)
@@ -3070,7 +3005,6 @@ def main() -> int:
     recipe_res, recipe_launches = recipe_phases(dev, card)
     print(f"SFNO recipe training phases {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
-    host_tables.join()
     fcn31 = {}
     for tag, config in (("fcn31", FCN31_CONFIG), ("fcn31h", FCN31_HISTORY_CONFIG)):
         t0 = time.perf_counter()

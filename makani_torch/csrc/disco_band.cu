@@ -80,8 +80,8 @@
 // entry point takes the first layout (route 1) where BL <= 32 and two of its
 // blocks fit on an SM (every FCN3 conv: 103 KB at the processor), else
 // route 2 (at the FCN3.1 processor, BL 25, route 1 needs 219 KB, one block
-// an SM, and took 49.2 ms against route 2's 46.1 on an H100); either can be
-// asked for by name.
+// an SM, and took 49.4 ms against route 2's 45.9 on an H100 80GB HBM3 at
+// 700 W, sweep_k5.py). mt_disco_band_route reports the route taken.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -446,14 +446,11 @@ size_t smem_of(const Params& p) {
   return two_rows<OT, WIDE, 8>(p) ? layout<OT, 8, 2, 3, WIDE>(q) : layout<OT, 8, 1, 3, WIDE>(q);
 }
 
-// the route the entry point takes: the one asked for (1 or 2), or 0 for
-// route 1 where BL <= 32 and two of its blocks fit on an SM, else route 2
-int choose_route(const Params& p, int OT, int route) {
-  if (route == 0) {
-    const size_t s1 = OT == 1 ? smem_of<1, false>(p) : smem_of<9, false>(p);
-    route = p.BL <= 32 && s1 <= SMEM_TWO_BLOCKS ? 1 : 2;
-  }
-  return route;
+// the route the entry point takes: route 1 where BL <= 32 and two of its
+// blocks fit on an SM, else route 2
+int choose_route(const Params& p, int OT) {
+  const size_t s1 = OT == 1 ? smem_of<1, false>(p) : smem_of<9, false>(p);
+  return p.BL <= 32 && s1 <= SMEM_TWO_BLOCKS ? 1 : 2;
 }
 
 template <int OT, int TG, int ROWS, int RING, bool WIDE>
@@ -484,16 +481,14 @@ int dispatch(const float* x, const float* F, const int* band_start, const int* t
 // zero-padded; band_start: int32 (Hout,); taps: int32 (Hout, BL, 2), the
 // live run [lo, hi) of w of each (h, j), empty where lo >= hi; out: float32
 // (B, Hout, Wout, G*OG), contiguous but for sO >= G*OG floats between
-// pixels; route: 0 (the route above), 1 or 2. Returns cudaGetLastError()
-// after the launch, or an argument error without launching (a route whose
-// shared memory exceeds 227 KB is one).
+// pixels. Returns cudaGetLastError() after the launch, or an argument error
+// without launching (a layout whose shared memory exceeds 227 KB is one).
 extern "C" int mt_disco_band_contract(const void* x, const void* F, const void* band_start, const void* taps, void* out, int B, int Hin, int Win,
                                       long long sB, long long sH, long long sW, long long sC, int Hout, int Wout, int G, int Gf, int IG, int OG,
                                       int OGp, int BL, int WW, int a, int off, int n_out, int phase, int phases, long long sO,
-                                      int route, void* stream) {
+                                      void* stream) {
   if (B <= 0 || Hin <= 0 || Win <= 0 || Hout <= 0 || G <= 0 || Gf <= 0 || G % Gf || IG <= 0 || OG <= 0 || BL <= 0 || WW <= 0 || a <= 0 ||
-      n_out <= 0 || phases <= 0 || phase < 0 || phase >= phases || phase + phases * (n_out - 1) >= Wout || sO < (long long)G * OG || route < 0 ||
-      route > 2)
+      n_out <= 0 || phases <= 0 || phase < 0 || phase >= phases || phase + phases * (n_out - 1) >= Wout || sO < (long long)G * OG)
     return (int)cudaErrorInvalidValue;
   const int OT = OG == 1 ? 1 : 9;
   if (OGp % OT || OGp < OG || OGp - OG >= OT) return (int)cudaErrorInvalidValue;
@@ -511,20 +506,19 @@ extern "C" int mt_disco_band_contract(const void* x, const void* F, const void* 
   const int* tp = static_cast<const int*>(taps);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = choose_route(p, OT, route) == 2;
+  const bool wide = choose_route(p, OT) == 2;
   if (OT == 1) return wide ? dispatch<1, true>(xf, Ff, bs, tp, of, p, B, s) : dispatch<1, false>(xf, Ff, bs, tp, of, p, B, s);
   return wide ? dispatch<9, true>(xf, Ff, bs, tp, of, p, B, s) : dispatch<9, false>(xf, Ff, bs, tp, of, p, B, s);
 }
 
 // The route (1 or 2, see above) that mt_disco_band_contract takes for these
-// sizes when asked for route 0 (or the one asked for), and in *smem the
-// bytes of shared memory a block of it takes.
-extern "C" int mt_disco_band_route(int G, int Gf, int IG, int OG, int BL, int WW, int a, int n_out, int route, long long* smem) {
-  if (G <= 0 || Gf <= 0 || IG <= 0 || OG <= 0 || BL <= 0 || WW <= 0 || a <= 0 || n_out <= 0 || route < 0 || route > 2) return -1;
+// sizes, and in *smem the bytes of shared memory a block of it takes.
+extern "C" int mt_disco_band_route(int G, int Gf, int IG, int OG, int BL, int WW, int a, int n_out, long long* smem) {
+  if (G <= 0 || Gf <= 0 || IG <= 0 || OG <= 0 || BL <= 0 || WW <= 0 || a <= 0 || n_out <= 0) return -1;
   Params p = {};
   p.G = G, p.Gf = Gf, p.IG = IG, p.OG = OG, p.BL = BL, p.WW = WW, p.a = a, p.n_out = n_out;
   const int OT = OG == 1 ? 1 : 9;
-  route = choose_route(p, OT, route);
+  const int route = choose_route(p, OT);
   const size_t bytes = OT == 1 ? (route == 2 ? smem_of<1, true>(p) : smem_of<1, false>(p)) : (route == 2 ? smem_of<9, true>(p) : smem_of<9, false>(p));
   *smem = (long long)bytes;
   return route;

@@ -168,9 +168,9 @@ def library() -> ctypes.CDLL:
             lib.mt_dhconv_contract.restype = i
             lib.mt_dhconv_grad_input.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.mt_dhconv_grad_input.restype = i
-            lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [ll, i, vp]
+            lib.mt_disco_band_contract.argtypes = [vp, vp, vp, vp, vp, i, i, i, ll, ll, ll, ll] + [i] * 14 + [ll, vp]
             lib.mt_disco_band_contract.restype = i
-            lib.mt_disco_band_route.argtypes = [i] * 9 + [ctypes.POINTER(ll)]
+            lib.mt_disco_band_route.argtypes = [i] * 8 + [ctypes.POINTER(ll)]
             lib.mt_disco_band_route.restype = i
             lib.mt_instance_norm.argtypes = [i, i] + [vp] * 6 + [i] * 8 + [ctypes.c_float, vp]
             lib.mt_instance_norm.restype = i

@@ -55,6 +55,8 @@ cached per conv, device and phase.
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
 import numpy as np
@@ -409,6 +411,25 @@ def _basis_values(r, alpha, kernel_shape, theta_cutoff, basis_type="piecewise li
     return np.stack(out)
 
 
+# the tables are evaluated in runs of output rows of about this many points,
+# on up to this many host threads
+_PSI_CHUNK_POINTS = 1 << 20
+_PSI_THREADS = 8
+
+
+def _in_runs(n: int, points: int, run) -> None:
+    """run(r0, r1) over runs of the n rows [0, n) of about _PSI_CHUNK_POINTS
+    points (``points`` a row), on up to _PSI_THREADS host threads (numpy's
+    ufuncs release the GIL); each writes only its rows' results."""
+    step = max(1, _PSI_CHUNK_POINTS // max(points, 1))
+    runs = [(r0, min(n, r0 + step)) for r0 in range(0, n, step)]
+    if len(runs) > 1:
+        with ThreadPoolExecutor(min(len(runs), os.cpu_count() or 1, _PSI_THREADS)) as pool:
+            list(pool.map(lambda r: run(*r), runs))
+    elif runs:
+        run(*runs[0])
+
+
 @lru_cache(maxsize=16)  # bounded: psi tables are tens of MB per config
 def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_cutoff, basis_norm_mode, basis_type="piecewise linear"):
     """Precompute psi tables for all phases.
@@ -467,23 +488,9 @@ def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_
     halo = WW // 2
     polar_rows = [int(h) for h in np.nonzero(reaches > WW)[0]]
 
-    def build_tables(phase):
-        # center input position of output column `phase`
-        c_p = phase * nlon_in / nlon_out
-        base = int(np.floor(c_p))
-        # window offsets relative to base
-        offs = np.arange(-halo, halo + 1)
-        dphi_off = (base + offs) * dphi_in - phase * dphi_out  # angular offsets
-        psi = _eval(dphi_off)
-        # full-longitude table (offsets 0..nlon_in-1 from base)
-        offs_full = np.arange(nlon_in)
-        dphi_full = (base + offs_full) * dphi_in - phase * dphi_out
-        psi_full = _eval(dphi_full)
-        return psi, psi_full, base
-
-    def _eval(dphi_off):
-        to = theta_out[:, None, None]
-        ti = theta_in[ti_idx][:, :, None]
+    def _eval_rows(dphi_off, rows):
+        to = theta_out[rows][:, None, None]
+        ti = theta_in[ti_idx[rows]][:, :, None]
         ph = dphi_off[None, None, :]
         cosr = np.cos(to) * np.cos(ti) + np.sin(to) * np.sin(ti) * np.cos(ph)
         r = np.arccos(np.clip(cosr, -1.0, 1.0))
@@ -491,21 +498,58 @@ def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_
             np.sin(ph) * np.sin(ti) * np.ones_like(to),
             np.cos(ti) * np.sin(to) - np.sin(ti) * np.cos(to) * np.cos(ph),
         )
-        psi = _basis_values(r, alpha, kernel_shape, theta_cutoff, basis_type)  # (K, Hout, BL, Woff)
+        psi = _basis_values(r, alpha, kernel_shape, theta_cutoff, basis_type)  # (K, rows, BL, Woff)
         psi = np.where(r[None] <= theta_cutoff, psi, 0.0)
-        return psi * quad[ti_idx][None, :, :, None]
+        return psi * quad[ti_idx[rows]][None, :, :, None]
 
+    def _eval(dphi_off, rows):
+        rows = np.asarray(rows, np.int64)
+        out = np.empty((K, len(rows), BL, len(dphi_off)))
+
+        def run(r0, r1):
+            out[:, r0:r1] = _eval_rows(dphi_off, rows[r0:r1])
+
+        _in_runs(len(rows), BL * len(dphi_off), run)
+        return out
+
+    all_rows = np.arange(nlat_out)
     psi_band = np.zeros((b, K, nlat_out, BL, WW), np.float64)
     psi_polar_l = []
     bases = np.zeros(b, np.int64)
     for p in range(b):
-        pb, pf, base = build_tables(p)
-        psi_band[p] = pb
-        psi_polar_l.append(pf[:, polar_rows] if polar_rows else np.zeros((K, 0, BL, nlon_in)))
+        # center input position of output column `p`; window offsets
+        # relative to base, and the full longitude (offsets 0..nlon_in-1)
+        base = int(np.floor(p * nlon_in / nlon_out))
+        dphi_off = (base + np.arange(-halo, halo + 1)) * dphi_in - p * dphi_out
+        dphi_full = (base + np.arange(nlon_in)) * dphi_in - p * dphi_out
+        psi_band[p] = _eval(dphi_off, all_rows)
+        psi_polar_l.append(_eval(dphi_full, polar_rows))
         bases[p] = base
-        if p == 0:
-            pf0 = pf  # the normalization's full-support tables (the JAX package evaluates them again)
-        del pf
+    # the normalization's full-support tables are phase 0's full-longitude
+    # ones (the JAX package's psi_full). A row's disc lies in its window,
+    # columns 0..halo and nlon_in-halo..nlon_in-1 of the full longitude, but
+    # at the polar rows: only those points are evaluated, the rest is +0.
+    # Each statistic is summed over (BL, Win) a run of rows at a time, the
+    # same sum as over the whole table.
+    win0 = _eval(np.concatenate([np.arange(halo + 1), np.arange(nlon_in - halo, nlon_in)]) * dphi_in, all_rows)
+    polar0, polar_at = psi_polar_l[0], {h: i for i, h in enumerate(polar_rows)}
+
+    def row_sums(stat):
+        """(K, Hout): stat(phase 0's full table of rows h0..h1, h0, h1)
+        summed over (BL, Win)."""
+        out = np.empty((K, nlat_out))
+
+        def run(h0, h1):
+            full = np.zeros((K, h1 - h0, BL, nlon_in))
+            full[..., : halo + 1] = win0[:, h0:h1, :, : halo + 1]
+            full[..., nlon_in - halo :] = win0[:, h0:h1, :, halo + 1 :]
+            for h in range(h0, h1):
+                if h in polar_at:
+                    full[:, h - h0] = polar0[:, polar_at[h]]
+            out[:, h0:h1] = stat(full, h0, h1).sum(axis=(2, 3))
+
+        _in_runs(nlat_out, K * BL * nlon_in, run)
+        return out
 
     # basis normalization, measured on the full-support (phase 0) tables
     # (our conventions; they reparametrize the learned weights):
@@ -514,18 +558,17 @@ def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_
     #             (the quadrature-weighted psi evaluated at the grid nodes),
     #   "support" — unit mean support measure (quadrature mass of the
     #             nonzero set), "none" — raw basis values.
+    scale = None
     if basis_norm_mode in ("mean", "nodal", "support"):
         if basis_norm_mode == "mean":
-            mass = np.abs(pf0).sum(axis=(2, 3)).mean(axis=1)
+            mass = row_sums(lambda f, h0, h1: np.abs(f)).mean(axis=1)
         elif basis_norm_mode == "nodal":
-            mass = np.sqrt(np.square(pf0).sum(axis=(2, 3))).mean(axis=1)
+            mass = np.sqrt(row_sums(lambda f, h0, h1: np.square(f))).mean(axis=1)
         else:  # support
-            supp = (np.abs(pf0) > 0).astype(np.float64) * quad[ti_idx][None, :, :, None]
-            mass = supp.sum(axis=(2, 3)).mean(axis=1)
+            mass = row_sums(lambda f, h0, h1: (np.abs(f) > 0).astype(np.float64) * quad[ti_idx[h0:h1]][None, :, :, None]).mean(axis=1)
         scale = 1.0 / np.maximum(mass, 1e-12)
         psi_band *= scale[None, :, None, None, None]
         psi_polar_l = [pp * scale[:, None, None, None] for pp in psi_polar_l]
-        pf0 = pf0 * scale[:, None, None, None]
     elif basis_norm_mode not in ("none", None):
         raise NotImplementedError(f"basis_norm_mode {basis_norm_mode}")
 
@@ -538,7 +581,7 @@ def _precompute_psi(in_shape, out_shape, kernel_shape, grid_in, grid_out, theta_
     # the FCN3.1 recipe) the L1 masses grow ~sqrt(support), which un-checked
     # made an untrained FCN3.1 *decoder* (smooth upsampled input at full
     # resolution) amplify ~3x per step (round-4 verdict, weak #3).
-    init_mass = np.abs(pf0).sum(axis=(2, 3)).mean(axis=1)
+    init_mass = row_sums(lambda f, h0, h1: np.abs(f if scale is None else f * scale[:, None, None, None])).mean(axis=1)
 
     for h in polar_rows:
         psi_band[:, :, h] = 0.0

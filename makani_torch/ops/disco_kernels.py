@@ -175,20 +175,19 @@ def pixel_stride(out: torch.Tensor) -> int:
     return sO
 
 
-def band_route(G: int, Gf: int, IG: int, OG: int, BL: int, WW: int, a: int, n_out: int, route: int = 0) -> tuple[int, int]:
+def band_route(G: int, Gf: int, IG: int, OG: int, BL: int, WW: int, a: int, n_out: int) -> tuple[int, int]:
     """The layout K5 takes for these sizes, (route, shared-memory bytes a
     block): route 1 stages a latitude's whole filter once (BL <= 32 where two
     blocks of it fit on an SM: every FCN3 conv), route 2 stages the filter
-    with each stage's band rows (FCN3.1's bands); ``route`` 0 asks for the
-    kernel's own choice, 1 or 2 for that layout."""
+    with each stage's band rows (FCN3.1's bands)."""
     smem = ctypes.c_longlong(0)
-    got = kernels.library().mt_disco_band_route(G, Gf, IG, OG, BL, WW, a, n_out, route, ctypes.byref(smem))
+    got = kernels.library().mt_disco_band_route(G, Gf, IG, OG, BL, WW, a, n_out, ctypes.byref(smem))
     if got < 0:
-        raise ValueError(f"disco_band: no route for G {G}, Gf {Gf}, IG {IG}, OG {OG}, BL {BL}, WW {WW}, a {a}, n_out {n_out}, route {route}")
+        raise ValueError(f"disco_band: no route for G {G}, Gf {Gf}, IG {IG}, OG {OG}, BL {BL}, WW {WW}, a {a}, n_out {n_out}")
     return got, smem.value
 
 
-def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases, Gf, IG, OG, route: int = 0):
+def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases, Gf, IG, OG):
     """K5 on the card, the plain version on the CPU; writes
     ``out[:, :, phase::phases]`` and returns out.
 
@@ -197,9 +196,8 @@ def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases,
     OGp (1 for OG == 1, else a multiple of 9); band_start: int32 (Hout,);
     taps: int32 (Hout, BL, 2), the live run [lo, hi) of w of each (h, j),
     F zero outside it; out: float32 (B, Hout, Wout, G*OG), contiguous but
-    for its pixel stride (``pixel_stride``); ``route``: the layout
-    (``band_route``), 0 for the kernel's own choice. Any BL: a band wider
-    than 32 rows takes route 2."""
+    for its pixel stride (``pixel_stride``). Any BL: a band wider than 32
+    rows takes route 2 (``band_route``)."""
     if kernels.takes_plain("disco_band", x, F_, band_start, taps, out):
         return band_contract_plain(x, F_, band_start, out, taps=taps, a=a, off=off, n_out=n_out, phase=phase, phases=phases, Gf=Gf, IG=IG, OG=OG)
     _check_band_args(x, F_, out, Gf, IG, OG, taps)
@@ -218,7 +216,7 @@ def band_contract(x, F_, band_start, out, *, taps, a, off, n_out, phase, phases,
     with torch.cuda.device(x.device):
         err = lib.mt_disco_band_contract(
             x.data_ptr(), F_.data_ptr(), band_start.data_ptr(), taps.data_ptr(), out.data_ptr(), B, Hin, Win, sB, sH, sW, sC, Hout, Wout,
-            C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, sO, route, kernels.stream_ptr(x.device),
+            C // IG, Gf, IG, OG, OGp, BL, WW, a, off, n_out, phase, phases, sO, kernels.stream_ptr(x.device),
         )
     kernels.check_launch(err, "disco_band")
     kernels.count_launch("disco_band")

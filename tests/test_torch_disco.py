@@ -52,6 +52,26 @@ def test_psi_tables_and_cutoffs_bit_equal(shapes, basis):
         assert np.array_equal(np.asarray(t[key]), np.asarray(j[key])), key
 
 
+# points a run: 200 puts 2 rows in each run of the band tables and 1 in
+# each of the full-longitude ones and the sums; 2500, 2 in each of the sums
+@pytest.mark.parametrize("points", [200, 2500])
+@pytest.mark.parametrize("norm", ["mean", "nodal", "support"])
+@pytest.mark.parametrize("shapes", [SHAPES[0], SHAPES[2]])
+def test_psi_tables_bit_equal_in_runs_of_rows(shapes, norm, points, monkeypatch):
+    """The tables evaluated a few rows a run on host threads (as at the
+    full grids) keep the JAX package's bits: points, polar rows and the
+    normalization's sums alike."""
+    in_shape, out_shape = shapes
+    ks = (3, 3)
+    cut = disco.compute_cutoff_radius(in_shape[0], ks, "harmonic")
+    args = (in_shape, out_shape, ks, "equiangular", "legendre-gauss", cut, norm, "harmonic")
+    monkeypatch.setattr(disco, "_PSI_CHUNK_POINTS", points)
+    t, j = disco._precompute_psi.__wrapped__(*args), jdisco._precompute_psi(*args)
+    assert t["polar_rows"] and set(t) == set(j)
+    for key in t:
+        assert np.array_equal(np.asarray(t[key]), np.asarray(j[key])), key
+
+
 def _pair(in_shape, out_shape):
     kw = dict(basis_type="morlet th", basis_norm_mode="mean")
     return jdisco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw), disco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw)

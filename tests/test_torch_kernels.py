@@ -1121,21 +1121,14 @@ WIDE_BANDS = {
 }
 
 
-def _band_routes(conv, x, F_, Gf, IG, OG, Cout, dev):
-    """K5 by its own route, by each layout that fits, and the plain version:
-    {route: out}."""
+def _band_both(conv, x, F_, Gf, IG, OG, Cout, dev):
+    """K5 and its plain version on the same inputs: (out, ref)."""
     Hout, Wout = conv.out_shape
     kw = dict(taps=conv.tap_table(0, dev), a=conv.stride, off=int(conv.bases[0]) - conv.halo, n_out=Wout, phase=0, phases=1, Gf=Gf, IG=IG, OG=OG)
-    outs = {}
-    for route in (0, 1, 2):
-        if route:
-            _, smem = disco_kernels.band_route(x.shape[-1] // IG, Gf, IG, OG, conv.BL, conv.WW, conv.stride, Wout, route)
-            if smem > 227 * 1024:
-                continue
+    outs = []
+    for fn in (disco_kernels.band_contract, disco_kernels.band_contract_plain):
         out = torch.full((x.shape[0], Hout, Wout, Cout), float("nan"), device=dev)
-        outs[route] = disco_kernels.band_contract(x, F_, conv.band_start_table(dev), out, route=route, **kw)
-    out = torch.full((x.shape[0], Hout, Wout, Cout), float("nan"), device=dev)
-    outs["plain"] = disco_kernels.band_contract_plain(x, F_, conv.band_start_table(dev), out, **kw)
+        outs.append(fn(x, F_, conv.band_start_table(dev), out, **kw))
     return outs
 
 
@@ -1144,9 +1137,8 @@ def _band_routes(conv, x, F_, Gf, IG, OG, Cout, dev):
 def test_disco_band_kernel_takes_wide_bands(cuda, band, C):
     """K5 at BL > 32 in responses mode (K 7, OG padded to 9) and fused mode
     (the aux encoder's g 2 x og 16 x ig 9 and a 3 x 2 x 4 grouping): its
-    own route is route 2, whose sums keep the dense (i, j, w) order, so its
-    finite outputs are bit-equal to the plain version's and to route 1's
-    where route 1 fits."""
+    route is route 2, whose sums keep the dense (i, j, w) order, so its
+    finite outputs are bit-equal to the plain version's."""
     in_shape, out_shape, cutoff, grid_out = WIDE_BANDS[band]
     conv = _wide_conv(in_shape, out_shape, cutoff, grid_out)
     assert conv.BL > 32 and conv.K == 7 and conv.phases == 1
@@ -1159,23 +1151,21 @@ def test_disco_band_kernel_takes_wide_bands(cuda, band, C):
         route, _ = disco_kernels.band_route(Cin // IG, Gf, IG, OG, conv.BL, conv.WW, conv.stride, out_shape[1])
         assert route == 2
         kernels.reset_launch_counts()
-        outs = _band_routes(conv, x, F_(), Gf, IG, OG, Cout, cuda)
+        out, ref = _band_both(conv, x, F_(), Gf, IG, OG, Cout, cuda)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["disco_band"] == len(outs) - 1
-        ref = outs.pop("plain")
+        assert kernels.LAUNCHES["disco_band"] == 1
         assert torch.isfinite(ref).all()
-        for r, out in outs.items():
-            assert torch.equal(out, ref), (r, (out - ref).abs().max().item())
+        assert torch.equal(out, ref), (out - ref).abs().max().item()
 
 
-def test_disco_band_route_1_unchanged_at_fcn3_bands(cuda):
-    """At FCN3's bands (BL <= 32) K5 takes route 1 as before, and route 2
-    gives the same bits."""
+def test_disco_band_takes_route_1_at_fcn3_bands(cuda):
+    """At FCN3's bands (BL <= 32) K5 takes route 1 as before, bit-equal to
+    the plain version."""
     conv = DiscoConvS2((24, 48), (24, 48), (3, 3), basis_type="morlet th", basis_norm_mode="mean")
     x = _randn((2, 130, 24, 48), torch.float32, cuda).permute(0, 2, 3, 1)
     assert disco_kernels.band_route(130, 1, 1, conv.K, conv.BL, conv.WW, 1, 48)[0] == 1
-    outs = _band_routes(conv, x, conv.band_filter(0, cuda), 1, 1, conv.K, 130 * conv.K, cuda)
-    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    out, ref = _band_both(conv, x, conv.band_filter(0, cuda), 1, 1, conv.K, 130 * conv.K, cuda)
+    assert torch.isfinite(ref).all() and torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("band", ["bl40", "bl73-stride2"])
