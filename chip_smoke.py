@@ -135,8 +135,45 @@ each fatal on failure:
     (launches, learning rates, a falling loss, no wait for the card in the
     optimizer's step), then 1 + 3 on the plain path, step by step.
 
+ The drivers, after the SFNO recipe's phases: ``python -m makani_torch.train``
+ and ``python -m makani_torch.inference`` (their ``main(argv)``) on the
+ recipe ``sfno_linear_73chq_sc3_layers8_edim384`` at its widths, B = 1:
+25. write seeded HDF5 files under a temporary directory in ``build/``
+    (removed at exit): a training and a validation year of 5 states of 73 x
+    721 x 1440 fp32 (4 training samples, one validation rollout), the
+    statistics with the time means, ``data.json``, and a YAML whose config
+    inherits the recipe's and overrides only the paths, ``valid_autoreg_steps``
+    (3) and ``max_epochs``;
+26. train one epoch through ``train.py`` (4 steps, the validation rollout,
+    checkpoint ``ckpt_v1``): every kernel's launches (the recipe step's 4
+    times, the forecast step's 4 times), the epoch's logs
+    (``step_time_ms``, ``train_samples_per_sec``, ``effective_io_rate_gbs``),
+    the host's ms a batch (read, normalize, zenith, staging, the copy)
+    against the device's ms a step and its idle share, the checkpoint's GB
+    and GB/s, and peak memory;
+27. the trainer's first step against chip_smoke's own ``train_step`` on the
+    same sample and seeded weights, bit for bit, and the plain path's loss
+    (MODEL_BF16_REL_L2);
+28. ``train.py`` again with ``max_epochs`` 2, resuming from ``ckpt_v1``,
+    against the first trainer carried on for epoch 2 in memory, its step and
+    rollout loops under ``torch.cuda.set_sync_debug_mode`` (no sync
+    allowed): each step's loss within 1e-6 relative, every parameter within
+    1e-6 of its leaf's max, the learning rate equal (bit-equality printed);
+29. ``inference.py`` from the run's best checkpoint on the validation file,
+    with ``--save_raw_forecasts``: the restored weights equal the trained
+    ones; the launches are the forecast step's and K1's two a lead step
+    counted inside ``SpectrumAverageBuffer.update``; the step-0 RMSE is
+    ``ModelWrapper``'s on the same initial condition (1e-6 relative); the
+    four files have the JAX package's datasets and shapes; a second, warm
+    scoring with its lead-step loop under the sync check (no sync allowed,
+    and the raw-forecast buffer's event waits, which the check cannot see,
+    counted: one a batch of initial conditions) gives the same logs; one
+    lead step's parts
+    timed apart; and K1 at the spectrum's shape (721 -> lmax 721, mmax 721,
+    C = 73, fp32) against its plain version (``sht_analysis@spectrum``).
+
  FCN3.1 (slice 6), each path entered through ``get_model(multistep=True)``:
-25. build ``fcn31_sc2_edim256_layers10`` (config/fourcastnet3.yaml: 721x1440,
+30. build ``fcn31_sc2_edim256_layers10`` (config/fourcastnet3.yaml: 721x1440,
     73 channels + zenith + 8 diffusion-noise channels, scale 2 onto a
     360x720 Legendre-Gauss grid, lmax 90 and the DISCO cutoff 3 pi / 90 from
     it, the harmonic basis under nodal normalization, embed 256, aux embed
@@ -144,40 +181,41 @@ each fatal on failure:
     activations, bf16 compute with fp32 DISCO) on seeded weights, one
     centered pair (E=2); print every DISCO conv's band (BL rows of WW
     longitudes) and K5's route for it;
-26. compare its kernels with their plain versions at its shapes: K5 in
+31. compare its kernels with their plain versions at its shapes: K5 in
     responses mode at the unified encoder (BL 48), the processor (BL 25)
     and the decoder (BL 49), in fused mode at the aux encoder, K6 at the
     same convs, K8 at the two-stage convs (D = 511, 1960, 1792), K7 at the
     decoder, K1-K3 at the internal grid; the full-resolution plain versions
     of K5 run once each (``run_cases(plain_once=True)``);
-27. roll the ensemble out for 4 steps (``ModelWrapper`` + ``rollout``) and
+32. roll the ensemble out for 4 steps (``ModelWrapper`` + ``rollout``) and
     check the frames and the launch counts, computed from the model's convs;
-28. run step 1 once through the plain path and compare (bf16), and time the
+33. run step 1 once through the plain path and compare (bf16), and time the
     kernel path (1 + 3 steps: ms a step, members/s, peak memory);
-29-32. the same for ``fcn31_sc2_edim256_layers10_history`` (the
+34-37. the same for ``fcn31_sc2_edim256_layers10_history`` (the
     fourier-bessel basis, BL 72-73 at the encoder and decoder, a window of
     2 states sliding over the rollout, the unified encoder a grouped
     two-stage conv: groups 2 of 73 -> 128, each group's responses K5, K6
     and K8 apart);
-33. build the FCN3.1 recipe's training step (``fcn31_train_config``: the
+38. build the FCN3.1 recipe's training step (``fcn31_train_config``: the
     recipe at 361x720, internal 180x360, lmax 45, E = 4 of B = 1,
     checkpointing_level 3, the base config's skillspread CRPS with auto
     weights and temp_diff_normalization, clipped Adam on the cosine
     schedule);
-34. compare K12 (the generic gather at K 7) and K13 at the processor and
+39. compare K12 (the generic gather at K 7) and K13 at the processor and
     the decoder, K5 at both, K8 and its backward GEMMs, K14 at the decoder,
     K15, K9, K3's dx and K1-K3 at the global blocks, K16 and K17 with their
     plain versions;
-35. one bf16 step through the kernels and the plain path: the forecast,
+40. one bf16 step through the kernels and the plain path: the forecast,
     loss and every gradient leaf, then the optimizer step from the same
     gradients;
-36. 1 + 5 steps through the kernels: launches (computed from the model),
+41. 1 + 5 steps through the kernels: launches (computed from the model),
     the schedule's learning rates, a falling loss, ms a step, members/s and
-    peak memory (the plain path is compared in 35, not timed).
+    peak memory (the plain path is compared in 40, not timed).
 
 Prints the card line and the kernel table as one JSON line before the last
-line (each kernel at its path's main shape, then FCN3.1's as
-``kernel@shape`` with the launches of that FCN3.1 path), and as the last
+line (each kernel at its path's main shape, K1 at the inference spectrum's
+as ``sht_analysis@spectrum``, then FCN3.1's as ``kernel@shape`` with the
+launches of that FCN3.1 path), and as the last
 line ``{"ok": true, "device": {...}}``.
 """
 
@@ -2463,6 +2501,417 @@ def recipe_phases(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# The drivers: train.py and inference.py on the SFNO recipe (phases 25-29)
+
+# one year file each for training and validation, 5 states: 4 training
+# samples (B = 1) and one validation rollout of DRIVER_AUTOREG + 1 lead steps
+DRIVER_STATES = 5
+DRIVER_AUTOREG = 3
+DRIVER_YEARS = {"train": 2017, "valid": 2018}
+DRIVER_NAME = "sfno_driver"
+# a sync that the loops under set_sync_debug_mode("warn") make is a warning with this text
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def driver_files(root: str, dev) -> tuple:
+    """Phase 25: seeded HDF5 year files (``fields`` (5, 73, 721, 1440) fp32,
+    six-hourly ``timestamp``), written through ``makani_torch.utils.hdf5``
+    from fields drawn on the card, whose normalized values are standard
+    normal; ``data.json``; the statistics (``stats_files`` and a time-means
+    file for the ACC); and a YAML whose config inherits the SFNO recipe's
+    (config/sfnonet.yaml's text, then ``DRIVER_NAME`` merging its base, as
+    ``sfno_linear_73chq_sc3_layers8_edim384`` does) and overrides the paths,
+    ``valid_autoreg_steps`` and ``max_epochs``. Returns (yaml path, the
+    overrides)."""
+    from makani_torch.utils import hdf5
+    from makani_torch.utils.dataloaders.data_helpers import get_data_normalization
+    from makani_torch.utils.yparams import YParams
+
+    recipe = YParams(os.path.join(REPO, CONFIG[0]), CONFIG[1])
+    names = list(recipe.channel_names)
+    C, H, W = len(names), recipe.img_shape_x, recipe.img_shape_y
+    stats = stats_files(C)
+    view = {"channel_names": names, "in_channels": list(range(C)), "normalization": recipe.normalization, **stats}
+    bias, scale = (torch.from_numpy(a).to(dev) for a in get_data_normalization(view))
+    os.makedirs(os.path.join(root, "stats"))
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    tm = (bias + 0.1 * scale * torch.randn((1, C, H, W), generator=gen, device=dev)).cpu().numpy()
+    stats["time_means_path"] = os.path.join(root, "stats", "time_means.npy")
+    np.save(stats["time_means_path"], tm)
+    nbytes_written = tm.nbytes
+    for split, year in DRIVER_YEARS.items():
+        os.makedirs(os.path.join(root, split))
+        t0 = np.datetime64(f"{year}-01-01T00:00:00").astype("datetime64[s]").astype(np.int64)
+        maps = hdf5.File.create(os.path.join(root, split, f"{year}.h5"), {"fields": ((DRIVER_STATES, C, H, W), np.float32), "timestamp": ((DRIVER_STATES,), np.int64)})
+        maps["timestamp"][:] = t0 + np.arange(DRIVER_STATES) * 6 * 3600
+        for t in range(DRIVER_STATES):
+            maps["fields"][t] = (bias[0] + scale[0] * torch.randn((C, H, W), generator=gen, device=dev)).cpu().numpy()
+        for m in maps.values():
+            m.flush()
+            nbytes_written += m.nbytes
+        del maps
+    meta = {"h5_path": "fields", "dhours": 6, "coords": {"grid_type": "equiangular", "lat": np.linspace(90.0, -90.0, H).tolist(),
+                                                         "lon": np.linspace(0.0, 360.0, W, endpoint=False).tolist(), "channel": names}}
+    with open(os.path.join(root, "data.json"), "w") as f:
+        json.dump(meta, f)
+    overrides = dict(metadata_json_path=os.path.join(root, "data.json"), train_data_path=os.path.join(root, "train"), valid_data_path=os.path.join(root, "valid"),
+                     exp_dir=os.path.join(root, "runs"), **stats, valid_autoreg_steps=DRIVER_AUTOREG, max_epochs=1)
+    with open(os.path.join(REPO, CONFIG[0])) as f:
+        text = f.read()
+    lines = [f"{DRIVER_NAME}:", "    <<: *BASE_CONFIG"] + [f"    {k}: {json.dumps(v)}" for k, v in overrides.items()]
+    path = os.path.join(root, "driver.yaml")
+    with open(path, "w") as f:
+        f.write(text + "\n" + "\n".join(lines) + "\n")
+    mine = YParams(path, DRIVER_NAME).to_dict()
+    ref = recipe.to_dict()
+    differ = sorted(k for k in set(mine) | set(ref) if k not in overrides and k not in ("config", "yaml_filename") and mine.get(k) != ref.get(k))
+    if differ:
+        raise RuntimeError(f"the driver config differs from {CONFIG[1]} beyond the overrides: {differ}")
+    print(f"phase 25: wrote {nbytes_written / 1e9:.2f} GB of seeded files ({len(DRIVER_YEARS)} year files of {DRIVER_STATES} states of {C}x{H}x{W} fp32, "
+          f"time means, data.json) under {os.path.relpath(root, REPO)}; {DRIVER_NAME} = {CONFIG[1]} but for {sorted(overrides)}", flush=True)
+    return path, overrides
+
+
+def checking_syncs(obj, name: str, found: list):
+    """Run ``obj.name`` under ``torch.cuda.set_sync_debug_mode("warn")`` from
+    now on, adding each sync it makes (a warning) to ``found``."""
+    fn = getattr(obj, name)
+
+    def checked(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                found.extend(f"{name}: {w.filename}:{w.lineno}: {str(w.message)[:80]}" for w in caught if SYNC_WARNING in str(w.message))
+
+    setattr(obj, name, checked)
+
+
+def counting_launches(cls, name: str, kernel: str, launches: dict, found: dict):
+    """Patch ``cls.name`` so that the launches of ``kernel`` (its count in
+    ``launches``, the package's ``LAUNCHES``) made inside each call add to
+    ``found[kernel]``; returns the undo."""
+    fn = getattr(cls, name)
+
+    def counted(*args, **kwargs):
+        n0 = launches[kernel]
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            found[kernel] += launches[kernel] - n0
+
+    setattr(cls, name, counted)
+    return lambda: setattr(cls, name, fn)
+
+
+def host_line(stats: dict) -> str:
+    """The loader's and the steps' account of one epoch (``Trainer.host_stats``)."""
+    n = max(stats["batches"], 1)
+    steps = stats.get("step_device_ms", [])
+    per = {k: 1e3 * stats[f"{k}_s"] / n for k in ("read", "normalize", "zenith")}
+    return (f"host ms a batch: read {per['read']:.1f}, normalize {per['normalize']:.1f}, zenith {per['zenith']:.1f}, sample fetch in all "
+            f"{1e3 * stats['fetch_s'] / n:.1f}, staging into pinned memory {1e3 * stats['stage_s'] / n:.1f}; host-to-device copy {stats['copy_ms'] / n:.2f} "
+            f"ms a batch (device); device ms a step {[round(v, 2) for v in steps]}; epoch wall {stats['wall_s']:.3f} s, device idle share "
+            f"{stats.get('idle_share', float('nan')):.3f}")
+
+
+def train_line(tag, logs, stats, card) -> str:
+    return (f"{tag}: step_time_ms {logs['step_time_ms']:.2f}, train_samples_per_sec {logs['train_samples_per_sec']:.4f}, effective_io_rate_gbs "
+            f"{logs['effective_io_rate_gbs']:.4f}, train_loss {logs['train_loss']:.6f}, valid_loss {logs['valid_loss']:.6f}; {host_line(stats)}  [{card}]")
+
+
+def expected_driver_launches(n_steps, n_lead, per_step, keys) -> dict:
+    """An epoch's launches: the recipe step's n_steps times (the forward's,
+    the backward's, K16's and K17's) and the forecast step's n_lead times."""
+    return {k: n_steps * (TRAIN_EXPECTED_PER_STEP.get(k, 0) + per_step.get(k, 0)) + n_lead * EXPECTED_PER_STEP.get(k, 0) for k in keys}
+
+
+def check_first_step(dev, trainer) -> None:
+    """Phase 27: the trainer's first step against chip_smoke's own
+    ``train_step`` from the same seeded weights on the same sample (the
+    first of epoch 1's order), bit for bit, and against the plain path's
+    loss (MODEL_BF16_REL_L2)."""
+    import copy
+
+    from makani_torch import kernels
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.dataloader import BatchIterator, _assemble
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.training.deterministic_trainer import train_step
+    from makani_torch.utils.training.optimizer import get_optimizer
+
+    params = trainer.params
+    seed = params.get("seed", 333)
+    order = BatchIterator(trainer.train_dataset, params.batch_size, seed=seed)
+    order.set_epoch(1)
+    batch = _assemble([trainer.train_dataset[int(i)] for i in order.index_batches()[0]])
+    inp, tar, zen = (torch.from_numpy(batch[k]).to(dev) for k in ("inp", "tar", "zen"))
+    model, _ = get_model(copy.deepcopy(params), multistep=True, device=dev, seed=seed)
+    plain = copy.deepcopy(model)
+    opt = get_optimizer(params, model, len(trainer.train_loader))
+    loss_obj = LossHandler(params)
+    loss = train_step(model, loss_obj, opt, inp, tar, zen)
+    del model, opt
+    torch.cuda.empty_cache()
+    kernels.set_use_kernels(plain, False)
+    with torch.no_grad():
+        plain_loss = loss_obj(plain(inp, zen, train=True), tar, inp=inp, train=True).item()
+    del plain
+    torch.cuda.empty_cache()
+    ref = trainer.step_losses[0]
+    bit = torch.equal(loss, ref)
+    rel = abs(loss.item() - plain_loss) / abs(plain_loss)
+    print(f"phase 27: the trainer's step 1 loss {ref.item():.7f}, chip_smoke's train_step on the same sample and weights {loss.item():.7f} "
+          f"({'bit-equal' if bit else 'NOT bit-equal'}), the plain path {plain_loss:.7f} (rel {rel:.2e}, tol {MODEL_BF16_REL_L2})", flush=True)
+    if not bit or rel > MODEL_BF16_REL_L2:
+        raise RuntimeError("the trainer's first step is not train_step's, or the kernel path's loss parts from the plain path's")
+
+
+def leaf_diff(params_a, params_b) -> tuple:
+    """(bit-equal, largest max|a - b| / max|b| over the leaves)."""
+    worst = 0.0
+    bit = True
+    for a, b in zip(params_a, params_b):
+        bit &= torch.equal(a, b)
+        worst = max(worst, ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item())
+    return bit, worst
+
+
+def step0_rmse_from_wrapper(dev, inf) -> tuple:
+    """The step-0 RMSE (channel mean) of the first initial condition through
+    ``ModelWrapper`` in physical units: the state read from the validation
+    file, normalized, stepped and denormalized by the wrapper, then
+    normalized again and scored against the normalized target."""
+    from makani_torch.models.model_package import ModelWrapper
+    from makani_torch.utils.metrics.functions import weighted_rmse
+
+    ds = inf.valid_dataset
+    sample = ds[0]
+    x = torch.from_numpy(ds._datasets[0].memmap()[0:1].copy()).to(dev)
+    zen = torch.from_numpy(sample["izen"][None]).to(dev)
+    wrapper = ModelWrapper(inf.model, bias=ds.in_bias, scale=ds.in_scale, out_bias=ds.out_bias, out_scale=ds.out_scale)
+    out_bias, out_scale = (torch.from_numpy(a).to(dev) for a in (ds.out_bias, ds.out_scale))
+    pred = (wrapper(x, zen).float() - out_bias) / out_scale
+    tar = torch.from_numpy(sample["tar"][:1]).to(dev)
+    return weighted_rmse(pred, tar, inf.metrics.quadrature).mean().item()
+
+
+def lead_step_breakdown(dev, card, inf) -> dict:
+    """Device ms of one warm lead step's parts on the first initial
+    condition: the forecast step, the metrics' update, each buffer's update
+    (fresh buffers, the Inferencer's transform) and the raw forecast's copy
+    into page-locked memory."""
+    from makani_torch.utils.dataloader import _assemble
+    from makani_torch.utils.inference.rollout_buffer import SpectrumAverageBuffer, TemporalAverageBuffer, ZonalSpectrumAverageBuffer
+    from makani_torch.utils.metric import MetricsHandler
+
+    params = inf.params
+    S, C = DRIVER_AUTOREG + 1, inf.n_out
+    H, W = params.img_shape_x, params.img_shape_y
+    batch = _assemble([inf.valid_dataset[0]])
+    inp, tar, zen = (torch.from_numpy(batch[k]).to(dev) for k in ("inp", "tar", "zen"))
+    tstep = tar[:, :C]
+    metrics = MetricsHandler(params, climatology=inf.metrics.climatology)
+    temporal, bias = TemporalAverageBuffer(S, C, (H, W)), TemporalAverageBuffer(S, C, (H, W))
+    spectrum = SpectrumAverageBuffer((H, W), S, C, params.get("model_grid_type", "equiangular"), device=dev, sht=inf._sht)
+    zonal = ZonalSpectrumAverageBuffer((H, W), S, C)
+    host = torch.empty((1, C, H, W), dtype=torch.float32, pin_memory=dev.type == "cuda")
+    with torch.no_grad():
+        pred = inf.model(inp, zen[:, :1], train=False)
+        parts = {
+            "forecast step": lambda: inf.model(inp, zen[:, :1], train=False),
+            "metrics": lambda: metrics.update(pred, tstep, 0),
+            "temporal mean/std": lambda: temporal.update(pred, 0),
+            "bias mean/std": lambda: bias.update(pred - tstep, 0),
+            "SH spectra (K1)": lambda: spectrum.update(pred, 0, tar=tstep),
+            "zonal spectra": lambda: zonal.update(pred, 0, tar=tstep),
+            "raw forecast copy": lambda: host.copy_(pred, non_blocking=True),
+        }
+        ms = {k: time_ms(fn, 3, 1) for k, fn in parts.items()}
+    total = sum(ms.values())
+    buffers = total - ms["forecast step"]
+    print("phase 29: one lead step's device ms, apart: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) +
+          f"; in all {total:.2f} ms, the metrics and buffers {buffers:.2f} ms ({buffers / total:.1%})  [{card}]", flush=True)
+    return dict(ms, total=total, buffers=buffers)
+
+
+def driver_phases(dev, card):
+    """Phases 25-29; returns (the K1 result at the spectrum's shape, its
+    launches in the inference run, counted inside ``SpectrumAverageBuffer``)."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_drivers_", dir=os.path.join(REPO, "build"))
+    try:
+        return _driver_phases(dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _driver_phases(dev, card, root):
+    from makani_torch import inference, kernels, train
+    from makani_torch.utils import hdf5
+    from makani_torch.utils.checkpoint_helpers import get_latest_checkpoint_version
+    from makani_torch.utils.inference.rollout_buffer import SpectrumAverageBuffer
+
+    t0 = time.perf_counter()
+    yaml_path, overrides = driver_files(root, dev)
+    print(f"phase 25 {time.perf_counter() - t0:.1f} s", flush=True)
+    argv = ["--yaml_config", yaml_path, "--config", DRIVER_NAME, "--run_num", "0", "--batch_size", str(RECIPE_BATCH)]
+    n_lead = DRIVER_AUTOREG + 1
+
+    # ---- phase 26: one epoch through train.py
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train.main(argv + ["--max_epochs", "1"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    per_step = optimizer_launches(first.optimizer)
+    n_steps = len(first.step_losses)
+    expected = expected_driver_launches(n_steps, n_lead, per_step, launches)
+    peak = torch.cuda.max_memory_allocated()
+    ck = first.checkpoint
+    print(f"phase 26: python -m makani_torch.train {' '.join(argv[4:])} --max_epochs 1: {wall:.1f} s ({first.n_model_params} parameters, {n_steps} steps, "
+          f"a validation rollout of {n_lead} steps, checkpoint ckpt_v1); launches {launches} (expected {expected}); peak memory {peak / 2**30:.2f} GiB; "
+          f"checkpoint written {ck.bytes_written / 1e9:.3f} GB in {ck.seconds_written:.2f} s ({ck.bytes_written / 1e9 / ck.seconds_written:.3f} GB/s)  [{card}]",
+          flush=True)
+    print(train_line("phase 26 epoch 1 (cold)", first.logs[-1], first.host_stats, card), flush=True)
+    if launches != expected:
+        raise RuntimeError(f"train.py epoch launches {launches} != expected {expected}")
+    if n_steps != DRIVER_STATES - 1 or not all(math.isfinite(v) for v in first.logs[-1].values() if isinstance(v, float)):
+        raise RuntimeError(f"train.py epoch: {n_steps} steps, logs {first.logs[-1]}")
+    epoch1 = [p.detach().clone() for p in first.model.parameters()]
+
+    t0 = time.perf_counter()
+    check_first_step(dev, first)
+    print(f"phase 27 {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 28: the resumed run against the first trainer carried on in memory
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed = train.main(argv + ["--max_epochs", "2"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ck = resumed.checkpoint
+    print(f"phase 28: python -m makani_torch.train ... --max_epochs 2 (resuming from ckpt_v{get_latest_checkpoint_version(ck.checkpoint_dir) - 1}): "
+          f"{wall:.1f} s; launches {launches}; checkpoint read {ck.bytes_read / 1e9:.3f} GB in {ck.seconds_read:.2f} s "
+          f"({ck.bytes_read / 1e9 / ck.seconds_read:.3f} GB/s), written {ck.bytes_written / 1e9:.3f} GB in {ck.seconds_written:.2f} s "
+          f"({ck.bytes_written / 1e9 / ck.seconds_written:.3f} GB/s)  [{card}]", flush=True)
+    print(train_line("phase 28 epoch 2 (resumed run)", resumed.logs[-1], resumed.host_stats, card), flush=True)
+    if not resumed.params["resuming"] or resumed.epoch != 2 or len(resumed.logs) != 1 or launches != expected:
+        raise RuntimeError(f"train.py did not resume for one epoch: resuming {resumed.params['resuming']}, epoch {resumed.epoch}, launches {launches}")
+    res_losses = [v.item() for v in resumed.step_losses]
+    res_lr = resumed.optimizer.last_lr
+    res_valid = resumed.logs[-1]["valid_loss"]
+    res_params = [p.detach().clone() for p in resumed.model.parameters()]
+    del resumed
+    torch.cuda.empty_cache()
+
+    syncs: list = []
+    checking_syncs(first, "_train_steps", syncs)
+    checking_syncs(first, "_validation_rollouts", syncs)
+    first.epoch = 2
+    first.train_batches.set_epoch(2)
+    logs2 = first.train_one_epoch()
+    logs2.update(first.validate_one_epoch())
+    losses = [v.item() for v in first.step_losses]
+    print(train_line("phase 28 epoch 2 (the first trainer, in memory, warm)", logs2, first.host_stats, card), flush=True)
+    bit_params, worst = leaf_diff(res_params, [p.detach() for p in first.model.parameters()])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res_losses, losses))
+    print(f"phase 28: epoch 2 losses, resumed {res_losses} vs uninterrupted {losses} ({'bit-equal' if res_losses == losses else 'NOT bit-equal'}, "
+          f"max rel {rel:.2e}, tol 1e-6); parameters {'bit-equal' if bit_params else 'NOT bit-equal'} (max|d|/max|p| {worst:.2e}); learning rate "
+          f"{res_lr:.9e} vs {first.optimizer.last_lr:.9e}; valid_loss {res_valid:.7f} vs {logs2['valid_loss']:.7f}; syncs in the step and rollout "
+          f"loops {len(syncs)}", flush=True)
+    if rel > 1e-6 or worst > 1e-6 or res_lr != first.optimizer.last_lr or abs(res_valid - logs2["valid_loss"]) > 1e-6 * abs(logs2["valid_loss"]):
+        raise RuntimeError("the resumed epoch differs from the uninterrupted one")
+    if syncs:
+        raise RuntimeError(f"the training loops waited for the card: {syncs[:5]}")
+    del first
+    torch.cuda.empty_cache()
+
+    # ---- phase 29: inference.py from the run's best checkpoint
+    out = os.path.join(root, "scores")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    spectrum_launches = {"sht_analysis": 0}
+    undo = counting_launches(SpectrumAverageBuffer, "update", "sht_analysis", kernels.LAUNCHES, spectrum_launches)
+    t0 = time.perf_counter()
+    try:
+        inf = inference.main(argv + ["--save_raw_forecasts", "--output_dir", out])
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # the forecast's launches and, for K1, the spectrum buffer's as counted
+    expected = {k: n_lead * EXPECTED_PER_STEP.get(k, 0) + spectrum_launches.get(k, 0) for k in launches}
+    # the best version is epoch 1's or the resumed run's epoch 2
+    version = inf.checkpoint.best_version()
+    bit, _ = leaf_diff([p.detach() for p in inf.model.parameters()], {1: epoch1, 2: res_params}[version])
+    del epoch1, res_params
+    ck, tm = inf.checkpoint, inf.timings
+    logs = inf.logs
+    print(f"phase 29: python -m makani_torch.inference ... --save_raw_forecasts: {wall:.1f} s; restored ckpt_v{version} "
+          f"({'bit-equal to' if bit else 'NOT equal to'} the trained weights), read {ck.bytes_read / 1e9:.3f} GB in {ck.seconds_read:.2f} s "
+          f"({ck.bytes_read / 1e9 / ck.seconds_read:.3f} GB/s); the spectrum's transform ({inf._sht.nlat}x{inf._sht.nlon} -> lmax {inf._sht.lmax}, mmax "
+          f"{inf._sht.mmax}) built in {tm['spectrum_table_s']:.1f} s; "
+          f"{tm['lead_steps']} lead steps in {tm['rollout_s']:.3f} s ({1e3 * tm['rollout_s'] / tm['lead_steps']:.1f} ms a lead step, wall, cold); "
+          f"outputs written in {tm['finalize_s']:.1f} s; launches {launches} (expected {expected}: K1 {spectrum_launches['sht_analysis']} in the "
+          f"spectrum buffer, 2 a lead step wanted); peak memory {peak / 2**30:.2f} GiB; rmse {logs['rmse']:.6f} "
+          f"acc {logs['acc']:.6f} l1 {logs['l1']:.6f} rmse_rollout_last {logs['rmse_rollout_last']:.6f}  [{card}]", flush=True)
+    if not bit or launches != expected or spectrum_launches["sht_analysis"] != 2 * n_lead:
+        raise RuntimeError("inference did not score the trained weights, or its launches are not the forecast's and the spectrum's")
+    rmse0 = step0_rmse_from_wrapper(dev, inf)
+    rel = abs(rmse0 - logs["rmse_rollout/0"]) / logs["rmse_rollout/0"]
+    print(f"phase 29: step-0 rmse {logs['rmse_rollout/0']:.7f}, ModelWrapper's on the same initial condition {rmse0:.7f} (rel {rel:.2e}, tol 1e-6)", flush=True)
+    if rel > 1e-6:
+        raise RuntimeError("the Inferencer's step-0 rmse is not ModelWrapper's")
+    C, H, W = inf.n_out, inf.params.img_shape_x, inf.params.img_shape_y
+    want = {
+        "metrics.h5": {"rmse": (n_lead, C), "acc": (n_lead, C), "l1": (n_lead, C), "channel": (C,)},
+        "temporal_averages.h5": {k: (n_lead, C, H, W) for k in ("mean", "std", "bias_mean", "bias_std")},
+        "spectra.h5": {"sh_spectrum": (n_lead, C, H), "sh_spectrum_target": (n_lead, C, H), "zonal_spectrum": (n_lead, C, W // 2 + 1),
+                       "zonal_spectrum_target": (n_lead, C, W // 2 + 1)},
+        "raw_forecasts.h5": {"fields": (1, n_lead, C, H, W), "channel": (C,)},
+    }
+    got = {name: {k: hdf5.File(os.path.join(out, name))[k].shape for k in hdf5.File(os.path.join(out, name)).keys()} for name in want}
+    finite = all(np.isfinite(hdf5.File(os.path.join(out, n))[k][...]).all() for n in want for k in want[n] if k != "channel")
+    print(f"phase 29: output files {got} ({'as' if got == want else 'NOT as'} the JAX package's; {'all finite' if finite else 'NOT finite'})", flush=True)
+    if got != want or not finite:
+        raise RuntimeError(f"inference outputs {got} != {want} or not finite")
+
+    # warm, with its lead-step loop checked for syncs
+    syncs = []
+    checking_syncs(inf, "_score", syncs)
+    out2 = os.path.join(root, "scores_warm")
+    logs2 = inf.score_model(out2)
+    shutil.rmtree(out2, ignore_errors=True)
+    rel = max(abs(logs2[k] - v) / max(abs(v), 1.0) for k, v in logs.items())
+    print(f"phase 29: a second scoring (warm): {1e3 * tm['rollout_s'] / tm['lead_steps']:.1f} ms a lead step, wall (its initial condition's read "
+          f"{1e3 * tm['loader']['fetch_s']:.1f} ms, staging {1e3 * tm['loader']['stage_s']:.1f} ms, copy {tm['loader']['copy_ms']:.2f} ms); outputs in "
+          f"{tm['finalize_s']:.1f} s; logs {'equal to' if logs2 == logs else f'within {rel:.1e} of'} the first's; syncs in the lead-step loop that "
+          f"the sync debug mode sees {len(syncs)}; event waits of the raw-forecast buffer {inf.rollout_buffer.waits} (one a batch of initial "
+          f"conditions, at its last lead step, where the JAX package reads too; the debug mode does not see event waits)  [{card}]", flush=True)
+    if syncs or inf.rollout_buffer.waits != tm["lead_steps"] // n_lead or sorted(logs2) != sorted(logs) or rel > 1e-6:
+        raise RuntimeError(f"the inference loop waited for the card, or a second scoring differs: syncs {syncs[:5]}, event waits {inf.rollout_buffer.waits}")
+    lead_step_breakdown(dev, card, inf)
+
+    # K1 at the spectrum's shape
+    x = randn((1, H, inf._sht.mmax, C, 2), torch.float32, torch.Generator(dev).manual_seed(SEED + 31), dev)
+    table = inf._sht.weights(dev)
+    from makani_torch.ops import sht
+
+    kres = run_cases([("sht_analysis", "spectrum", torch.float32, lambda: sht.analysis_contract_cl_s(x, table),
+                       lambda: sht.analysis_contract_cl_s_plain(x, table), legendre_extras(x, table, 0, 1))], card, {}, iters=5, warmup=1)
+    del inf, x, table
+    torch.cuda.empty_cache()
+    return kres, spectrum_launches
+
+
+# ---------------------------------------------------------------------------
 # FCN3.1 (slice 6): both published forecasts and the recipe's training step
 
 # the noise modules of the forecast paths, built once a configuration (the
@@ -2677,8 +3126,8 @@ def time_kernel_steps(step, card, label, members, steps=3):
 
 
 def fcn31_phases(dev, card, config, tag):
-    """One FCN3.1 forecast path (phases 25-28 for ``fcn31_sc2_edim256_layers10``,
-    29-32 for its history variant); returns (kernel results, launch counts
+    """One FCN3.1 forecast path (phases 30-33 for ``fcn31_sc2_edim256_layers10``,
+    34-37 for its history variant); returns (kernel results, launch counts
     of the rollout)."""
     from makani_torch import kernels
     from makani_torch.models.model_package import rollout
@@ -2861,7 +3310,7 @@ def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
 
 
 def fcn31_train_phases(dev, card):
-    """Phases 33-36: the FCN3.1 recipe's ensemble-CRPS training step;
+    """Phases 38-41: the FCN3.1 recipe's ensemble-CRPS training step;
     returns (kernel results, launch counts of the timed training steps)."""
     import copy
 
@@ -3005,6 +3454,10 @@ def main() -> int:
     recipe_res, recipe_launches = recipe_phases(dev, card)
     print(f"SFNO recipe training phases {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    driver_res, driver_launches = driver_phases(dev, card)
+    print(f"driver phases (train.py, inference.py) {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
     fcn31 = {}
     for tag, config in (("fcn31", FCN31_CONFIG), ("fcn31h", FCN31_HISTORY_CONFIG)):
         t0 = time.perf_counter()
@@ -3055,6 +3508,12 @@ def main() -> int:
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         )
+    r = driver_res[("sht_analysis", "spectrum", f32)]
+    table.append(
+        {"name": "sht_analysis@spectrum", "route": "cuda", "source": "makani_torch/csrc/sht_legendre.cu", "replaces": "makani_tpu/ops/sht.py:54",
+         "launches": driver_launches["sht_analysis"], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    )
     table += fcn31_rows(meta, fcn31)
     # K10 runs at both of the SFNO training step's grids; its line holds the full one
     print("instance_norm_grad (K10), SFNO training step: " + "; ".join(

@@ -3,8 +3,11 @@
 
 ``ModelWrapper`` maps a physical input field (plus the zenith and noise
 channels) to the physical prediction: normalize -> model -> denormalize.
-``rollout`` runs it autoregressively, for an ensemble with a noise module. Loading a saved
-package (the JAX package's orbax ``load_model_package``) is not ported yet.
+``rollout`` runs it autoregressively, for an ensemble with a noise module.
+The trainer's checkpoints are saved and restored by
+``utils/checkpoint_helpers.CheckpointManager`` (the ``Inferencer`` scores
+them); loading a saved model package (the JAX package's
+``load_model_package``) is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,12 +1,11 @@
-"""Normalization statistics in the out-channel order (counterpart of
-``get_data_normalization``, ``out_channel_names``, ``get_out_normalization``
-and ``get_time_diff_stds`` in
+"""Normalization statistics and climatology (counterpart of
 ``makani_tpu/utils/dataloaders/data_helpers.py``).
 
 Statistics are ``.npy`` files of shape (1, C_data, 1, 1) over the dataset's
 full channel set; these select the configured channels and honour the
 per-channel normalization modes ("zscore" by default, "minmax", "none").
-numpy only: the loss handler reads them on the host.
+numpy only: the loaders, the loss handler and the metrics read them on the
+host.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import os
 
 import numpy as np
 
-__all__ = ["get_data_normalization", "out_channel_names", "get_out_normalization", "get_time_diff_stds"]
+__all__ = ["get_data_normalization", "out_channel_names", "get_out_normalization", "get_time_diff_stds", "get_time_means", "get_climatology"]
 
 
 def _load(path):
@@ -98,3 +97,25 @@ def get_time_diff_stds(params):
     if stds.ndim == 5:
         stds = stds[min(dt, stds.shape[0]) - 1]
     return stds.astype(np.float32)
+
+
+def get_time_means(params):
+    """The time-mean fields (1, C_data, H, W) of ``time_means_path``, or None."""
+    return _load(params.get("time_means_path"))
+
+
+def get_climatology(params):
+    """The time-mean climatology over the output channels, normalized as the
+    targets are (the ACC metric's reference), (C_out, H, W) fp32, or None
+    without a time-means file."""
+    tm = get_time_means(params)
+    if tm is None:
+        return None
+    out_channels = np.asarray(params.get("out_channels"))
+    clim = tm[0, out_channels]
+    # the bias and scale rows follow in_channels: pick each output channel's row
+    bias, scale = get_data_normalization(params)
+    in_channels = np.asarray(params.get("in_channels", range(len(params.get("channel_names")))))
+    rows = np.asarray([int(np.where(in_channels == c)[0][0]) for c in out_channels])
+    clim = (clim - bias[0, rows]) / scale[0, rows]
+    return clim.astype(np.float32)

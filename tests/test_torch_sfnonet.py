@@ -37,9 +37,10 @@ KW = dict(inp_shape=(24, 48), out_shape=(24, 48), scale_factor=2, inp_chans=5, o
 
 
 def _jax_variables(model, *args):
-    """Initialised flax variables as numpy, with the biases and norm scales
-    (zeros and ones at init) drawn at random so that they count."""
-    variables = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0), *args))
+    """Initialised flax variables as numpy (the init compiled as one
+    program), with the biases and norm scales (zeros and ones at init) drawn
+    at random so that they count."""
+    variables = jax.tree.map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), *args))
     rng = np.random.default_rng(7)
 
     def perturb(path, leaf):
@@ -53,6 +54,14 @@ def _jax_variables(model, *args):
     return jax.tree_util.tree_map_with_path(perturb, variables)
 
 
+@pytest.fixture(scope="module")
+def kw_variables():
+    """The variables of ``JSFNO(**KW)``, initialised once: shared by its fp32
+    and bf16 forwards (its parameters are fp32 at either compute dtype) and
+    the strict-load test."""
+    return _jax_variables(JSFNO(**KW), jnp.zeros((1, 5, 24, 48)))
+
+
 @pytest.mark.parametrize(
     "dtype,extra",
     [
@@ -62,13 +71,13 @@ def _jax_variables(model, *args):
         ("bfloat16", {}),
     ],
 )
-def test_sfno_forward_matches_jax(dtype, extra):
+def test_sfno_forward_matches_jax(dtype, extra, request):
     kw = dict(KW, **extra)
     x = np.random.default_rng(0).standard_normal((2, 5, 24, 48)).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
     jmodel = JSFNO(dtype=jdt, **kw)
-    variables = _jax_variables(jmodel, jnp.asarray(x))
-    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x)), np.float32)
+    variables = _jax_variables(jmodel, jnp.asarray(x)) if extra else request.getfixturevalue("kw_variables")
+    ref = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)), np.float32)
 
     model = load_from_jax(SphericalFourierNeuralOperatorNet(dtype=tdt, device="cpu", **kw), variables)
     with torch.no_grad():
@@ -81,10 +90,8 @@ def test_sfno_forward_matches_jax(dtype, extra):
         assert np.linalg.norm(out - ref) <= 2e-2 * np.linalg.norm(ref)
 
 
-def test_params_from_jax_names_and_strict_load():
-    jmodel = JSFNO(**KW)
-    variables = _jax_variables(jmodel, jnp.zeros((1, 5, 24, 48)))
-    sd = params_from_jax(variables)
+def test_params_from_jax_names_and_strict_load(kw_variables):
+    sd = params_from_jax(kw_variables)
     assert sd["block0.filter_layer.filter.weight"].shape == (1, 16, 16, 12, 2)
     assert sd["encoder.hidden0.kernel"].shape == (1, 5, 16)
     model = SphericalFourierNeuralOperatorNet(device="cpu", **KW)

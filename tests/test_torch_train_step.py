@@ -89,9 +89,9 @@ def _params(**over):
 
 
 def _variables(model, *args):
-    """Flax variables as numpy, with biases and norm scales drawn at random
-    so that they count."""
-    variables = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0), *args))
+    """Flax variables as numpy (the init compiled as one program), with
+    biases and norm scales drawn at random so that they count."""
+    variables = jax.tree.map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), *args))
     rng = np.random.default_rng(7)
 
     def perturb(path, leaf):
