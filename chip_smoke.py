@@ -172,8 +172,46 @@ each fatal on failure:
     timed apart; and K1 at the spectrum's shape (721 -> lmax 721, mmax 721,
     C = 73, fp32) against its plain version (``sht_analysis@spectrum``).
 
+ The ensemble driver, after the drivers' phases: ``python -m
+ makani_torch.ensemble`` and ``python -m makani_torch.inference`` (their
+ ``main(argv)``) on the FCN3 recipe under ``fcn3_train_config``'s cuts, with
+ the native reader (``MAKANI_NATIVE_READER=1``):
+30. write seeded HDF5 files under a temporary directory in ``build/``
+    (removed at exit): a training and a validation year of 4 states of 73 x
+    361 x 720 fp32 (3 training samples, one validation rollout), the
+    statistics with the time means, ``data.json``, a mask file of 2
+    six-hourly masks and a climatology file of 4 states, and a YAML whose
+    entry inherits the recipe's base config and overrides only the paths,
+    the cuts (E = 4 of B = 1, ``n_future`` 0, ``checkpointing_level`` 3),
+    ``valid_autoreg_steps`` (2) and ``max_epochs`` (the entry checked equal
+    to ``fcn3_train_config`` beyond them);
+31. train one epoch through ``ensemble.py --ensemble_size 4`` (3 steps, the
+    validation rollout of 3 lead steps, checkpoint ``ckpt_v1``): every
+    training step's launches equal phase 20's step's (counted inside
+    ``ensemble_train_step``), the epoch's launches those steps', the noise
+    draws' K2 and the rollout's forecasts and K15; ``step_time_ms``,
+    members/s, the host's ms a batch by part against the device's ms a
+    step, the noise draws' device ms and the idle share; CRPS, spread and
+    SSR at every lead step; then the trainer's first step against
+    chip_smoke's own ``ensemble_train_step`` on the same sample, noise
+    (a generator seeded with ``seed + 1``) and seeded weights, bit for bit;
+32. ``ensemble.py`` again with ``max_epochs`` 2, resuming from ``ckpt_v1``,
+    against the first trainer carried on for epoch 2 in memory with its
+    generator reseeded to ``seed + 1`` (the noise stream is not
+    checkpointed, as in the JAX package): each step's loss, every
+    parameter, the learning rate and the validation loss bit-equal, and no
+    sync in its step and rollout loops (``set_sync_debug_mode``);
+33. ``inference.py`` on the run's best checkpoint at E = 4 with the mask and
+    the climatology files and ``--save_raw_forecasts``: the restored
+    weights equal the trained ones; the launches are the forecasts', the
+    noise series' K2 and K1's two a lead step in the spectrum buffer; CRPS,
+    spread and SSR at every lead step; the four files with their datasets
+    and shapes, all finite; one E-member lead step's parts timed apart;
+    and every sample of both year files, in training and evaluation
+    windows, read by the native reader bit-equal to the memory map's.
+
  FCN3.1 (slice 6), each path entered through ``get_model(multistep=True)``:
-30. build ``fcn31_sc2_edim256_layers10`` (config/fourcastnet3.yaml: 721x1440,
+34. build ``fcn31_sc2_edim256_layers10`` (config/fourcastnet3.yaml: 721x1440,
     73 channels + zenith + 8 diffusion-noise channels, scale 2 onto a
     360x720 Legendre-Gauss grid, lmax 90 and the DISCO cutoff 3 pi / 90 from
     it, the harmonic basis under nodal normalization, embed 256, aux embed
@@ -181,36 +219,36 @@ each fatal on failure:
     activations, bf16 compute with fp32 DISCO) on seeded weights, one
     centered pair (E=2); print every DISCO conv's band (BL rows of WW
     longitudes) and K5's route for it;
-31. compare its kernels with their plain versions at its shapes: K5 in
+35. compare its kernels with their plain versions at its shapes: K5 in
     responses mode at the unified encoder (BL 48), the processor (BL 25)
     and the decoder (BL 49), in fused mode at the aux encoder, K6 at the
     same convs, K8 at the two-stage convs (D = 511, 1960, 1792), K7 at the
     decoder, K1-K3 at the internal grid; the full-resolution plain versions
     of K5 run once each (``run_cases(plain_once=True)``);
-32. roll the ensemble out for 4 steps (``ModelWrapper`` + ``rollout``) and
+36. roll the ensemble out for 4 steps (``ModelWrapper`` + ``rollout``) and
     check the frames and the launch counts, computed from the model's convs;
-33. run step 1 once through the plain path and compare (bf16), and time the
+37. run step 1 once through the plain path and compare (bf16), and time the
     kernel path (1 + 3 steps: ms a step, members/s, peak memory);
-34-37. the same for ``fcn31_sc2_edim256_layers10_history`` (the
+38-41. the same for ``fcn31_sc2_edim256_layers10_history`` (the
     fourier-bessel basis, BL 72-73 at the encoder and decoder, a window of
     2 states sliding over the rollout, the unified encoder a grouped
     two-stage conv: groups 2 of 73 -> 128, each group's responses K5, K6
     and K8 apart);
-38. build the FCN3.1 recipe's training step (``fcn31_train_config``: the
+42. build the FCN3.1 recipe's training step (``fcn31_train_config``: the
     recipe at 361x720, internal 180x360, lmax 45, E = 4 of B = 1,
     checkpointing_level 3, the base config's skillspread CRPS with auto
     weights and temp_diff_normalization, clipped Adam on the cosine
     schedule);
-39. compare K12 (the generic gather at K 7) and K13 at the processor and
+43. compare K12 (the generic gather at K 7) and K13 at the processor and
     the decoder, K5 at both, K8 and its backward GEMMs, K14 at the decoder,
     K15, K9, K3's dx and K1-K3 at the global blocks, K16 and K17 with their
     plain versions;
-40. one bf16 step through the kernels and the plain path: the forecast,
+44. one bf16 step through the kernels and the plain path: the forecast,
     loss and every gradient leaf, then the optimizer step from the same
     gradients;
-41. 1 + 5 steps through the kernels: launches (computed from the model),
+45. 1 + 5 steps through the kernels: launches (computed from the model),
     the schedule's learning rates, a falling loss, ms a step, members/s and
-    peak memory (the plain path is compared in 40, not timed).
+    peak memory (the plain path is compared in 44, not timed).
 
 Prints the card line and the kernel table as one JSON line before the last
 line (each kernel at its path's main shape, K1 at the inference spectrum's
@@ -221,6 +259,7 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -768,9 +807,10 @@ def small_model_check(dev):
         raise RuntimeError(f"small SFNO kernel path disagrees with the plain path: {err}")
 
 
-def time_steps(model, step, card, label):
+def time_steps(model, step, card, label, plain_steps=3):
     """Step latency of both paths, in turns (kernel, plain, kernel, plain),
-    and peak memory; CUDA events around each step."""
+    and peak memory; CUDA events around each step: a warm-up and 3 timed
+    steps a turn of the kernel path, ``plain_steps`` of the plain path."""
     from makani_torch import kernels
 
     times = {"kernel": [], "plain": []}
@@ -780,7 +820,7 @@ def time_steps(model, step, card, label):
         step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
+        for _ in range(3 if path == "kernel" else plain_steps):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             step()
@@ -1240,7 +1280,8 @@ def fcn3_phases(dev, card):
         raise RuntimeError(f"FCN3 fp32 kernel path disagrees with the plain path: {err}")
     del model32, wrapper32
     torch.cuda.empty_cache()
-    time_steps(model, lambda: wrapper(xm, unp), card, f"FCN3 ensemble forecast (E={FCN3_ENSEMBLE})")
+    # the plain path's step takes seconds: one timed step a turn
+    time_steps(model, lambda: wrapper(xm, unp), card, f"FCN3 ensemble forecast (E={FCN3_ENSEMBLE})", plain_steps=1)
     return kres, launches
 
 
@@ -2513,23 +2554,25 @@ DRIVER_NAME = "sfno_driver"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
-def driver_files(root: str, dev) -> tuple:
-    """Phase 25: seeded HDF5 year files (``fields`` (5, 73, 721, 1440) fp32,
-    six-hourly ``timestamp``), written through ``makani_torch.utils.hdf5``
-    from fields drawn on the card, whose normalized values are standard
-    normal; ``data.json``; the statistics (``stats_files`` and a time-means
-    file for the ACC); and a YAML whose config inherits the SFNO recipe's
-    (config/sfnonet.yaml's text, then ``DRIVER_NAME`` merging its base, as
-    ``sfno_linear_73chq_sc3_layers8_edim384`` does) and overrides the paths,
-    ``valid_autoreg_steps`` and ``max_epochs``. Returns (yaml path, the
-    overrides)."""
+def seeded_run_files(root: str, dev, config, name: str, shape, states: int, cuts: dict, ref: dict, ignore=()) -> tuple:
+    """Seeded HDF5 year files for a driver run of ``config``'s channels at
+    ``shape`` (``fields`` (states, C, H, W) fp32, six-hourly ``timestamp``),
+    written through ``makani_torch.utils.hdf5`` from fields drawn on the
+    card, whose normalized values are standard normal, one year each of
+    ``DRIVER_YEARS``; ``data.json``; the statistics (``stats_files`` and a
+    time-means file for the ACC); and a YAML whose entry ``name`` inherits
+    the recipe's (the config file's text, then the entry merging its
+    ``BASE_CONFIG``) and overrides the paths and ``cuts``. The entry must
+    equal ``ref`` beyond the overrides and ``ignore``. Returns (yaml path,
+    the overrides, the bytes written, the statistics paths, the data
+    normalization (bias, scale) on the card)."""
     from makani_torch.utils import hdf5
     from makani_torch.utils.dataloaders.data_helpers import get_data_normalization
     from makani_torch.utils.yparams import YParams
 
-    recipe = YParams(os.path.join(REPO, CONFIG[0]), CONFIG[1])
+    recipe = YParams(os.path.join(REPO, config[0]), config[1])
     names = list(recipe.channel_names)
-    C, H, W = len(names), recipe.img_shape_x, recipe.img_shape_y
+    C, (H, W) = len(names), shape
     stats = stats_files(C)
     view = {"channel_names": names, "in_channels": list(range(C)), "normalization": recipe.normalization, **stats}
     bias, scale = (torch.from_numpy(a).to(dev) for a in get_data_normalization(view))
@@ -2542,9 +2585,9 @@ def driver_files(root: str, dev) -> tuple:
     for split, year in DRIVER_YEARS.items():
         os.makedirs(os.path.join(root, split))
         t0 = np.datetime64(f"{year}-01-01T00:00:00").astype("datetime64[s]").astype(np.int64)
-        maps = hdf5.File.create(os.path.join(root, split, f"{year}.h5"), {"fields": ((DRIVER_STATES, C, H, W), np.float32), "timestamp": ((DRIVER_STATES,), np.int64)})
-        maps["timestamp"][:] = t0 + np.arange(DRIVER_STATES) * 6 * 3600
-        for t in range(DRIVER_STATES):
+        maps = hdf5.File.create(os.path.join(root, split, f"{year}.h5"), {"fields": ((states, C, H, W), np.float32), "timestamp": ((states,), np.int64)})
+        maps["timestamp"][:] = t0 + np.arange(states) * 6 * 3600
+        for t in range(states):
             maps["fields"][t] = (bias[0] + scale[0] * torch.randn((C, H, W), generator=gen, device=dev)).cpu().numpy()
         for m in maps.values():
             m.flush()
@@ -2555,18 +2598,32 @@ def driver_files(root: str, dev) -> tuple:
     with open(os.path.join(root, "data.json"), "w") as f:
         json.dump(meta, f)
     overrides = dict(metadata_json_path=os.path.join(root, "data.json"), train_data_path=os.path.join(root, "train"), valid_data_path=os.path.join(root, "valid"),
-                     exp_dir=os.path.join(root, "runs"), **stats, valid_autoreg_steps=DRIVER_AUTOREG, max_epochs=1)
-    with open(os.path.join(REPO, CONFIG[0])) as f:
+                     exp_dir=os.path.join(root, "runs"), **stats, **cuts)
+    with open(os.path.join(REPO, config[0])) as f:
         text = f.read()
-    lines = [f"{DRIVER_NAME}:", "    <<: *BASE_CONFIG"] + [f"    {k}: {json.dumps(v)}" for k, v in overrides.items()]
+    lines = [f"{name}:", "    <<: *BASE_CONFIG"] + [f"    {k}: {json.dumps(v)}" for k, v in overrides.items()]
     path = os.path.join(root, "driver.yaml")
     with open(path, "w") as f:
         f.write(text + "\n" + "\n".join(lines) + "\n")
-    mine = YParams(path, DRIVER_NAME).to_dict()
-    ref = recipe.to_dict()
-    differ = sorted(k for k in set(mine) | set(ref) if k not in overrides and k not in ("config", "yaml_filename") and mine.get(k) != ref.get(k))
+    mine = YParams(path, name).to_dict()
+    skip = set(overrides) | {"config", "yaml_filename"} | set(ignore)
+    differ = sorted(k for k in set(mine) | set(ref) if k not in skip and mine.get(k) != ref.get(k))
     if differ:
-        raise RuntimeError(f"the driver config differs from {CONFIG[1]} beyond the overrides: {differ}")
+        raise RuntimeError(f"the driver config {name} differs from its reference beyond the overrides: {differ}")
+    return path, overrides, nbytes_written, stats, (bias, scale)
+
+
+def driver_files(root: str, dev) -> tuple:
+    """Phase 25: ``seeded_run_files`` for the SFNO recipe at its own grid,
+    ``DRIVER_STATES`` states a year, its config overriding only the paths,
+    ``valid_autoreg_steps`` and ``max_epochs``. Returns (yaml path, the
+    overrides)."""
+    from makani_torch.utils.yparams import YParams
+
+    recipe = YParams(os.path.join(REPO, CONFIG[0]), CONFIG[1])
+    C, H, W = len(recipe.channel_names), recipe.img_shape_x, recipe.img_shape_y
+    path, overrides, nbytes_written, _, _ = seeded_run_files(root, dev, CONFIG, DRIVER_NAME, (H, W), DRIVER_STATES,
+                                                             dict(valid_autoreg_steps=DRIVER_AUTOREG, max_epochs=1), recipe.to_dict())
     print(f"phase 25: wrote {nbytes_written / 1e9:.2f} GB of seeded files ({len(DRIVER_YEARS)} year files of {DRIVER_STATES} states of {C}x{H}x{W} fp32, "
           f"time means, data.json) under {os.path.relpath(root, REPO)}; {DRIVER_NAME} = {CONFIG[1]} but for {sorted(overrides)}", flush=True)
     return path, overrides
@@ -2748,6 +2805,8 @@ def driver_phases(dev, card):
         return _driver_phases(dev, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        gc.collect()  # the trainers' sync-check cycles (ensemble_driver_phases)
+        torch.cuda.empty_cache()
 
 
 def _driver_phases(dev, card, root):
@@ -2909,6 +2968,380 @@ def _driver_phases(dev, card, root):
     del inf, x, table
     torch.cuda.empty_cache()
     return kres, spectrum_launches
+
+
+# ---------------------------------------------------------------------------
+# The ensemble driver: ensemble.py and inference.py at E > 1 on the FCN3
+# recipe (phases 30-33), with the native reader
+
+# 0.5-degree year files of 4 states: 3 training steps (B = 1, E = 4) and one
+# validation rollout of ENS_AUTOREG + 1 lead steps; the mask file holds
+# ENS_MASKS six-hourly masks, the climatology file ENS_CLIM_STATES six-hourly
+# states without timestamps
+ENS_STATES = 4
+ENS_AUTOREG = 2
+ENS_MASKS = 2
+ENS_CLIM_STATES = 4
+ENS_NAME = "fcn3_ensemble_driver"
+
+
+def ensemble_files(root: str, dev) -> tuple:
+    """Phase 30: ``seeded_run_files`` for the FCN3 recipe under the cuts of
+    ``fcn3_train_config`` (361x720, E = 4 of B = 1, ``n_future`` 0,
+    ``checkpointing_level`` 3), its entry equal to that config beyond the
+    paths, the cuts, ``valid_autoreg_steps`` and ``max_epochs``; and a mask
+    file and a climatology file in raw units. Returns (yaml path, mask
+    path, climatology path)."""
+    from makani_torch.utils import hdf5
+
+    ref = fcn3_train_config()
+    names = ref["channel_names"]
+    C, H, W = len(names), ref["img_shape_x"], ref["img_shape_y"]
+    cuts = dict(ensemble_size=FCN3_TRAIN_ENSEMBLE, batch_size=FCN3_TRAIN_BATCH, n_future=0, checkpointing_level=3, valid_autoreg_steps=ENS_AUTOREG, max_epochs=1)
+    path, overrides, nbytes, _, (bias, scale) = seeded_run_files(root, dev, FCN3_CONFIG, ENS_NAME, (H, W), ENS_STATES, cuts, ref,
+                                                                 ignore=("img_shape_x", "img_shape_y", "in_channels", "out_channels"))
+    gen = torch.Generator(dev).manual_seed(SEED + 32)
+    t0 = np.datetime64(f"{DRIVER_YEARS['valid']}-01-01T00:00:00").astype("datetime64[s]").astype(np.int64)
+    mask_path, clim_path = os.path.join(root, "mask.h5"), os.path.join(root, "climatology.h5")
+    maps = hdf5.File.create(mask_path, {"fields": ((ENS_MASKS, C, H, W), np.float32), "timestamp": ((ENS_MASKS,), np.int64)})
+    maps["timestamp"][:] = t0 + np.arange(ENS_MASKS) * 6 * 3600
+    for t in range(ENS_MASKS):
+        u = torch.rand((2, C, H, W), generator=gen, device=dev)
+        maps["fields"][t] = ((u[0] > 0.3) * (0.5 + 0.5 * u[1])).cpu().numpy()
+    clim = hdf5.File.create(clim_path, {"fields": ((ENS_CLIM_STATES, C, H, W), np.float32)})
+    for t in range(ENS_CLIM_STATES):
+        clim["fields"][t] = (bias[0] + 0.1 * scale[0] * torch.randn((C, H, W), generator=gen, device=dev)).cpu().numpy()
+    for m in (*maps.values(), *clim.values()):
+        m.flush()
+        nbytes += m.nbytes
+    del maps, clim
+    print(f"phase 30: wrote {nbytes / 1e9:.2f} GB of seeded files ({len(DRIVER_YEARS)} year files of {ENS_STATES} states of {C}x{H}x{W} fp32, time "
+          f"means, data.json, a mask file of {ENS_MASKS} six-hourly masks, a climatology file of {ENS_CLIM_STATES} states) under "
+          f"{os.path.relpath(root, REPO)}; {ENS_NAME} = {FCN3_CONFIG[1]} under fcn3_train_config's cuts, but for {sorted(overrides)}", flush=True)
+    return path, mask_path, clim_path
+
+
+def ens_step_launches(trainer) -> dict:
+    """One training step's launches at phase 20's configuration: the FCN3
+    step's, K5's for the fused convs' weight gradients and the optimizer's."""
+    per = dict(FCN3_TRAIN_EXPECTED_PER_STEP)
+    for k, v in optimizer_launches(trainer.optimizer).items():
+        per[k] = per.get(k, 0) + v
+    per["disco_band"] += fcn3_wgrad_launches(trainer.model.model, FCN3_TRAIN_BATCH * FCN3_TRAIN_ENSEMBLE)
+    return per
+
+
+def ens_epoch_launches(per_step: dict, n_steps: int, n_rollouts: int, n_lead: int, keys, scored_loss: bool = True) -> dict:
+    """An ensemble epoch's launches: ``n_steps`` training steps, each batch's
+    noise drawn for one state (K2 once), and ``n_rollouts`` rollouts of
+    ``n_lead`` forecast steps, each drawing its noise series of ``n_lead``
+    states (K2 once a state) and, in validation (``scored_loss``), taking
+    the CRPS loss at every lead step (K15's forward)."""
+    fwd = dict(FCN3_EXPECTED_PER_STEP, sht_synthesis=FCN3_EXPECTED_PER_STEP["sht_synthesis"] - 1, crps=1 if scored_loss else 0)
+    out = {k: n_steps * per_step.get(k, 0) + n_rollouts * n_lead * fwd.get(k, 0) for k in keys}
+    out["sht_synthesis"] += n_steps + n_rollouts * n_lead
+    return out
+
+
+def check_first_ens_step(dev, trainer) -> None:
+    """Phase 31: the trainer's first step against chip_smoke's own
+    ``ensemble_train_step`` from the same seeded weights, on the same sample
+    (the first of epoch 1's order) and the same noise (a generator seeded
+    with ``seed + 1``), bit for bit."""
+    import copy
+
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.models.noise import build_noise
+    from makani_torch.utils.dataloader import BatchIterator, _assemble
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.training.ensemble_trainer import ensemble_train_step, prepare_ensemble_batch
+    from makani_torch.utils.training.optimizer import get_optimizer
+
+    params = trainer.params
+    seed = params.get("seed", 333)
+    order = BatchIterator(trainer.train_dataset, params.batch_size, seed=seed)
+    order.set_epoch(1)
+    batch = _assemble([trainer.train_dataset[int(i)] for i in order.index_batches()[0]])
+    inp, tar, zen = (torch.from_numpy(batch[k]).to(dev) for k in ("inp", "tar", "zen"))
+    model, _ = get_model(copy.deepcopy(params), multistep=True, device=dev, seed=seed)
+    opt = get_optimizer(params, model, len(trainer.train_loader))
+    noise = build_noise(dict(params.input_noise, grid_type=params.get("model_grid_type", "equiangular")), (params.img_shape_x, params.img_shape_y))
+    E = params.ensemble_size
+    x, t, u = prepare_ensemble_batch(noise, inp, tar, zen, E, 1, torch.Generator(dev).manual_seed(seed + 1), params.input_noise.get("centered", False))
+    loss = ensemble_train_step(model, LossHandler(params), opt, x, t, u, E)
+    del model, opt
+    torch.cuda.empty_cache()
+    ref = trainer.step_losses[0]
+    bit = torch.equal(loss, ref)
+    print(f"phase 31: the trainer's step 1 loss {ref.item():.7f}, chip_smoke's ensemble_train_step on the same sample, noise and weights "
+          f"{loss.item():.7f} ({'bit-equal' if bit else 'NOT bit-equal'})", flush=True)
+    if not bit:
+        raise RuntimeError("the ensemble trainer's first step is not ensemble_train_step's")
+
+
+def ens_train_line(tag, logs, stats, card, E) -> str:
+    noise = stats.get("noise_device_ms", [])
+    return (f"{tag}: step_time_ms {logs['step_time_ms']:.2f}, members/s {E * logs['train_samples_per_sec']:.4f} (train_samples_per_sec "
+            f"{logs['train_samples_per_sec']:.4f}), effective_io_rate_gbs {logs['effective_io_rate_gbs']:.4f}, train_loss {logs['train_loss']:.6f}, "
+            f"valid_loss {logs['valid_loss']:.6f}; noise draw device ms a batch {[round(v, 2) for v in noise]}; {host_line(stats)}  [{card}]")
+
+
+def ens_lead_metrics(logs, n_lead) -> str:
+    return "; ".join(f"lead {s}: crps {logs[f'crps_rollout/{s}']:.5f} spread {logs[f'spread_rollout/{s}']:.5f} ssr {logs[f'ssr_rollout/{s}']:.5f}"
+                     for s in range(n_lead))
+
+
+def ens_lead_step_breakdown(dev, card, inf) -> dict:
+    """Phase 33: device ms of one warm E-member lead step's parts on the
+    first initial condition: the forecast step of the folded members, the
+    noise series' draw (a batch's, K2), the masked anomaly metrics, the
+    ensemble mean, each buffer's update on the mean (fresh buffers, the
+    Inferencer's transform) and the raw forecast's copy into page-locked
+    memory."""
+    from makani_torch.utils.dataloader import _assemble
+    from makani_torch.utils.inference.rollout_buffer import SpectrumAverageBuffer, TemporalAverageBuffer, ZonalSpectrumAverageBuffer
+    from makani_torch.utils.metric import MetricsHandler
+    from makani_torch.utils.training.ensemble_trainer import expand_ensemble, fold_ensemble
+
+    params = inf.params
+    E, S, C = inf.ensemble_size, ENS_AUTOREG + 1, inf.n_out
+    H, W = params.img_shape_x, params.img_shape_y
+    batch = _assemble([inf.valid_dataset[0]])
+    inp, tar, zen = (torch.from_numpy(batch[k]).to(dev) for k in ("inp", "tar", "zen"))
+    inp, zen = expand_ensemble(inp, E), expand_ensemble(zen, E)
+    unp = torch.cat([zen, inf.draw_noise(E, S).to(dev)], dim=2)[:, :1]
+    tstep = tar[:, :C]
+    masks, clims = inf._side_fields([0], S)
+    mask, clim = masks[0], clims[0]
+    metrics = MetricsHandler(params, climatology=None)
+    temporal, bias = TemporalAverageBuffer(S, C, (H, W)), TemporalAverageBuffer(S, C, (H, W))
+    spectrum = SpectrumAverageBuffer((H, W), S, C, params.get("model_grid_type", "equiangular"), device=dev, sht=inf._sht)
+    zonal = ZonalSpectrumAverageBuffer((H, W), S, C)
+    host = torch.empty((1, C, H, W), dtype=torch.float32, pin_memory=dev.type == "cuda")
+    with torch.no_grad():
+        pred_s = fold_ensemble(inf.model(inp, unp, train=False), E)
+        pm = pred_s.mean(dim=1)
+        parts = {
+            f"forecast step ({E} members)": lambda: inf.model(inp, unp, train=False),
+            f"noise series draw ({S} states, K2)": lambda: inf.draw_noise(E, S),
+            "metrics (masked anomalies)": lambda: metrics.update(pred_s - clim[:, None], tstep - clim, 0, mask=mask),
+            "ensemble mean": lambda: pred_s.mean(dim=1),
+            "temporal mean/std": lambda: temporal.update(pm, 0),
+            "bias mean/std": lambda: bias.update(pm - tstep, 0),
+            "SH spectra (K1)": lambda: spectrum.update(pm, 0, tar=tstep),
+            "zonal spectra": lambda: zonal.update(pm, 0, tar=tstep),
+            "raw forecast copy": lambda: host.copy_(pm, non_blocking=True),
+        }
+        ms = {k: time_ms(fn, 3, 1) for k, fn in parts.items()}
+    ms[f"noise series draw ({S} states, K2)"] /= S
+    total = sum(ms.values())
+    fc = ms[f"forecast step ({E} members)"]
+    print("phase 33: one E-member lead step's device ms, apart (the noise draw a lead step's share): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) +
+          f"; in all {total:.2f} ms, all but the forecast {total - fc:.2f} ms ({(total - fc) / total:.1%})  [{card}]", flush=True)
+    return dict(ms, total=total)
+
+
+def native_against_memmap(params, locations) -> str:
+    """Phase 33: every sample of ``locations`` read by the native reader
+    (``MAKANI_NATIVE_READER=1``) and by the memory map, bit for bit; returns
+    the reads' host ms a sample."""
+    from makani_torch.utils.dataloaders.data_loader_multifiles import MultifilesDataset
+
+    out = []
+    for loc in locations:
+        for train in (True, False):
+            os.environ["MAKANI_NATIVE_READER"] = "1"
+            native = MultifilesDataset(params, loc, train=train)
+            os.environ["MAKANI_NATIVE_READER"] = "0"
+            plain = MultifilesDataset(params, loc, train=train)
+            for i in range(len(plain)):
+                a, b = plain[i], native[i]
+                if sorted(a) != sorted(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+                    raise RuntimeError(f"the native reader's sample {i} of {loc} differs from the memory map's")
+            n = max(len(plain), 1)
+            out.append(f"{os.path.basename(loc)} ({'train' if train else 'eval'} windows, {len(plain)} samples): read ms a sample native "
+                       f"{1e3 * native.timings['read'] / n:.1f}, memory map {1e3 * plain.timings['read'] / n:.1f}")
+    os.environ["MAKANI_NATIVE_READER"] = "1"
+    return "; ".join(out)
+
+
+def ensemble_driver_phases(dev, card):
+    """Phases 30-33."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ensemble_", dir=os.path.join(REPO, "build"))
+    before = os.environ.get("MAKANI_NATIVE_READER")
+    os.environ["MAKANI_NATIVE_READER"] = "1"
+    try:
+        _ensemble_driver_phases(dev, card, root)
+    finally:
+        if before is None:
+            os.environ.pop("MAKANI_NATIVE_READER", None)
+        else:
+            os.environ["MAKANI_NATIVE_READER"] = before
+        shutil.rmtree(root, ignore_errors=True)
+        # the sync checks' wrappers tie the trainers into reference cycles:
+        # free their weights and optimizer state before the next phases
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _ensemble_driver_phases(dev, card, root):
+    from makani_torch import ensemble, inference, kernels
+    from makani_torch.utils import hdf5
+    from makani_torch.utils.checkpoint_helpers import get_latest_checkpoint_version
+    from makani_torch.utils.inference.rollout_buffer import SpectrumAverageBuffer
+    from makani_torch.utils.training import ensemble_trainer
+
+    t0 = time.perf_counter()
+    yaml_path, mask_path, clim_path = ensemble_files(root, dev)
+    print(f"phase 30 {time.perf_counter() - t0:.1f} s", flush=True)
+    E = FCN3_TRAIN_ENSEMBLE
+    n_lead = ENS_AUTOREG + 1
+    argv = ["--yaml_config", yaml_path, "--config", ENS_NAME, "--run_num", "0"]
+    train_argv = argv + ["--ensemble_size", str(E)]
+
+    # each training step's launches, counted inside ensemble_train_step
+    steps: list = []
+    step_fn = ensemble_trainer.ensemble_train_step
+
+    def counted_step(*args, **kwargs):
+        n0 = dict(kernels.LAUNCHES)
+        try:
+            return step_fn(*args, **kwargs)
+        finally:
+            steps.append({k: v - n0[k] for k, v in kernels.LAUNCHES.items() if v != n0[k]})
+
+    ensemble_trainer.ensemble_train_step = counted_step
+    try:
+        # ---- phase 31: one epoch through ensemble.py
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = ensemble.main(train_argv + ["--max_epochs", "1"])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        per_step = ens_step_launches(first)
+        n_steps = len(first.step_losses)
+        n_rollouts = len(first.valid_batches)
+        expected = ens_epoch_launches(per_step, n_steps, n_rollouts, n_lead, launches)
+        peak = torch.cuda.max_memory_allocated()
+        ck = first.checkpoint
+        logs = first.logs[-1]
+        print(f"phase 31: python -m makani_torch.ensemble {' '.join(train_argv[4:])} --max_epochs 1 (MAKANI_NATIVE_READER=1): {wall:.1f} s "
+              f"({first.n_model_params} parameters, {n_steps} steps of B={first.params.batch_size} E={first.ensemble_size}, {n_rollouts} validation "
+              f"rollout(s) of {n_lead} steps, checkpoint ckpt_v1); launches {launches} (expected {expected}); peak memory {peak / 2**30:.2f} GiB; "
+              f"checkpoint written {ck.bytes_written / 1e9:.3f} GB in {ck.seconds_written:.2f} s ({ck.bytes_written / 1e9 / ck.seconds_written:.3f} GB/s)  "
+              f"[{card}]", flush=True)
+        print(f"phase 31: launches a training step {steps} (phase 20's step at this configuration: {per_step}); K5 {per_step['disco_band']}, K12 "
+              f"{per_step['disco_band_grad']}, K15 {per_step['crps']}, K16 {per_step['grad_norm']}, K17 {per_step['adam']}", flush=True)
+        print(ens_train_line("phase 31 epoch 1 (cold)", logs, first.host_stats, card, E), flush=True)
+        print(f"phase 31: validation, every lead step: {ens_lead_metrics(logs, n_lead)}", flush=True)
+        if not all(st == {k: v for k, v in per_step.items() if v} for st in steps) or launches != expected:
+            raise RuntimeError(f"ensemble.py launches {launches} != expected {expected}, or a step's {steps} != phase 20's {per_step}")
+        if n_steps != ENS_STATES - 1 or not (first.train_dataset.native and first.valid_dataset.native) or not all(math.isfinite(v) for v in logs.values() if isinstance(v, float)):
+            raise RuntimeError(f"ensemble.py epoch: {n_steps} steps, native reader {first.train_dataset.native}, logs {logs}")
+        epoch1 = [p.detach().clone() for p in first.model.parameters()]
+        t0 = time.perf_counter()
+        check_first_ens_step(dev, first)
+        print(f"phase 31 (first-step check) {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # ---- phase 32: the resumed run against the first trainer carried on
+        # in memory, its noise stream restarted at seed + 1 as a resumed run's
+        kernels.reset_launch_counts()
+        steps.clear()
+        t0 = time.perf_counter()
+        resumed = ensemble.main(train_argv + ["--max_epochs", "2"])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        ck = resumed.checkpoint
+        print(f"phase 32: python -m makani_torch.ensemble ... --max_epochs 2 (resuming from ckpt_v{get_latest_checkpoint_version(ck.checkpoint_dir) - 1}): "
+              f"{wall:.1f} s; launches {'as epoch 1' if launches == expected else launches}; checkpoint read {ck.bytes_read / 1e9:.3f} GB in "
+              f"{ck.seconds_read:.2f} s ({ck.bytes_read / 1e9 / ck.seconds_read:.3f} GB/s)  [{card}]", flush=True)
+        print(ens_train_line("phase 32 epoch 2 (resumed run)", resumed.logs[-1], resumed.host_stats, card, E), flush=True)
+        if not resumed.params["resuming"] or resumed.epoch != 2 or len(resumed.logs) != 1 or launches != expected:
+            raise RuntimeError(f"ensemble.py did not resume for one epoch: resuming {resumed.params['resuming']}, epoch {resumed.epoch}, launches {launches}")
+        res_losses = [v.item() for v in resumed.step_losses]
+        res_lr = resumed.optimizer.last_lr
+        res_valid = resumed.logs[-1]["valid_loss"]
+        res_params = [p.detach().clone() for p in resumed.model.parameters()]
+        del resumed
+        torch.cuda.empty_cache()
+
+        syncs: list = []
+        checking_syncs(first, "_train_steps", syncs)
+        checking_syncs(first, "_validation_rollouts", syncs)
+        first.generator.manual_seed(first.params.get("seed", 333) + 1)
+        first.epoch = 2
+        first.train_batches.set_epoch(2)
+        logs2 = first.train_one_epoch()
+        logs2.update(first.validate_one_epoch())
+    finally:
+        ensemble_trainer.ensemble_train_step = step_fn
+    losses = [v.item() for v in first.step_losses]
+    print(ens_train_line("phase 32 epoch 2 (the first trainer, in memory, warm)", logs2, first.host_stats, card, E), flush=True)
+    bit_params, worst = leaf_diff(res_params, [p.detach() for p in first.model.parameters()])
+    print(f"phase 32: epoch 2 losses, resumed {res_losses} vs carried on {losses} ({'bit-equal' if res_losses == losses else 'NOT bit-equal'}); "
+          f"parameters {'bit-equal' if bit_params else 'NOT bit-equal'} (max|d|/max|p| {worst:.2e}); learning rate {res_lr:.9e} vs "
+          f"{first.optimizer.last_lr:.9e}; valid_loss {res_valid:.7f} vs {logs2['valid_loss']:.7f}; syncs in the step and rollout loops {len(syncs)} "
+          f"{syncs[:3]}", flush=True)
+    if res_losses != losses or not bit_params or res_lr != first.optimizer.last_lr or res_valid != logs2["valid_loss"]:
+        raise RuntimeError("the resumed ensemble epoch is not the carried-on one")
+    if syncs:
+        raise RuntimeError(f"the ensemble training loops waited for the card: {syncs[:5]}")
+    del first
+    torch.cuda.empty_cache()
+
+    # ---- phase 33: inference.py at E > 1, masks and a per-date climatology
+    out = os.path.join(root, "scores")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    spectrum_launches = {"sht_analysis": 0}
+    undo = counting_launches(SpectrumAverageBuffer, "update", "sht_analysis", kernels.LAUNCHES, spectrum_launches)
+    t0 = time.perf_counter()
+    try:
+        inf = inference.main(argv + ["--save_raw_forecasts", "--output_dir", out, "--mask_file", mask_path, "--climatology_file", clim_path])
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_ics = len(inf.valid_dataset)
+    expected = ens_epoch_launches({}, 0, n_ics, n_lead, launches, scored_loss=False)
+    expected["sht_analysis"] += spectrum_launches["sht_analysis"]
+    version = inf.checkpoint.best_version()
+    bit, _ = leaf_diff([p.detach() for p in inf.model.parameters()], {1: epoch1, 2: res_params}[version])
+    del epoch1, res_params
+    ck, tm, logs = inf.checkpoint, inf.timings, inf.logs
+    print(f"phase 33: python -m makani_torch.inference ... --save_raw_forecasts --mask_file --climatology_file (E={inf.ensemble_size}): {wall:.1f} s; "
+          f"restored ckpt_v{version} ({'bit-equal to' if bit else 'NOT equal to'} the trained weights), read {ck.bytes_read / 1e9:.3f} GB in "
+          f"{ck.seconds_read:.2f} s; {tm['lead_steps']} lead steps in {tm['rollout_s']:.3f} s ({1e3 * tm['rollout_s'] / tm['lead_steps']:.1f} ms a lead "
+          f"step, wall, cold); launches {launches} (expected {expected}: K1 {spectrum_launches['sht_analysis']} in the spectrum buffer); peak memory "
+          f"{peak / 2**30:.2f} GiB; {ens_lead_metrics(logs, n_lead)}; rmse {logs['rmse']:.6f} acc {logs['acc']:.6f}  [{card}]", flush=True)
+    if not bit or inf.ensemble_size != E or launches != expected or spectrum_launches["sht_analysis"] != 2 * n_lead * n_ics:
+        raise RuntimeError("inference at E > 1 did not score the trained weights, or its launches are not the forecast's, the noise's and the spectrum's")
+    if not all(math.isfinite(v) for v in logs.values()):
+        raise RuntimeError(f"inference logs not finite: {logs}")
+    C, H, W = inf.n_out, inf.params.img_shape_x, inf.params.img_shape_y
+    want = {
+        "metrics.h5": {**{m: (n_lead, C) for m in inf.metrics.metric_names}, "channel": (C,)},
+        "temporal_averages.h5": {k: (n_lead, C, H, W) for k in ("mean", "std", "bias_mean", "bias_std")},
+        "spectra.h5": {"sh_spectrum": (n_lead, C, H), "sh_spectrum_target": (n_lead, C, H), "zonal_spectrum": (n_lead, C, W // 2 + 1),
+                       "zonal_spectrum_target": (n_lead, C, W // 2 + 1)},
+        "raw_forecasts.h5": {"fields": (n_ics, n_lead, C, H, W), "channel": (C,)},
+    }
+    got = {name: {k: hdf5.File(os.path.join(out, name))[k].shape for k in hdf5.File(os.path.join(out, name)).keys()} for name in want}
+    finite = all(np.isfinite(hdf5.File(os.path.join(out, n))[k][...]).all() for n in want for k in want[n] if k != "channel")
+    print(f"phase 33: output files {got} ({'as' if got == want else 'NOT as'} wanted; {'all finite' if finite else 'NOT finite'})", flush=True)
+    if got != want or not finite:
+        raise RuntimeError(f"ensemble inference outputs {got} != {want} or not finite")
+    ens_lead_step_breakdown(dev, card, inf)
+    t0 = time.perf_counter()
+    reads = native_against_memmap(inf.params, [inf.params.train_data_path, inf.params.valid_data_path])
+    print(f"phase 33: the native reader's samples bit-equal to the memory map's, every sample of both files in training and evaluation windows "
+          f"({time.perf_counter() - t0:.1f} s): {reads}  [{os.cpu_count()} CPUs]", flush=True)
+    del inf
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3457,6 +3890,10 @@ def main() -> int:
     t0 = time.perf_counter()
     driver_res, driver_launches = driver_phases(dev, card)
     print(f"driver phases (train.py, inference.py) {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ensemble_driver_phases(dev, card)
+    print(f"ensemble driver phases (ensemble.py, inference.py at E={FCN3_TRAIN_ENSEMBLE}) {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     fcn31 = {}
     for tag, config in (("fcn31", FCN31_CONFIG), ("fcn31h", FCN31_HISTORY_CONFIG)):

@@ -5,8 +5,10 @@ one card.
 
 Scores the run's best checkpoint (else its latest) over the validation or
 ``--inf_data_path`` files and writes the metrics and the output files to
-``--output_dir`` (default: the run's experiment directory). ``--mask_file``
-and ``--climatology_file`` are not ported yet and raise.
+``--output_dir`` (default: the run's experiment directory). An
+``ensemble_size`` above 1 in the configuration scores that many members of
+each initial condition; ``--mask_file`` weighs the metrics with masks and
+``--climatology_file`` scores anomalies against a per-date climatology.
 """
 
 from __future__ import annotations

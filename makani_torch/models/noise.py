@@ -60,6 +60,15 @@ class _BaseNoiseS2:
         """state -> noise fields (B, T, C, nlat, nlon)."""
         raise NotImplementedError
 
+    def _on(self, name: str, device) -> torch.Tensor:
+        """The host tensor ``name`` on ``device``, copied there once (a copy
+        from pageable memory on every draw would wait for the card)."""
+        cache = self.__dict__.setdefault("_device_tensors", {})
+        key = (name, torch.device(device))
+        if key not in cache:
+            cache[key] = getattr(self, name).to(device)
+        return cache[key]
+
     def _synthesis(self, c2: torch.Tensor) -> torch.Tensor:
         B = c2.shape[0]
         eta = self.isht.synthesis(c2.reshape(B, self.num_time_steps * self.num_channels, self.lmax, self.mmax, 2))
@@ -94,7 +103,7 @@ class IsotropicGaussianRandomFieldS2(_BaseNoiseS2):
         return self.init_state(generator, state.shape[0])
 
     def sample(self, state):
-        return self._synthesis(state / math.sqrt(2.0) * self.sigma_l.to(state.device))
+        return self._synthesis(state / math.sqrt(2.0) * self._on("sigma_l", state.device))
 
 
 def _toeplitz_discount(phi: float, n: int) -> np.ndarray:
@@ -136,7 +145,7 @@ class DiffusionNoiseS2(_BaseNoiseS2):
 
     def _innovation(self, generator, batch_size, nt):
         eta = _normal(generator, (batch_size, nt, self.num_channels, self.lmax, self.mmax, 2))
-        eta = eta * self.sigma_l.to(eta.device)
+        eta = eta * self._on("sigma_l", eta.device)
         return -eta if self.reflect else eta
 
     def init_state(self, generator, batch_size: int):
@@ -144,7 +153,7 @@ class DiffusionNoiseS2(_BaseNoiseS2):
         return self.update(zeros, generator, replace_state=True)
 
     def update(self, state, generator, replace_state: bool = False):
-        phi = self.phi.to(state.device)
+        phi = self._on("phi", state.device)
         if replace_state:
             eta = self._innovation(generator, state.shape[0], self.num_time_steps)
             # the first step from the stationary distribution
@@ -152,7 +161,7 @@ class DiffusionNoiseS2(_BaseNoiseS2):
             eta = torch.cat([first, eta[:, 1:]], dim=1)
             if self.num_time_steps > 1:
                 with fp32_exact():
-                    eta = torch.einsum("ctr,brclmu->btclmu", self.discount.to(state.device), eta)
+                    eta = torch.einsum("ctr,brclmu->btclmu", self._on("discount", state.device), eta)
             return eta
         # a single AR step
         eta = self._innovation(generator, state.shape[0], 1)

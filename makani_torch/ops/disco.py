@@ -819,7 +819,7 @@ class DiscoConvS2:
         r1 = len(self.polar_rows) if r1 is None else r1
         B, _, Win, C = x.shape
         rows = band_rows[r0 * self.BL : r1 * self.BL]
-        return torch.index_select(x.transpose(2, 3), 1, rows).view(B, r1 - r0, self.BL, C, Win)
+        return _RowGather.apply(x.transpose(2, 3), rows).view(B, r1 - r0, self.BL, C, Win)
 
     def polar_chunks(self, B: int, C: int) -> list:
         """The (r0, r1) runs of polar rows that ``responses_cl`` takes at once
@@ -958,6 +958,32 @@ class DiscoConvS2:
         """Weight-fused conv, x (B, g*ig, Hin, Win), w (g, og, ig, K) ->
         y (B, g*og, Hout, Wout)."""
         return self.fused_cl(x.float().permute(0, 2, 3, 1), w, cache=cache).permute(0, 3, 1, 2)
+
+
+class _RowGather(torch.autograd.Function):
+    """``torch.index_select`` along dim 1 with a backward that sums the
+    gradients of repeated rows in a fixed order. The polar rows' bands
+    overlap, so their rows repeat; on the card ``index_select``'s own
+    backward (``index_add_``) adds them with atomics in whatever order the
+    card runs them, and a training step would not repeat bit for bit.
+    ``index_put_`` with ``accumulate`` sorts the indices first on a CUDA
+    tensor; on the CPU it adds in parallel, and ``index_add_`` in order."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.save_for_backward(rows)
+        ctx.x_shape = x.shape
+        return torch.index_select(x, 1, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        dx = g.new_zeros(ctx.x_shape)
+        if not dx.is_cuda:
+            return dx.index_add_(1, rows, g), None
+        b = torch.arange(dx.shape[0], device=dx.device)
+        dx.index_put_((b[:, None], rows[None, :]), g, accumulate=True)
+        return dx, None
 
 
 class _BandResponses(torch.autograd.Function):

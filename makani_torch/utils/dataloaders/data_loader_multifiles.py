@@ -14,8 +14,15 @@ has no h5py): each dataset is memory-mapped at its offset, the JAX
 package's fast path. A full-grid fp32 window is copied slab by slab from
 the map; a crop, a subsampling or an io tile slices the map; data of
 another dtype is converted to fp32 as it is read. Chunked or compressed
-files raise, and so does the native pread reader (``MAKANI_NATIVE_READER=1``),
-which is not ported.
+files raise.
+
+``MAKANI_NATIVE_READER=1`` reads the windows with the native pread reader
+(``makani_torch.native``, ``MAKANI_NATIVE_THREADS`` threads, default 4)
+into the window's buffer: one block a (time step, channel) where the
+window spans the grid's width (its rows lie together in the file), else one
+block a row of each channel. It needs fp32 files and stride-1 windows;
+another dtype, a subsampled window, a failed build or a failed read raises
+(the JAX package falls back to the memory map instead).
 
 ``timings`` sums the seconds spent reading, normalizing and computing the
 zenith angle, for the drivers' account of the host.
@@ -39,8 +46,6 @@ __all__ = ["MultifilesDataset"]
 
 class MultifilesDataset:
     def __init__(self, params, location: str, train: bool = True, final_eval: bool = False):
-        if os.environ.get("MAKANI_NATIVE_READER", "0") == "1":
-            raise NotImplementedError("the native pread reader (MAKANI_NATIVE_READER=1) is not ported yet")
         self.location = location
         self.train = train
         self.params = params
@@ -128,6 +133,24 @@ class MultifilesDataset:
         self._lon_grid, self._lat_grid = np.meshgrid(self.lon_deg, self.lat_deg)
         self.timings = {"read": 0.0, "normalize": 0.0, "zenith": 0.0}
 
+        self.native = os.environ.get("MAKANI_NATIVE_READER", "0") == "1"
+        if self.native:
+            self._check_native()
+
+    def _check_native(self):
+        """Refuse what the native reader cannot read, and build it."""
+        from makani_torch import native
+
+        for path, ds in zip(self.files, self._datasets):
+            if ds.dtype != np.float32:
+                raise TypeError(f"the native reader reads fp32 files; {path}:{self.h5_path} is {ds.dtype}")
+            if ds.offset is None:
+                raise ValueError(f"{path}:{self.h5_path} has no storage")
+        if self._sx.step != 1 or self._sy.step != 1:
+            raise NotImplementedError(f"the native reader reads stride-1 windows; subsampling_factor {self.subsampling_factor} is not one")
+        self._native_threads = int(os.environ.get("MAKANI_NATIVE_THREADS", "4"))
+        native.library()
+
     def __len__(self):
         return self.n_samples
 
@@ -140,16 +163,42 @@ class MultifilesDataset:
     def _read_window(self, fidx, indices, channels):
         """Time steps ``indices`` x ``channels`` at the tile's slices, fp32:
         each step copied from the memory map into one buffer, converted to
-        fp32 as it is copied; the channel selection is skipped when it is the
-        identity."""
+        fp32 as it is copied (or read by the native reader); the channel
+        selection is skipped when it is the identity."""
         ds = self._datasets[fidx]
+        identity_ch = len(channels) == ds.shape[1] and list(channels) == list(range(ds.shape[1]))
+        if self.native:
+            out = self._read_window_native(ds, indices)
+            return out if identity_ch else out[:, channels]
         mm = ds.memmap()
         views = [mm[i, :, self._sx, self._sy] for i in indices]
         out = np.empty((len(views),) + views[0].shape, np.float32)
         for k, view in enumerate(views):
             out[k] = view
-        identity_ch = len(channels) == ds.shape[1] and list(channels) == list(range(ds.shape[1]))
         return out if identity_ch else out[:, channels]
+
+    def _read_window_native(self, ds, indices):
+        """Time steps ``indices``, every channel, at the tile's rows and
+        columns, read by ``native.read_blocks`` straight into the window's
+        buffer: one block a (step, channel) where the tile spans the width,
+        so that the threads share even one time step, else one block a
+        (step, channel, row)."""
+        from makani_torch import native
+
+        C, H, W = ds.shape[1:]
+        x0, x1 = self._sx.start, min(self._sx.stop, H)
+        y0, y1 = self._sy.start, min(self._sy.stop, W)
+        T, th, tw = len(indices), x1 - x0, y1 - y0
+        out = np.empty((T, C, th, tw), np.float32)
+        u = np.uint64
+        runs = 1 if tw == W else th  # the blocks of a (step, channel)
+        t, c, r = np.meshgrid(np.arange(T, dtype=u), np.arange(C, dtype=u), np.arange(runs, dtype=u), indexing="ij")
+        idx = np.asarray(indices, u)[t]
+        offsets = (u(ds.offset) + (((idx * u(C) + c) * u(H) + u(x0) + r) * u(W) + u(y0)) * u(4)).ravel()
+        dest = (((t * u(C) + c) * u(th) + r) * u(tw * 4)).ravel()
+        sizes = np.full(offsets.size, th * tw * 4 // runs, u)
+        native.read_blocks(ds.path, offsets, sizes, out, dest, nthreads=self._native_threads)
+        return out
 
     def _locate(self, idx: int):
         fidx = bisect_right(self.cum, idx) - 1

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K12's tiling and K11's launches, measured on one NVIDIA GPU:
 
-    python3 sweep_k11_k12.py          # both; or name them: k11, k12, sass
+    python3 sweep_k11_k12.py          # both; or name them: k11, k12, sass, k12lib
 
 - K12 (``csrc/disco_band_grad.cu``, the transpose of the banded DISCO
   contraction) at the FCN3 training step's two main-path calls, the
@@ -30,6 +30,14 @@
 
 - ``sass``: the instruction mix of the staged K12 kernels in the built
   library's SASS.
+- ``k12lib``: K12's library yardstick (the grouped ``conv_transpose1d`` on
+  the band, a group an output latitude) at the FCN3.1 training step's
+  decoder (4 members, 361 x 720, 256 channels, K 7), whose band does not
+  fit the card in one call: over runs of output latitudes whose band and
+  input take at most ``sweep_k5.LIBRARY_RUN_BYTES``, each run timed on its
+  own (CUDA events, 2 after 1) and the runs summed; at the training
+  processor, where one call fits, the one call beside the runs, held to
+  their concatenation (the largest difference, of max|ref|).
 
 Times: CUDA events (``chip_smoke.time_ms``), every variant timed twice in
 turns (forward, then backward through the list). K11's and K12's launches
@@ -44,7 +52,7 @@ import sys
 
 import torch
 
-from chip_smoke import PEAK_FP32_FLOPS, PEAK_HBM_BYTES, card_line, errors, time_ms, within
+from chip_smoke import PEAK_FP32_FLOPS, PEAK_HBM_BYTES, SEED, card_line, errors, randn, time_ms, within
 from sweep_k4_k8 import patched_libraries
 from sweep_k9_k13 import in_turns
 
@@ -285,6 +293,63 @@ def k11(card: str, dev: torch.device):
         torch.cuda.empty_cache()
 
 
+def band_grad_library_runs(op, dout, K: int, budget: float):
+    """K12's library yardstick in responses mode on dout (B, Hout, Wout,
+    C*K): yields (the run's conv_transpose1d as a closure, its latitudes)
+    for each run of output latitudes whose input and band output take at
+    most ``budget`` bytes, the run's input made as it is yielded; its
+    output is (B*C, rows*BL, span), ``chip_smoke.band_grad_case``'s rows of
+    those latitudes."""
+    from makani_torch.ops.precision import fp32_exact
+
+    dev = dout.device
+    B, Hout, Wout, CK = dout.shape
+    C = CK // K
+    BL, WW, a = op.BL, op.WW, op.stride
+    F_ = op.band_filter(0, dev)[..., :K]
+    span = (Wout - 1) * a + WW
+    per_row = 4 * B * C * (K * Wout + BL * span)
+    n = max(1, int(min(budget / per_row, Hout)))
+    for h0 in range(0, Hout, n):
+        h1 = min(Hout, h0 + n)
+        y = dout[:, h0:h1].reshape(B, h1 - h0, Wout, C, K).permute(0, 3, 1, 4, 2).reshape(B * C, (h1 - h0) * K, Wout)
+        filt = F_[h0:h1].permute(0, 1, 5, 2, 3, 4).reshape((h1 - h0) * K, BL, WW).contiguous()
+
+        def call(y=y, filt=filt, g=h1 - h0):
+            with fp32_exact():
+                return torch.nn.functional.conv_transpose1d(y, filt, stride=a, groups=g)
+
+        yield call, (h0, h1)
+        del y, filt, call
+
+
+def k12lib(card: str, dev: torch.device):
+    import chip_smoke as cs
+    from sweep_k5 import LIBRARY_RUN_BYTES
+
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    BE = cs.FCN3_TRAIN_BATCH * cs.FCN3_TRAIN_ENSEMBLE
+    model = cs.build_fcn31_train(dev)[1]
+    for name, conv, _ in cs.fcn31_convs(model.model):
+        if name not in ("processor", "decoder"):
+            continue
+        op = conv.conv_op
+        C, K = conv.in_channels, op.K
+        dout = randn((BE, *op.out_shape, C * K), torch.float32, gen, dev)
+        ms = [time_ms(call, 2, 1) for call, _ in band_grad_library_runs(op, dout, K, LIBRARY_RUN_BYTES)]
+        extra = ""
+        if name == "processor":
+            parts = torch.cat([call() for call, _ in band_grad_library_runs(op, dout, K, LIBRARY_RUN_BYTES)], dim=1)
+            ((one, _),) = band_grad_library_runs(op, dout, K, float("inf"))
+            err = ((one() - parts).abs().max() / parts.abs().max()).item()
+            extra = f"; one call {time_ms(one, 2, 1):.3f} ms, its output within {err:.1e} of max|runs'|"
+            del parts, one
+        print(f"K12 library fcn31-train-{name}: grouped conv_transpose1d over {len(ms)} run(s) of output latitudes ({op.BL}x{op.WW} band, K {K}, "
+              f"B {BE}, C {C}, {op.out_shape} -> {op.in_shape}): {sum(ms):.3f} ms summed (runs {[round(v, 3) for v in ms]}){extra}  [{card}]", flush=True)
+        del dout
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_k11_k12: needs an NVIDIA GPU", file=sys.stderr)
@@ -302,6 +367,8 @@ def main() -> int:
         k11(card, dev)
     if "k12" in parts:
         k12(card, dev)
+    if "k12lib" in parts:
+        k12lib(card, dev)
     return 0
 
 

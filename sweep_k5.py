@@ -3,6 +3,7 @@
 
     python3 sweep_k5.py          # the routes
     python3 sweep_k5.py fcn3     # the built kernel at every K5 call of FCN3
+    python3 sweep_k5.py library  # the library yardstick at FCN3.1's K5 calls
 
 K5 (``csrc/disco_band.cu``, the banded DISCO contraction) takes route 1 (a
 latitude's whole filter staged once) where BL <= 32 and two blocks of it fit
@@ -23,6 +24,19 @@ encoders and decoders) and of its training step (the processor), made as
 ``chip_smoke.band_case`` makes them, without the plain versions. It runs
 unchanged in an older checkout (copied beside its ``chip_smoke.py``), so
 that one call can time two commits' kernels in turns.
+
+``library``: the library yardstick of ``chip_smoke.band_case`` (one grouped
+``conv1d`` on the gathered band, a group an output latitude) at FCN3.1's
+responses-mode K5 calls whose gathered band does not fit the card in one
+piece: the forecast's encoder and decoder, the history forecast's encoder
+(one group of 73) and decoder, and the training step's processor and
+decoder, on the inputs ``chip_smoke.check_fcn31_kernels`` and
+``check_fcn31_train_kernels`` give them (seeded anew). The output latitudes
+are split into runs whose gathered band and output take at most
+``LIBRARY_RUN_BYTES``; each run's call is timed on its own (CUDA events, 2
+after 1, the gather outside) and the runs' times are summed. At the
+forecast's processor, where one call fits, the one call is timed beside the
+runs and held to their concatenation (the largest difference, of max|ref|).
 
 Times: CUDA events over 10 launches after 2 (``chip_smoke.time_ms``), every
 variant timed twice in turns (``sweep_k9_k13.in_turns``). The patched
@@ -108,6 +122,96 @@ def fcn3(card: str, dev: torch.device):
         print(f"K5 FCN3 {label:16s} {statistics.median(ts):9.3f} ms (turns {[round(t, 3) for t in ts]})  [{card}]", flush=True)
 
 
+# the most that one run of the library yardstick's gathered band and output may take
+LIBRARY_RUN_BYTES = 8e9
+
+
+def band_library_runs(op, x, K: int, budget: float = LIBRARY_RUN_BYTES):
+    """The library yardstick of K5 in responses mode (Gf = IG = 1, OG = K)
+    on x (B, Hin, Win, C): yields (the run's conv1d as a closure, its
+    latitudes) for each run of output latitudes that fits ``budget`` bytes,
+    the run's band gathered as it is yielded. The run's output is (B*C,
+    rows*K, Wout), ``chip_smoke.band_case``'s call's rows of those
+    latitudes."""
+    from makani_torch.ops.precision import fp32_exact
+
+    dev = x.device
+    B, Hin, Win, C = x.shape
+    Hout, Wout = op.out_shape
+    BL, WW, a = op.BL, op.WW, op.stride
+    bs = op.band_start_table(dev).long()
+    F_ = op.band_filter(0, dev)[..., :K]
+    span = (Wout - 1) * a + WW
+    cols = (int(op.bases[0]) - op.halo + torch.arange(span, device=dev)) % Win
+    per_row = 4 * B * C * (BL * span + K * Wout)
+    n = max(1, int(min(budget / per_row, Hout)))
+    for h0 in range(0, Hout, n):
+        h1 = min(Hout, h0 + n)
+        rows = bs[h0:h1, None] + torch.arange(BL, device=dev)
+        inp = x[:, rows.reshape(-1, 1), cols.view(1, -1)].permute(0, 3, 1, 2).reshape(B * C, (h1 - h0) * BL, span)
+        filt = F_[h0:h1].permute(0, 1, 5, 2, 3, 4).reshape((h1 - h0) * K, BL, WW).contiguous()
+
+        def call(inp=inp, filt=filt, g=h1 - h0):
+            with fp32_exact():
+                return torch.nn.functional.conv1d(inp, filt, stride=a, groups=g)
+
+        yield call, (h0, h1)
+        del inp, filt, call
+
+
+def library(card: str, dev: torch.device):
+    import chip_smoke as cs
+
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    B = cs.FCN3_ENSEMBLE
+    for tag, config in (("fcn31", cs.FCN31_CONFIG), ("fcn31h", cs.FCN31_HISTORY_CONFIG)):
+        net = cs.build_fcn31(dev, config)[1].model
+        H, W = net.inp_shape
+        for name, conv, n_in in cs.fcn31_convs(net):
+            if conv.fused or (name == "processor" and tag == "fcn31h"):
+                continue
+            op = conv.conv_op
+            ig = conv.in_channels // conv.groups
+            if name == "decoder":
+                x = randn((B, H, W, ig), torch.float32, gen, dev)
+            elif name == "processor":
+                x = randn((B, *op.in_shape, ig), torch.float32, gen, dev)
+            else:
+                x = randn((B, ig, H, W), torch.float32, gen, dev).permute(0, 2, 3, 1)
+            library_line(card, f"{tag}-{name}", op, x, check_one=name == "processor")
+            del x
+            torch.cuda.empty_cache()
+        del net
+        torch.cuda.empty_cache()
+    model = cs.build_fcn31_train(dev)[1]
+    for name, conv, _ in cs.fcn31_convs(model.model):
+        if name in ("processor", "decoder"):
+            op = conv.conv_op
+            x = randn((cs.FCN3_TRAIN_BATCH * cs.FCN3_TRAIN_ENSEMBLE, *op.in_shape, conv.in_channels), torch.float32, gen, dev)
+            library_line(card, f"fcn31-train-{name}", op, x)
+            del x
+            torch.cuda.empty_cache()
+
+
+def library_line(card, label, op, x, check_one=False):
+    ms = [cs_time_ms(call) for call, _ in band_library_runs(op, x, op.K)]
+    extra = ""
+    if check_one:
+        parts = torch.cat([call() for call, _ in band_library_runs(op, x, op.K)], dim=1)
+        ((one, _),) = band_library_runs(op, x, op.K, budget=float("inf"))
+        err = ((one() - parts).abs().max() / parts.abs().max()).item()
+        extra = f"; one call {cs_time_ms(one):.3f} ms, its output within {err:.1e} of max|runs'|"
+        del parts, one
+    print(f"K5 library {label}: grouped conv1d over {len(ms)} run(s) of output latitudes ({op.BL}x{op.WW} band, K {op.K}, B {x.shape[0]}, C "
+          f"{x.shape[3]}, {op.in_shape} -> {op.out_shape}): {sum(ms):.3f} ms summed (runs {[round(v, 3) for v in ms]}){extra}  [{card}]", flush=True)
+
+
+def cs_time_ms(fn) -> float:
+    from chip_smoke import time_ms
+
+    return time_ms(fn, 2, 1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_k5: no GPU", flush=True)
@@ -116,6 +220,9 @@ def main() -> int:
     card = card_line()
     if sys.argv[1:] == ["fcn3"]:
         fcn3(card, dev)
+        return 0
+    if sys.argv[1:] == ["library"]:
+        library(card, dev)
         return 0
     return routes(card, dev)
 

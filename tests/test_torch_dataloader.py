@@ -191,12 +191,14 @@ def test_device_batches_on_cpu_and_loader_options(files):
     grain, _ = _params(files, data_loader_config="grain")
     with pytest.raises(NotImplementedError, match="grain"):
         get_dataloader(grain, files["train_data_path"])
+    # the native reader (tests/test_torch_native_reader.py) gives the same batches
     os.environ["MAKANI_NATIVE_READER"] = "1"
     try:
-        with pytest.raises(NotImplementedError, match="native"):
-            get_dataloader(port, files["train_data_path"])
+        native, nds = get_dataloader(port, files["train_data_path"])
     finally:
         del os.environ["MAKANI_NATIVE_READER"]
+    native.set_epoch(3)
+    assert nds.native and all(all(np.array_equal(b[k], rb[k]) for k in rb) for b, rb in zip(native, ref))
 
 
 def test_synthetic_dataset_bit_equal_to_jax():

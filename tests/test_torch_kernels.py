@@ -1104,6 +1104,41 @@ def test_small_fcn3_train_step_kernel_path_matches_plain(cuda):
         assert kernels.LAUNCHES[name] > 0, name
 
 
+def test_small_fcn3_train_step_repeats_bit_for_bit(cuda):
+    """The small FCN3's ensemble-CRPS loss and gradients through the
+    kernels, twice from the same weights and batch: bit-equal (the
+    ensemble driver's resume is held bit for bit to a run carried on, so
+    nothing in the step may sum in an order the card chooses; the polar
+    rows' overlapping bands take their gradient through ``index_put_``)."""
+    import copy
+
+    from chip_smoke import fcn3_train_config
+    from makani_torch.models.model_registry import get_model
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.training.ensemble_trainer import fold_ensemble
+    from makani_torch.utils.yparams import ParamsBase
+
+    names = ["u10m", "v10m", "t2m", "tcwv", "u500", "v500", "z500", "t500", "q500", "u850", "v850", "z850", "t850", "q850"]
+    cfg = fcn3_train_config(img_shape_x=33, img_shape_y=64, channel_names=names, atmo_embed_dim=24, surf_embed_dim=16, aux_embed_dim=8,
+                            num_layers=2, input_noise=dict(fcn3_train_config()["input_noise"], n_channels=2))
+    model, _ = get_model(ParamsBase(copy.deepcopy(cfg)), multistep=True, device=cuda, seed=1)
+    assert any(len(conv.conv_op.polar_rows) for conv in (model.model.block1.local_conv,))
+    loss_obj = LossHandler(ParamsBase(copy.deepcopy(cfg)))
+    E = cfg["ensemble_size"]
+    inp = _randn((1, len(names), 33, 64), torch.float32, cuda).repeat_interleave(E, dim=0)
+    tar = _randn((1, len(names), 33, 64), torch.float32, cuda, seed=1)
+    unp = _randn((E, 1, 3, 33, 64), torch.float32, cuda, seed=2)
+    runs = []
+    for _ in range(2):
+        loss = loss_obj(fold_ensemble(model(inp, unp, train=True), E), tar, train=True)
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+    assert torch.equal(runs[0][0], runs[1][0])
+    bad = [n for n, g in runs[0][1].items() if not torch.equal(g, runs[1][1][n])]
+    assert not bad, bad
+
+
 # FCN3.1: bands wider than 32 rows (the lmax cutoff), K 7 (the harmonic and
 # fourier-bessel bases), grouped two-stage convs
 
