@@ -233,7 +233,8 @@ each fatal on failure:
     fourier-bessel basis, BL 72-73 at the encoder and decoder, a window of
     2 states sliding over the rollout, the unified encoder a grouped
     two-stage conv: groups 2 of 73 -> 128, each group's responses K5, K6
-    and K8 apart);
+    and K8 apart), its depth cut to ``FCN31_HISTORY_LAYERS`` (2: the global
+    block 0 and one local block) for the time limit;
 42. build the FCN3.1 recipe's training step (``fcn31_train_config``: the
     recipe at 361x720, internal 180x360, lmax 45, E = 4 of B = 1,
     checkpointing_level 3, the base config's skillspread CRPS with auto
@@ -250,10 +251,40 @@ each fatal on failure:
     the schedule's learning rates, a falling loss, ms a step, members/s and
     peak memory (the plain path is compared in 44, not timed).
 
+ The token models (slice 9), at full width, B = 1, bf16 compute (the
+ recipes'), each entered through ``get_model(multistep=True)``:
+46. build ``afno_73ch`` (config/afnonet.yaml: FourCastNet v1, 721x1440
+    cropped to 720 rows, patch 8, a 90 x 180 token grid, embed 768 in 8
+    blocks of 96, 12 blocks, 73 channels + zenith) on seeded weights;
+47. compare K18 (the AFNO mixer) with its plain version at block 0's
+    mixer on the spectrum of a seeded token grid (90 x 91 modes, read in
+    place from the rFFT's storage), and K19 on K18's o1 and output with a
+    seeded dy, leaf by leaf, and a second K19 launch bit for bit; time both
+    beside their bounds and ``bmm`` yardsticks;
+48. roll the forecast out for 4 steps (``ModelWrapper`` + ``rollout``):
+    frames finite, the padded row the model's zeros, K18 12 a step; step 1
+    through the plain path (bf16; fp32 compute on the same weights), and
+    both paths timed;
+49. one training step's loss and gradients against the plain path (bf16,
+    and fp32 compute), then ``train_step`` with the recipe's Adam: K18 12,
+    K19 12, K17's launches, and a second step from the same weights,
+    optimizer state and batch bit-equal; ms a step and peak memory;
+50. ``python -m makani_torch.train`` on ``afno_73ch`` (its own YAML entry
+    over seeded 0.25 degree year files of 3 states, with the min/max stats
+    of its minmax channels; 2 steps, a validation rollout of 2 lead steps,
+    a checkpoint), then ``python -m makani_torch.inference`` scoring that
+    checkpoint at E = 1 (the trained weights, the forecast's launches, a
+    warm second scoring equal to the first);
+51. phases 46, 48 and 49 for ``afnov2_73ch`` (K4/K10 two a block besides
+    K18/K19);
+52. the same for ``vit_73ch`` (4050 tokens, 12 heads; no hand-written
+    kernel: its frames, loss and launches of none, and its times).
+
 Prints the card line and the kernel table as one JSON line before the last
 line (each kernel at its path's main shape, K1 at the inference spectrum's
 as ``sht_analysis@spectrum``, then FCN3.1's as ``kernel@shape`` with the
-launches of that FCN3.1 path), and as the last
+launches of that FCN3.1 path, then K18 with the AFNO rollout's launches and
+K19 with the training step's), and as the last
 line ``{"ok": true, "device": {...}}``.
 """
 
@@ -279,6 +310,10 @@ CONFIG = ("config/sfnonet.yaml", "sfno_linear_73chq_sc3_layers8_edim384")
 FCN3_CONFIG = ("config/fourcastnet3.yaml", "base_config")
 FCN31_CONFIG = ("config/fourcastnet3.yaml", "fcn31_sc2_edim256_layers10")
 FCN31_HISTORY_CONFIG = ("config/fourcastnet3.yaml", "fcn31_sc2_edim256_layers10_history")
+# the history path runs at a cut depth: its global block 0 and one local
+# block (every conv kind of the config; the plain path's processor blocks
+# were most of its plain runs' time)
+FCN31_HISTORY_LAYERS = 2
 FCN3_ENSEMBLE = 2
 SEED = 0
 STEPS = 4
@@ -3362,12 +3397,14 @@ def forecast_noise(params):
     return _NOISE[key]
 
 
-def fcn31_params(config, compute_dtype=None):
+def fcn31_params(config, compute_dtype=None, num_layers=None):
     from makani_torch.utils.yparams import YParams
 
     params = YParams(os.path.join(REPO, config[0]), config[1])
     if compute_dtype is not None:
         params["compute_dtype"] = compute_dtype
+    if num_layers is not None:
+        params["num_layers"] = num_layers
     n_chan = len(params.channel_names)
     params["in_channels"] = list(range(n_chan))
     params["out_channels"] = list(range(n_chan))
@@ -3375,14 +3412,14 @@ def fcn31_params(config, compute_dtype=None):
     return params
 
 
-def build_fcn31(dev, config, compute_dtype=None):
+def build_fcn31(dev, config, compute_dtype=None, num_layers=None):
     """An FCN3.1 forecast through get_model on seeded weights, ModelWrapper
     with seeded per-channel stats, a seeded initial window of T = n_history
-    + 1 states and the configured noise."""
+    + 1 states and the configured noise (``num_layers`` cuts the depth)."""
     from makani_torch.models.model_package import ModelWrapper
     from makani_torch.models.model_registry import get_model
 
-    params = fcn31_params(config, compute_dtype)
+    params = fcn31_params(config, compute_dtype, num_layers)
     n_chan = len(params.channel_names)
     model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
     gen = torch.Generator(dev).manual_seed(SEED + 14)
@@ -3558,15 +3595,15 @@ def time_kernel_steps(step, card, label, members, steps=3):
     return med
 
 
-def fcn31_phases(dev, card, config, tag):
-    """One FCN3.1 forecast path (phases 30-33 for ``fcn31_sc2_edim256_layers10``,
-    34-37 for its history variant); returns (kernel results, launch counts
-    of the rollout)."""
+def fcn31_phases(dev, card, config, tag, num_layers=None):
+    """One FCN3.1 forecast path (phases 34-37 for ``fcn31_sc2_edim256_layers10``,
+    38-41 for its history variant, whose depth ``num_layers`` cuts); returns
+    (kernel results, launch counts of the rollout)."""
     from makani_torch import kernels
     from makani_torch.models.model_package import rollout
 
     t0 = time.perf_counter()
-    params, model, wrapper, x0, noise = build_fcn31(dev, config)
+    params, model, wrapper, x0, noise = build_fcn31(dev, config, num_layers=num_layers)
     net = model.model
     T = params.get("n_history", 0) + 1
     nparam = sum(p.numel() for p in model.parameters())
@@ -3820,6 +3857,459 @@ def fcn31_train_phases(dev, card):
     return kres, launches
 
 
+# ---------------------------------------------------------------------------
+# The token models (slice 9): FourCastNet v1 (AFNO), AFNOv2 and the ViT, at
+# full width (B = 1, bf16 compute as the recipes say)
+
+AFNO_CONFIG = ("config/afnonet.yaml", "afno_73ch")
+AFNOV2_CONFIG = ("config/afnonet.yaml", "afnov2_73ch")
+VIT_CONFIG = ("config/vit.yaml", "vit_73ch")
+TOKEN_BATCH = 1  # the recipes' batch of 64 on 64 GPUs, one card's share
+AFNO_STATES = 3  # a year file's states for train.py: 2 training steps and one validation rollout
+AFNO_AUTOREG = 1
+AFNO_CLI_NAME = "afno_cli"
+
+
+def token_params(config, compute_dtype=None):
+    from makani_torch.utils.yparams import YParams
+
+    params = YParams(os.path.join(REPO, config[0]), config[1])
+    if compute_dtype is not None:
+        params["compute_dtype"] = compute_dtype
+    n_chan = len(params.channel_names)
+    params["in_channels"] = list(range(n_chan))
+    params["out_channels"] = list(range(n_chan))
+    return params
+
+
+def build_token(dev, config, compute_dtype=None):
+    """A token model through get_model on seeded weights, ModelWrapper with
+    seeded per-channel stats and a seeded initial condition."""
+    from makani_torch.models.model_package import ModelWrapper
+    from makani_torch.models.model_registry import get_model
+
+    params = token_params(config, compute_dtype)
+    n_chan = len(params.channel_names)
+    model, _ = get_model(params, multistep=True, device=dev, seed=SEED)
+    gen = torch.Generator(dev).manual_seed(SEED + 40)
+    bias = randn((1, n_chan, 1, 1), torch.float32, gen, dev)
+    scale = 0.5 + torch.rand((1, n_chan, 1, 1), generator=gen, device=dev)
+    x0 = bias + scale * randn((1, n_chan, params.img_shape_x, params.img_shape_y), torch.float32, gen, dev)
+    return params, model, ModelWrapper(model, bias=bias, scale=scale), x0
+
+
+def token_batch(params, dev):
+    """A seeded training batch (input, target, zenith) of TOKEN_BATCH samples."""
+    gen = torch.Generator(dev).manual_seed(SEED + 41)
+    C, H, W = len(params.channel_names), params.img_shape_x, params.img_shape_y
+    return (randn((TOKEN_BATCH, C, H, W), torch.float32, gen, dev), randn((TOKEN_BATCH, C, H, W), torch.float32, gen, dev),
+            randn((TOKEN_BATCH, 1, 1, H, W), torch.float32, gen, dev))
+
+
+def mixer_block_weights(filt):
+    """A mixer module's weights as K18 takes them (nb, 2, rows, cols), fp32
+    contiguous, its biases (nb, 2, cols) or None, its band and lambda."""
+    from makani_torch.models.networks.afnonet import AFNO2D
+
+    if isinstance(filt, AFNO2D):
+        w = [t.detach().transpose(0, 1).contiguous() for t in (filt.w1, filt.b1, filt.w2, filt.b2)]
+    else:
+        w1, w2 = (t.detach().permute(0, 3, 1, 2).contiguous() for t in (filt.w1, filt.w2))
+        w = [w1, None, w2, None]
+    return w
+
+
+def real_block(w):
+    """A complex weight (nb, 2, rows, cols) as the real block matrix [[wr,
+    wi], [-wi, wr]] (nb, 2 rows, 2 cols): [re, im] . block = the complex
+    product's [re, im]."""
+    return torch.cat([torch.cat([w[:, 0], w[:, 1]], dim=2), torch.cat([-w[:, 1], w[:, 0]], dim=2)], dim=1)
+
+
+def mixer_library(x2, w1, b1, w2, b2, lambd, band):
+    """The library yardstick of K18: the same two complex products as fp32
+    ``torch.bmm`` of the real block form [re, im] (BM, 2 bs) . [[wr, wi],
+    [-wi, wr]] (2 bs, 2 hbs) under ``fp32_exact``, batched over the channel
+    blocks, with the relu, band and soft-shrink as elementwise ops."""
+    from makani_torch.ops.precision import fp32_exact
+
+    B, H, Wh, C, _ = x2.shape
+    nb, _, bs, hbs = w1.shape
+    W1, W2 = real_block(w1), real_block(w2)
+    keep = band.mask(H, Wh, x2.device).reshape(1, H * Wh, 1).repeat(1, B, 1).reshape(1, B * H * Wh, 1)
+
+    def run():
+        a = x2.reshape(B * H * Wh, nb, bs, 2).permute(1, 0, 3, 2).reshape(nb, B * H * Wh, 2 * bs)
+        with fp32_exact():
+            h = torch.bmm(a, W1)
+            if b1 is not None:
+                h = h + b1.reshape(nb, 1, 2 * hbs)
+            h = torch.relu(h)
+            o = torch.bmm(h, W2)
+        if b2 is not None:
+            o = o + b2.reshape(nb, 1, 2 * bs)
+        o = torch.where(keep, o, 0.0)
+        return torch.sign(o) * torch.clamp(o.abs() - lambd, min=0.0)
+
+    return run
+
+
+def mixer_grad_library(x2, y, dy, h, w1, w2, has_bias):
+    """K19's library yardstick: its four complex products as fp32
+    ``torch.bmm`` of the real block forms under ``fp32_exact``, batched over
+    the channel blocks, with the two masks as elementwise ops."""
+    from makani_torch.ops.precision import fp32_exact
+
+    B, H, Wh, C, _ = x2.shape
+    nb, _, bs, hbs = w1.shape
+    M = B * H * Wh
+    W1, W2 = real_block(w1), real_block(w2)
+
+    def split(t):
+        return t.reshape(M, nb, bs, 2).permute(1, 0, 3, 2).reshape(nb, M, 2 * bs)
+
+    def run():
+        a, g = split(x2), split(dy)
+        g2 = torch.where(split(y) != 0, g, 0.0)
+        o1 = h.permute(1, 0, 2, 4, 3).reshape(nb, M, 2 * hbs)
+        with fp32_exact():
+            g1 = torch.where(o1 > 0, torch.bmm(g2, W2.transpose(1, 2)), 0.0)
+            dx = torch.bmm(g1, W1.transpose(1, 2))
+            dw1 = torch.bmm(a.transpose(1, 2), g1)
+            dw2 = torch.bmm(o1.transpose(1, 2), g2)
+        out = [dx, dw1, dw2]
+        if has_bias:
+            out += [g1.sum(dim=1), g2.sum(dim=1)]
+        return out
+
+    return run
+
+
+def check_mixer_kernels(dev, card, filt, grid, label, results):
+    """K18 and K19 at a model's first mixer: the spectrum of a seeded
+    (B, 90, 180, 768) token grid (fp32 rFFT, ortho), the module's weights,
+    band and lambda; K18 held to its plain version (``run_cases``, FP32_TOL),
+    K19 on K18's o1 and output and a seeded dy held leaf by leaf to its plain
+    version on the same inputs (FP32_TOL of each leaf's max|ref|), both timed
+    beside their bounds (fp32 FMA and 3xTF32) and the ``bmm`` yardsticks."""
+    from makani_torch.ops import afno_mixer as am
+    from makani_torch.ops.fft_compat import rfft2_s
+
+    net_h, net_w, C = grid
+    gen = torch.Generator(dev).manual_seed(SEED + 42)
+    x2 = rfft2_s(randn((TOKEN_BATCH, net_h, net_w, C), torch.float32, gen, dev), axes=(1, 2), norm="ortho")
+    w1, b1, w2, b2 = mixer_block_weights(filt)
+    band = (am.band_v1 if b1 is not None else am.band_v2)(net_h, net_w // 2 + 1, filt.hard_thresholding_fraction)
+    lam = filt.sparsity_threshold
+    nb, _, bs, hbs = w1.shape
+    B, H, Wh = x2.shape[:3]
+    flops = 8.0 * 2 * B * H * Wh * nb * bs * hbs
+    wbytes = nbytes(w1, w2) + (nbytes(b1, b2) if b1 is not None else 0)
+
+    def k18_extras(out):
+        lib = mixer_library(x2, w1, b1, w2, b2, lam, band)
+        return dict(bound(flops, 2 * nbytes(x2) + wbytes, torch.float32), library_ms=time_ms(lib, 5, 1))
+
+    run_cases([("afno_mixer", label, torch.float32, lambda: am.launch_afno_mixer(x2, w1, b1, w2, b2, lam, band)[0],
+                lambda: am.afno_mixer_plain(x2, w1, b1, w2, b2, lam, band), k18_extras)], card, results, 10, 2)
+
+    y, h = am.launch_afno_mixer(x2, w1, b1, w2, b2, lam, band, keep_hidden=True)
+    dy = randn(tuple(y.shape), torch.float32, gen, dev)
+    has_bias = b1 is not None
+    kern = lambda: am.launch_afno_mixer_grad(x2, y, dy, h, w1, w2, has_bias, band)  # noqa: E731
+    plain = lambda: am.afno_mixer_grad_plain(x2, y, dy, h, w1, w2, has_bias)  # noqa: E731
+    outs, refs = kern(), plain()
+    again = kern()
+    bit = all(torch.equal(a, b) for a, b in zip(outs, again) if a is not None)
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    errs = {n: errors(o, r) for n, o, r in zip(names, outs, refs) if o is not None}
+    del outs, refs, again
+    ms, plain_ms = time_ms(kern, 10, 2), time_ms(plain, 5, 1)
+    lib_ms = time_ms(mixer_grad_library(x2, y, dy, h, w1, w2, has_bias), 5, 1)
+    ext = bound(2 * flops, 4 * nbytes(x2) + nbytes(h) + 2 * wbytes, torch.float32)
+    worst = max(e["max_rel"] for e in errs.values())
+    ok = worst <= FP32_TOL and bit
+    print(f"kernel afno_mixer_grad {label:17s} float32  dx {tuple(x2.shape)}: " + ", ".join(f"{n} max|d|/max|ref| {e['max_rel']:.3e}" for n, e in errs.items())
+          + f" {'ok' if worst <= FP32_TOL else 'FAIL'}; a second launch {'bit-equal' if bit else 'NOT bit-equal'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound_ms {ext['bound_ms']:.3f} ms, fma_bound_ms {ext['fma_bound_ms']:.3f} ms, tc_bound_ms {ext['tc_bound_ms']:.3f} ms"
+          + f", library_ms {lib_ms:.3f} ms; mode ranges S {am.grad_splits(B, H * Wh, nb, bs, hbs, 132)}  [{card}]", flush=True)
+    if not ok:
+        raise RuntimeError(f"afno_mixer_grad {label}: kernel disagrees with its plain version or does not repeat: {errs}")
+    results[("afno_mixer_grad", label, torch.float32)] = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), max_rel=worst, ms=ms, plain_ms=plain_ms,
+                                                              shape=tuple(x2.shape), library_ms=lib_ms, **ext)
+    del x2, y, h, dy
+    torch.cuda.empty_cache()
+    return results
+
+
+def token_launches(params, train: bool) -> dict:
+    """A token model's launches a forward (and its backward): K18 (K19)
+    one a block of the AFNOs, K4 (K10) two a block of AFNOv2 with instance
+    norms; the ViT runs no hand-written kernel."""
+    n = params.num_layers if params.nettype in ("AFNO", "AFNOv2") else 0
+    norms = 2 * n if params.nettype == "AFNOv2" and params.normalization_layer.startswith("instance_norm") else 0
+    out = {"afno_mixer": n, "instance_norm": norms}
+    if train:
+        out.update(afno_mixer_grad=n, instance_norm_grad=norms)
+    return out
+
+
+def token_grads_check(model, loss_obj, batch, tag, dtype_label, zero_grads=()):
+    """One training step's loss and gradients through the kernels and
+    through the plain path (autograd through the plain forward) from the
+    same weights and batch: the loss within TRAIN_LOSS_FP32_TOL (fp32
+    compute) or MODEL_BF16_REL_L2 (bf16), each gradient leaf within
+    TRAIN_GRAD_BF16_REL_L2 relative L2 in both. Not fp32's MODEL_FP32_TOL
+    of max|ref|: the mixer's relu and soft-shrink are kinked, and among the
+    ~10^7 values a block where the two paths' forwards differ by rounding
+    (~6e-7), some sit on either side of a kink, which moves their mode's
+    whole gradient (the biases' leaves by up to ~1% of max|ref| at
+    afno_73ch). K19 itself is held to FP32_TOL on K18's own masks
+    (``check_mixer_kernels``). ``zero_grads``: name endings of leaves whose
+    gradient is zero in exact arithmetic, held at rounding level (1e-5 of
+    the largest gradient in fp32, 1e-2 in bf16)."""
+    import copy
+
+    from makani_torch import kernels
+
+    inp, tar, zen = batch
+    plain = copy.deepcopy(model)
+    kernels.set_use_kernels(plain, False)
+    lk, gk = loss_and_grads(model, loss_obj, inp, tar, zen)
+    model.zero_grad(set_to_none=True)
+    lp, gp = loss_and_grads(plain, loss_obj, inp, tar, zen)
+    del plain
+    fp32 = dtype_label == "float32"
+    largest = max(g.abs().max().item() for g in gp.values())
+    worst = (0.0, "")
+    for name in gp:
+        a, b = gk[name].float(), gp[name].float()
+        if name.endswith(zero_grads):
+            if max(a.abs().max().item(), b.abs().max().item()) > (1e-5 if fp32 else 1e-2) * largest:
+                raise RuntimeError(f"{tag} {dtype_label} step: {name}'s gradient is not at rounding level")
+            continue
+        worst = max(worst, (((a - b).norm() / b.norm()).item(), name))
+    ltol, gtol = (TRAIN_LOSS_FP32_TOL if fp32 else MODEL_BF16_REL_L2), TRAIN_GRAD_BF16_REL_L2
+    ok = abs(lk - lp) <= ltol * abs(lp) and worst[0] <= gtol and math.isfinite(lk)
+    print(f"{tag} training step ({dtype_label} compute, full width, B={TOKEN_BATCH}), kernel path vs plain path: loss {lk:.7f} vs {lp:.7f} "
+          f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {ltol}); worst gradient leaf {worst[1]} relL2 {worst[0]:.3e} "
+          f"(tol {gtol}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{tag} {dtype_label} training step: the kernel path disagrees with the plain path")
+    del gk, gp
+    torch.cuda.empty_cache()
+
+
+def token_phases(dev, card, config, tag):
+    """A token model's forecast and training step at full width (phases
+    46-49 for afno_73ch, 51-52 for afnov2_73ch and vit_73ch). Returns (the
+    kernel results, the forecast's launches, the training step's)."""
+    import copy
+
+    from makani_torch import kernels
+    from makani_torch.models.model_package import rollout
+    from makani_torch.utils.loss import LossHandler
+    from makani_torch.utils.training.deterministic_trainer import train_step
+    from makani_torch.utils.training.optimizer import get_optimizer
+    from makani_torch.utils.zenith_angle import cos_zenith_angle_from_timestamp
+
+    t0 = time.perf_counter()
+    params, model, wrapper, x0 = build_token(dev, config)
+    net = model.model
+    nettype = params.nettype
+    n_layers = params.num_layers
+    nparam = sum(p.numel() for p in model.parameters())
+    print(f"built {tag} = {config[1]} of {config[0]} ({nettype}, {nparam} parameters, compute {params.compute_dtype}, {params.img_shape_x}x{params.img_shape_y}, "
+          f"patch {tuple(params.patch_size)}, embed {params.embed_dim}, {n_layers} blocks, {params.N_in_channels} in / {params.N_out_channels} out channels) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kres = {}
+    H, W = params.img_shape_x, params.img_shape_y
+    if nettype in ("AFNO", "AFNOv2") and tag == "afno":
+        t0 = time.perf_counter()
+        ph, pw = params.patch_size
+        check_mixer_kernels(dev, card, net.block0.filter, (H // ph, W // pw, params.embed_dim), tag, kres)
+        print(f"{tag} kernel checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the forecast: a 4-step rollout through ModelWrapper
+    lat = 90.0 - 180.0 * np.arange(H) / (H - 1)
+    lon = 360.0 * np.arange(W) / W
+    t_start = 1.5e9
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    frames = rollout(wrapper, x0, lat, lon, t_start, params.dhours, STEPS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for i, f in enumerate(frames):
+        if f.shape != x0.shape or not bool(torch.isfinite(f).all()):
+            raise RuntimeError(f"{tag} rollout step {i + 1}: shape {tuple(f.shape)} or non-finite values")
+        # the model's zero-padded rows, denormalized
+        pad = f[:, :, H // params.patch_size[0] * params.patch_size[0]:]
+        if not bool((pad == wrapper.bias).all()):
+            raise RuntimeError(f"{tag} rollout step {i + 1}: the padded rows are not the model's zeros")
+        print(f"{tag} rollout step {i + 1} (+{(i + 1) * params.dhours} h): shape {tuple(f.shape)}, finite, mean {f.mean().item():.4f}, std {f.std().item():.4f}, "
+              f"the {pad.shape[2]} padded row(s) the model's zeros")
+    per_fwd = token_launches(params, False)
+    expected = {k: per_fwd.get(k, 0) * STEPS for k in kernels.LAUNCHES}
+    print(f"{tag} launches over {STEPS} forecast steps: {launches} (per step {per_fwd})")
+    if launches != expected:
+        raise RuntimeError(f"{tag} launch counts {launches} != expected {expected}")
+    lon2d, lat2d = np.meshgrid(lon, lat)
+    zen = torch.from_numpy(cos_zenith_angle_from_timestamp(t_start, lon2d, lat2d).astype(np.float32)).to(dev)[None, None, None]
+    if nettype != "ViT":
+        err = compare_paths(model, wrapper, x0, zen, frames[0])
+        ok = err["rel_l2"] <= MODEL_BF16_REL_L2
+        print(f"{tag} step 1 ({params.compute_dtype}), kernel path vs plain path (normalized units): relL2 {err['rel_l2']:.3e} (tol {MODEL_BF16_REL_L2}), "
+              f"max|d|/max|ref| {err['max_rel']:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{tag} kernel path disagrees with the plain path: {err}")
+    del frames
+    if tag == "afno":
+        _, model32, wrapper32, _ = build_token(dev, config, "float32")
+        err = compare_paths(model32, wrapper32, x0, zen)
+        ok = err["max_rel"] <= MODEL_FP32_TOL
+        print(f"{tag} step 1 (float32 compute, same weights), kernel path vs plain path: max|d|/max|ref| {err['max_rel']:.3e} (tol {MODEL_FP32_TOL}), "
+              f"relL2 {err['rel_l2']:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{tag} fp32 kernel path disagrees with the plain path: {err}")
+        del model32, wrapper32
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        if nettype == "ViT":
+            time_kernel_steps(lambda: wrapper(x0, zen), card, f"{tag} forecast", TOKEN_BATCH)
+        else:
+            time_steps(model, lambda: wrapper(x0, zen), card, f"{tag} forecast")
+    torch.cuda.empty_cache()
+
+    # one training step (the recipe's loss and optimizer)
+    batch = token_batch(params, dev)
+    loss_obj = LossHandler(token_params(config))
+    # AFNOv2 with a nested skip and instance norms: the filter's bias, the
+    # skip's bias and norm1's bias (a per-channel constant reaches only the
+    # DC mode, whose inverse is a constant) meet the loss only through norm2,
+    # which removes any per-channel constant
+    nested_in = nettype == "AFNOv2" and params.get("nested_skip_fno", True) and params.normalization_layer.startswith("instance_norm")
+    zero_grads = ("filter.b1", "skip_layer.bias", "norm1.bias") if nested_in else ()
+    if nettype != "ViT":
+        token_grads_check(model, loss_obj, batch, tag, params.compute_dtype, zero_grads)
+        if tag == "afno":
+            _, model32, _, _ = build_token(dev, config, "float32")
+            token_grads_check(model32, LossHandler(token_params(config, "float32")), batch, tag, "float32")
+            del model32
+            torch.cuda.empty_cache()
+    model.zero_grad(set_to_none=True)
+    twin = copy.deepcopy(model)
+    opt, twin_opt = get_optimizer(token_params(config), model), get_optimizer(token_params(config), twin)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss = train_step(model, loss_obj, opt, *batch)
+    torch.cuda.synchronize()
+    train_launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    twin_loss = train_step(twin, loss_obj, twin_opt, *batch)
+    bit = twin_loss.item() == loss.item() and all(torch.equal(a, b) for a, b in zip(model.parameters(), twin.parameters()))
+    del twin, twin_opt
+    torch.cuda.empty_cache()
+    expected = {k: token_launches(params, True).get(k, 0) + optimizer_launches(opt).get(k, 0) for k in kernels.LAUNCHES}
+    times = []
+    for i in range(4):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        train_step(model, loss_obj, opt, *batch)
+        e.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(s.elapsed_time(e))
+    ok = math.isfinite(loss.item()) and bit and train_launches == expected
+    print(f"{tag} training step (train_step, {params.compute_dtype}, B={TOKEN_BATCH}, {params.optimizer_type} at lr {opt.last_lr:.3e}): loss {loss.item():.6f}; "
+          f"launches {train_launches} (expected {expected}); a second step from the same weights, optimizer state and batch "
+          f"{'bit-equal' if bit else 'NOT bit-equal'} (loss and every parameter); ms a step (kernel path) median {statistics.median(times):.2f} over "
+          f"{len(times)} {[round(t, 2) for t in times]} after a warm-up, {TOKEN_BATCH / statistics.median(times) * 1e3:.3f} samples/s; peak memory "
+          f"{peak / 2**30:.2f} GiB  [{card}]", flush=True)
+    if not ok:
+        raise RuntimeError(f"{tag} training step: loss {loss.item()}, bit-equal {bit}, launches {train_launches} != {expected}")
+    del model, wrapper, opt
+    torch.cuda.empty_cache()
+    return kres, launches, train_launches
+
+
+def afno_cli_phases(dev, card):
+    """Phase 50: train.py and inference.py on afno_73ch (its own YAML entry
+    over seeded files, overriding only the paths, the rollout and the epochs)."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_afno_", dir=os.path.join(REPO, "build"))
+    try:
+        return _afno_cli_phases(dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _afno_cli_phases(dev, card, root):
+    from makani_torch import inference, kernels, train
+    from makani_torch.utils.inference.rollout_buffer import SpectrumAverageBuffer
+    from makani_torch.utils.yparams import YParams
+
+    t0 = time.perf_counter()
+    recipe = YParams(os.path.join(REPO, AFNO_CONFIG[0]), AFNO_CONFIG[1])
+    C, H, W = len(recipe.channel_names), recipe.img_shape_x, recipe.img_shape_y
+    yaml_path, overrides, nbytes_written, _, _ = seeded_run_files(root, dev, AFNO_CONFIG, AFNO_CLI_NAME, (H, W), AFNO_STATES,
+                                                                  dict(valid_autoreg_steps=AFNO_AUTOREG, max_epochs=1), recipe.to_dict())
+    print(f"phase 50: wrote {nbytes_written / 1e9:.2f} GB of seeded files ({len(DRIVER_YEARS)} year files of {AFNO_STATES} states of {C}x{H}x{W} fp32, "
+          f"the statistics with min/max for the minmax channels, time means, data.json) in {time.perf_counter() - t0:.1f} s; {AFNO_CLI_NAME} = "
+          f"{AFNO_CONFIG[1]} but for {sorted(overrides)}", flush=True)
+    argv = ["--yaml_config", yaml_path, "--config", AFNO_CLI_NAME, "--run_num", "0", "--batch_size", str(TOKEN_BATCH)]
+    n_lead = AFNO_AUTOREG + 1
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_steps = len(tr.step_losses)
+    per_step = optimizer_launches(tr.optimizer)
+    expected = {k: n_steps * (12 * (k.startswith("afno")) + per_step.get(k, 0)) + n_lead * 12 * (k == "afno_mixer") for k in launches}
+    ck = tr.checkpoint
+    print(f"phase 50: python -m makani_torch.train {' '.join(argv[4:])}: {wall:.1f} s ({tr.n_model_params} parameters, {n_steps} steps, a validation rollout "
+          f"of {n_lead} steps, checkpoint ckpt_v1); launches {launches} (expected {expected}); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"checkpoint written {ck.bytes_written / 1e9:.3f} GB in {ck.seconds_written:.2f} s  [{card}]", flush=True)
+    print(train_line("phase 50 epoch 1 (cold)", tr.logs[-1], tr.host_stats, card), flush=True)
+    if launches != expected or n_steps != AFNO_STATES - 1 or not all(math.isfinite(v) for v in tr.logs[-1].values() if isinstance(v, float)):
+        raise RuntimeError(f"train.py on {AFNO_CONFIG[1]}: {n_steps} steps, launches {launches} != {expected}, logs {tr.logs[-1]}")
+    trained = [p.detach().clone() for p in tr.model.parameters()]
+    del tr
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "scores")
+    kernels.reset_launch_counts()
+    spectrum = {"sht_analysis": 0}
+    undo = counting_launches(SpectrumAverageBuffer, "update", "sht_analysis", kernels.LAUNCHES, spectrum)
+    t0 = time.perf_counter()
+    try:
+        inf = inference.main(argv + ["--output_dir", out])
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    expected = {k: n_lead * 12 * (k == "afno_mixer") + spectrum.get(k, 0) for k in launches}
+    bit, _ = leaf_diff([p.detach() for p in inf.model.parameters()], trained)
+    tm, logs = inf.timings, inf.logs
+    finite = all(math.isfinite(v) for v in logs.values())
+    print(f"phase 50: python -m makani_torch.inference ...: {wall:.1f} s; restored the trained weights {'bit for bit' if bit else 'NOT bit for bit'}; "
+          f"{tm['lead_steps']} lead steps in {tm['rollout_s']:.3f} s ({1e3 * tm['rollout_s'] / tm['lead_steps']:.1f} ms a lead step, wall, cold); launches "
+          f"{launches} (expected {expected}); rmse {logs['rmse']:.6f} acc {logs['acc']:.6f} l1 {logs['l1']:.6f} ({'finite' if finite else 'NOT finite'})  [{card}]",
+          flush=True)
+    logs2 = inf.score_model(os.path.join(root, "scores_warm"))
+    print(f"phase 50: a second scoring (warm): {1e3 * tm['rollout_s'] / tm['lead_steps']:.1f} ms a lead step, wall; logs "
+          f"{'equal to' if logs2 == logs else 'NOT equal to'} the first's  [{card}]", flush=True)
+    if not bit or launches != expected or not finite or logs2 != logs:
+        raise RuntimeError("inference.py on afno_73ch: not the trained weights, not the forecast's launches, or non-finite or unrepeatable scores")
+    del inf
+    torch.cuda.empty_cache()
+
+
 def fcn31_rows(meta, fcn31) -> list:
     """The kernels line's FCN3.1 entries: every kernel at each of its shapes
     on FCN3.1's paths, named kernel@shape, with the launches of that path's
@@ -3896,14 +4386,24 @@ def main() -> int:
     print(f"ensemble driver phases (ensemble.py, inference.py at E={FCN3_TRAIN_ENSEMBLE}) {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     fcn31 = {}
-    for tag, config in (("fcn31", FCN31_CONFIG), ("fcn31h", FCN31_HISTORY_CONFIG)):
+    for tag, config, depth in (("fcn31", FCN31_CONFIG, None), ("fcn31h", FCN31_HISTORY_CONFIG, FCN31_HISTORY_LAYERS)):
         t0 = time.perf_counter()
-        fcn31[tag] = fcn31_phases(dev, card, config, tag)
+        fcn31[tag] = fcn31_phases(dev, card, config, tag, depth)
         print(f"FCN3.1 forecast phases ({config[1]}) {time.perf_counter() - t0:.1f} s", flush=True)
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fcn31["fcn31-train"] = fcn31_train_phases(dev, card)
     print(f"FCN3.1 training phases {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    tokens = {}
+    for tag, config in (("afno", AFNO_CONFIG), ("afnov2", AFNOV2_CONFIG), ("vit", VIT_CONFIG)):
+        t0 = time.perf_counter()
+        tokens[tag] = token_phases(dev, card, config, tag)
+        print(f"token model phases ({config[1]}) {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    afno_cli_phases(dev, card)
+    print(f"AFNO CLI phase (train.py, inference.py on {AFNO_CONFIG[1]}) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- result: each kernel at its path's main shape, with that path's launches
     io = transform_io_dtype()
@@ -3952,6 +4452,15 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
     )
     table += fcn31_rows(meta, fcn31)
+    # K18 at the AFNO forecast's mixer (launches: the 4-step rollout's), K19 at its training step's
+    afno_res, afno_forecast, afno_train = tokens["afno"]
+    for name, source, launches in (("afno_mixer", "afno_mixer.cu", afno_forecast), ("afno_mixer_grad", "afno_mixer_grad.cu", afno_train)):
+        r = afno_res[(name, "afno", f32)]
+        table.append(
+            {"name": name, "route": "cuda", "source": f"makani_torch/csrc/{source}", "replaces": "makani_tpu/models/networks/afnonet.py:78",
+             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        )
     # K10 runs at both of the SFNO training step's grids; its line holds the full one
     print("instance_norm_grad (K10), SFNO training step: " + "; ".join(
         f"{lab} bf16 {r['shape']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, two-read floor {r['two_read_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "

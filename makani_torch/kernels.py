@@ -42,8 +42,10 @@ _SOURCES = (
     "resample.cu",
     "resample_grad.cu",
     "crps.cu",
+    "afno_mixer.cu",
+    "afno_mixer_grad.cu",
 )
-_HEADERS = ("convert.cuh", "sm90.cuh")
+_HEADERS = ("convert.cuh", "sm90.cuh", "afno.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -76,6 +78,8 @@ LAUNCHES = {
     "crps": 0,
     "grad_norm": 0,
     "adam": 0,
+    "afno_mixer": 0,
+    "afno_mixer_grad": 0,
 }
 
 
@@ -203,6 +207,12 @@ def library() -> ctypes.CDLL:
             lib.mt_resample_grad.restype = i
             lib.mt_crps_skillspread.argtypes = [i, vp, vp, vp, vp, i, i, ll, f, vp]
             lib.mt_crps_skillspread.restype = i
+            lib.mt_afno_mixer.argtypes = [vp] * 7 + [i] * 6 + [ll] * 3 + [i] * 5 + [f, vp]
+            lib.mt_afno_mixer.restype = i
+            lib.mt_afno_mixer_grad.argtypes = [vp] * 13 + [i] * 7 + [ll] * 3 + [i] * 5 + [vp]
+            lib.mt_afno_mixer_grad.restype = i
+            lib.mt_afno_grad_scratch.argtypes = [i] * 5
+            lib.mt_afno_grad_scratch.restype = ll
             lib.mt_resample_smem_bytes.argtypes = [i] * 3
             lib.mt_resample_smem_bytes.restype = i
             lib.mt_error_string.argtypes = [i]

@@ -48,6 +48,8 @@ __all__ = [
     "NormPlan",
     "GradPlan",
     "plan_instance_norm_grad",
+    "LayerNorm",
+    "ChannelLayerNorm",
 ]
 
 
@@ -350,3 +352,69 @@ class InstanceNorm2d(nn.Module):
         norm = instance_norm_cl if self.use_kernels else instance_norm_cl_plain
         y = norm(xcl, self.weight, self.bias, self.nlat_phys, self.eps)
         return y if self.channels_last else y.movedim(-1, 1)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis, as the token models use it
+    (``epsilon`` 1e-6): fp32 statistics by the fast variance (E[x^2] - E[x]^2,
+    clipped at 0), ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in fp32,
+    one rounding to the compute dtype. Parameters ``scale`` and ``bias``
+    (num_features,) fp32, as in the flax tree. The JAX package leaves it to
+    XLA, so it is plain PyTorch here."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        device = resolve_device(device)
+        self.scale = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xs = _acc(x)
+        mean = xs.mean(dim=-1, keepdim=True)
+        var = torch.clamp(torch.square(xs).mean(dim=-1, keepdim=True) - torch.square(mean), min=0.0)
+        y = (xs - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        return y.to(self.dtype)
+
+
+class ChannelLayerNorm(nn.Module):
+    """Layer norm over the channel axis (counterpart of ``ChannelLayerNorm``
+    in ``makani_tpu/models/common/layer_norm.py``): NCHW, or (B, H, W, C)
+    with ``channels_last``. fp32 statistics (two-pass variance), the
+    normalized value rounded to the input dtype, then the affine step in the
+    input dtype. Parameters ``weight`` and ``bias`` (num_features,) fp32.
+    Plain PyTorch, as the JAX package leaves it to XLA."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6, affine: bool = True, channels_last: bool = False, device=None):
+        super().__init__()
+        self.eps = eps
+        self.affine = affine
+        self.channels_last = channels_last
+        device = resolve_device(device)
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features, device=device))
+            self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        if self.affine:
+            nn.init.ones_(self.weight)
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ax = -1 if self.channels_last else 1
+        xs = _acc(x)
+        mean = xs.mean(dim=ax, keepdim=True)
+        var = torch.var(xs, dim=ax, keepdim=True, correction=0)
+        y = ((xs - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
+        if self.affine:
+            shape = (-1,) if self.channels_last else (-1, 1, 1)
+            y = y * self.weight.to(x.dtype).reshape(shape) + self.bias.to(x.dtype).reshape(shape)
+        return y

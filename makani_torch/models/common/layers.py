@@ -7,7 +7,10 @@ the compute dtype here (cuBLAS on the card). Parameter names and shapes
 follow the flax tree: ``kernel`` (1, fan_in, out) and ``bias`` (out,), fp32.
 Grouped mixing and the NCHW layout are not ported (the SFNO and FCN3 use
 neither). ``DropPath`` and ``LayerScale`` are the FCN3 block's residual-branch
-layers. Parameters are made on the card unless ``device`` names another.
+layers. ``Dense`` is flax's ``nn.Dense`` as the token models (AFNO, ViT) use
+it; ``PatchEmbed2D`` and ``PatchRecovery2D`` lift patches to tokens and back,
+each a reshape and one GEMM. Parameters are made on the card unless
+``device`` names another.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 
 from makani_torch.device import resolve_device
 
-__all__ = ["Conv1x1", "MLP", "EncoderDecoder", "DropPath", "LayerScale"]
+__all__ = ["Conv1x1", "MLP", "EncoderDecoder", "DropPath", "LayerScale", "Dense", "PatchEmbed2D", "PatchRecovery2D", "trunc_normal_02"]
 
 
 class Conv1x1(nn.Module):
@@ -145,3 +148,128 @@ class LayerScale(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gamma = self.gamma.reshape(1, 1, 1, -1) if self.channels_last else self.gamma
         return x * gamma.to(x.dtype)
+
+
+def trunc_normal_02(t: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's ``truncated_normal(stddev=0.02)``: a standard normal truncated
+    to [-2, 2], times 0.02 (drawn by redrawing the values outside, which is
+    many times faster on the CPU than ``nn.init.trunc_normal_``'s inverse
+    CDF at the recipes' 12-million-value position embeddings)."""
+    with torch.no_grad():
+        flat = t.view(-1)
+        flat.normal_(0.0, 1.0, generator=generator)
+        idx = torch.nonzero(flat.abs() > 2.0).squeeze(1)
+        while idx.numel():
+            v = torch.randn(idx.numel(), generator=generator, device=t.device, dtype=t.dtype)
+            flat[idx] = v
+            idx = idx[v.abs() > 2.0]
+        return t.mul_(0.02)
+
+
+class Dense(nn.Module):
+    """flax's ``nn.Dense`` on the last axis: ``kernel`` (in, out) and ``bias``
+    (out,) fp32, truncated-normal(0.02) kernel and zero bias (the token
+    models' init); input, kernel and bias cast to the compute dtype."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        device = resolve_device(device)
+        self.kernel = nn.Parameter(torch.empty(in_features, features, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features, device=device))
+        else:
+            self.register_parameter("bias", None)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        trunc_normal_02(self.kernel, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class PatchEmbed2D(nn.Module):
+    """Non-overlapping patch embedding of NCHW input (counterpart of
+    ``PatchEmbed2D`` in ``makani_tpu/models/common/layers.py``): the grid
+    split into (ph, pw) patches, each lifted by one GEMM to ``embed_dim``.
+    ``kernel`` (C ph pw, embed_dim), He init, and ``bias`` (embed_dim,), as in
+    the flax tree. The weights are rounded to the compute dtype and the
+    product runs in the wider of it and x's dtype, as the JAX einsum promotes
+    (fp32 tokens from fp32 input under bf16 compute). Returns channels-last
+    tokens (B, gh, gw, E), or (B, gh gw, E) with ``flatten``; the JAX module's
+    unflattened output is NCHW, and the port's token models keep their tokens
+    channels-last instead."""
+
+    def __init__(self, in_chans: int, patch_size, embed_dim: int, use_bias: bool = True, flatten: bool = False, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.flatten = flatten
+        self.dtype = dtype
+        ph, pw = self.patch_size
+        fan_in = in_chans * ph * pw
+        self.kernel_std = math.sqrt(2.0 / fan_in)
+        device = resolve_device(device)
+        self.kernel = nn.Parameter(torch.empty(fan_in, embed_dim, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(embed_dim, device=device))
+        else:
+            self.register_parameter("bias", None)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.kernel.normal_(0.0, self.kernel_std, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        ph, pw = self.patch_size
+        if H % ph or W % pw:
+            raise ValueError(f"grid ({H},{W}) not divisible by patch size ({ph},{pw})")
+        gh, gw = H // ph, W // pw
+        dt = torch.promote_types(x.dtype, self.dtype)
+        x = x.to(dt).reshape(B, C, gh, ph, gw, pw).permute(0, 2, 4, 1, 3, 5).reshape(B, gh, gw, C * ph * pw)
+        y = torch.matmul(x, self.kernel.to(self.dtype).to(dt))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype).to(dt)
+        return y.reshape(B, gh * gw, -1) if self.flatten else y
+
+
+class PatchRecovery2D(nn.Module):
+    """The inverse of ``PatchEmbed2D`` (counterpart of ``PatchRecovery2D``):
+    NCHW embeddings (B, E, gh, gw) projected by one GEMM to ``out_chans``
+    values of each patch pixel -> (B, out_chans, gh ph, gw pw). ``kernel`` (E,
+    out_chans ph pw), normal(sqrt(1/E)), and ``bias``, zero; the dtypes as
+    ``PatchEmbed2D``'s."""
+
+    def __init__(self, embed_dim: int, patch_size, out_chans: int, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.out_chans = out_chans
+        self.dtype = dtype
+        ph, pw = self.patch_size
+        device = resolve_device(device)
+        self.kernel = nn.Parameter(torch.empty(embed_dim, out_chans * ph * pw, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_chans * ph * pw, device=device))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.kernel.normal_(0.0, math.sqrt(1.0 / self.kernel.shape[0]), generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, E, gh, gw = x.shape
+        ph, pw = self.patch_size
+        dt = torch.promote_types(x.dtype, self.dtype)
+        y = torch.matmul(x.to(dt).permute(0, 2, 3, 1), self.kernel.to(self.dtype).to(dt)) + self.bias.to(self.dtype).to(dt)
+        y = y.reshape(B, gh, gw, self.out_chans, ph, pw).permute(0, 3, 1, 4, 2, 5)
+        return y.reshape(B, self.out_chans, gh * ph, gw * pw)

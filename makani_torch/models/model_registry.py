@@ -2,8 +2,11 @@
 
 Derives the effective input/output channel counts from the config (history,
 zenith), builds the core network and wraps it with its preprocessor in the
-single- or multi-step wrapper. The SFNO, FCN3 and FCN3.1 are ported so
-far. The model is built on the card unless the caller names another device.
+single- or multi-step wrapper. The SFNO, FCN3, FCN3.1, AFNO (FourCastNet
+v1), AFNOv2 and ViT are ported so far. The model is built on the card unless
+the caller names another device. The keys forwarded to a network are the
+JAX package's: like it, the port does not forward ``qkv_bias``, so a ViT is
+built without qkv biases whatever its YAML says.
 """
 
 from __future__ import annotations
@@ -33,7 +36,19 @@ def get_model_handle(nettype: str):
         from makani_torch.models.networks.fourcastnet3_1 import AtmoSphericNeuralOperatorNet31
 
         return AtmoSphericNeuralOperatorNet31
-    raise NotImplementedError(f"nettype {nettype!r} is not ported yet (only SFNO, FCN3 and FCN3.1)")
+    if nettype == "AFNO":
+        from makani_torch.models.networks.afnonet import AdaptiveFourierNeuralOperatorNet
+
+        return AdaptiveFourierNeuralOperatorNet
+    if nettype == "AFNOv2":
+        from makani_torch.models.networks.afnonet_v2 import AdaptiveFourierNeuralOperatorNetV2
+
+        return AdaptiveFourierNeuralOperatorNetV2
+    if nettype == "ViT":
+        from makani_torch.models.networks.vit import VisionTransformer
+
+        return VisionTransformer
+    raise NotImplementedError(f"nettype {nettype!r} is not ported yet (only SFNO, FCN3, FCN3.1, AFNO, AFNOv2 and ViT)")
 
 
 def _noise_channels(params) -> int:
@@ -87,6 +102,13 @@ _MODEL_KEYS = (
     "separable",
     "checkpointing_level",
     "remat_policy",
+    "patch_size",
+    "depth",
+    "num_heads",
+    "skip_fno",
+    "nested_skip_fno",
+    "num_blocks",
+    "sparsity_threshold",
     "pos_drop_rate",
     "path_drop_rate",
     "mlp_drop_rate",

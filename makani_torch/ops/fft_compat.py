@@ -1,5 +1,5 @@
-"""Channels-last split-complex real DFTs (counterpart of the ``rfft_cl_s`` /
-``irfft_cl_s`` pair in ``makani_tpu/ops/fft_compat.py``).
+"""Split-complex real DFTs (counterparts of the ``rfft_cl_s`` / ``irfft_cl_s``
+and ``rfft2_s`` / ``irfft2_s`` pairs in ``makani_tpu/ops/fft_compat.py``).
 
 Conventions follow ``numpy.fft`` (norm in {"backward", "ortho", "forward"}).
 Complex values are carried as a trailing [re, im] axis: ``torch.view_as_real``
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rfft_cl_s", "irfft_cl_s"]
+__all__ = ["rfft_cl_s", "irfft_cl_s", "rfft2_s", "irfft2_s"]
 
 
 def _upcast_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -40,3 +40,27 @@ def irfft_cl_s(x2: torch.Tensor, n: int | None = None, norm: str | None = None) 
     n = n or 2 * (m - 1)
     xc = torch.view_as_complex(_upcast_bf16(x2).contiguous())
     return torch.fft.irfft(xc, n=n, dim=-2, norm=norm).to(x2.dtype)
+
+
+def rfft2_s(x: torch.Tensor, s=None, axes=(-2, -1), norm: str | None = None) -> torch.Tensor:
+    """real x -> split (..., 2): the 2-D real DFT over ``axes`` (the halved
+    axis last), as ``numpy.fft.rfft2``, with the [re, im] pair as a new
+    trailing axis. ``s`` pads or crops the transformed axes. The result is
+    ``torch.fft``'s storage viewed as pairs (over (1, 2) of a channels-last
+    tensor a channels-first storage), in x's dtype (bf16 transformed in
+    fp32)."""
+    xf = torch.fft.rfft2(_upcast_bf16(x), s=s, dim=tuple(axes), norm=norm)
+    return torch.view_as_real(xf).to(x.dtype)
+
+
+def irfft2_s(x2: torch.Tensor, s=None, axes=(-2, -1), norm: str | None = None) -> torch.Tensor:
+    """split (..., 2) -> real: the inverse of ``rfft2_s`` over the logical
+    ``axes`` (those of the array without its pair axis), to the lengths ``s``
+    (default: the first axis's length and 2 (m - 1) for the halved one), as
+    ``numpy.fft.irfft2``. The imaginary parts of the halved axis's zero and
+    Nyquist columns are ignored. x2 is read in place where its pairs are
+    adjacent."""
+    xs = _upcast_bf16(x2)
+    if xs.stride(-1) != 1 or xs.storage_offset() % 2 or any(st % 2 for st in xs.stride()[:-1]):
+        xs = xs.contiguous()
+    return torch.fft.irfft2(torch.view_as_complex(xs), s=s, dim=tuple(axes), norm=norm).to(x2.dtype)

@@ -9,6 +9,8 @@
     python3 profile_step.py fcn31     # the FCN3.1 forecast step (fcn31_sc2_edim256_layers10, E=2)
     python3 profile_step.py fcn31-history  # its history variant (a window of 2 states, E=2)
     python3 profile_step.py fcn31-train  # the FCN3.1 recipe's ensemble-CRPS training step (361x720, B=1, E=4)
+    python3 profile_step.py afno      # FourCastNet v1 afno_73ch's forecast step (B=1); afnov2, vit alike
+    python3 profile_step.py afno-train  # its training step (train_step, the recipe's Adam, B=1); afnov2-train, vit-train alike
     python3 profile_step.py fcn3 --plain --out DIR
     python3 profile_step.py --trace build/profile/profile_fcn3_kernel.json
 
@@ -42,6 +44,8 @@ import chip_smoke as cs
 def group(name: str) -> str:
     n = name.lower()
     rules = [
+        ("afno_mixer_kernel", "K18 AFNO mixer (CUDA)"),
+        ("afno_grad_", "K19 AFNO mixer backward (CUDA)"),
         ("dhconv_grad_weight", "K9 dhconv weight gradient (CUDA)"),
         ("instance_norm_grad", "K10 instance-norm backward (CUDA)"),
         ("factored_", "K11 factored Adam (CUDA)"),
@@ -64,6 +68,8 @@ def group(name: str) -> str:
         ("dhconv", "K3 dhconv (CUDA)"),
         ("instance_norm_kernel", "K4 instance norm (CUDA)"),
         ("gemm", "GEMM (cuBLAS)"),
+        ("nvjet", "GEMM (cuBLAS)"),
+        ("softmax", "softmax"),
         ("sm90_xmma", "GEMM (cuBLAS)"),
         ("cutlass", "GEMM (cuBLAS)"),
         ("fft", "FFT (cuFFT)"),
@@ -104,7 +110,9 @@ def copy_sources(trace_path: str, top: int = 10):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("model", choices=["fcn3", "sfno", "train", "fcn3-train", "recipe", "fcn31", "fcn31-history", "fcn31-train"], nargs="?")
+    tokens = {"afno": cs.AFNO_CONFIG, "afnov2": cs.AFNOV2_CONFIG, "vit": cs.VIT_CONFIG}
+    models = ["fcn3", "sfno", "train", "fcn3-train", "recipe", "fcn31", "fcn31-history", "fcn31-train", *tokens, *(f"{t}-train" for t in tokens)]
+    ap.add_argument("model", choices=models, nargs="?")
     ap.add_argument("--plain", action="store_true", help="profile the plain PyTorch path instead of the kernels")
     ap.add_argument("--out", default="build/profile", help="directory for the Chrome trace")
     ap.add_argument("--trace", help="only attribute the copies of an existing trace")
@@ -113,7 +121,7 @@ def main() -> int:
         copy_sources(args.trace)
         return 0
     if args.model is None:
-        ap.error("name a model (fcn3, sfno, train, fcn3-train, recipe, fcn31, fcn31-history or fcn31-train) or pass --trace")
+        ap.error(f"name a model ({', '.join(models)}) or pass --trace")
     if not torch.cuda.is_available():
         print("profile_step: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -144,6 +152,31 @@ def main() -> int:
 
         def step():
             return wrapper(xm, unp)
+
+    elif args.model in tokens:
+        params, model, wrapper, x0 = cs.build_token(dev, tokens[args.model])
+        H, W = params.img_shape_x, params.img_shape_y
+        lon2d, lat2d = np.meshgrid(360.0 * np.arange(W) / W, 90.0 - 180.0 * np.arange(H) / (H - 1))
+        zen = torch.from_numpy(cos_zenith_angle_from_timestamp(1.5e9, lon2d, lat2d).astype(np.float32)).to(dev)[None, None, None]
+
+        def step():
+            with torch.no_grad():
+                return wrapper(x0, zen)
+
+    elif args.model.endswith("-train") and args.model[: -len("-train")] in tokens:
+        from makani_torch.utils.loss import LossHandler
+        from makani_torch.utils.training.deterministic_trainer import train_step
+        from makani_torch.utils.training.optimizer import get_optimizer
+
+        config = tokens[args.model[: -len("-train")]]
+        params, model, _, _ = cs.build_token(dev, config)
+        loss_obj = LossHandler(cs.token_params(config))
+        opt = get_optimizer(cs.token_params(config), model)
+        opt.use_kernels = not args.plain
+        batch = cs.token_batch(params, dev)
+
+        def step():
+            return train_step(model, loss_obj, opt, *batch)
 
     elif args.model == "fcn31-train":
         from makani_torch.utils.training.ensemble_trainer import ensemble_train_step

@@ -75,5 +75,7 @@ def test_launch_counts_reset():
         "crps",
         "grad_norm",
         "adam",
+        "afno_mixer",
+        "afno_mixer_grad",
     }
     assert not any(kernels.LAUNCHES.values())

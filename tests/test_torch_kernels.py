@@ -1279,3 +1279,127 @@ def test_grouped_two_stage_disco_conv_kernel_path(cuda):
     assert counts["disco_band_grad"] == 2 and counts["disco_polar_grad"] == 2
     for a, b in zip(*res):
         assert _agree(a, b, torch.float32)
+
+
+MIXER_CASES = {
+    # (B, H, Wh, nb, bs, hf, version, fraction, channels_first)
+    "v1-full": (2, 9, 7, 3, 12, 1, 1, 1.0, False),
+    "v1-band": (2, 10, 6, 4, 8, 1, 1, 0.5, False),
+    "v2-band-channels-first": (1, 10, 6, 4, 8, 1, 2, 0.5, True),
+    "v2-hf2": (1, 7, 9, 2, 20, 2, 2, 0.7, False),
+}
+
+
+@pytest.mark.parametrize("case", list(MIXER_CASES))
+def test_afno_mixer_kernels_match_plain(cuda, case):
+    """K18 against the plain einsums (both layouts, v1's biases and centered
+    band, v2's two-sided band, hidden factor 2, ragged sizes), its kept o1
+    against the plain o1; K19 on K18's o1 and output against its plain
+    version, and a second K19 launch bit-equal (fixed-order mode sums)."""
+    from makani_torch.ops import afno_mixer as am
+
+    B, H, Wh, nb, bs, hf, version, fraction, cf = MIXER_CASES[case]
+    hbs = bs * hf
+    x = _randn((B, H, Wh, nb * bs, 2), torch.float32, cuda)
+    if cf:
+        x = x.permute(0, 3, 1, 2, 4).contiguous()
+    w1 = 0.3 * _randn((nb, 2, bs, hbs), torch.float32, cuda, seed=1)
+    w2 = 0.3 * _randn((nb, 2, hbs, bs), torch.float32, cuda, seed=2)
+    b1 = 0.1 * _randn((nb, 2, hbs), torch.float32, cuda, seed=3) if version == 1 else None
+    b2 = 0.1 * _randn((nb, 2, bs), torch.float32, cuda, seed=4) if version == 1 else None
+    band = (am.band_v1 if version == 1 else am.band_v2)(H, Wh, fraction)
+    kernels.reset_launch_counts()
+    y, h = am.launch_afno_mixer(x, w1, b1, w2, b2, 0.01, band, cf, keep_hidden=True)
+    ref, href = am.afno_mixer_plain(x, w1, b1, w2, b2, 0.01, band, cf, return_hidden=True)
+    assert _agree(y, ref, torch.float32) and _agree(h, href, torch.float32)
+    assert am.launch_afno_mixer(x, w1, b1, w2, b2, 0.01, band, cf)[1] is None
+    dy = _randn(tuple(y.shape), torch.float32, cuda, seed=5)
+    outs = am.launch_afno_mixer_grad(x, y, dy, h, w1, w2, version == 1, band, cf)
+    refs = am.afno_mixer_grad_plain(x, y, dy, h, w1, w2, version == 1, cf)
+    again = am.launch_afno_mixer_grad(x, y, dy, h, w1, w2, version == 1, band, cf)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["afno_mixer"] == 2 and kernels.LAUNCHES["afno_mixer_grad"] == 2
+    for o, r, a in zip(outs, refs, again):
+        assert (o is None) == (r is None)
+        if o is not None:
+            assert _agree(o, r, torch.float32) and torch.equal(o, a)
+
+
+def test_afno_mixer_autograd_route(cuda):
+    """The wrapper on CUDA tensors: K18 forward and K19 backward through
+    autograd, against autograd through the plain version (v1 at fraction
+    0.5), with one launch of each."""
+    from makani_torch.ops import afno_mixer as am
+
+    x0 = _randn((2, 8, 5, 24, 2), torch.float32, cuda)
+    params0 = [0.3 * _randn(s, torch.float32, cuda, seed=i + 1) for i, s in enumerate([(3, 2, 8, 8), (3, 2, 8), (3, 2, 8, 8), (3, 2, 8)])]
+    dy = _randn((2, 8, 5, 24, 2), torch.float32, cuda, seed=9)
+    band = am.band_v1(8, 5, 0.5)
+    res = []
+    for fn in (am.afno_mixer, am.afno_mixer_plain):
+        kernels.reset_launch_counts()
+        leaves = [t.clone().requires_grad_(True) for t in (x0, *params0)]
+        y = fn(leaves[0], *leaves[1:], 0.01, band)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        res.append([y.detach()] + [t.grad for t in leaves])
+        if fn is am.afno_mixer:
+            assert kernels.LAUNCHES["afno_mixer"] == 1 and kernels.LAUNCHES["afno_mixer_grad"] == 1
+    for a, b in zip(*res):
+        assert _agree(a, b, torch.float32)
+
+
+def test_small_afno_train_step_repeats_bit_for_bit(cuda):
+    """A small FourCastNet v1 and AFNOv2 (17 x 32, patch 4, 2 layers): a
+    training step's loss and gradients through K18/K19 against the plain
+    path (AFNOv2's leaves that meet the loss only through norm2's instance
+    norm, zero in exact arithmetic, at 1e-5 of the largest gradient), and a
+    second step from the same weights bit-equal."""
+    from makani_torch.models.networks.afnonet import AdaptiveFourierNeuralOperatorNet
+    from makani_torch.models.networks.afnonet_v2 import AdaptiveFourierNeuralOperatorNetV2
+
+    x = _randn((2, 5, 17, 32), torch.float32, cuda)
+    t = _randn((2, 4, 17, 32), torch.float32, cuda, seed=1)
+    for cls in (AdaptiveFourierNeuralOperatorNet, AdaptiveFourierNeuralOperatorNetV2):
+        net = cls(inp_shape=(17, 32), out_shape=(17, 32), patch_size=(4, 4), inp_chans=5, out_chans=4, embed_dim=32, num_layers=2, num_blocks=4, device=cuda)
+        with torch.no_grad():
+            for name, p in net.named_parameters():
+                if ".filter.w" in name:
+                    p.mul_(10.0)
+        grads = []
+        for use in (True, True, False):
+            kernels.set_use_kernels(net, use)
+            net.zero_grad(set_to_none=True)
+            loss = torch.mean((net(x) - t) ** 2)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads.append([loss.detach()] + [p.grad.clone() for p in net.parameters()])
+        assert all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+        names = ["loss"] + [n for n, _ in net.named_parameters()]
+        largest = max(b.abs().max().item() for b in grads[2][1:])
+        for name, a, b in zip(names, grads[0], grads[2]):
+            if name.endswith(("filter.b1", "skip_layer.bias", "norm1.bias")) and cls is AdaptiveFourierNeuralOperatorNetV2:
+                assert max(a.abs().max().item(), b.abs().max().item()) <= 1e-5 * largest, name
+            else:
+                assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name
+
+
+def test_afno_mixer_reads_the_fft_in_place(cuda):
+    """The rFFT of a channels-last token grid is a channels-first storage
+    behind a (B, H, Wh, C) view: K18 and K19 read it and write y and dx in
+    its strides, without a copy, as the plain version computes."""
+    from makani_torch.ops import afno_mixer as am
+    from makani_torch.ops.fft_compat import rfft2_s
+
+    x = rfft2_s(_randn((2, 10, 14, 32), torch.float32, cuda), axes=(1, 2), norm="ortho")
+    assert not x.is_contiguous() and am.spectrum_strides(x, False)[0] == (10 * 8 * 32 * 2, 2, 10 * 8 * 2)
+    w1, w2 = 0.3 * _randn((4, 2, 8, 8), torch.float32, cuda, seed=1), 0.3 * _randn((4, 2, 8, 8), torch.float32, cuda, seed=2)
+    band = am.band_v2(10, 8, 1.0)
+    y, h = am.launch_afno_mixer(x, w1, None, w2, None, 0.01, band, keep_hidden=True)
+    assert y.stride() == x.stride() and _agree(y, am.afno_mixer_plain(x, w1, None, w2, None, 0.01, band), torch.float32)
+    dy = _randn(tuple(y.shape), torch.float32, cuda, seed=3)
+    outs = am.launch_afno_mixer_grad(x, y, dy, h, w1, w2, False, band)
+    refs = am.afno_mixer_grad_plain(x, y, dy, h, w1, w2, False)
+    assert outs[0].stride() == x.stride()
+    for o, r in zip(outs, refs):
+        assert (o is None and r is None) or _agree(o, r, torch.float32)

@@ -160,9 +160,9 @@ def test_plain_reference_switch_matches_kernel_route_on_cpu():
 
 def test_port_imports_no_jax():
     """Every makani_torch module imports (the training step's loss, optimizer
-    and trainer among them), and an SFNO and an FCN3 forward and an SFNO
-    training step run, without jax, flax or makani_tpu entering the
-    process."""
+    and trainer among them), and an SFNO, an FCN3, an AFNO and a ViT forward
+    and an SFNO training step run, without jax, flax or makani_tpu entering
+    the process."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import makani_torch\n"
@@ -176,6 +176,12 @@ def test_port_imports_no_jax():
         "fcn3 = AtmoSphericNeuralOperatorNet(inp_shape=(17, 32), out_shape=(17, 32), scale_factor=2, channel_names=('t2m', 'u500', 'q500'), aux_channel_names=('xzen', 'xnoise0'), atmo_embed_dim=4, surf_embed_dim=4, aux_embed_dim=2, num_layers=2, sfno_block_frequency=2, filter_basis_type='morlet th', clamp_water=True, device='cpu')\n"
         "with torch.no_grad():\n"
         "    assert torch.isfinite(fcn3(torch.randn(1, 5, 17, 32))).all()\n"
+        "from makani_torch.models.networks.afnonet import AdaptiveFourierNeuralOperatorNet\n"
+        "from makani_torch.models.networks.vit import VisionTransformer\n"
+        "afno = AdaptiveFourierNeuralOperatorNet(inp_shape=(17, 32), out_shape=(17, 32), patch_size=(4, 4), inp_chans=3, out_chans=2, embed_dim=8, num_layers=1, num_blocks=2, device='cpu')\n"
+        "vit = VisionTransformer(inp_shape=(17, 32), out_shape=(17, 32), patch_size=(4, 4), inp_chans=3, out_chans=2, embed_dim=8, num_layers=1, num_heads=2, device='cpu')\n"
+        "with torch.no_grad():\n"
+        "    assert all(torch.isfinite(m(torch.randn(1, 3, 17, 32))).all() for m in (afno, vit))\n"
         "from makani_torch.models.model_registry import get_model\n"
         "from makani_torch.utils.loss import LossHandler\n"
         "from makani_torch.utils.training.deterministic_trainer import train_step\n"
