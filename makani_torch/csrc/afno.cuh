@@ -9,10 +9,12 @@
 //
 //   element (b, m, channel) at base + b * sB + m * sM + channel * sC
 //
-// so one kernel takes both layouts of the JAX package: the channels-last
-// (B, H, Wh, C, 2) of AFNO v1 (sM = 2C, sC = 2) and the channels-first
-// (B, C, H, Wh, 2) of AFNO v2 (sM = 2, sC = 2 H Wh). The weights come packed
-// by the wrapper as (nb, 2, rows, cols) fp32, the biases as (nb, 2, cols).
+// so one kernel reads a contiguous (B, H, Wh, C, 2) spectrum (sM = 2C, sC =
+// 2) and, in place, the channels-first (B, C, H, Wh, 2) storage that the rFFT
+// of channels-last tokens gives behind that shape (sM = 2, sC = 2 H Wh). The weights and biases are read in place, in the layouts of
+// their parameters, through four strides each (WLayout): a weight's element
+// (block k, part p of [re, im], row r, column c), a bias's with row 0. K19
+// writes the weights' and biases' gradients in the same layouts.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +29,23 @@ constexpr int MAX_THREADS = 1024;
 struct Layout {
   long long sB, sM, sC;
 };
+
+// Element (block k, part p, row r, column c) of a weight or bias at
+// base + k * sK + p * sP + r * sR + c * sC (floats; sR = 0 for a bias)
+struct WLayout {
+  long long sK, sP, sR, sC;
+  __host__ __device__ __forceinline__ long long at(long long k, long long p, long long r, long long c) const { return k * sK + p * sP + r * sR + c * sC; }
+};
+
+// The four parameters' layouts, as the wrappers pass them: w1, w2, b1, b2
+// (16 strides; a missing bias's are zeros)
+struct Params {
+  WLayout w1, w2, b1, b2;
+};
+
+__host__ __forceinline__ Params params_from(const long long* s) {
+  return Params{WLayout{s[0], s[1], s[2], s[3]}, WLayout{s[4], s[5], s[6], s[7]}, WLayout{s[8], s[9], s[10], s[11]}, WLayout{s[12], s[13], s[14], s[15]}};
+}
 
 // The kept modes: rows [ra0, ra1) and [rb0, rb1) of the unhalved axis, columns [0, kc)
 struct Band {
@@ -88,7 +107,7 @@ __device__ __forceinline__ void load_tile(float* Ar, float* Ai, const float* src
 // thread of the block calls it (the staging is shared); only active ones
 // accumulate.
 __device__ __forceinline__ void cgemm(float (&accr)[4][4], float (&acci)[4][4], const float* Ar, const float* Ai, float* Wr, float* Wi, const float* __restrict__ W,
-                                      long long P, int sR, int sC, int K, int O, int OP, bool conj, int mg, int og, bool active) {
+                                      long long P, long long sR, long long sC, int K, int O, int OP, bool conj, int mg, int og, bool active) {
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
@@ -99,7 +118,7 @@ __device__ __forceinline__ void cgemm(float (&accr)[4][4], float (&acci)[4][4], 
       const int kk = idx / OP, c = idx - kk * OP, r = r0 + kk;
       float vr = 0.f, vi = 0.f;
       if (r < K && c < O) {
-        const float* w = W + (long long)r * sR + (long long)c * sC;
+        const float* w = W + r * sR + c * sC;
         vr = w[0];
         vi = w[P];
       }

@@ -45,8 +45,8 @@ __device__ __forceinline__ float shrink(float v, float lambd) {
 }
 
 __global__ void afno_mixer_kernel(const float* __restrict__ x, float* __restrict__ y, float* __restrict__ h, const float* __restrict__ w1,
-                                  const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2, Layout L, int M, int Wh, int nb,
-                                  int bs, int hbs, Band band, float lambd) {
+                                  const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2, Layout L, afno::Params wp, int M,
+                                  int Wh, int nb, int bs, int hbs, Band band, float lambd) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int OP = afno::round4(bs > hbs ? bs : hbs);
@@ -88,15 +88,15 @@ __global__ void afno_mixer_kernel(const float* __restrict__ x, float* __restrict
   const int mg = tid % (TM / 4), og = tid / (TM / 4);
   float accr[4][4], acci[4][4];
   // first product and split relu -> H[o][m]
-  const float* W1 = w1 + (long long)k * 2 * bs * hbs;
-  afno::cgemm(accr, acci, Xr, Xi, Wr, Wi, W1, (long long)bs * hbs, hbs, 1, bs, hbs, OP, false, mg, og, og * 4 < hbs);
+  const float* W1 = w1 + k * wp.w1.sK;
+  afno::cgemm(accr, acci, Xr, Xi, Wr, Wi, W1, wp.w1.sP, wp.w1.sR, wp.w1.sC, bs, hbs, OP, false, mg, og, og * 4 < hbs);
   if (og * 4 < hbs) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int o = og * 4 + j;
       if (o >= hbs) break;
-      const float br = b1 != nullptr ? b1[(long long)k * 2 * hbs + o] : 0.f;
-      const float bi = b1 != nullptr ? b1[(long long)k * 2 * hbs + hbs + o] : 0.f;
+      const float br = b1 != nullptr ? b1[wp.b1.at(k, 0, 0, o)] : 0.f;
+      const float bi = b1 != nullptr ? b1[wp.b1.at(k, 1, 0, o)] : 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int m = mg * 4 + q;
@@ -108,15 +108,15 @@ __global__ void afno_mixer_kernel(const float* __restrict__ x, float* __restrict
     }
   }
   // second product, band, soft-shrink -> y
-  const float* W2 = w2 + (long long)k * 2 * hbs * bs;
-  afno::cgemm(accr, acci, Hr, Hi, Wr, Wi, W2, (long long)hbs * bs, bs, 1, hbs, bs, OP, false, mg, og, og * 4 < bs);
+  const float* W2 = w2 + k * wp.w2.sK;
+  afno::cgemm(accr, acci, Hr, Hi, Wr, Wi, W2, wp.w2.sP, wp.w2.sR, wp.w2.sC, hbs, bs, OP, false, mg, og, og * 4 < bs);
   if (og * 4 < bs) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int o = og * 4 + j;
       if (o >= bs) break;
-      const float br = b2 != nullptr ? b2[(long long)k * 2 * bs + o] : 0.f;
-      const float bi = b2 != nullptr ? b2[(long long)k * 2 * bs + bs + o] : 0.f;
+      const float br = b2 != nullptr ? b2[wp.b2.at(k, 0, 0, o)] : 0.f;
+      const float bi = b2 != nullptr ? b2[wp.b2.at(k, 1, 0, o)] : 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int m = mg * 4 + q;
@@ -137,10 +137,12 @@ __global__ void afno_mixer_kernel(const float* __restrict__ x, float* __restrict
 // K18. x, y: fp32 spectra with strides (sB, sM, sC) in floats (y the same
 // layout as x); h: null, or fp32 (B, nb, M, hbs, 2) for the hidden o1 after
 // the relu; w1 (nb, 2, bs, hbs), w2 (nb, 2, hbs, bs), b1 (nb, 2, hbs) and b2
-// (nb, 2, bs) fp32 contiguous (the biases may be null). M = H * Wh modes.
-extern "C" int mt_afno_mixer(const void* x, void* y, void* h, const void* w1, const void* b1, const void* w2, const void* b2, int B, int M, int Wh, int nb, int bs,
-                             int hbs, long long sB, long long sM, long long sC, int ra0, int ra1, int rb0, int rb1, int kc, float lambd, void* stream) {
-  if (B <= 0 || B > 65535 || M <= 0 || Wh <= 0 || M % Wh || nb <= 0 || nb > 65535 || bs <= 0 || hbs <= 0 || lambd < 0.f)
+// (nb, 2, bs) fp32 (the biases may be null), read in place through the 16
+// strides wst (afno.cuh Params: w1, w2, b1, b2). M = H * Wh modes.
+extern "C" int mt_afno_mixer(const void* x, void* y, void* h, const void* w1, const void* b1, const void* w2, const void* b2, const long long* wst, int B, int M,
+                             int Wh, int nb, int bs, int hbs, long long sB, long long sM, long long sC, int ra0, int ra1, int rb0, int rb1, int kc, float lambd,
+                             void* stream) {
+  if (B <= 0 || B > 65535 || M <= 0 || Wh <= 0 || M % Wh || nb <= 0 || nb > 65535 || bs <= 0 || hbs <= 0 || lambd < 0.f || wst == nullptr)
     return (int)cudaErrorInvalidValue;
   const int threads = afno::tile_threads(hbs, bs);
   if (threads > afno::MAX_THREADS) return (int)cudaErrorInvalidConfiguration;
@@ -156,6 +158,6 @@ extern "C" int mt_afno_mixer(const void* x, void* y, void* h, const void* w1, co
   const dim3 grid((M + TM - 1) / TM, nb, B);
   afno_mixer_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y), static_cast<float*>(h), static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2), Layout{sB, sM, sC}, M, Wh, nb, bs, hbs, Band{ra0, ra1, rb0, rb1, kc}, lambd);
+      static_cast<const float*>(w2), static_cast<const float*>(b2), Layout{sB, sM, sC}, afno::params_from(wst), M, Wh, nb, bs, hbs, Band{ra0, ra1, rb0, rb1, kc}, lambd);
   return (int)cudaGetLastError();
 }

@@ -50,8 +50,8 @@ using afno::LDA;
 using afno::TM;
 
 __global__ void afno_grad_data_kernel(const float* __restrict__ dy, const float* __restrict__ y, const float* __restrict__ h, const float* __restrict__ w1,
-                                      const float* __restrict__ w2, float* __restrict__ dx, float* __restrict__ g1, Layout L, int M, int Wh, int nb, int bs,
-                                      int hbs, Band band) {
+                                      const float* __restrict__ w2, float* __restrict__ dx, float* __restrict__ g1, Layout L, afno::Params wp, int M, int Wh,
+                                      int nb, int bs, int hbs, Band band) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int OP = afno::round4(bs > hbs ? bs : hbs);
@@ -91,8 +91,8 @@ __global__ void afno_grad_data_kernel(const float* __restrict__ dy, const float*
   const int mg = tid % (TM / 4), og = tid / (TM / 4);
   float accr[4][4], acci[4][4];
   // g1[m][i] = sum_o g2[m][o] conj(W2[i][o]), W2 (p, i, o) read as (row o, column i)
-  const float* W2 = w2 + (long long)k * 2 * hbs * bs;
-  afno::cgemm(accr, acci, Gr, Gi, Wr, Wi, W2, (long long)hbs * bs, 1, bs, bs, hbs, OP, true, mg, og, og * 4 < hbs);
+  const float* W2 = w2 + k * wp.w2.sK;
+  afno::cgemm(accr, acci, Gr, Gi, Wr, Wi, W2, wp.w2.sP, wp.w2.sC, wp.w2.sR, bs, hbs, OP, true, mg, og, og * 4 < hbs);
   if (og * 4 < hbs) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -114,8 +114,8 @@ __global__ void afno_grad_data_kernel(const float* __restrict__ dy, const float*
     }
   }
   // dx[m][c] = sum_i g1[m][i] conj(W1[c][i]), W1 (p, c, i) read as (row i, column c)
-  const float* W1 = w1 + (long long)k * 2 * bs * hbs;
-  afno::cgemm(accr, acci, Hr, Hi, Wr, Wi, W1, (long long)bs * hbs, 1, hbs, hbs, bs, OP, true, mg, og, og * 4 < bs);
+  const float* W1 = w1 + k * wp.w1.sK;
+  afno::cgemm(accr, acci, Hr, Hi, Wr, Wi, W1, wp.w1.sP, wp.w1.sC, wp.w1.sR, hbs, bs, OP, true, mg, og, og * 4 < bs);
   if (og * 4 < bs) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -249,29 +249,37 @@ __global__ void __launch_bounds__(WTHREADS) afno_grad_weight_kernel(WeightArgs a
   }
 }
 
-// out[e] = sum_{s < S} part[s * n + e], in order, for the four outputs laid
-// end to end (dw1, dw2, db1, db2; n1..n4 elements, part blocks p1..p4).
-__global__ void afno_grad_reduce_kernel(const float* __restrict__ p1, const float* __restrict__ p2, const float* __restrict__ p3, const float* __restrict__ p4,
-                                        float* __restrict__ o1, float* __restrict__ o2, float* __restrict__ o3, float* __restrict__ o4, long long n1,
-                                        long long n2, long long n3, long long n4, int S) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const float* p;
-  float* o;
+// One output of the reduction: its S partials, each n = nb * 2 * rows * cols
+// floats in the order (k, p, r, c), and the output in its parameter's layout.
+struct ReduceOut {
+  const float* part;
+  float* out;
   long long n;
-  if (e < n1) {
-    p = p1, o = o1, n = n1;
-  } else if ((e -= n1) < n2) {
-    p = p2, o = o2, n = n2;
-  } else if ((e -= n2) < n3) {
-    p = p3, o = o3, n = n3;
-  } else if ((e -= n3) < n4) {
-    p = p4, o = o4, n = n4;
+  int rows, cols;
+  afno::WLayout at;
+};
+
+// out[(k, p, r, c)] = sum_{s < S} part[s * n + e], in order, e the canonical
+// index, for the four outputs laid end to end (dw1, dw2, db1, db2; n = 0 for
+// an absent one).
+__global__ void afno_grad_reduce_kernel(ReduceOut o1, ReduceOut o2, ReduceOut o3, ReduceOut o4, int S) {
+  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  ReduceOut o;
+  if (e < o1.n) {
+    o = o1;
+  } else if ((e -= o1.n) < o2.n) {
+    o = o2;
+  } else if ((e -= o2.n) < o3.n) {
+    o = o3;
+  } else if ((e -= o3.n) < o4.n) {
+    o = o4;
   } else {
     return;
   }
   float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += p[s * n + e];
-  o[e] = acc;
+  for (int s = 0; s < S; ++s) acc += o.part[s * o.n + e];
+  const long long c = e % o.cols, rest = e / o.cols, r = rest % o.rows, kp = rest / o.rows;
+  o.out[o.at.at(kp / 2, kp % 2, r, c)] = acc;
 }
 
 }  // namespace
@@ -284,13 +292,15 @@ extern "C" long long mt_afno_grad_scratch(int S, int nb, int bs, int hbs, int bi
 
 // K19. x, y, dy, dx: fp32 spectra with strides (sB, sM, sC) (K18's layout);
 // h: K18's o1, fp32 (B, nb, M, hbs, 2); g1: a buffer of h's size (written);
-// w1 (nb, 2, bs, hbs), w2 (nb, 2, hbs, bs) as K18 takes them; dw1, dw2 of
-// their shapes, db1 (nb, 2, hbs) and db2 (nb, 2, bs) (null without biases)
-// written; scratch: mt_afno_grad_scratch(S, ...) floats.
-extern "C" int mt_afno_mixer_grad(const void* x, const void* y, const void* dy, const void* h, const void* w1, const void* w2, void* dx, void* g1, void* dw1,
-                                  void* db1, void* dw2, void* db2, void* scratch, int S, int B, int M, int Wh, int nb, int bs, int hbs, long long sB,
-                                  long long sM, long long sC, int ra0, int ra1, int rb0, int rb1, int kc, void* stream) {
-  if (B <= 0 || B > 65535 || M <= 0 || Wh <= 0 || M % Wh || nb <= 0 || nb > 65535 || bs <= 0 || hbs <= 0 || S <= 0 || 2LL * S > 65535)
+// w1 (nb, 2, bs, hbs), w2 (nb, 2, hbs, bs) as K18 takes them, with the 16
+// strides wst (afno.cuh Params: w1, w2, b1, b2); dw1, dw2 of their shapes
+// and layouts, db1 (nb, 2, hbs) and db2 (nb, 2, bs) in the biases' layouts
+// (null without biases) written; scratch: mt_afno_grad_scratch(S, ...)
+// floats.
+extern "C" int mt_afno_mixer_grad(const void* x, const void* y, const void* dy, const void* h, const void* w1, const void* w2, const long long* wst, void* dx,
+                                  void* g1, void* dw1, void* db1, void* dw2, void* db2, void* scratch, int S, int B, int M, int Wh, int nb, int bs, int hbs,
+                                  long long sB, long long sM, long long sC, int ra0, int ra1, int rb0, int rb1, int kc, void* stream) {
+  if (B <= 0 || B > 65535 || M <= 0 || Wh <= 0 || M % Wh || nb <= 0 || nb > 65535 || bs <= 0 || hbs <= 0 || S <= 0 || 2LL * S > 65535 || wst == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((db1 == nullptr) != (db2 == nullptr)) return (int)cudaErrorInvalidValue;
   const int threads = afno::tile_threads(hbs, bs);
@@ -301,6 +311,7 @@ extern "C" int mt_afno_mixer_grad(const void* x, const void* y, const void* dy, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout L{sB, sM, sC};
   const Band band{ra0, ra1, rb0, rb1, kc};
+  const afno::Params wp = afno::params_from(wst);
 
   const size_t smem = afno::tile_smem_bytes(bs, hbs);
   static size_t opted = 0;
@@ -311,7 +322,7 @@ extern "C" int mt_afno_mixer_grad(const void* x, const void* y, const void* dy, 
   }
   afno_grad_data_kernel<<<dim3((M + TM - 1) / TM, nb, B), threads, smem, st>>>(
       static_cast<const float*>(dy), static_cast<const float*>(y), static_cast<const float*>(h), static_cast<const float*>(w1), static_cast<const float*>(w2),
-      static_cast<float*>(dx), static_cast<float*>(g1), L, M, Wh, nb, bs, hbs, band);
+      static_cast<float*>(dx), static_cast<float*>(g1), L, wp, M, Wh, nb, bs, hbs, band);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
@@ -337,8 +348,8 @@ extern "C" int mt_afno_mixer_grad(const void* x, const void* y, const void* dy, 
   if (e != cudaSuccess) return (int)e;
 
   const long long n = 2 * nw + (bias ? nb1 + nb2 : 0);
-  afno_grad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(a.pw[0], a.pw[1], a.pb[0], a.pb[1], static_cast<float*>(dw1), static_cast<float*>(dw2),
-                                                                       static_cast<float*>(db1), static_cast<float*>(db2), nw, nw, bias ? nb1 : 0,
-                                                                       bias ? nb2 : 0, S);
+  const ReduceOut r1{a.pw[0], static_cast<float*>(dw1), nw, bs, hbs, wp.w1}, r2{a.pw[1], static_cast<float*>(dw2), nw, hbs, bs, wp.w2};
+  const ReduceOut r3{a.pb[0], static_cast<float*>(db1), bias ? nb1 : 0, 1, hbs, wp.b1}, r4{a.pb[1], static_cast<float*>(db2), bias ? nb2 : 0, 1, bs, wp.b2};
+  afno_grad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(r1, r2, r3, r4, S);
   return (int)cudaGetLastError();
 }

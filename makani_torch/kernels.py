@@ -207,9 +207,9 @@ def library() -> ctypes.CDLL:
             lib.mt_resample_grad.restype = i
             lib.mt_crps_skillspread.argtypes = [i, vp, vp, vp, vp, i, i, ll, f, vp]
             lib.mt_crps_skillspread.restype = i
-            lib.mt_afno_mixer.argtypes = [vp] * 7 + [i] * 6 + [ll] * 3 + [i] * 5 + [f, vp]
+            lib.mt_afno_mixer.argtypes = [vp] * 7 + [ctypes.POINTER(ll)] + [i] * 6 + [ll] * 3 + [i] * 5 + [f, vp]
             lib.mt_afno_mixer.restype = i
-            lib.mt_afno_mixer_grad.argtypes = [vp] * 13 + [i] * 7 + [ll] * 3 + [i] * 5 + [vp]
+            lib.mt_afno_mixer_grad.argtypes = [vp] * 6 + [ctypes.POINTER(ll)] + [vp] * 7 + [i] * 7 + [ll] * 3 + [i] * 5 + [vp]
             lib.mt_afno_mixer_grad.restype = i
             lib.mt_afno_grad_scratch.argtypes = [i] * 5
             lib.mt_afno_grad_scratch.restype = ll

@@ -79,12 +79,18 @@ class AFNO2D(nn.Module):
             for p in (self.w1, self.b1, self.w2, self.b2):
                 p.normal_(0.0, 0.02, generator=generator)
 
+    def mixer_args(self, H: int, Wh: int) -> tuple:
+        """(w1, b1, w2, b2, lambda, band) as the mixer takes them for an (H, Wh)
+        spectrum: the parameters as (nb, 2, ...) views, which K18 and K19
+        read and write in place."""
+        w1, b1, w2, b2 = (p.transpose(0, 1) for p in (self.w1, self.b1, self.w2, self.b2))
+        return w1, b1, w2, b2, self.sparsity_threshold, band_v1(H, Wh, self.hard_thresholding_fraction)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         xs = fft_compat.rfft2_s(x.float(), axes=(1, 2), norm="ortho")
-        band = band_v1(H, W // 2 + 1, self.hard_thresholding_fraction)
         mix = afno_mixer if self.use_kernels else afno_mixer_plain
-        ys = mix(xs, self.w1.transpose(0, 1), self.b1.transpose(0, 1), self.w2.transpose(0, 1), self.b2.transpose(0, 1), self.sparsity_threshold, band)
+        ys = mix(xs, *self.mixer_args(H, W // 2 + 1))
         return fft_compat.irfft2_s(ys, s=(H, W), axes=(1, 2), norm="ortho").to(x.dtype) + x
 
 

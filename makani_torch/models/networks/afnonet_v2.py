@@ -11,7 +11,7 @@ parameters keep the flax tree's names and shapes (``block{i}.filter.w1`` (nb,
 bs, bs hf, 2), ``block{i}.norm1.weight``, ``block{i}.skip_layer.kernel``,
 ``pos_embed`` (1, E, h, w), ``head.kernel``, ...). The mixer's block-diagonal
 MLP, band and soft-shrink run in kernel K18 (backward K19), which reads the
-channels-first spectrum of the JAX module as well through its strides.
+spectrum and the flax-layout weights in place through their strides.
 """
 
 from __future__ import annotations
@@ -71,12 +71,18 @@ class AFNO2Dv2(nn.Module):
             for p in (self.w1, self.b1, self.w2):
                 p.normal_(0.0, 0.02, generator=generator)
 
+    def mixer_args(self, H: int, Wh: int) -> tuple:
+        """(w1, None, w2, None, lambda, band) as the mixer takes them for an
+        (H, Wh) spectrum: the weights as (nb, 2, ...) views, which K18 and
+        K19 read and write in place."""
+        w1, w2 = (p.permute(0, 3, 1, 2) for p in (self.w1, self.w2))
+        return w1, None, w2, None, self.sparsity_threshold, band_v2(H, Wh, self.hard_thresholding_fraction)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         xs = fft_compat.rfft2_s(x.float(), axes=(1, 2), norm="ortho")
-        band = band_v2(H, W // 2 + 1, self.hard_thresholding_fraction)
         mix = afno_mixer if self.use_kernels else afno_mixer_plain
-        ys = mix(xs, self.w1.permute(0, 3, 1, 2), None, self.w2.permute(0, 3, 1, 2), None, self.sparsity_threshold, band)
+        ys = mix(xs, *self.mixer_args(H, W // 2 + 1))
         y = fft_compat.irfft2_s(ys, s=(H, W), axes=(1, 2), norm="ortho").to(x.dtype)
         return y + self.b1.reshape(C).to(x.dtype) + x
 

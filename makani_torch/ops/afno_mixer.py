@@ -24,16 +24,17 @@ pass, so a step repeats bit for bit.
 Both kernels are bound by operations: at ``afno_73ch`` (90 x 91 modes, C 768,
 8 blocks of 96) K18 does 9.66 GFLOP on 100.6 MB, K19 twice the products.
 The spectra are fp32 (the JAX mixer upcasts around its FFT) in the
-channels-last (B, H, Wh, C, 2) shape or, with ``channels_first``, the
-(B, C, H, Wh, 2) one, in any storage whose rows and columns flatten into one
-mode index: the kernels read it through strides, in place (the rFFT's output
-is such a view). The weights
-are taken as (nb, 2, rows, cols) and the biases as (nb, 2, cols), the
-[re, im] part second (views of either flax layout).
+channels-last (B, H, Wh, C, 2) shape, in any storage whose rows and columns
+flatten into one mode index: the kernels read it through strides, in place
+(the rFFT's output is such a view, over a channels-first storage). The
+weights are taken as (nb, 2, rows, cols) and the biases as (nb, 2, cols), the
+[re, im] part second: views of either flax layout, which the kernels read in
+place through their strides and in whose layouts K19 writes the gradients.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -95,18 +96,16 @@ def _softshrink(v: torch.Tensor, lambd: float) -> torch.Tensor:
     return torch.sign(v) * torch.clamp(torch.abs(v) - lambd, min=0.0)
 
 
-def _blocks(x2, nb: int, channels_first: bool):
+def _blocks(x2, nb: int):
     """(re, im) of a spectrum as (B, H, Wh, nb, bs) each."""
-    xv = x2.movedim(1, 3) if channels_first else x2
-    B, H, Wh, C, _ = xv.shape
-    return xv[..., 0].reshape(B, H, Wh, nb, C // nb), xv[..., 1].reshape(B, H, Wh, nb, C // nb)
+    B, H, Wh, C, _ = x2.shape
+    return x2[..., 0].reshape(B, H, Wh, nb, C // nb), x2[..., 1].reshape(B, H, Wh, nb, C // nb)
 
 
-def _spectrum(re, im, channels_first: bool):
+def _spectrum(re, im):
     """The inverse of ``_blocks``."""
     B, H, Wh = re.shape[:3]
-    y = torch.stack([re.reshape(B, H, Wh, -1), im.reshape(B, H, Wh, -1)], dim=-1)
-    return y.movedim(3, 1).contiguous() if channels_first else y
+    return torch.stack([re.reshape(B, H, Wh, -1), im.reshape(B, H, Wh, -1)], dim=-1)
 
 
 def _cmul(ar, ai, wr, wi, conj: bool = False):
@@ -121,14 +120,14 @@ def _cmul(ar, ai, wr, wi, conj: bool = False):
     return ein(ar, wr) - ein(ai, wi), ein(ai, wr) + ein(ar, wi)
 
 
-def afno_mixer_plain(x2, w1, b1, w2, b2, lambd: float, band: Band, channels_first: bool = False, return_hidden: bool = False):
+def afno_mixer_plain(x2, w1, b1, w2, b2, lambd: float, band: Band, return_hidden: bool = False):
     """The mixer as the JAX package's split re/im einsums, the kernels'
-    plain version: x2 fp32 (B, H, Wh, C, 2) (or (B, C, H, Wh, 2)), w1 (nb,
-    2, bs, hbs), w2 (nb, 2, hbs, bs), b1 (nb, 2, hbs) and b2 (nb, 2, bs) or
-    None. Returns y in x2's layout (and with ``return_hidden`` the hidden o1
-    after the relu as K18 keeps it, (B, nb, H Wh, hbs, 2))."""
+    plain version: x2 fp32 (B, H, Wh, C, 2), w1 (nb, 2, bs, hbs), w2 (nb, 2,
+    hbs, bs), b1 (nb, 2, hbs) and b2 (nb, 2, bs) or None. Returns y (B, H,
+    Wh, C, 2) (and with ``return_hidden`` the hidden o1 after the relu as K18
+    keeps it, (B, nb, H Wh, hbs, 2))."""
     nb = w1.shape[0]
-    xr, xi = _blocks(x2, nb, channels_first)
+    xr, xi = _blocks(x2, nb)
     B, H, Wh = xr.shape[:3]
     with fp32_exact():
         o1r, o1i = _cmul(xr, xi, w1[:, 0], w1[:, 1])
@@ -142,26 +141,27 @@ def afno_mixer_plain(x2, w1, b1, w2, b2, lambd: float, band: Band, channels_firs
         keep = band.mask(H, Wh, x2.device)[:, :, None, None]
         o2r = torch.where(keep, o2r, 0.0)
         o2i = torch.where(keep, o2i, 0.0)
-    y = _spectrum(_softshrink(o2r, lambd), _softshrink(o2i, lambd), channels_first)
+    y = _spectrum(_softshrink(o2r, lambd), _softshrink(o2i, lambd))
     if not return_hidden:
         return y
     h = torch.stack([o1r, o1i], dim=-1).permute(0, 3, 1, 2, 4, 5).reshape(B, nb, H * Wh, -1, 2)
     return y, h
 
 
-def afno_mixer_grad_plain(x2, y, dy, h, w1, w2, has_bias: bool, channels_first: bool = False):
+def afno_mixer_grad_plain(x2, y, dy, h, w1, b1, w2, b2):
     """K19's plain version, on K19's inputs: the spectrum x2, K18's output y
     and hidden o1 ``h``, the output gradient dy, the weights. The
     soft-shrink's and the band's slope is (y != 0), the relu's (o1 > 0), as
     in the kernel; everything else is the split re/im einsums. Returns (dx,
-    dw1, db1, dw2, db2) in K18's layouts, the biases' None without biases.
+    dw1, db1, dw2, db2) in K18's shapes, the biases' None without biases (the
+    biases are taken for that alone).
     (Autograd through ``afno_mixer_plain`` gives the same where no
     pre-activation sits within rounding of a slope's edge.)"""
-    nb = w1.shape[0]
+    nb, has_bias = w1.shape[0], b1 is not None
     B, _, HW, hbs, _ = h.shape
-    gr, gi = _blocks(dy, nb, channels_first)
-    yr, yi = _blocks(y, nb, channels_first)
-    xr, xi = _blocks(x2, nb, channels_first)
+    gr, gi = _blocks(dy, nb)
+    yr, yi = _blocks(y, nb)
+    xr, xi = _blocks(x2, nb)
     H, Wh = xr.shape[1:3]
     hv = h.reshape(B, nb, H, Wh, hbs, 2).permute(0, 2, 3, 1, 4, 5)
     g2r, g2i = torch.where(yr != 0, gr, 0.0), torch.where(yi != 0, gi, 0.0)
@@ -181,57 +181,89 @@ def afno_mixer_grad_plain(x2, y, dy, h, w1, w2, has_bias: bool, channels_first: 
         dw2 = wgrad(hv[..., 0], hv[..., 1], g2r, g2i)
     db1 = torch.stack([g1r.sum(dim=(0, 1, 2)), g1i.sum(dim=(0, 1, 2))], dim=1) if has_bias else None
     db2 = torch.stack([g2r.sum(dim=(0, 1, 2)), g2i.sum(dim=(0, 1, 2))], dim=1) if has_bias else None
-    return _spectrum(dxr, dxi, channels_first), dw1, db1, dw2, db2
+    return _spectrum(dxr, dxi), dw1, db1, dw2, db2
 
 
-def spectrum_strides(x2: torch.Tensor, channels_first: bool):
-    """(sB, sM, sC) in floats of a spectrum whose rows and columns flatten
-    into one mode index (stride of a row = Wh strides of a column) with [re,
-    im] adjacent, or None; and its (B, H, Wh, C). ``torch.fft.rfft2`` over
-    (1, 2) of a channels-last tensor gives the (B, C, H, Wh) storage behind
-    a (B, H, Wh, C) view: the kernels read it in place."""
-    if channels_first:
-        B, C, H, Wh, _ = x2.shape
-        sB, sC, sH, sW, s2 = x2.stride()
-    else:
-        B, H, Wh, C, _ = x2.shape
-        sB, sH, sW, sC, s2 = x2.stride()
+def spectrum_strides(x2: torch.Tensor):
+    """(sB, sM, sC) in floats of a (B, H, Wh, C, 2) spectrum whose rows and
+    columns flatten into one mode index (stride of a row = Wh strides of a
+    column) with [re, im] adjacent, or None; and its (B, H, Wh, C).
+    ``torch.fft.rfft2`` over (1, 2) of a channels-last tensor gives the (B,
+    C, H, Wh) storage behind a (B, H, Wh, C) view: the kernels read it in
+    place."""
+    B, H, Wh, C, _ = x2.shape
+    sB, sH, sW, sC, s2 = x2.stride()
     ok = s2 == 1 and (H == 1 or sH == Wh * sW) and sB % 2 == 0 and sW % 2 == 0 and sC % 2 == 0 and x2.storage_offset() % 2 == 0
     return ((sB, sW, sC) if ok else None), (B, H, Wh, C)
 
 
-def _flat_modes(x2: torch.Tensor, channels_first: bool) -> torch.Tensor:
+def _flat_modes(x2: torch.Tensor) -> torch.Tensor:
     """x2 itself where the kernels can read it, else a contiguous copy."""
-    return x2 if spectrum_strides(x2, channels_first)[0] is not None else x2.contiguous()
+    return x2 if spectrum_strides(x2)[0] is not None else x2.contiguous()
 
 
-def _check(x2, w1, w2, channels_first):
+def _dense(t: torch.Tensor) -> bool:
+    """Whether t's elements tile its storage span once (a permutation of a
+    contiguous tensor): K19 writes a gradient in such a layout."""
+    span = 1
+    for size, stride in sorted(zip(t.shape, t.stride()), key=lambda p: p[1]):
+        if size != 1:
+            if stride != span:
+                return False
+            span *= size
+    return True
+
+
+def _dense_or_copy(t):
+    return t if t is None or _dense(t) else t.contiguous()
+
+
+def _param_strides(w1, b1, w2, b2):
+    """The 16 strides (in floats) through which the kernels read the weights
+    and biases in place, as ``afno.cuh`` Params: each weight's (block, part,
+    row, column), each bias's (block, part, 0, column), zeros for a missing
+    bias."""
+
+    def four(t, bias):
+        if t is None:
+            return (0, 0, 0, 0)
+        s = t.stride()
+        return (s[0], s[1], 0, s[2]) if bias else s
+
+    return (ctypes.c_longlong * 16)(*four(w1, False), *four(w2, False), *four(b1, True), *four(b2, True))
+
+
+def _check(x2, w1, b1, w2, b2):
     if x2.dtype != torch.float32 or w1.dtype != torch.float32 or w2.dtype != torch.float32:
         raise TypeError(f"afno_mixer: the kernels take fp32 spectra and weights, got {x2.dtype}, {w1.dtype}, {w2.dtype}")
     if x2.dim() != 5 or x2.shape[-1] != 2:
         raise ValueError(f"afno_mixer: expected a split spectrum (..., 2) of 5 dimensions, got {tuple(x2.shape)}")
-    strides, (B, H, Wh, C) = spectrum_strides(x2, channels_first)
+    strides, (B, H, Wh, C) = spectrum_strides(x2)
     if strides is None:
         raise ValueError(f"afno_mixer: the spectrum's modes do not flatten (strides {x2.stride()})")
     nb, two, bs, hbs = w1.shape
-    if two != 2 or nb * bs != C or tuple(w2.shape) != (nb, 2, hbs, bs) or not (w1.is_contiguous() and w2.is_contiguous()):
+    if two != 2 or nb * bs != C or tuple(w2.shape) != (nb, 2, hbs, bs) or not (_dense(w1) and _dense(w2)):
         raise ValueError(f"afno_mixer: spectrum {tuple(x2.shape)} and weights {tuple(w1.shape)}, {tuple(w2.shape)} do not fit")
+    for b, n in ((b1, hbs), (b2, bs)):
+        if b is not None and (tuple(b.shape) != (nb, 2, n) or b.dtype != torch.float32 or not _dense(b)):
+            raise ValueError(f"afno_mixer: bias {tuple(b.shape)} {b.dtype} does not fit ({nb}, 2, {n}) fp32")
     return strides, (B, H, Wh, C, nb, bs, hbs)
 
 
-def launch_afno_mixer(x2, w1, b1, w2, b2, lambd: float, band: Band, channels_first: bool = False, keep_hidden: bool = False):
+def launch_afno_mixer(x2, w1, b1, w2, b2, lambd: float, band: Band, keep_hidden: bool = False):
     """Launch K18 on fp32 tensors on one CUDA device: x2 a spectrum the
-    kernels can read (``spectrum_strides``), the weights and biases
-    contiguous. Returns y (x2's strides) and o1 (B, nb, H Wh, hbs, 2) when
-    ``keep_hidden``, else None."""
-    (sB, sM, sC), (B, H, Wh, C, nb, bs, hbs) = _check(x2, w1, w2, channels_first)
+    kernels can read (``spectrum_strides``), the weights and biases in any
+    dense layout (read in place). Returns y (x2's strides) and o1 (B, nb, H
+    Wh, hbs, 2) when ``keep_hidden``, else None."""
+    (sB, sM, sC), (B, H, Wh, C, nb, bs, hbs) = _check(x2, w1, b1, w2, b2)
     y = torch.empty_like(x2)
     h = torch.empty(B, nb, H * Wh, hbs, 2, dtype=torch.float32, device=x2.device) if keep_hidden else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = kernels.library()
     with torch.cuda.device(x2.device):
         err = lib.mt_afno_mixer(
-            x2.data_ptr(), y.data_ptr(), ptr(h), w1.data_ptr(), ptr(b1), w2.data_ptr(), ptr(b2), B, H * Wh, Wh, nb, bs, hbs, sB, sM, sC, *band.args(),
+            x2.data_ptr(), y.data_ptr(), ptr(h), w1.data_ptr(), ptr(b1), w2.data_ptr(), ptr(b2), _param_strides(w1, b1, w2, b2), B, H * Wh, Wh, nb, bs, hbs,
+            sB, sM, sC, *band.args(),
             float(lambd), kernels.stream_ptr(x2.device),
         )
     kernels.check_launch(err, "afno_mixer")
@@ -252,13 +284,16 @@ def grad_splits(B: int, M: int, nb: int, bs: int, hbs: int, sms: int = 132) -> i
     return max(1, min(math.ceil(B * M / 32), math.ceil(8 * sms / tiles), 32767))
 
 
-def launch_afno_mixer_grad(x2, y, dy, h, w1, w2, has_bias: bool, band: Band, channels_first: bool = False):
+def launch_afno_mixer_grad(x2, y, dy, h, w1, b1, w2, b2, band: Band):
     """Launch K19 (three kernels: the data gradients, the weight gradients'
     partials over S mode ranges, their fixed-order sum) on fp32 tensors: x2
     and y as K18 took and gave them, h K18's o1, dy (copied into x2's
-    strides where it has others). Returns (dx (x2's strides), dw1, db1, dw2,
-    db2) in K18's weight layouts (db1, db2 None without biases)."""
-    (sB, sM, sC), (B, H, Wh, C, nb, bs, hbs) = _check(x2, w1, w2, channels_first)
+    strides where it has others), the weights and biases as K18 took them
+    (the biases only for their layouts). Returns (dx (x2's strides), dw1,
+    db1, dw2, db2), each in its parameter's shape and strides (db1, db2 None
+    without biases)."""
+    (sB, sM, sC), (B, H, Wh, C, nb, bs, hbs) = _check(x2, w1, b1, w2, b2)
+    has_bias = b1 is not None
     if y.stride() != x2.stride() or not h.is_contiguous():
         raise ValueError("afno_mixer_grad: y and o1 must be K18's")
     if dy.stride() != x2.stride():
@@ -269,14 +304,14 @@ def launch_afno_mixer_grad(x2, y, dy, h, w1, w2, has_bias: bool, band: Band, cha
     dev = x2.device
     dx = torch.empty_like(x2)
     g1 = torch.empty_like(h)
-    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
-    db1 = torch.empty(nb, 2, hbs, dtype=torch.float32, device=dev) if has_bias else None
-    db2 = torch.empty(nb, 2, bs, dtype=torch.float32, device=dev) if has_bias else None
+    like = lambda t: None if t is None else torch.empty_strided(t.shape, t.stride(), dtype=torch.float32, device=dev)  # noqa: E731
+    dw1, db1, dw2, db2 = like(w1), like(b1), like(w2), like(b2)
     scratch = torch.empty(lib.mt_afno_grad_scratch(S, nb, bs, hbs, int(has_bias)), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = lib.mt_afno_mixer_grad(
-            x2.data_ptr(), y.data_ptr(), dy.data_ptr(), h.data_ptr(), w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), g1.data_ptr(), dw1.data_ptr(),
+            x2.data_ptr(), y.data_ptr(), dy.data_ptr(), h.data_ptr(), w1.data_ptr(), w2.data_ptr(), _param_strides(w1, b1, w2, b2), dx.data_ptr(), g1.data_ptr(),
+            dw1.data_ptr(),
             ptr(db1), dw2.data_ptr(), ptr(db2), scratch.data_ptr(), S, B, M, Wh, nb, bs, hbs, sB, sM, sC, *band.args(), kernels.stream_ptr(dev),
         )
     kernels.check_launch(err, "afno_mixer_grad")
@@ -288,30 +323,29 @@ class _Mixer(torch.autograd.Function):
     """K18 forward (keeping o1 and y when differentiated), K19 backward."""
 
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2, lambd, band, channels_first):
-        x2, w1, w2 = _flat_modes(x2, channels_first), w1.contiguous(), w2.contiguous()
-        b1 = None if b1 is None else b1.contiguous()
-        b2 = None if b2 is None else b2.contiguous()
+    def forward(ctx, x2, w1, b1, w2, b2, lambd, band):
+        x2 = _flat_modes(x2)
+        w1, b1, w2, b2 = (_dense_or_copy(t) for t in (w1, b1, w2, b2))
         train = any(ctx.needs_input_grad[:5])
-        y, h = launch_afno_mixer(x2, w1, b1, w2, b2, lambd, band, channels_first, keep_hidden=train)
-        ctx.band, ctx.channels_first, ctx.has_bias = band, channels_first, b1 is not None
+        y, h = launch_afno_mixer(x2, w1, b1, w2, b2, lambd, band, keep_hidden=train)
+        ctx.band = band
         if train:
-            ctx.save_for_backward(x2, y, h, w1, w2)
+            ctx.save_for_backward(x2, y, h, w1, b1, w2, b2)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x2, y, h, w1, w2 = ctx.saved_tensors
-        dx, dw1, db1, dw2, db2 = launch_afno_mixer_grad(x2, y, dy, h, w1, w2, ctx.has_bias, ctx.band, ctx.channels_first)
-        return dx, dw1, db1, dw2, db2, None, None, None
+        x2, y, h, w1, b1, w2, b2 = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2 = launch_afno_mixer_grad(x2, y, dy, h, w1, b1, w2, b2, ctx.band)
+        return dx, dw1, db1, dw2, db2, None, None
 
 
-def afno_mixer(x2, w1, b1, w2, b2, lambd: float, band: Band, channels_first: bool = False) -> torch.Tensor:
+def afno_mixer(x2, w1, b1, w2, b2, lambd: float, band: Band) -> torch.Tensor:
     """The mixer: K18 (differentiable through K19) on a CUDA tensor,
     ``afno_mixer_plain`` on a CPU one. Arguments as ``afno_mixer_plain``."""
     params = [t for t in (w1, b1, w2, b2) if t is not None]
     if kernels.takes_plain("afno_mixer", x2, *params):
-        return afno_mixer_plain(x2, w1, b1, w2, b2, lambd, band, channels_first)
+        return afno_mixer_plain(x2, w1, b1, w2, b2, lambd, band)
     if (b1 is None) != (b2 is None):
         raise ValueError("afno_mixer: the kernels take both biases or neither")
-    return _Mixer.apply(x2, w1, b1, w2, b2, lambd, band, channels_first)
+    return _Mixer.apply(x2, w1, b1, w2, b2, lambd, band)

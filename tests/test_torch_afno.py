@@ -261,30 +261,32 @@ def test_mixer_matches_jax(version):
 def test_grad_formula_matches_autograd():
     """K19's plain version on K18's saved o1 and output equals autograd
     through the plain forward (v1's biases and band at fraction 0.5; v2's
-    band at hidden factor 2), in both layouts, and K18's plain o1 is the relu
-    of the first product in the (B, nb, H Wh, hbs, 2) layout."""
+    band at hidden factor 2), on a contiguous spectrum and on the
+    channels-last view of a channels-first storage that the rFFT gives, and
+    K18's plain o1 is the relu of the first product in the (B, nb, H Wh, hbs,
+    2) layout."""
     gen = torch.Generator().manual_seed(2)
     Bm, Hm, Wh, nb, bs = 2, 6, 5, 3, 4
-    for channels_first in (False, True):
+    for channels_first_storage in (False, True):
         for hf, biases, band in ((1, True, am.band_v1(Hm, Wh, 0.5)), (2, False, am.band_v2(Hm, Wh, 0.7))):
             hbs = bs * hf
             x = torch.randn(Bm, Hm, Wh, nb * bs, 2, generator=gen)
-            if channels_first:
-                x = x.permute(0, 3, 1, 2, 4).contiguous()
+            if channels_first_storage:
+                x = x.permute(0, 3, 1, 2, 4).contiguous().permute(0, 2, 3, 1, 4)
             w1, w2 = torch.randn(nb, 2, bs, hbs, generator=gen), torch.randn(nb, 2, hbs, bs, generator=gen)
             b1 = torch.randn(nb, 2, hbs, generator=gen) if biases else None
             b2 = torch.randn(nb, 2, bs, generator=gen) if biases else None
-            y, h = am.afno_mixer_plain(x, w1, b1, w2, b2, 0.01, band, channels_first, return_hidden=True)
+            y, h = am.afno_mixer_plain(x, w1, b1, w2, b2, 0.01, band, return_hidden=True)
             assert h.shape == (Bm, nb, Hm * Wh, hbs, 2) and (h >= 0).all()
-            xr = (x.movedim(1, 3) if channels_first else x).reshape(Bm, Hm, Wh, nb, bs, 2)
+            xr = x.reshape(Bm, Hm, Wh, nb, bs, 2)
             o1r = torch.einsum("bhwki,kio->bkhwo", xr[..., 0], w1[:, 0]) - torch.einsum("bhwki,kio->bkhwo", xr[..., 1], w1[:, 1])
             if biases:
                 o1r = o1r + b1[:, 0][None, :, None, None]
             assert torch.allclose(h[..., 0], torch.relu(o1r).reshape(Bm, nb, Hm * Wh, hbs), atol=1e-5)
             dy = torch.randn(y.shape, generator=gen)
-            got = am.afno_mixer_grad_plain(x, y, dy, h, w1, w2, biases, channels_first)
+            got = am.afno_mixer_grad_plain(x, y, dy, h, w1, b1, w2, b2)
             leaves = [t.clone().requires_grad_(True) if t is not None else None for t in (x, w1, b1, w2, b2)]
-            am.afno_mixer_plain(*leaves, 0.01, band, channels_first).backward(dy)
+            am.afno_mixer_plain(*leaves, 0.01, band).backward(dy)
             for out, leaf in zip(got, leaves):
                 if leaf is None:
                     assert out is None

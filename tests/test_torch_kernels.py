@@ -1282,7 +1282,7 @@ def test_grouped_two_stage_disco_conv_kernel_path(cuda):
 
 
 MIXER_CASES = {
-    # (B, H, Wh, nb, bs, hf, version, fraction, channels_first)
+    # (B, H, Wh, nb, bs, hf, version, fraction, channels-first storage)
     "v1-full": (2, 9, 7, 3, 12, 1, 1, 1.0, False),
     "v1-band": (2, 10, 6, 4, 8, 1, 1, 0.5, False),
     "v2-band-channels-first": (1, 10, 6, 4, 8, 1, 2, 0.5, True),
@@ -1290,38 +1290,54 @@ MIXER_CASES = {
 }
 
 
+def _mixer_params(nb, bs, hbs, version, dev):
+    """Seeded weights and biases as the mixer takes them, (nb, 2, rows, cols)
+    and (nb, 2, cols) views of the flax layouts: v1's [re, im] part first,
+    v2's last (no biases)."""
+    if version == 1:
+        w1 = 0.3 * _randn((2, nb, bs, hbs), torch.float32, dev, seed=1)
+        w2 = 0.3 * _randn((2, nb, hbs, bs), torch.float32, dev, seed=2)
+        b1 = 0.1 * _randn((2, nb, hbs), torch.float32, dev, seed=3)
+        b2 = 0.1 * _randn((2, nb, bs), torch.float32, dev, seed=4)
+        return tuple(t.transpose(0, 1) for t in (w1, b1, w2, b2))
+    w1 = 0.3 * _randn((nb, bs, hbs, 2), torch.float32, dev, seed=1)
+    w2 = 0.3 * _randn((nb, hbs, bs, 2), torch.float32, dev, seed=2)
+    return w1.permute(0, 3, 1, 2), None, w2.permute(0, 3, 1, 2), None
+
+
 @pytest.mark.parametrize("case", list(MIXER_CASES))
 def test_afno_mixer_kernels_match_plain(cuda, case):
-    """K18 against the plain einsums (both layouts, v1's biases and centered
-    band, v2's two-sided band, hidden factor 2, ragged sizes), its kept o1
-    against the plain o1; K19 on K18's o1 and output against its plain
-    version, and a second K19 launch bit-equal (fixed-order mode sums)."""
+    """K18 against the plain einsums (a contiguous spectrum and the
+    channels-last view of a channels-first storage, v1's biases and centered
+    band, v2's two-sided band, hidden factor 2, ragged sizes, the weights
+    read in place in both flax layouts), its kept o1 against the plain o1;
+    K19 on K18's o1 and output against its plain version, its weight and
+    bias gradients in their parameters' strides, and a second K19 launch
+    bit-equal (fixed-order mode sums)."""
     from makani_torch.ops import afno_mixer as am
 
     B, H, Wh, nb, bs, hf, version, fraction, cf = MIXER_CASES[case]
     hbs = bs * hf
     x = _randn((B, H, Wh, nb * bs, 2), torch.float32, cuda)
     if cf:
-        x = x.permute(0, 3, 1, 2, 4).contiguous()
-    w1 = 0.3 * _randn((nb, 2, bs, hbs), torch.float32, cuda, seed=1)
-    w2 = 0.3 * _randn((nb, 2, hbs, bs), torch.float32, cuda, seed=2)
-    b1 = 0.1 * _randn((nb, 2, hbs), torch.float32, cuda, seed=3) if version == 1 else None
-    b2 = 0.1 * _randn((nb, 2, bs), torch.float32, cuda, seed=4) if version == 1 else None
+        x = x.permute(0, 3, 1, 2, 4).contiguous().permute(0, 2, 3, 1, 4)
+    w1, b1, w2, b2 = _mixer_params(nb, bs, hbs, version, cuda)
     band = (am.band_v1 if version == 1 else am.band_v2)(H, Wh, fraction)
     kernels.reset_launch_counts()
-    y, h = am.launch_afno_mixer(x, w1, b1, w2, b2, 0.01, band, cf, keep_hidden=True)
-    ref, href = am.afno_mixer_plain(x, w1, b1, w2, b2, 0.01, band, cf, return_hidden=True)
+    y, h = am.launch_afno_mixer(x, w1, b1, w2, b2, 0.01, band, keep_hidden=True)
+    ref, href = am.afno_mixer_plain(x, w1, b1, w2, b2, 0.01, band, return_hidden=True)
     assert _agree(y, ref, torch.float32) and _agree(h, href, torch.float32)
-    assert am.launch_afno_mixer(x, w1, b1, w2, b2, 0.01, band, cf)[1] is None
+    assert am.launch_afno_mixer(x, w1, b1, w2, b2, 0.01, band)[1] is None
     dy = _randn(tuple(y.shape), torch.float32, cuda, seed=5)
-    outs = am.launch_afno_mixer_grad(x, y, dy, h, w1, w2, version == 1, band, cf)
-    refs = am.afno_mixer_grad_plain(x, y, dy, h, w1, w2, version == 1, cf)
-    again = am.launch_afno_mixer_grad(x, y, dy, h, w1, w2, version == 1, band, cf)
+    outs = am.launch_afno_mixer_grad(x, y, dy, h, w1, b1, w2, b2, band)
+    refs = am.afno_mixer_grad_plain(x, y, dy, h, w1, b1, w2, b2)
+    again = am.launch_afno_mixer_grad(x, y, dy, h, w1, b1, w2, b2, band)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["afno_mixer"] == 2 and kernels.LAUNCHES["afno_mixer_grad"] == 2
-    for o, r, a in zip(outs, refs, again):
-        assert (o is None) == (r is None)
+    for o, r, a, p in zip(outs, refs, again, (x, w1, b1, w2, b2)):
+        assert (o is None) == (r is None) == (p is None)
         if o is not None:
+            assert o.stride() == p.stride()
             assert _agree(o, r, torch.float32) and torch.equal(o, a)
 
 
@@ -1392,14 +1408,14 @@ def test_afno_mixer_reads_the_fft_in_place(cuda):
     from makani_torch.ops.fft_compat import rfft2_s
 
     x = rfft2_s(_randn((2, 10, 14, 32), torch.float32, cuda), axes=(1, 2), norm="ortho")
-    assert not x.is_contiguous() and am.spectrum_strides(x, False)[0] == (10 * 8 * 32 * 2, 2, 10 * 8 * 2)
+    assert not x.is_contiguous() and am.spectrum_strides(x)[0] == (10 * 8 * 32 * 2, 2, 10 * 8 * 2)
     w1, w2 = 0.3 * _randn((4, 2, 8, 8), torch.float32, cuda, seed=1), 0.3 * _randn((4, 2, 8, 8), torch.float32, cuda, seed=2)
     band = am.band_v2(10, 8, 1.0)
     y, h = am.launch_afno_mixer(x, w1, None, w2, None, 0.01, band, keep_hidden=True)
     assert y.stride() == x.stride() and _agree(y, am.afno_mixer_plain(x, w1, None, w2, None, 0.01, band), torch.float32)
     dy = _randn(tuple(y.shape), torch.float32, cuda, seed=3)
-    outs = am.launch_afno_mixer_grad(x, y, dy, h, w1, w2, False, band)
-    refs = am.afno_mixer_grad_plain(x, y, dy, h, w1, w2, False)
+    outs = am.launch_afno_mixer_grad(x, y, dy, h, w1, None, w2, None, band)
+    refs = am.afno_mixer_grad_plain(x, y, dy, h, w1, None, w2, None)
     assert outs[0].stride() == x.stride()
     for o, r in zip(outs, refs):
         assert (o is None and r is None) or _agree(o, r, torch.float32)
