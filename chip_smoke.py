@@ -4020,7 +4020,8 @@ def check_mixer_kernels(dev, card, filt, grid, label, results):
         flush=True)
     if max(e["max_rel"] for e in kept.values()) > FP32_TOL:
         raise RuntimeError(f"afno_mixer {label}: the training launch's output or kept o1 disagrees with the plain version: {kept}")
-    dy = randn(tuple(y.shape), torch.float32, gen, dev)
+    # dy in the spectrum's strides, as the irFFT's backward hands it to K19 on the main path
+    dy = torch.empty_like(y).copy_(randn(tuple(y.shape), torch.float32, gen, dev))
     has_bias = b1 is not None
     kern = lambda: am.launch_afno_mixer_grad(x2, y, dy, h, w1, b1, w2, b2, band)  # noqa: E731
     plain = lambda: am.afno_mixer_grad_plain(x2, y, dy, h, w1, b1, w2, b2)  # noqa: E731

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (K1 in sht_legendre.cu, K3 in dhconv.cu, K9 in dhconv_grad.cu) and the
-// cp.async staging of K5: asynchronous and bulk copies into shared memory,
+// (K1 in sht_legendre.cu, K3 in dhconv.cu, K9 in dhconv_grad.cu, K18 and
+// K19 in afno.cuh and afno_mixer_grad.cu) and the cp.async staging of K5: asynchronous and bulk copies into shared memory,
 // mbarriers, the TF32 split of 3xTF32, and the wgmma fences and
 // shared-memory matrix descriptors.
 #pragma once

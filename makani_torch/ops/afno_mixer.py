@@ -18,11 +18,14 @@ kernels' plain version; ``afno_mixer`` takes K18 (``csrc/afno_mixer.cu``) on
 a CUDA tensor, inside a ``torch.autograd.Function`` whose backward is K19
 (``csrc/afno_mixer_grad.cu``), and the plain version on a CPU tensor. K18
 keeps o1 for K19 when the call is differentiated (in inference o1 never goes
-to device memory); K19's mode sums are fixed-order partials and a second
-pass, so a step repeats bit for bit.
+to device memory), mode-contiguous: a (B, nb, hbs, H Wh, 2) storage behind
+the (B, nb, H Wh, hbs, 2) view that ``afno_mixer_plain(return_hidden=True)``
+returns (``hidden_like``). K19's mode sums are fixed-order partials and a
+second pass, so a step repeats bit for bit.
 
 Both kernels are bound by operations: at ``afno_73ch`` (90 x 91 modes, C 768,
-8 blocks of 96) K18 does 9.66 GFLOP on 100.6 MB, K19 twice the products.
+8 blocks of 96) K18 does 9.66 GFLOP on 100.6 MB, K19 twice the products. Both
+run their complex products on the tensor cores (wgmma, 3xTF32; ``csrc/afno.cuh``).
 The spectra are fp32 (the JAX mixer upcasts around its FFT) in the
 channels-last (B, H, Wh, C, 2) shape, in any storage whose rows and columns
 flatten into one mode index: the kernels read it through strides, in place
@@ -44,7 +47,10 @@ import torch
 from makani_torch import kernels
 from makani_torch.ops.precision import fp32_exact
 
-__all__ = ["Band", "band_v1", "band_v2", "afno_mixer", "afno_mixer_plain", "afno_mixer_grad_plain", "launch_afno_mixer", "launch_afno_mixer_grad", "grad_splits", "spectrum_strides"]
+__all__ = [
+    "Band", "band_v1", "band_v2", "afno_mixer", "afno_mixer_plain", "afno_mixer_grad_plain", "launch_afno_mixer", "launch_afno_mixer_grad", "grad_splits",
+    "grad_ranges", "hidden_like", "spectrum_strides",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +131,8 @@ def afno_mixer_plain(x2, w1, b1, w2, b2, lambd: float, band: Band, return_hidden
     plain version: x2 fp32 (B, H, Wh, C, 2), w1 (nb, 2, bs, hbs), w2 (nb, 2,
     hbs, bs), b1 (nb, 2, hbs) and b2 (nb, 2, bs) or None. Returns y (B, H,
     Wh, C, 2) (and with ``return_hidden`` the hidden o1 after the relu as K18
-    keeps it, (B, nb, H Wh, hbs, 2))."""
+    keeps it, (B, nb, H Wh, hbs, 2) in K18's mode-contiguous storage,
+    ``hidden_like``)."""
     nb = w1.shape[0]
     xr, xi = _blocks(x2, nb)
     B, H, Wh = xr.shape[:3]
@@ -144,8 +151,8 @@ def afno_mixer_plain(x2, w1, b1, w2, b2, lambd: float, band: Band, return_hidden
     y = _spectrum(_softshrink(o2r, lambd), _softshrink(o2i, lambd))
     if not return_hidden:
         return y
-    h = torch.stack([o1r, o1i], dim=-1).permute(0, 3, 1, 2, 4, 5).reshape(B, nb, H * Wh, -1, 2)
-    return y, h
+    h = torch.stack([o1r, o1i], dim=-1).permute(0, 3, 4, 1, 2, 5).reshape(B, nb, -1, H * Wh, 2).contiguous()
+    return y, h.transpose(2, 3)
 
 
 def afno_mixer_grad_plain(x2, y, dy, h, w1, b1, w2, b2):
@@ -195,6 +202,19 @@ def spectrum_strides(x2: torch.Tensor):
     sB, sH, sW, sC, s2 = x2.stride()
     ok = s2 == 1 and (H == 1 or sH == Wh * sW) and sB % 2 == 0 and sW % 2 == 0 and sC % 2 == 0 and x2.storage_offset() % 2 == 0
     return ((sB, sW, sC) if ok else None), (B, H, Wh, C)
+
+
+def hidden_like(B: int, nb: int, M: int, hbs: int, device) -> torch.Tensor:
+    """An fp32 (B, nb, M, hbs, 2) buffer for o1 or g1 in the kernels'
+    mode-contiguous storage (B, nb, hbs, M, 2): each channel's modes one run,
+    as in the rFFT's storage, so that K19's weight pass reads every operand's
+    depth (the modes) contiguously."""
+    return torch.empty(B, nb, hbs, M, 2, dtype=torch.float32, device=device).transpose(2, 3)
+
+
+def _is_hidden(h: torch.Tensor) -> bool:
+    B, nb, M, hbs, _ = h.shape
+    return h.stride() == hidden_like(B, nb, M, hbs, "meta").stride() and h.storage_offset() == 0
 
 
 def _flat_modes(x2: torch.Tensor) -> torch.Tensor:
@@ -254,10 +274,10 @@ def launch_afno_mixer(x2, w1, b1, w2, b2, lambd: float, band: Band, keep_hidden:
     """Launch K18 on fp32 tensors on one CUDA device: x2 a spectrum the
     kernels can read (``spectrum_strides``), the weights and biases in any
     dense layout (read in place). Returns y (x2's strides) and o1 (B, nb, H
-    Wh, hbs, 2) when ``keep_hidden``, else None."""
+    Wh, hbs, 2) (``hidden_like``'s storage) when ``keep_hidden``, else None."""
     (sB, sM, sC), (B, H, Wh, C, nb, bs, hbs) = _check(x2, w1, b1, w2, b2)
     y = torch.empty_like(x2)
-    h = torch.empty(B, nb, H * Wh, hbs, 2, dtype=torch.float32, device=x2.device) if keep_hidden else None
+    h = hidden_like(B, nb, H * Wh, hbs, x2.device) if keep_hidden else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = kernels.library()
     with torch.cuda.device(x2.device):
@@ -276,34 +296,48 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_WROWS, _WCH, _NS = 128, 48, 16  # K19's weight-pass tile: rows, output channels, modes a stage
+
+
 def grad_splits(B: int, M: int, nb: int, bs: int, hbs: int, sms: int = 132) -> int:
-    """K19's mode ranges S: enough weight-gradient blocks (each one 32 x 32
-    tile of dW1 or dW2 of one channel block over one range) for eight a
-    streaming multiprocessor, at most one range a 32 modes."""
-    tiles = math.ceil(bs / 32) * math.ceil(hbs / 32) * nb * 2
-    return max(1, min(math.ceil(B * M / 32), math.ceil(8 * sms / tiles), 32767))
+    """K19's mode ranges S: the weight pass runs one block (128 rows of dW1
+    or dW2 by 48 output channels, of one channel block, over one range) on
+    each streaming multiprocessor at a time, so S takes the most ranges whose
+    blocks fill the card once, at least one and at most one a 16 modes."""
+    tiles = max(math.ceil(bs / _WROWS) * math.ceil(hbs / _WCH), math.ceil(hbs / _WROWS) * math.ceil(bs / _WCH)) * nb * 2
+    return max(1, min(math.ceil(B * M / _NS), sms // tiles, 32767))
+
+
+def grad_ranges(B: int, M: int, S: int) -> list:
+    """The S mode ranges [lo, hi) of the B M modes (sample-major) over which
+    K19's weight pass sums, as the kernel cuts them: range s is [B M s / S,
+    B M (s + 1) / S)."""
+    R = B * M
+    return [(R * s // S, R * (s + 1) // S) for s in range(S)]
 
 
 def launch_afno_mixer_grad(x2, y, dy, h, w1, b1, w2, b2, band: Band):
     """Launch K19 (three kernels: the data gradients, the weight gradients'
     partials over S mode ranges, their fixed-order sum) on fp32 tensors: x2
-    and y as K18 took and gave them, h K18's o1, dy (copied into x2's
-    strides where it has others), the weights and biases as K18 took them
-    (the biases only for their layouts). Returns (dx (x2's strides), dw1,
-    db1, dw2, db2), each in its parameter's shape and strides (db1, db2 None
-    without biases)."""
+    and y as K18 took and gave them, h K18's o1, dy, the weights and biases
+    as K18 took them (the biases only for their layouts). dy is read through
+    its own strides where its modes flatten (``spectrum_strides``), else
+    copied. Returns (dx (x2's strides), dw1, db1, dw2, db2), each in its
+    parameter's shape and strides (db1, db2 None without biases)."""
     (sB, sM, sC), (B, H, Wh, C, nb, bs, hbs) = _check(x2, w1, b1, w2, b2)
     has_bias = b1 is not None
-    if y.stride() != x2.stride() or not h.is_contiguous():
+    if y.stride() != x2.stride() or tuple(h.shape) != (B, nb, H * Wh, hbs, 2) or not _is_hidden(h):
         raise ValueError("afno_mixer_grad: y and o1 must be K18's")
-    if dy.stride() != x2.stride():
-        dy = torch.empty_like(x2).copy_(dy)
+    if dy.shape != x2.shape or dy.dtype != torch.float32:
+        raise ValueError(f"afno_mixer_grad: dy {tuple(dy.shape)} {dy.dtype} does not match the spectrum {tuple(x2.shape)}")
+    dy = _flat_modes(dy)
+    dB, dM, dC = spectrum_strides(dy)[0]
     M = H * Wh
     S = grad_splits(B, M, nb, bs, hbs, _sms(x2.device.index or 0))
     lib = kernels.library()
     dev = x2.device
     dx = torch.empty_like(x2)
-    g1 = torch.empty_like(h)
+    g1 = hidden_like(B, nb, M, hbs, dev)
     like = lambda t: None if t is None else torch.empty_strided(t.shape, t.stride(), dtype=torch.float32, device=dev)  # noqa: E731
     dw1, db1, dw2, db2 = like(w1), like(b1), like(w2), like(b2)
     scratch = torch.empty(lib.mt_afno_grad_scratch(S, nb, bs, hbs, int(has_bias)), dtype=torch.float32, device=dev)
@@ -312,7 +346,7 @@ def launch_afno_mixer_grad(x2, y, dy, h, w1, b1, w2, b2, band: Band):
         err = lib.mt_afno_mixer_grad(
             x2.data_ptr(), y.data_ptr(), dy.data_ptr(), h.data_ptr(), w1.data_ptr(), w2.data_ptr(), _param_strides(w1, b1, w2, b2), dx.data_ptr(), g1.data_ptr(),
             dw1.data_ptr(),
-            ptr(db1), dw2.data_ptr(), ptr(db2), scratch.data_ptr(), S, B, M, Wh, nb, bs, hbs, sB, sM, sC, *band.args(), kernels.stream_ptr(dev),
+            ptr(db1), dw2.data_ptr(), ptr(db2), scratch.data_ptr(), S, B, M, Wh, nb, bs, hbs, sB, sM, sC, dB, dM, dC, *band.args(), kernels.stream_ptr(dev),
         )
     kernels.check_launch(err, "afno_mixer_grad")
     kernels.count_launch("afno_mixer_grad")

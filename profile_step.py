@@ -44,8 +44,9 @@ import chip_smoke as cs
 def group(name: str) -> str:
     n = name.lower()
     rules = [
-        ("afno_mixer_kernel", "K18 AFNO mixer (CUDA)"),
-        ("afno_grad_", "K19 AFNO mixer backward (CUDA)"),
+        ("mixer_tile_kernel<0", "K18 AFNO mixer (CUDA, wgmma)"),
+        ("mixer_tile_kernel<1", "K19 AFNO mixer backward (CUDA, wgmma)"),
+        ("afno_grad_", "K19 AFNO mixer backward (CUDA, wgmma)"),
         ("dhconv_grad_weight", "K9 dhconv weight gradient (CUDA)"),
         ("instance_norm_grad", "K10 instance-norm backward (CUDA)"),
         ("factored_", "K11 factored Adam (CUDA)"),

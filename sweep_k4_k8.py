@@ -67,27 +67,33 @@ def k4_groups(card: str, dev: torch.device):
         torch.cuda.empty_cache()
 
 
-def patched_libraries(source: str, variants: dict[str, list[tuple[str, str]]], out: str) -> dict[str, ctypes.CDLL]:
+def patched_libraries(source: str, variants: dict[str, list[tuple]], out: str) -> dict[str, ctypes.CDLL]:
     """One shared library a patched copy of ``makani_torch/csrc/<source>``
-    (``variants``: name -> [(the text as built, its replacement)]), built in
-    ``build/<out>/`` by one nvcc a variant, all started together; prints each
-    one's registers and spills. Raises if a patch's text is not in the
-    source or nvcc fails."""
+    (``variants``: name -> [(the text as built, its replacement)], or
+    [(a header the source includes, the text, its replacement)] for that
+    header), built in its own directory under ``build/<out>/`` (the patched
+    headers beside the source, found before ``csrc``'s) by one nvcc a
+    variant, all started together; prints each one's registers and spills.
+    Raises if a patch's text is not in its file or nvcc fails."""
     from makani_torch import kernels
 
     csrc = REPO / "makani_torch" / "csrc"
-    text = (csrc / source).read_text()
     dest = REPO / "build" / out
-    dest.mkdir(parents=True, exist_ok=True)
     procs = {}
     for k, (name, patches) in enumerate(variants.items()):
-        src = text
-        for old, new in patches:
-            if old not in src:
-                raise RuntimeError(f"{source} variant {name}: {old!r} is not in the source")
-            src = src.replace(old, new)
-        cu, so = dest / f"{Path(source).stem}_{k}.cu", dest / f"{Path(source).stem}_{k}.so"
-        cu.write_text(src)
+        vdir = dest / f"{Path(source).stem}_{k}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        files = {}
+        for patch in patches:
+            file, old, new = patch if len(patch) == 3 else (source, *patch)
+            text = files.get(file, (csrc / file).read_text())
+            if old not in text:
+                raise RuntimeError(f"{source} variant {name}: {old!r} is not in {file}")
+            files[file] = text.replace(old, new)
+        files.setdefault(source, (csrc / source).read_text())
+        for file, text in files.items():
+            (vdir / file).write_text(text)
+        cu, so = vdir / source, vdir / f"{Path(source).stem}.so"
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(csrc), "-o", str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}

@@ -1282,11 +1282,19 @@ def test_grouped_two_stage_disco_conv_kernel_path(cuda):
 
 
 MIXER_CASES = {
-    # (B, H, Wh, nb, bs, hf, version, fraction, channels-first storage)
+    # (B, H, Wh, nb, bs, hf, version, fraction, channels-first storage);
+    # the kernels' tiles are 128 modes (64 where the hidden width passes 144
+    # channels), 48 output channels a piece and 16 depth channels a stage
     "v1-full": (2, 9, 7, 3, 12, 1, 1, 1.0, False),
     "v1-band": (2, 10, 6, 4, 8, 1, 1, 0.5, False),
     "v2-band-channels-first": (1, 10, 6, 4, 8, 1, 2, 0.5, True),
     "v2-hf2": (1, 7, 9, 2, 20, 2, 2, 0.7, False),
+    "v1-7x5-bs20-hf2": (1, 7, 5, 2, 20, 2, 1, 1.0, False),
+    "v1-band-no-bias-bs50-hf2-channels-first": (2, 12, 7, 3, 50, 2, 1, 0.6, True),
+    "v2-band-bias-bs20": (1, 10, 6, 2, 20, 1, 2, 0.5, False),
+    "v1-band-bs96-hf2": (1, 9, 10, 2, 96, 2, 1, 0.5, False),
+    "v1-band-90x91-channels-first": (1, 90, 91, 8, 96, 1, 1, 0.5, True),
+    "v2-90x91-B2-channels-first": (2, 90, 91, 8, 96, 1, 2, 1.0, True),
 }
 
 
@@ -1309,8 +1317,11 @@ def _mixer_params(nb, bs, hbs, version, dev):
 def test_afno_mixer_kernels_match_plain(cuda, case):
     """K18 against the plain einsums (a contiguous spectrum and the
     channels-last view of a channels-first storage, v1's biases and centered
-    band, v2's two-sided band, hidden factor 2, ragged sizes, the weights
-    read in place in both flax layouts), its kept o1 against the plain o1;
+    band, v2's two-sided band, with and without biases, hidden factor 2,
+    ragged sizes: mode counts off the mode tile, widths off the pieces and
+    stages, one-warpgroup blocks at a hidden width of 192, afno_73ch's 90 x
+    91 modes at B 2; the weights read in place in both flax layouts), its
+    kept o1 against the plain o1;
     K19 on K18's o1 and output against its plain version, its weight and
     bias gradients in their parameters' strides, and a second K19 launch
     bit-equal (fixed-order mode sums)."""
@@ -1322,6 +1333,10 @@ def test_afno_mixer_kernels_match_plain(cuda, case):
     if cf:
         x = x.permute(0, 3, 1, 2, 4).contiguous().permute(0, 2, 3, 1, 4)
     w1, b1, w2, b2 = _mixer_params(nb, bs, hbs, version, cuda)
+    if "no-bias" in case:
+        b1 = b2 = None
+    elif "-bias" in case:
+        b1, b2 = 0.1 * _randn((nb, 2, hbs), torch.float32, cuda, seed=3), 0.1 * _randn((nb, 2, bs), torch.float32, cuda, seed=4)
     band = (am.band_v1 if version == 1 else am.band_v2)(H, Wh, fraction)
     kernels.reset_launch_counts()
     y, h = am.launch_afno_mixer(x, w1, b1, w2, b2, 0.01, band, keep_hidden=True)
