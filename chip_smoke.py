@@ -240,7 +240,8 @@ each fatal on failure:
     checkpointing_level 3, the base config's skillspread CRPS with auto
     weights and temp_diff_normalization, clipped Adam on the cosine
     schedule);
-43. compare K12 (the generic gather at K 7) and K13 at the processor and
+43. compare K12 (the wide-band kernel at K 7: 3xTF32 m16n8k8 products; a
+    second call held bit for bit to the first) and K13 at the processor and
     the decoder, K5 at both, K8 and its backward GEMMs, K14 at the decoder,
     K15, K9, K3's dx and K1-K3 at the global blocks, K16 and K17 with their
     plain versions;
@@ -3711,8 +3712,9 @@ def fcn31_train_launches_per_step(net, members: int) -> dict:
 
 def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
     """The FCN3.1 training step's backward kernels at its shapes (B*E
-    members): K12 (the generic gather at K 7) and K13 at the processor and
-    the decoder (responses mode, reading the padded responses), K5 forward
+    members): K12 (the wide-band kernel at K 7, and a second call held bit
+    for bit to the first) and K13 at the processor and the decoder
+    (responses mode, reading the padded responses), K5 forward
     at both, K14 at the decoder, K15 on the step's forecasts, K9 and K3's dx
     and the forward K1-K3 at the global blocks' grid, K8 and its backward
     GEMMs at the processor, and K16 and K17 on the model's parameters with
@@ -3732,8 +3734,15 @@ def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
         label = f"fcn31-train-{name}"
         dt = op.response_buffer(BE, C, dev)
         dt.copy_(randn(dt.shape, torch.float32, gen, dev))
-        run_cases([band_grad_case(op, dt, op.band_filter(0, dev), C, 1, 1, K, label, library=name == "processor")], card, results, 3, 1, plain_once=True)
-        del dt
+        case = band_grad_case(op, dt, op.band_filter(0, dev), C, 1, 1, K, label, library=name == "processor")
+        run_cases([case], card, results, 3, 1, plain_once=True)
+        first = case[3]()
+        bit = torch.equal(first.view(torch.int32), case[3]().view(torch.int32))
+        print(f"K12 {label} (BL {op.BL}, WW {op.WW}, K {K}): two calls {'bit-equal' if bit else 'NOT bit-equal'}; {kernel_regs('disco_band_grad_wide')}  "
+              f"[{card}]", flush=True)
+        if not bit:
+            raise RuntimeError(f"K12 {label}: two calls on the same inputs differ")
+        del dt, first, case
         torch.cuda.empty_cache()
         x = randn((BE, *op.in_shape, C), torch.float32, gen, dev)
         run_cases([band_case(op, x, op.band_filter(0, dev), 1, 1, K, label, padded=True)], card, results, 3, 1, plain_once=True)
@@ -3743,6 +3752,7 @@ def check_fcn31_train_kernels(dev, card, params, model, loss_obj, batch):
         r0, r1 = op.polar_chunks(BE, C)[0]
         dY = randn((BE, r1 - r0, C, K, M, 2), torch.float32, gen, dev)
         run_cases([polar_grad_case(dY, op.polar_table(0, dev)[r0:r1], "psi_first", label)], card, results, 3, 1)
+        print(f"K13 {label} psi first (BL {op.BL}, K {K}): {kernel_regs('psi_first_grad_kernel')}", flush=True)
         del dY
         torch.cuda.empty_cache()
         if name == "processor":

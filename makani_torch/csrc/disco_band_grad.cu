@@ -36,8 +36,8 @@
 // 0.7 GB of dx written (2.1 ms at 3.35 TB/s); at the atmo decoder (fused,
 // IG 9, OG 1, C 585, 361 x 720) the 2.4 GB of dx it writes (0.8 ms).
 //
-// The staged kernel (stride 1, one phase, n_out = Win: every main-path
-// call). A block takes NH consecutive input rows, 32 channels (one a lane)
+// The staged kernel (stride 1, one phase, n_out = Win: every FCN3
+// main-path call, K 9 and the fused OG 1). A block takes NH consecutive input rows, 32 channels (one a lane)
 // and TU = CHUNKS * UT consecutive input columns (UT a thread, one column
 // chunk a warp). It walks the output rows h that reach any of its rows, in a
 // ring of stages: for each h it stages the dout columns that reach its
@@ -69,6 +69,45 @@
 // Blocks run channel tiles fastest. sweep_k11_k12.py times the other grid
 // order, row counts, column widths, the one-thread split, the ring depth,
 // and the kernel with its copies, its compute or its stores cut out.
+//
+// The wide-band kernel (responses mode at K 7: Gf = IG = 1, OG 7, F padded
+// to OGp 9; stride 1, one phase, n_out = Win: FCN3.1's processor and
+// decoder, BL 25 and 49, WW 71 and 135 at the training step). There the
+// staged kernel's stage (TU + WW - 1 dout columns of 32 channels) does not
+// fit twice in shared memory, and the live taps are ~0.48 and ~7.0 TFLOP of
+// fp32 FMAs a call (7.2 and 104 ms at 67 TFLOP/s): it runs on the tensor
+// cores in 3xTF32 (2.9 and 42 ms at 495 TFLOP/s), one tap w an m16n8k8
+// product whose depth is the 7 outputs and a zero:
+//   A[m, o] = dout[h, (w0 + 16 g + m) - off - w, c, o]  16 input columns of one channel
+//   B[o, k] = F[h, hi0 + k - band_start[h], w, o]       8 input rows, shared by all channels
+// accumulated over the output rows h and their taps w into a 16 x 8 tile
+// (columns x rows) of one channel, held in registers by one warp for the
+// whole block. A block takes NJ 8 input rows, 32 channels (4 a warp) and TU
+// 64 columns (4 groups of 16): 16 tiles a warp. For each output row h that
+// reaches its rows it walks the union [lmin, hmax) of the rows' live runs in
+// pieces of P 48 taps, a stage each, in a ring of two (227 KB: one block an
+// SM; 16 and 32 taps were slower on an H100): a stage holds the TU + P - 1
+// dout columns the piece reaches (the tile's channels' floats only, one bulk
+// copy a column on the stage's mbarrier; the responses' pad is never
+// copied), in columns of 228 floats (4 mod 32 banks: a fragment's 32 loads
+// hit 32 banks), and the piece's filter taps of the 8 rows as [tap][o][row]
+// (zero outside each row's own run and at o = 7: only live taps are read).
+// A fragment is a Toeplitz slice of the staged columns, loaded by computed
+// addresses (its k slot 7 reads the channel's o = 6, which meets B's zero
+// row), split into TF32 high and low parts by a mask (B's by cvt.rna, once
+// a tap for the warp's 16 tiles); lo.hi, hi.lo and hi.hi go into a partial
+// sum of TG 4 taps that starts from zero, and the partial into the tile's
+// accumulator by an FADD: the tensor cores' adds truncate, and a sum kept
+// in them over a whole band missed the fp32 gate on an H100 (3.8e-5 of
+// max|ref| at FCN3.1's training processor). Each dx element has one owner,
+// a lane of one block, and one order (h, then taps, then the product's
+// own), so two calls are bit-equal. The tiles leave through shared memory,
+// a warp writing 32 channels of a pixel (128 bytes) at a time. What bounds
+// it is not the tensor cores: with its MMAs cut out (sweep_k11_k12.py) it
+// keeps ~85% of its time, and with the copies and stores cut too ~75%: the
+// fragments' shared-memory loads, their splits and the address arithmetic
+// of a product that reuses each A fragment for one B (8 rows) only.
+//
 // Every other case (stride 2, several phases, the encoders' fused OG > 1)
 // runs the generic kernel: a thread per channel and 4 columns 8 apart,
 // dout and F read through L1, u found per tap.
@@ -423,6 +462,297 @@ int launch_staged(const float* dout, const float* F, const int* bs, const int* t
 }
 
 // ---------------------------------------------------------------------------
+// Wide-band kernel at K 7 (responses mode, a = 1, one phase): 3xTF32
+// m16n8k8 products, a tap each
+
+struct Wide {
+  static constexpr int OG = 7;                         // outputs a channel (the k of a product: 7 and a zero)
+  static constexpr int NJ = 8;                         // input rows a block: the n of a product
+  static constexpr int TU = 64;                        // input columns a block
+  static constexpr int P = 48;                         // taps a stage
+  static constexpr int TG = 4;                         // taps a partial sum
+  static constexpr int RING = 2;                       // stages in flight
+  static constexpr int WARPS = 8;
+  static constexpr int NT = 32 * WARPS;                // threads a block
+  static constexpr int CW = CT / WARPS;                // channels a warp
+  static constexpr int GROUPS = TU / 16;               // 16-column groups (the m of a product)
+  static constexpr int DSTR = CT * OG + 4;             // floats a staged dout column
+  static constexpr int DBUF = (TU + P - 1) * DSTR;     // a stage's dout columns
+  static constexpr int FBUF = P * 8 * NJ;              // a stage's filter taps: [tap][o][row]
+  static constexpr int HEAD = 4 * RING;                // floats of the mbarriers and each stage's tap count
+  static constexpr int ESTR = CT + 1;                  // the epilogue's floats a pixel
+  static constexpr int EROW = TU * ESTR + 4;           // and a row
+  static_assert(DSTR % 32 == 4 && DSTR % 4 == 0, "a fragment's loads on 32 banks, columns 16-byte aligned");
+  static_assert(EROW % 32 == 4 && NJ == 8 && TU % 16 == 0 && CT % WARPS == 0 && P % TG == 0, "the tile");
+  static_assert(NJ * EROW <= RING * DBUF, "the epilogue reuses the dout stages");
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b (from no accumulator)
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// d (+)= a b in 3xTF32, the small terms first; fresh: d starts from zero
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1, bool fresh) {
+  if (fresh)
+    mma_tf32_fresh(d, al, bh0, bh1);
+  else
+    mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__global__ void __launch_bounds__(Wide::NT, 1)
+    disco_band_grad_wide(const float* __restrict__ dout, const float* __restrict__ F, const int* __restrict__ band_start,
+                         const int* __restrict__ taps, const int* __restrict__ row_ptr, const int* __restrict__ row_h, float* __restrict__ dx,
+                         Params p) {
+  using W = Wide;
+  constexpr int OG = W::OG, NJ = W::NJ, TU = W::TU, P = W::P, RING = W::RING, NT = W::NT, CW = W::CW, GROUPS = W::GROUPS, DSTR = W::DSTR;
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* ready = reinterpret_cast<uint64_t*>(smem);     // RING mbarriers: a stage's bulk copies have landed
+  int* s_taps = reinterpret_cast<int*>(smem + 2 * RING);  // RING: the stage's taps
+  float* Ds = smem + W::HEAD;                              // RING x (TU + P - 1, DSTR): dout columns
+  float* Fs = Ds + RING * W::DBUF;                         // RING x (P, 8, NJ): filter taps
+
+  int bid = blockIdx.x;
+  const int ct = bid % p.n_ct;
+  bid /= p.n_ct;
+  const int hg = bid % p.n_hg;
+  bid /= p.n_hg;
+  const int wt = bid % p.n_wt, b = bid / p.n_wt;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;  // a fragment's row group and thread in the group
+  const int hi0 = hg * NJ, c0 = ct * CT, w0 = wt * TU;
+  const int nc = min(CT, p.C - c0);
+  const int ngroups = min(GROUPS, (p.Win - w0 + 15) / 16);  // groups with a column inside Win
+
+  // the output rows reaching the block's rows: every h between the first
+  // and the last of their row lists
+  int h_lo = 0x7FFFFFFF, h_hi = -1;
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
+    const int hi = hi0 + k;
+    if (hi < p.Hin) {
+      const int r0 = row_ptr[hi], r1 = row_ptr[hi + 1];
+      if (r1 > r0) {
+        h_lo = min(h_lo, row_h[r0]);
+        h_hi = max(h_hi, row_h[r1 - 1]);
+      }
+    }
+  }
+  const long long drow = (long long)p.Wout * p.sO;
+  const float* dout_b = dout + (long long)b * p.Hout * drow + (long long)c0 * OG;
+  const int nval = nc * OG;  // floats of a dout column the tile reads
+  const int n16 = p.vec ? nval / 4 : 0, rem = nval - 4 * n16;
+  if (tid == 0) {
+    for (int q = 0; q < RING; ++q) sm90::mbar_init(&ready[q], 32);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();  // the barriers
+
+  // the walk over the stages, alike in every thread: output rows h from
+  // h_lo to h_hi, each its rows' union [lmin, hmax) of live runs in pieces
+  // of P taps from wa; lo, hw the rows' own runs at h
+  int h = h_hi >= h_lo ? h_lo - 1 : 0, wa = 0, hmax = 0;
+  int lo[NJ], hw[NJ];
+  auto next = [&]() -> bool {
+    wa += P;
+    while (wa >= hmax) {
+      if (++h > h_hi) return false;
+      int lmin = p.WW;
+      hmax = 0;
+#pragma unroll
+      for (int k = 0; k < NJ; ++k) {
+        row_run(band_start, taps, p, h, hi0 + k, lo[k], hw[k]);
+        if (hw[k] > lo[k]) lmin = min(lmin, lo[k]), hmax = max(hmax, hw[k]);
+      }
+      wa = lmin;
+    }
+    return true;
+  };
+
+  // the walk's current piece [wa, wb) into ring slot q
+  auto stage = [&](int q) {
+    const int wb = min(wa + P, hmax), n = wb - wa;
+    if (tid == 0) s_taps[q] = n;
+    // dout columns x = 0 .. ncols - 1 are output columns ub + x (mod Win):
+    // tap wa + t meets input column w0 + c at x = c + n - 1 - t
+    const int ncols = TU + n - 1;
+    int ub = (w0 - p.off - (wb - 1)) % p.Win;
+    if (ub < 0) ub += p.Win;
+    float* D = Ds + q * W::DBUF;
+    const float* src = dout_b + (long long)h * drow;
+    // each column's 16-byte pieces in one bulk copy, issued by the first
+    // warp's lanes, each arriving on the slot's barrier with its bytes;
+    // the rest (a partial tile's tail, or all where the pixel stride does
+    // not allow 16-byte copies) in 4-byte copies
+    if (warp == 0) {
+      int bytes = 0;
+      for (int x = lane; x < ncols; x += 32) bytes += 16 * n16;
+      sm90::fence_proxy_async();  // the slot's earlier reads before the copy engine's writes
+      sm90::mbar_arrive_expect_tx(&ready[q], bytes);
+      if (n16)
+        for (int x = lane; x < ncols; x += 32) {
+          int u = ub + x;
+          if (u >= p.Win) u %= p.Win;
+          sm90::bulk_copy(D + x * DSTR, src + (long long)u * p.sO, 16 * n16, &ready[q]);
+        }
+    }
+    for (int idx = tid; idx < ncols * rem; idx += NT) {
+      const int x = idx / rem, e = 4 * n16 + idx - x * rem;
+      int u = ub + x;
+      if (u >= p.Win) u %= p.Win;
+      cp_async<4>(D + x * DSTR + e, src + (long long)u * p.sO + e, true);
+    }
+    // tap wa + t, output o of row k at F[(t * 8 + o) * NJ + k]; zeros
+    // (nothing read) outside the row's run, past Hin or the band, and at o 7
+    float* Fq = Fs + q * W::FBUF;
+#pragma unroll
+    for (int k = 0; k < NJ; ++k) {
+      const float* frow = F + ((long long)h * p.BL + (hi0 + k - band_start[h])) * p.WW * p.OGp;
+      for (int e = tid; e < P * 8; e += NT) {
+        const int t = e / 8, o = e % 8, w = wa + t;
+        const bool live = o < OG && w >= lo[k] && w < hw[k];
+        cp_async<4>(Fq + e * NJ + k, live ? frow + (long long)w * p.OGp + o : F, live);
+      }
+    }
+  };
+
+  float acc[CW][GROUPS][4];
+#pragma unroll
+  for (int ci = 0; ci < CW; ++ci)
+#pragma unroll
+    for (int gi = 0; gi < GROUPS; ++gi)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[ci][gi][r] = 0.f;
+
+  // a fragment's loads: rows gq and gq + 8 of a group, k slots tq (o = tq)
+  // and tq + 4 (o = tq + 4, and o = 6 in place of the zero o = 7)
+  const bool computes = warp * CW < nc;
+  const int o_hi = min(tq + 4, OG - 1);
+  bool more = next();
+  int issued = 0;
+  for (int q = 0; q < RING - 1; ++q) {
+    if (more) {
+      stage(issued % RING);
+      ++issued;
+      more = next();
+    }
+    sm90::cp_async_commit();
+  }
+  for (int s = 0; s < issued; ++s) {
+    const int q = s % RING;
+    sm90::mbar_wait(&ready[q], (s / RING) & 1);
+    sm90::cp_async_wait<RING - 2>();
+    __syncthreads();
+    if (more) {
+      stage(issued % RING);
+      ++issued;
+      more = next();
+    }
+    sm90::cp_async_commit();
+    if (!computes) continue;
+    const int n = s_taps[q];
+    const float* D = Ds + q * W::DBUF + gq * DSTR + warp * CW * OG;
+    const float* Fq = Fs + q * W::FBUF + tq * NJ + gq;
+    // TG taps a partial sum: the tensor cores' adds truncate, so a partial
+    // starts from zero and goes into acc by a rounded FADD. Past n (the last
+    // group of the stage) the filter taps are zeros and the fragments take
+    // the last tap's columns again
+    for (int t0 = 0; t0 < n; t0 += W::TG) {
+      // B: o = tq and tq + 4 of row gq at taps wa + t0 ..
+      uint32_t bh[W::TG][2], bl[W::TG][2];
+#pragma unroll
+      for (int u = 0; u < W::TG; ++u) {
+        const float f0 = Fq[(t0 + u) * 8 * NJ], f1 = Fq[(t0 + u) * 8 * NJ + 4 * NJ];
+        bh[u][0] = sm90::tf32(f0), bh[u][1] = sm90::tf32(f1);
+        bl[u][0] = __float_as_uint(f0 - __uint_as_float(bh[u][0])), bl[u][1] = __float_as_uint(f1 - __uint_as_float(bh[u][1]));
+      }
+      float part[CW][GROUPS][4];
+#pragma unroll
+      for (int u = 0; u < W::TG; ++u) {
+        const float* Dt = D + max(n - 1 - t0 - u, 0) * DSTR;
+#pragma unroll
+        for (int gi = 0; gi < GROUPS; ++gi) {
+          if (gi >= ngroups) continue;
+#pragma unroll
+          for (int ci = 0; ci < CW; ++ci) {
+            const float* at = Dt + gi * 16 * DSTR + ci * OG;
+            const float a[4] = {at[tq], at[8 * DSTR + tq], at[o_hi], at[8 * DSTR + o_hi]};
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              ah[r] = __float_as_uint(a[r]) & 0xFFFFE000u;
+              al[r] = __float_as_uint(a[r] - __uint_as_float(ah[r]));
+            }
+            mma3(part[ci][gi], ah, al, bh[u][0], bh[u][1], bl[u][0], bl[u][1], u == 0);
+          }
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < GROUPS; ++gi) {
+        if (gi >= ngroups) continue;
+#pragma unroll
+        for (int ci = 0; ci < CW; ++ci)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[ci][gi][r] += part[ci][gi][r];
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // every stage read: the epilogue takes the dout stages
+
+  // the tiles through shared memory, (row, column, channel): a thread's
+  // accumulators are columns gq and gq + 8 of its group, rows 2 tq and 2 tq + 1
+  float* E = Ds;
+  if (computes) {
+#pragma unroll
+    for (int ci = 0; ci < CW; ++ci)
+#pragma unroll
+      for (int gi = 0; gi < GROUPS; ++gi) {
+        float* e = E + (2 * tq) * W::EROW + (gi * 16 + gq) * W::ESTR + warp * CW + ci;
+        e[0] = acc[ci][gi][0];
+        e[W::EROW] = acc[ci][gi][1];
+        e[8 * W::ESTR] = acc[ci][gi][2];
+        e[W::EROW + 8 * W::ESTR] = acc[ci][gi][3];
+      }
+  }
+  __syncthreads();
+  if (lane >= nc) return;
+  for (int e = warp; e < NJ * TU; e += W::WARPS) {
+    const int k = e / TU, c = e % TU, hi = hi0 + k, wi = w0 + c;
+    if (hi >= p.Hin || wi >= p.Win) continue;
+    const float v = E[k * W::EROW + c * W::ESTR + lane];
+    float* dst = dx + (((long long)b * p.Hin + hi) * p.Win + wi) * p.C + c0 + lane;
+    *dst = p.accumulate ? *dst + v : v;
+  }
+}
+
+int launch_wide(const float* dout, const float* F, const int* bs, const int* taps, const int* rp, const int* rh, float* dx, Params p, int B,
+                cudaStream_t s) {
+  using W = Wide;
+  p.n_hg = (p.Hin + W::NJ - 1) / W::NJ;
+  p.n_wt = (p.Win + W::TU - 1) / W::TU;
+  p.vec = p.sO % 4 == 0 && reinterpret_cast<uintptr_t>(dout) % 16 == 0;
+  const size_t smem = (size_t)(W::HEAD + W::RING * (W::DBUF + W::FBUF)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(disco_band_grad_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long nb = (long long)p.n_hg * p.n_ct * p.n_wt * B;
+  if (nb > 2147483647LL) return (int)cudaErrorInvalidValue;
+  disco_band_grad_wide<<<(unsigned)nb, W::NT, smem, s>>>(dout, F, bs, taps, rp, rh, dx, p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Generic kernel (any stride and phase): a thread per channel and QPT
 // input columns 8 apart, dout and F read through L1
 
@@ -524,9 +854,11 @@ extern "C" int mt_disco_band_grad(const void* dout, const void* F, const void* b
   const int* rh = static_cast<const int*>(row_h);
   float* o = static_cast<float*>(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the staged kernel takes stride 1 and one phase (every main-path call)
-  // where its ring fits in shared memory
+  // stride 1 and one phase (every main-path call): K 7 in responses mode
+  // takes the wide-band kernel, whatever the band; K 9 (responses) and OG 1
+  // (fused) the staged kernel where its ring fits in shared memory
   const bool unit = a == 1 && phases == 1 && n_out == Win;
+  if (unit && OG == Wide::OG && Gf == 1 && IG == 1) return launch_wide(d, f, bs, tp, rp, rh, o, p, B, s);
   constexpr size_t SMEM_MAX = 227 * 1024;
   Params q = p;
   if (unit && OG == 9 && Gf == 1 && IG == 1 && OGp == 9 && staged_smem<9>(q) <= SMEM_MAX) return launch_staged<9>(d, f, bs, tp, rp, rh, o, p, B, s);

@@ -40,10 +40,12 @@
 // complex products on the (re, im) views without the forward's conjugate (a
 // conjugate there would leave the real parts right and flip the sign of the
 // imaginary ones). The psi-first transpose reads the K values of dY of its
-// (channel, mode) once into registers and writes BL values of dX, on the
-// forward's grid. Both are bound by memory bandwidth like the forward: at
-// the FCN3 processor the psi-first transpose reads 2.32 GB and writes 2.32
-// GB. The mix-first one reads one dY and writes BL*K values of dU: at the
+// (channel, mode) once into registers (K 9 and FCN3.1's K 7) and writes BL
+// values of dX, on the forward's grid. Both are bound by memory bandwidth
+// like the forward: at the FCN3 processor the psi-first transpose reads
+// 2.32 GB and writes 2.32 GB; at FCN3.1's training decoder (BL 49, K 7) it
+// writes 7 floats for every one it reads (3.3 GB a run of 23 polar rows).
+// The mix-first one reads one dY and writes BL*K values of dU: at the
 // FCN3 training step's atmo decoder (B 4, P 58, BL 5, C 65, K 9, M 361) it
 // reads 54 MB and writes 1.96 GB, so only the writes count, and the
 // forward's grid fits them badly: its 64-channel tile would leave half the
@@ -54,6 +56,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 #include <algorithm>
 
@@ -166,37 +170,120 @@ __device__ __forceinline__ void cmac(float& re, float& im, float2 v, float2 q) {
   im = fmaf(v.x, q.y, fmaf(v.y, q.x, im));
 }
 
-// dX = sum_k dY Psi: KT = K (9) keeps dY's K values in registers; KT = 0
-// reads them again for every j (any other K)
+// dX = sum_k dY Psi: KT = K (9 or 7) keeps dY's K values of the thread's
+// GRAD_CH channels (ROWS apart) in registers, each read once, and writes dX
+// by streaming stores (dX is BL times dY's size: nothing reads it soon);
+// KT = 0 reads dY again for every j (any other K). A block takes GRAD_CB
+// channels. At KT > 0 Psi's tile is staged by 8-byte asynchronous copies,
+// all in flight at once, and a warp's next channels' dY values are loaded
+// while it stores the current ones' dX; two channels a thread halve the
+// shared-memory reads of Psi a store.
+//
+// What bounds it is dX's stores. At an odd M a row of dX starts anywhere in
+// a 32-byte sector, and a warp's 256-byte store of 32 modes from m0 leaves
+// partial sectors at both ends, which a neighbouring block fills later: on
+// an H100 the same work takes a third less time where the rows start on
+// sectors (sweep_k9_k13.py k13psi, PERF.md). So where a row's stride C M is
+// a whole number of sectors (C a multiple of 4: FCN3.1's 280 and 256), all
+// the rows of a channel start at the same place s in a sector, and the
+// block's lanes take the modes m0 - s .. m0 - s + 31 of that channel: every
+// store covers whole sectors but at the ends of a row. Psi's tile is then
+// staged from m0 - GRAD_PAD, and the grid has a tile more where the shifted
+// windows need it to reach M.
+constexpr int GRAD_CH = 2;
+constexpr int GRAD_CB = 64;
+constexpr int GRAD_PAD = 4;
+
+// Psi's columns staged before a tile's first mode: GRAD_PAD where dX's
+// rows are a whole number of 32-byte sectors apart, else 0 (no shift)
+__host__ __device__ inline int grad_pad(int C, int M) { return (long long)C * M % 4 == 0 ? GRAD_PAD : 0; }
+
+// Psi's rows r = j K + k of one p, modes m0 - pad .. m0 + MB - 1, into
+// ps[r][MB + pad] by 8-byte cp.async (zeros outside [0, M)); the caller
+// waits for them
+__device__ __forceinline__ void stage_psi_rows(float2* ps, const float2* __restrict__ Pt, int p, int rows, int M, int m0, int pad) {
+  const int cols = MB + pad;
+  const float2* src = Pt + (long long)p * rows * M;
+  for (int idx = threadIdx.x; idx < rows * cols; idx += THREADS) {
+    const int r = idx / cols, m = m0 - pad + idx - r * cols;
+    const bool live = m >= 0 && m < M;
+    sm90::cp_async<8>(ps + idx, src + (long long)r * M + (live ? m : 0), live);
+  }
+  sm90::cp_async_commit();
+}
+
+// dY's KT values of GRAD_CH channels c, c + ROWS, ... (zeros at c_hi and past)
+template <int KT>
+__device__ __forceinline__ void load_dy(float2 (&v)[GRAD_CH][KT], const float2* __restrict__ dY, long long bp, int c, int c_hi, int C, int M, int m) {
+#pragma unroll
+  for (int i = 0; i < GRAD_CH; ++i) {
+    const float2* y = dY + ((bp * C + c + i * ROWS) * KT) * M + m;
+#pragma unroll
+    for (int k = 0; k < KT; ++k) v[i][k] = c + i * ROWS < c_hi ? y[(long long)k * M] : make_float2(0.f, 0.f);
+  }
+}
+
 template <int KT>
 __global__ void __launch_bounds__(THREADS)
     psi_first_grad_kernel(const float2* __restrict__ dY, const float2* __restrict__ Pt, float2* __restrict__ dX, int P, int BL, int C, int K, int M) {
   extern __shared__ float2 ps[];
-  const int c_lo = blockIdx.y * CB, c_hi = min(C, c_lo + CB);
+  const int c_lo = blockIdx.y * GRAD_CB, c_hi = min(C, c_lo + GRAD_CB);
   const int bp = blockIdx.z, p = bp % P;
   const int m0 = blockIdx.x * MB;
   const int lane = threadIdx.x % MB, row = threadIdx.x / MB;
-  const int m = m0 + lane;
-  stage_psi(ps, Pt, p, BL, K, M, 0, K, m0);
-  __syncthreads();
-  if (m >= M) return;
-
   const long long j_stride = (long long)C * M;
-  for (int c = c_lo + row; c < c_hi; c += ROWS) {
-    const float2* y = dY + ((long long)bp * C + c) * K * M + m;
-    float2* x = dX + ((long long)bp * BL * C + c) * M + m;
-    if constexpr (KT > 0) {
-      float2 v[KT];
+  if constexpr (KT > 0) {
+    const int pad = grad_pad(C, M), cols = MB + pad;
+    stage_psi_rows(ps, Pt, p, BL * KT, M, m0, pad);
+    // channel c's mode on this lane: its rows' place in a sector, the same
+    // for c + ROWS (ROWS M float2 are whole sectors)
+    auto mode_of = [&](int c) {
+      const float2* row0 = dX + ((long long)bp * BL * C + c) * M;
+      return m0 + lane - (pad ? (int)(reinterpret_cast<uintptr_t>(row0) / sizeof(float2) % 4) : 0);
+    };
+    float2 v[GRAD_CH][KT];
+    int c = c_lo + row, m = mode_of(c);
+    if (m >= 0 && m < M) load_dy<KT>(v, dY, bp, c, c_hi, C, M, m);
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    for (; c < c_hi; c += GRAD_CH * ROWS) {
+      float2 cur[GRAD_CH][KT];
 #pragma unroll
-      for (int k = 0; k < KT; ++k) v[k] = y[(long long)k * M];
-      for (int j = 0; j < BL; ++j) {
-        const float2* q = ps + j * KT * MB + lane;
-        float re = 0.f, im = 0.f;
+      for (int i = 0; i < GRAD_CH; ++i)
 #pragma unroll
-        for (int k = 0; k < KT; ++k) cmac(re, im, v[k], q[k * MB]);
-        x[j * j_stride] = make_float2(re, im);
+        for (int k = 0; k < KT; ++k) cur[i][k] = v[i][k];
+      const int mc = m;
+      if (c + GRAD_CH * ROWS < c_hi) {
+        m = mode_of(c + GRAD_CH * ROWS);
+        if (m >= 0 && m < M) load_dy<KT>(v, dY, bp, c + GRAD_CH * ROWS, c_hi, C, M, m);
       }
-    } else {
+      if (mc < 0 || mc >= M) continue;
+      float2* x = dX + ((long long)bp * BL * C + c) * M + mc;
+      const float2* qc = ps + pad + mc - m0;
+      for (int j = 0; j < BL; ++j) {
+        const float2* q = qc + j * KT * cols;
+        float re[GRAD_CH], im[GRAD_CH];
+#pragma unroll
+        for (int i = 0; i < GRAD_CH; ++i) re[i] = im[i] = 0.f;
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+          const float2 w = q[k * cols];
+#pragma unroll
+          for (int i = 0; i < GRAD_CH; ++i) cmac(re[i], im[i], cur[i][k], w);
+        }
+#pragma unroll
+        for (int i = 0; i < GRAD_CH; ++i)
+          if (c + i * ROWS < c_hi) __stcs(x + j * j_stride + (long long)i * ROWS * M, make_float2(re[i], im[i]));
+      }
+    }
+  } else {
+    const int m = m0 + lane;
+    stage_psi(ps, Pt, p, BL, K, M, 0, K, m0);
+    __syncthreads();
+    if (m >= M) return;
+    for (int c = c_lo + row; c < c_hi; c += ROWS) {
+      const float2* y = dY + ((long long)bp * C + c) * K * M + m;
+      float2* x = dX + ((long long)bp * BL * C + c) * M + m;
       for (int j = 0; j < BL; ++j) {
         const float2* q = ps + j * K * MB + lane;
         float re = 0.f, im = 0.f;
@@ -318,8 +405,14 @@ extern "C" int mt_disco_polar(int mode, const void* src, const void* Pt, void* Y
   if (mode == 1) return launch(mix_first_kernel, dim3(mx, n_ct, B * P), (size_t)BL * K * MB * sizeof(float2), s, s_, p_, y_, P, BL, C, K, M);
   const size_t smem = (size_t)BL * K * MB * sizeof(float2);
   if (mode == 2) {
-    if (K == 9) return launch(psi_first_grad_kernel<9>, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
-    return launch(psi_first_grad_kernel<0>, dim3(mx, n_ct, B * P), smem, s, s_, p_, y_, P, BL, C, K, M);
+    // the shifted windows (K 9 and 7) reach M from a tile more where a
+    // shift of up to 3 modes needs it, and stage pad more columns of Psi
+    const int pad = K == 9 || K == 7 ? grad_pad(C, M) : 0;
+    const dim3 grid((M + (pad ? 3 : 0) + MB - 1) / MB, (C + GRAD_CB - 1) / GRAD_CB, B * P);
+    const size_t gsmem = (size_t)BL * K * (MB + pad) * sizeof(float2);
+    if (K == 9) return launch(psi_first_grad_kernel<9>, grid, gsmem, s, s_, p_, y_, P, BL, C, K, M);
+    if (K == 7) return launch(psi_first_grad_kernel<7>, grid, gsmem, s, s_, p_, y_, P, BL, C, K, M);
+    return launch(psi_first_grad_kernel<0>, grid, smem, s, s_, p_, y_, P, BL, C, K, M);
   }
   if (mode == 3) {
     if (reinterpret_cast<uintptr_t>(Y) % 16) return (int)cudaErrorMisalignedAddress;

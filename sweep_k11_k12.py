@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K12's tiling and K11's launches, measured on one NVIDIA GPU:
 
-    python3 sweep_k11_k12.py          # both; or name them: k11, k12, sass, k12lib
+    python3 sweep_k11_k12.py          # both; or name them: k11, k12, k12fcn31, sass, k12lib
 
 - K12 (``csrc/disco_band_grad.cu``, the transpose of the banded DISCO
   contraction) at the FCN3 training step's two main-path calls, the
@@ -21,6 +21,14 @@
   where it is cut. Beside them: K5's forward at the processor's shape
   (through its wrapper) and the grouped ``conv_transpose1d`` (the library
   yardstick, without the scatter back to the rows).
+- ``k12fcn31`` (also part of ``k12``): K12's wide-band kernel at K 7 at the
+  FCN3.1 training step's processor and decoder (``chip_smoke.
+  build_fcn31_train``, responses mode), as built and as patched copies
+  (``K12_WIDE_VARIANTS``): the parent's kernel (the generic gather), other
+  pieces of taps a stage, other column tiles, a ring of three, and cuts (no
+  dout copies, no MMAs (an FADD of the fragments' bits a partial in place
+  of the three products, so the loads and splits stay), no stores, and all
+  three).
 - K11 (``csrc/adam_factored.cu``) on the factored leaves of the SFNO and
   FCN3 training steps (their models' parameter shapes) and their
   unfactored leaves: each of its three launches timed alone, and the whole
@@ -28,8 +36,8 @@
   it) and with one leaf a launch, each held to the plain version after one
   step from the same state.
 
-- ``sass``: the instruction mix of the staged K12 kernels in the built
-  library's SASS.
+- ``sass``: the instruction mix of the staged and wide-band K12 kernels in
+  the built library's SASS.
 - ``k12lib``: K12's library yardstick (the grouped ``conv_transpose1d`` on
   the band, a group an output latitude) at the FCN3.1 training step's
   decoder (4 members, 361 x 720, 256 channels, K 7), whose band does not
@@ -52,7 +60,7 @@ import sys
 
 import torch
 
-from chip_smoke import PEAK_FP32_FLOPS, PEAK_HBM_BYTES, SEED, card_line, errors, randn, time_ms, within
+from chip_smoke import PEAK_FP32_FLOPS, PEAK_HBM_BYTES, PEAK_TF32_FLOPS, SEED, TF32_PASSES, card_line, errors, randn, time_ms, within
 from sweep_k4_k8 import patched_libraries
 from sweep_k9_k13 import in_turns
 
@@ -100,6 +108,26 @@ K12_VARIANTS = {
     "skeleton": ("cut", [_NO_COPIES, _NO_COMPUTE, _NO_STORES]),
 }
 
+# the wide-band kernel (K 7, responses mode): its constants and cuts
+_WIDE = lambda name, old, new: (f"  static constexpr int {name} = {old};", f"  static constexpr int {name} = {new};")
+_WIDE_NO_COPIES = ("    const int ncols = TU + n - 1;", "    const int ncols = 0;")
+_WIDE_NO_MMAS = ("            mma3(part[ci][gi], ah, al, bh[u][0], bh[u][1], bl[u][0], bl[u][1], u == 0);",
+                 "            for (int r = 0; r < 4; ++r) part[ci][gi][r] = (u ? part[ci][gi][r] : 0.f) + __uint_as_float(ah[r] ^ al[r] ^ bh[u][r % 2] ^ bl[u][r / 2]);")
+_WIDE_NO_STORES = ("    *dst = p.accumulate ? *dst + v : v;", "    if (v == 1234.5f) *dst = v;")
+K12_WIDE_VARIANTS = {
+    "parent (the generic gather)": ("close", [("  if (unit && OG == Wide::OG && Gf == 1 && IG == 1)", "  if (false && unit && OG == Wide::OG && Gf == 1 && IG == 1)")]),
+    "16 taps a stage": ("same", [_WIDE("P", 48, 16)]),
+    "32 taps a stage": ("same", [_WIDE("P", 48, 32)]),
+    "16 taps a stage, ring of 3": ("same", [_WIDE("P", 48, 16), _WIDE("RING", 2, 3)]),
+    "32 columns a block": ("same", [_WIDE("TU", 64, 32)]),
+    "8 taps a partial sum": ("close", [_WIDE("TG", 4, 8)]),
+    "2 taps a partial sum": ("close", [_WIDE("TG", 4, 2)]),
+    "no dout copies": ("cut", [_WIDE_NO_COPIES]),
+    "no MMAs": ("cut", [_WIDE_NO_MMAS]),
+    "no stores": ("cut", [_WIDE_NO_STORES]),
+    "skeleton": ("cut", [_WIDE_NO_COPIES, _WIDE_NO_MMAS, _WIDE_NO_STORES]),
+}
+
 # the factored and unfactored leaves of the two training steps' models
 # (``chip_smoke.build_train``, ``build_fcn3_train``: the shapes of their
 # parameters, counted as ``chip_smoke.adam_launches`` counts them)
@@ -109,7 +137,7 @@ K11_LEAVES = {
 }
 
 
-def k12_case(label, conv, dout, F_, C, Gf, IG, OG, libs, card, dev, with_k5=False):
+def k12_case(label, conv, dout, F_, C, Gf, IG, OG, libs, card, dev, with_k5=False, variants=K12_VARIANTS, plain_ms=False):
     from makani_torch import kernels
     from makani_torch.ops import disco_kernels
     from makani_torch.ops.precision import fp32_exact
@@ -131,11 +159,14 @@ def k12_case(label, conv, dout, F_, C, Gf, IG, OG, libs, card, dev, with_k5=Fals
     for name, lib in libs.items():  # a fault names its variant
         launch(lib)
         torch.cuda.synchronize()
-        check = K12_VARIANTS[name][0] if name in K12_VARIANTS else "built"
+        check = variants[name][0] if name in variants else "built"
         if check == "built":
             ref = dx.clone()
+            t_plain = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t_plain[0].record()
             plain = disco_kernels.band_contract_grad_plain(dout, F_, bs, torch.empty_like(dx), a=1, off=int(conv.bases[0]) - conv.halo, n_out=Wout,
                                                           phase=0, phases=1, Gf=Gf, IG=IG, OG=OG, accumulate=False)
+            t_plain[1].record()
             err = errors(ref, plain)
             del plain
             if not within(err, torch.float32):
@@ -154,6 +185,8 @@ def k12_case(label, conv, dout, F_, C, Gf, IG, OG, libs, card, dev, with_k5=Fals
                                                                              off=int(conv.bases[0]) - conv.halo, n_out=Wout, phase=0, phases=1,
                                                                              Gf=1, IG=1, OG=OG)
     times = in_turns(fns, 3, 1)
+    if plain_ms:
+        times["plain version (one cold call)"] = [t_plain[0].elapsed_time(t_plain[1])] * 2
     R = C // (Gf * IG)
     y = dout.reshape(B, Hout, Wout, R, Gf, OG).permute(0, 3, 1, 4, 5, 2).reshape(B * R, Hout * Gf * OG, Wout)
     filt = F_[..., :OG].permute(0, 1, 5, 2, 3, 4).reshape(Hout * Gf * OG, IG * conv.BL, conv.WW).contiguous()
@@ -164,8 +197,9 @@ def k12_case(label, conv, dout, F_, C, Gf, IG, OG, libs, card, dev, with_k5=Fals
     nbytes = B * Hout * Wout * (C // IG * OG) * 4 + (F_[..., :OG].numel() + bs.numel()) * 4 + dx.numel() * 4
     bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     by = "operations" if flops / PEAK_FP32_FLOPS > nbytes / PEAK_HBM_BYTES else "bytes"
+    tc = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
     print(f"K12 {label} dout {tuple(dout.shape)} -> dx {tuple(dx.shape)}, bound {bound:.3f} ms ({by}; FMA {flops / PEAK_FP32_FLOPS * 1e3:.3f}, "
-          f"bytes {nbytes / PEAK_HBM_BYTES * 1e3:.3f}), max|d|/max|ref| {err['max_rel']:.2e}; variants held to the built kernel: "
+          f"3xTF32 {tc:.3f}, bytes {nbytes / PEAK_HBM_BYTES * 1e3:.3f}), max|d|/max|ref| {err['max_rel']:.2e}; variants held to the built kernel: "
           + "; ".join(f"{name} {t[0]:.3f} / {t[1]:.3f} ms" for name, t in times.items())
           + f"; grouped conv_transpose1d {lib_ms:.3f} ms  [{card}]", flush=True)
     del dx
@@ -201,6 +235,33 @@ def k12(card: str, dev: torch.device):
     k12_case("atmo decoder", dec, dout, FusedFilterCache().get(dec, w, 0), R * g * ig, g, ig, og, libs, card, dev)
 
 
+def k12_fcn31(card: str, dev: torch.device):
+    """The wide-band kernel (K 7) at the FCN3.1 training step's processor and
+    decoder, on seeded responses in the layout K5 writes (``response_buffer``)."""
+    import chip_smoke as cs
+    from makani_torch import kernels
+
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    libs = {"as built": kernels.library()}
+    libs.update(patched_libraries("disco_band_grad.cu", {name: patches for name, (_, patches) in K12_WIDE_VARIANTS.items()}, "sweep_k11_k12_wide"))
+    for lib in libs.values():
+        lib.mt_disco_band_grad.argtypes = [vp] * 7 + [i] * 17 + [ctypes.c_longlong, i, vp]
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    BE = cs.FCN3_TRAIN_BATCH * cs.FCN3_TRAIN_ENSEMBLE
+    model = cs.build_fcn31_train(dev)[1]
+    for name, conv, _ in cs.fcn31_convs(model.model):
+        if name not in ("processor", "decoder"):
+            continue
+        op = conv.conv_op
+        C = conv.in_channels
+        dout = op.response_buffer(BE, C, dev)
+        dout.copy_(randn(dout.shape, torch.float32, gen, dev))
+        print(f"K12 fcn31-train-{name}: BL {op.BL}, WW {op.WW}, K {op.K}, C {C}, pixel stride {dout.stride(2)}", flush=True)
+        k12_case(f"fcn31-train-{name}", op, dout, op.band_filter(0, dev), C, 1, 1, op.K, libs, card, dev, variants=K12_WIDE_VARIANTS, plain_ms=True)
+        del dout
+        torch.cuda.empty_cache()
+
+
 def k12_sass():
     """The instruction mix of the staged K12 kernels in the built library's
     SASS (``cuobjdump -sass``): each opcode's count, largest first."""
@@ -214,7 +275,7 @@ def k12_sass():
     sass = subprocess.run([str(cuobjdump), "-sass", str(kernels.build())], capture_output=True, text=True, check=True).stdout
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "disco_band_grad_staged" not in name:
+        if "disco_band_grad_staged" not in name and "disco_band_grad_wide" not in name:
             continue
         ops = collections.Counter()
         for line in part.splitlines():
@@ -367,6 +428,8 @@ def main() -> int:
         k11(card, dev)
     if "k12" in parts:
         k12(card, dev)
+    if "k12" in parts or "k12fcn31" in parts:
+        k12_fcn31(card, dev)
     if "k12lib" in parts:
         k12lib(card, dev)
     return 0

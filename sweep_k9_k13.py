@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of K9 and K13's mix-first transpose goes, on one NVIDIA GPU:
+"""Where the time of K9 and K13's transposes goes, on one NVIDIA GPU:
 
-    python3 sweep_k9_k13.py
+    python3 sweep_k9_k13.py          # all; or name them: k9, k13, k13psi
 
 - K9's tensor-core instructions: the HGMMA opcodes in the SASS of the built
   library's K9 kernels (``cuobjdump -sass``), with their counts;
@@ -21,7 +21,20 @@
 - K13's mix-first transpose (``csrc/disco_polar.cu`` mode 3) at the FCN3
   training step's atmo decoder as built (16 steps a thread), with 64 and
   256 steps a thread and with plain stores in place of the streaming ones,
-  beside the complex einsum; each variant's result is checked.
+  beside the complex einsum; each variant's result is checked;
+- ``k13psi``: K13's psi-first transpose (mode 2) at K 7 at the FCN3.1
+  training step's processor and decoder (a run of polar rows, ``chip_smoke.
+  check_fcn31_train_kernels``' shapes), and at the decoder's with M 364 and
+  368 (dX's rows on 32-byte sectors and 128-byte lines; diagnostics of the
+  stores): as built (dY's 7 values of two channels in registers, Psi staged
+  by ``cp.async``, the next channels' dY loaded ahead, each channel's modes
+  shifted so that dX's stores start on 32-byte sectors, streaming stores),
+  and ``K13_PSI_VARIANTS``: the parent's loop (dY read again for every band
+  row), the windows not shifted (with one channel a thread too: the first
+  K 7 kernel but for its staging), no load ahead, one channel a thread,
+  plain stores, and cuts (no Psi staging, no dY loads, no stores), each but
+  the cuts held to the plain version, beside the complex einsum; the TB/s
+  are dX's bytes over the time.
 
 Times: CUDA events over 10 launches after 2 (``chip_smoke.time_ms``), every
 variant timed twice in turns (forward, then backward through the list).
@@ -71,6 +84,31 @@ K13_VARIANTS = {
     "256 steps a thread": [("constexpr int STREAM_STEPS = 16;", "constexpr int STREAM_STEPS = 256;")],
     "plain stores": [("      __stcs(reinterpret_cast<float4*>(dU + e), make_float4(a.x, a.y, b.x, b.y));",
                       "      *reinterpret_cast<float4*>(dU + e) = make_float4(a.x, a.y, b.x, b.y);")],
+}
+
+
+# K13's psi-first transpose at K 7: (B, P, BL, C, K, M) of the FCN3.1
+# training step's processor and of a run of its decoder's polar rows, and the
+# decoder's at Ms whose dX rows start on 32-byte sectors and 128-byte lines
+K13_PSI_SHAPES = (("processor", (4, 44, 25, 280, 7, 181)), ("decoder run", (4, 23, 49, 256, 7, 361)),
+                  ("decoder run at M 364, dX's rows on 32-byte sectors (a diagnostic)", (4, 23, 49, 256, 7, 364)),
+                  ("decoder run at M 368, dX's rows on 128-byte lines (a diagnostic)", (4, 23, 49, 256, 7, 368)))
+# the variants; the cuts are timed, not checked
+_PSI_STAGE = "    stage_psi_rows(ps, Pt, p, BL * KT, M, m0, pad);"
+_PSI_AHEAD = "        if (m >= 0 && m < M) load_dy<KT>(v, dY, bp, c + GRAD_CH * ROWS, c_hi, C, M, m);"
+_PSI_STORE = "          if (c + i * ROWS < c_hi) __stcs(x + j * j_stride + (long long)i * ROWS * M, make_float2(re[i], im[i]));"
+_PSI_UNSHIFTED = ("return (long long)C * M % 4 == 0 ? GRAD_PAD : 0;", "return 0;")
+K13_PSI_VARIANTS = {
+    "parent (dY read for every row)": [("    if (K == 7) return launch(psi_first_grad_kernel<7>", "    if (false) return launch(psi_first_grad_kernel<7>")],
+    "windows not shifted": [_PSI_UNSHIFTED],
+    "windows not shifted, one channel a thread": [_PSI_UNSHIFTED, ("constexpr int GRAD_CH = 2;", "constexpr int GRAD_CH = 1;")],
+    "no load ahead": [(_PSI_AHEAD, "        (void)0;"),
+                      ("      if (mc < 0 || mc >= M) continue;", "      if (mc < 0 || mc >= M) continue;\n      load_dy<KT>(cur, dY, bp, c, c_hi, C, M, mc);")],
+    "one channel a thread": [("constexpr int GRAD_CH = 2;", "constexpr int GRAD_CH = 1;")],
+    "plain stores": [(_PSI_STORE, _PSI_STORE.replace("__stcs(x + j * j_stride + (long long)i * ROWS * M, ", "x[j * j_stride + (long long)i * ROWS * M] = ("))],
+    "no Psi staging (cut)": [(_PSI_STAGE, "    sm90::cp_async_commit();")],
+    "no dY loads (cut)": [("v[i][k] = c + i * ROWS < c_hi ? y[(long long)k * M] : make_float2(0.f, 0.f);", "v[i][k] = make_float2(c + i, k * m);")],
+    "no stores (cut)": [(_PSI_STORE, _PSI_STORE.replace("if (c + i * ROWS < c_hi)", "if (re[i] == 1.2345f && c + i * ROWS < c_hi)"))],
 }
 
 
@@ -184,6 +222,46 @@ def k13(card: str, dev: torch.device):
           + "; ".join(f"{name} {t[0]:.3f} / {t[1]:.3f} ms" for name, t in times.items()) + f"  [{card}]", flush=True)
 
 
+def k13_psi(card: str, dev: torch.device):
+    from makani_torch import kernels
+    from makani_torch.ops import disco_kernels
+
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    libs = {"as built": kernels.library()}
+    libs.update(patched_libraries("disco_polar.cu", K13_PSI_VARIANTS, "sweep_k9_k13_psi"))
+    for lib in libs.values():
+        lib.mt_disco_polar.argtypes = [i, vp, vp, vp, i, i, i, i, i, i, vp]
+    gen = torch.Generator(dev).manual_seed(3)
+    for label, (B, P, BL, C, K, M) in K13_PSI_SHAPES:
+        dY = torch.randn((B, P, C, K, M, 2), generator=gen, device=dev)
+        Pt = torch.randn((P, BL, K, M, 2), generator=gen, device=dev)
+        out = torch.empty(B, P, BL, C, M, 2, device=dev)
+        ref = disco_kernels.polar_psi_first_grad_plain(dY, Pt)
+
+        def launch(lib):
+            err = lib.mt_disco_polar(2, dY.data_ptr(), Pt.data_ptr(), out.data_ptr(), B, P, BL, C, K, M, kernels.stream_ptr(dev))
+            kernels.check_launch(err, "disco_polar_grad (sweep)")
+
+        for name, lib in libs.items():
+            launch(lib)
+            torch.cuda.synchronize()
+            err = ((out - ref).abs().max() / ref.abs().max()).item()
+            if not err <= 1e-5 and not name.endswith("(cut)"):
+                raise RuntimeError(f"K13 psi first ({name}) at the {label} differs from its plain version: {err:.3e} of max|ref|")
+        del ref
+        torch.cuda.empty_cache()
+        Yc, Pc = torch.view_as_complex(dY), torch.view_as_complex(Pt)
+        fns = {name: (lambda lib=lib: launch(lib)) for name, lib in libs.items()}
+        fns["complex einsum"] = lambda: torch.einsum("bpckm,pjkm->bpjcm", Yc, Pc)
+        times = in_turns(fns)
+        bound = (dY.numel() + Pt.numel() + out.numel()) * 4 / PEAK_HBM_BYTES * 1e3
+        print(f"K13 psi first, K 7, at the FCN3.1 training {label} {(B, P, BL, C, K, M)}, bound {bound:.3f} ms (bytes): "
+              + "; ".join(f"{name} {t[0]:.3f} / {t[1]:.3f} ms ({out.numel() * 4 / min(t) / 1e9:.3f} TB/s of dX)" for name, t in times.items())
+              + f"  [{card}]", flush=True)
+        del dY, Pt, out, fns
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_k9_k13: needs an NVIDIA GPU", file=sys.stderr)
@@ -194,9 +272,14 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     kernels.library()
-    k9_sass()
-    k9(card, dev)
-    k13(card, dev)
+    parts = sys.argv[1:] or ["k9", "k13", "k13psi"]
+    if "k9" in parts:
+        k9_sass()
+        k9(card, dev)
+    if "k13" in parts:
+        k13(card, dev)
+    if "k13psi" in parts:
+        k13_psi(card, dev)
     return 0
 
 

@@ -57,6 +57,7 @@ from makani_torch.utils.loss import LossHandler
 from makani_torch.utils.training.deterministic_trainer import train_step
 from makani_torch.utils.training.optimizer import get_optimizer
 from makani_torch.utils.yparams import ParamsBase, YParams
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, C, B = 17, 32, 3, 2

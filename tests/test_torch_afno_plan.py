@@ -13,6 +13,7 @@ import torch
 
 from makani_torch.ops import afno_mixer as am
 from makani_torch.utils.yparams import YParams
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

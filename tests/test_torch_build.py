@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from makani_torch import kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _has_nvcc():

@@ -18,6 +18,7 @@ from makani_tpu.utils.checkpoint_helpers import CheckpointManager as JCheckpoint
 from makani_torch.utils.checkpoint_helpers import CheckpointManager, get_latest_checkpoint_version
 from makani_torch.utils.training.optimizer import get_optimizer
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (valid loss of the epoch) per save: is_best where it falls below the best so far
 LOSSES = [3.0, 1.0, 2.0, 2.5, 0.5, 0.7]

@@ -15,6 +15,7 @@ from makani_tpu.models.common.contractions import contract_dense_s as jcontract_
 
 from makani_torch import kernels
 from makani_torch.models.common.contractions import _PermutedWeight, cmul_einsum_s, contract_dense_s, contract_dense_s_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, L, M, CI, CO = 2, 6, 5, 4, 6
 

@@ -32,6 +32,7 @@ from makani_torch import kernels
 from makani_torch.utils.loss import LossHandler
 from makani_torch.utils.losses.crps_loss import CRPSLoss, crps_ensemble, crps_skillspread_grad_plain, crps_skillspread_plain
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-6
 

@@ -31,6 +31,7 @@ from makani_torch.utils.dataloaders.data_loader_dummy import DummyDataset
 from makani_torch.utils.dataloaders.data_loader_multifiles import MultifilesDataset
 from makani_torch.utils.parse_dataset_metadata import parse_dataset_metadata
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from makani_tpu.ops import disco as jdisco
 
 from makani_torch import kernels
 from makani_torch.ops import disco
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [((17, 32), (9, 16)), ((16, 32), (16, 32)), ((13, 32), (11, 24))]
 BASES = ["morlet th", "piecewise linear", "harmonic"]

@@ -35,6 +35,7 @@ from makani_tpu.ops.resample import ResampleS2 as JResampleS2
 
 from makani_torch import kernels
 from makani_torch.ops import disco, disco_kernels, resample
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [((17, 32), (9, 16)), ((16, 32), (16, 32)), ((13, 32), (11, 24))]
 TOL = 1e-5
@@ -46,8 +47,8 @@ def _tol(out, ref, rel=TOL):
     assert np.max(np.abs(out - ref)) <= rel * np.max(np.abs(ref)), np.max(np.abs(out - ref)) / np.max(np.abs(ref))
 
 
-def _pair(in_shape, out_shape):
-    kw = dict(basis_type="morlet th", basis_norm_mode="mean")
+def _pair(in_shape, out_shape, basis_type="morlet th"):
+    kw = dict(basis_type=basis_type, basis_norm_mode="mean")
     return jdisco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw), disco.DiscoConvS2(in_shape, out_shape, (3, 3), **kw)
 
 
@@ -59,11 +60,15 @@ def _call(tc, x, use_kernels):
     return t.permute(0, 3, 4, 1, 2)
 
 
+# FCN3.1's K 7 (piecewise linear 3 x 3) at a small grid, stride 1
+K7_SHAPES = [((17, 32), (17, 32))]
+
+
 @pytest.mark.parametrize("use_kernels", [True, False])
-@pytest.mark.parametrize("in_shape,out_shape", SHAPES)
+@pytest.mark.parametrize("in_shape,out_shape", SHAPES + K7_SHAPES)
 def test_responses_gradient_matches_jax(in_shape, out_shape, use_kernels):
-    jc, tc = _pair(in_shape, out_shape)
-    assert tc.polar_rows
+    jc, tc = _pair(in_shape, out_shape, "piecewise linear" if (in_shape, out_shape) in K7_SHAPES else "morlet th")
+    assert tc.polar_rows and tc.K == (7 if (in_shape, out_shape) in K7_SHAPES else 9)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 3, *in_shape)).astype(np.float32)
     y, vjp = jax.vjp(jax.jit(jc.__call__), jnp.asarray(x))

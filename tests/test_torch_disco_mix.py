@@ -20,6 +20,7 @@ from makani_torch import kernels
 from makani_torch.models.networks.fourcastnet3 import DiscoConv
 from makani_torch.ops import disco, disco_kernels
 from makani_torch.ops.sht import tf32_split
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _conv(C, Cout):

@@ -49,6 +49,7 @@ from makani_torch.convert_jax import params_from_jax, params_to_jax
 from makani_torch.utils.parse_dataset_metadata import parse_dataset_metadata
 from makani_torch.utils.training.ensemble_trainer import EnsembleTrainer
 from makani_torch.utils.yparams import ParamsBase, YParams
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, E = 33, 64, 2
 NAMES = ["u10m", "v10m", "t2m", "tcwv", "u500", "v500", "z500", "t500", "q500", "u850", "v850", "z850", "t850", "q850"]

@@ -40,6 +40,7 @@ from makani_torch.models.model_package import ModelWrapper, rollout
 from makani_torch.models.model_registry import count_channels, get_model
 from makani_torch.models.networks.fourcastnet3 import AtmoSphericNeuralOperatorNet
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ("u10m", "v10m", "t2m", "tcwv", "u500", "v500", "q500", "u850", "v850", "q850")
 AUX = ("xzen", "xnoise0", "xnoise1")

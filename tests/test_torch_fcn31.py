@@ -63,6 +63,7 @@ from makani_torch.models.networks.fourcastnet3 import DiscoConv
 from makani_torch.ops import disco
 from makani_torch.utils.training.optimizer import freeze_labels
 from makani_torch.utils.yparams import ParamsBase, YParams
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, E = 16, 32, 2

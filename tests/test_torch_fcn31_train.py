@@ -52,6 +52,7 @@ from makani_torch.utils.loss import LossHandler
 from makani_torch.utils.training.ensemble_trainer import _forward_folded, ensemble_train_step, fold_ensemble
 from makani_torch.utils.training.optimizer import Adam, get_optimizer
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, E, B = 17, 32, 4, 1
 NAMES = ["sst" if n == "u100m" else n for n in fcn31_train_config()["channel_names"]]

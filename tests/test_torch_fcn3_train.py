@@ -15,8 +15,9 @@ seeded numpy input, target and noise: JAX's ``jax.value_and_grad`` of the
 forward and ``LossHandler`` on the folded ensemble, then ``tx.update``; the
 port's ``ensemble_train_step``. Two configurations, each built once per
 module: fp32 compute with mu in fp32 (the recipe's), and bf16 compute with a
-bf16 mu. Both rematerialize at ``checkpointing_level`` 3 (as the JAX model
-does).
+bf16 mu, from the same flax weights (one JAX init serves both: the
+parameters are fp32 in either). Both rematerialize at ``checkpointing_level``
+3 (as the JAX model does).
 
 The CRPS gradient jumps where two members swap ranks or a member crosses
 the observation, and the two packages' forecasts differ by rounding: in
@@ -72,6 +73,7 @@ from makani_torch.utils.loss import LossHandler
 from makani_torch.utils.training.ensemble_trainer import ensemble_train_step, expand_ensemble, fold_ensemble, prepare_ensemble_batch
 from makani_torch.utils.training.optimizer import Adam, get_optimizer
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, E, B = 33, 64, 4, 1
 LR = fcn3_train_config()["lr"]
@@ -134,15 +136,26 @@ def _loss_and_grads(model, loss_obj, x, t, z, chunk=0, wgt=None):
     return loss.item(), grads
 
 
+@pytest.fixture(scope="module")
+def jax_variables():
+    """The flax variables of every configuration here, from one JAX init:
+    the tree and its values depend neither on the compute dtype (the
+    parameters are fp32 in both) nor on the input's values."""
+    cfg = _config("float32")
+    inp, _, unp = _batch()
+    jmodel, _ = jget_model(JParamsBase(copy.deepcopy(cfg)), multistep=True)
+    return _variables(jmodel, jnp.asarray(inp), jnp.asarray(unp))
+
+
 @pytest.fixture(scope="module", params=["fp32", "bf16"])
-def step(request):
+def step(request, jax_variables):
     """Both packages' step: loss, gradients and parameters after the step,
     by name, as numpy."""
     cfg = _config({"fp32": "float32", "bf16": "bfloat16"}[request.param])
     bf16 = request.param == "bf16"
     inp, tar, unp = _batch()
     jmodel, _ = jget_model(JParamsBase(copy.deepcopy(cfg)), multistep=True)
-    variables = _variables(jmodel, jnp.asarray(inp), jnp.asarray(unp))
+    variables = jax_variables
     jloss = JLossHandler(JParamsBase(copy.deepcopy(cfg)))
     tx, _ = jget_optimizer(JParamsBase(copy.deepcopy(cfg)), variables)
     opt_state = tx.init(variables)
@@ -237,12 +250,10 @@ def test_parameters_after_the_step(step):
 
 
 @pytest.fixture(scope="module")
-def fp32_port():
+def fp32_port(jax_variables):
     cfg = _config("float32")
     inp, tar, unp = _batch(seed=5)
-    jmodel, _ = jget_model(JParamsBase(copy.deepcopy(cfg)), multistep=True)
-    variables = _variables(jmodel, jnp.asarray(inp), jnp.asarray(unp))
-    return cfg, variables, tuple(map(torch.from_numpy, (inp, tar, unp)))
+    return cfg, jax_variables, tuple(map(torch.from_numpy, (inp, tar, unp)))
 
 
 @pytest.mark.parametrize("variant", ["checkpointing_level_0", "fold_chunk_2"])

@@ -32,6 +32,7 @@ from makani_torch.models.common import layer_norm
 from makani_torch.models.common.contractions import _PermutedWeight, contract_dense_s
 from makani_torch.models.common.layer_norm import InstanceNorm2d
 from makani_torch.ops.sht import InverseRealSHT, RealSHT, analysis_contract_cl_s, synthesis_contract_cl_s
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rng(seed):

@@ -48,6 +48,7 @@ from makani_torch.convert_jax import params_to_jax
 from makani_torch.utils.inference.inferencer import Inferencer
 from makani_torch.utils.parse_dataset_metadata import parse_dataset_metadata
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FILES = ("metrics.h5", "temporal_averages.h5", "spectra.h5", "raw_forecasts.h5")
 

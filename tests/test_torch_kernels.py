@@ -935,12 +935,13 @@ def test_disco_band_grad_fused_kernel_matches_plain(cuda, in_shape, out_shape, c
     assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
 
 
-@pytest.mark.parametrize("mode", ["responses", "fused"])
+@pytest.mark.parametrize("mode", ["responses", "fused", "responses-k7"])
 def test_disco_band_grad_kernel_is_deterministic(cuda, mode):
     """The same K12 call twice gives bit-equal results: a gather in a fixed
-    order, no atomics."""
-    conv = _band_grad_conv((30, 100), (30, 100), 1)
-    if mode == "responses":
+    order, no atomics (at K 7 the wide-band kernel: each tile of dx summed
+    by one warp's tensor-core products in a fixed order)."""
+    conv = _k7_wide_conv() if mode == "responses-k7" else _band_grad_conv((30, 100), (30, 100), 1)
+    if mode.startswith("responses"):
         C, Gf, IG, OG = 101, 1, 1, conv.K
         dout, F_ = _padded_responses(conv, C, cuda), lambda p: conv.band_filter(p, cuda)
     else:
@@ -955,12 +956,18 @@ def test_disco_band_grad_kernel_is_deterministic(cuda, mode):
 
 
 @pytest.mark.parametrize("K", [9, 7])
-@pytest.mark.parametrize("order,C,BL,M", [("psi_first", 37, 7, 25), ("mix_first", 70, 7, 25), ("mix_first", 65, 5, 361), ("mix_first", 3, 1, 1)])
+@pytest.mark.parametrize("order,C,BL,M", [("psi_first", 37, 7, 25), ("mix_first", 70, 7, 25), ("mix_first", 65, 5, 361), ("mix_first", 3, 1, 1),
+                                          ("psi_first", 37, 25, 181), ("psi_first", 37, 49, 361), ("psi_first", 36, 49, 361),
+                                          ("psi_first", 68, 25, 351)])
 def test_disco_polar_grad_kernels_match_plain(cuda, order, C, BL, M, K):
     """K13 against its plain version at odd widths (C 37, 70 and 65, M 25
     and 361: the FCN3 training step's atmo decoder, odd rows of dU that
-    start at either 16-byte parity; M 1), K 9 and 7; psi first the one-pass
-    and the generic loop."""
+    start at either 16-byte parity; M 1), K 9 and 7 (psi first: dY's values
+    in registers, two channels a thread, 37 leaving one alone), and psi
+    first at FCN3.1's training bands, BL 25 and 49 (a Psi tile of 88 KB at
+    K 7); at C 36 and 68 (multiples of 4: each channel's modes shifted to
+    start dX's stores on 32-byte sectors, by 0 to 3 modes) past a channel
+    tile, and at M 351, where the shifted windows need a tile more."""
     Pt = _randn((5, BL, K, M, 2), torch.float32, cuda, seed=1)
     if order == "psi_first":
         dY = _randn((2, 5, C, K, M, 2), torch.float32, cuda)
@@ -1203,15 +1210,38 @@ def test_disco_band_takes_route_1_at_fcn3_bands(cuda):
     assert torch.isfinite(ref).all() and torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("band", ["bl40", "bl73-stride2"])
-def test_disco_band_grad_kernel_at_k7_wide_bands(cuda, band):
-    """K12 (the generic gather at K 7) at BL > 32, responses mode reading
-    the padded layout, and fused mode."""
-    in_shape, out_shape, cutoff, grid_out = WIDE_BANDS[band]
-    conv = _wide_conv(in_shape, out_shape, cutoff, grid_out)
-    dx, ref = _band_grad_both(conv, _padded_responses(conv, 37, cuda), lambda p: conv.band_filter(p, cuda), 37, 1, 1, conv.K, cuda)
+def _k7_wide_conv():
+    """FCN3.1's K 7 (piecewise linear 3 x 3) at a small grid whose band is
+    wider than 32 rows and whose window is wider than 100 columns: BL 35,
+    WW 107 at 61 x 160 (Win 160: a partial tile of 64 columns; Hin 61: a
+    partial group of 8 rows)."""
+    conv = DiscoConvS2((61, 160), (61, 160), (3, 3), basis_type="piecewise linear", basis_norm_mode="mean", theta_cutoff=0.9)
+    assert conv.K == 7 and conv.BL > 32 and conv.WW > 100 and conv.phases == 1 and conv.stride == 1
+    return conv
+
+
+@pytest.mark.parametrize("band,C", [("bl40", 37), ("bl73-stride2", 37), ("pl-bl35-ww107", 37), ("pl-bl35-ww107", 101)],
+                         ids=["bl40", "bl73-stride2", "pl-bl35-ww107-c37", "pl-bl35-ww107-c101"])
+def test_disco_band_grad_kernel_at_k7_wide_bands(cuda, band, C):
+    """K12 at K 7 and BL > 32 in responses mode, reading the padded layout
+    (NaN in the pad; the wide-band kernel at stride 1, the generic gather at
+    stride 2), C 37 and 101 (not multiples of the 32 channels of a block),
+    and in fused mode."""
+    if band == "pl-bl35-ww107":
+        conv = _k7_wide_conv()
+    else:
+        conv = _wide_conv(*WIDE_BANDS[band])
+    out_shape = conv.out_shape
+    kernels.reset_launch_counts()
+    dx, ref = _band_grad_both(conv, _padded_responses(conv, C, cuda), lambda p: conv.band_filter(p, cuda), C, 1, 1, conv.K, cuda)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["disco_band_grad"] == 1
     assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
+    if band == "pl-bl35-ww107":  # a pixel stride that allows no 16-byte copies
+        dout = _randn((2, *out_shape, C * conv.K + 1), torch.float32, cuda, seed=2)[..., : C * conv.K]
+        dx, ref = _band_grad_both(conv, dout, lambda p: conv.band_filter(p, cuda), C, 1, 1, conv.K, cuda)
+        torch.cuda.synchronize()
+        assert torch.isfinite(dx).all() and _agree(dx, ref, torch.float32)
     w = 0.2 * _randn((2, 16, 9, conv.K), torch.float32, cuda, seed=1)
     cache = FusedFilterCache()
     dx, ref = _band_grad_both(conv, _randn((2, *out_shape, 32), torch.float32, cuda), lambda p: cache.get(conv, w, p), 18, 2, 9, 16, cuda)

@@ -17,6 +17,7 @@ from makani_tpu.models.common.layer_norm import InstanceNorm2d as JInstanceNorm2
 from makani_torch import kernels
 from makani_torch.convert_jax import load_from_jax
 from makani_torch.models.common.layer_norm import InstanceNorm2d, instance_norm_cl, instance_norm_cl_plain, plan_instance_norm, plan_instance_norm_grad
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C = 6
 

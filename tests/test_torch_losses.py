@@ -22,6 +22,7 @@ from makani_tpu.utils.yparams import ParamsBase
 
 from makani_torch.utils.grids import GridQuadrature
 from makani_torch.utils.loss import LossHandler
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NAMES = ["u10m", "t2m", "z500", "q700"]
 

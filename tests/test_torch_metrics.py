@@ -24,6 +24,7 @@ from makani_torch.utils.grids import GridQuadrature
 from makani_torch.utils.metric import MetricsHandler
 from makani_torch.utils.metrics import functions as fn
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B, E, C = 12, 24, 3, 4, 5
 NAMES = ["u10m", "v10m", "t2m", "z500", "q700"]

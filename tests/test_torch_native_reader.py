@@ -15,6 +15,7 @@ import pytest
 from makani_torch import native
 from makani_torch.utils.dataloaders.data_loader_multifiles import MultifilesDataset
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _blob(tmp_path):

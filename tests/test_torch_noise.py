@@ -18,6 +18,7 @@ from makani_tpu.models import noise as jnoise
 
 from makani_torch import kernels
 from makani_torch.models import noise
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IMG = (17, 32)
 

@@ -33,6 +33,7 @@ from makani_tpu.utils.training.optimizer import scale_by_adam_factored
 from makani_torch.convert_jax import opt_state_from_jax
 from makani_torch.utils.training.optimizer import AdamFactored, _factored_dims, get_optimizer
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = {"dhconv": (1, 130, 132, 6, 2), "flip": (140, 129), "mlp": (1, 128, 200), "bias": (7,), "small": (1, 20, 30)}
 LR = 1e-2

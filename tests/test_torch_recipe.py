@@ -52,6 +52,7 @@ from makani_torch.utils.loss import LossHandler
 from makani_torch.utils.training.deterministic_trainer import train_step
 from makani_torch.utils.training.optimizer import Adam, decay_mask, get_optimizer, get_schedule
 from makani_torch.utils.yparams import ParamsBase, YParams
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCHEDULES = {
     "cosine": dict(scheduler="CosineAnnealingLR", scheduler_T_max=10),

@@ -13,6 +13,7 @@ from makani_tpu.ops.resample import ResampleS2 as JResampleS2
 
 from makani_torch import kernels
 from makani_torch.ops.resample import ResampleS2, column_span, make_resample
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRIDS = ["equiangular", "legendre-gauss"]
 

@@ -31,6 +31,7 @@ from makani_torch.models.model_registry import get_model
 from makani_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
 
 from testutils import get_default_parameters
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(inp_shape=(24, 48), out_shape=(24, 48), scale_factor=2, inp_chans=5, out_chans=5, embed_dim=16, num_layers=3)

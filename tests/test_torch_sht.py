@@ -33,6 +33,7 @@ from makani_torch.ops.sht import (
     synthesis_route,
     tf32_split,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRIDS = [(25, 48, "equiangular", None, None), (12, 24, "legendre-gauss", None, None), (25, 48, "equiangular", 10, 8)]
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}

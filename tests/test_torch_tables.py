@@ -19,6 +19,7 @@ from makani_tpu.utils import zenith_angle as jzenith
 from makani_torch.ops import legendre, precision, quadrature
 from makani_torch.ops.sht import InverseRealSHT, RealSHT
 from makani_torch.utils import features, yparams, zenith_angle
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

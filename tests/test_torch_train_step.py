@@ -56,6 +56,7 @@ from makani_torch.models.model_registry import get_model
 from makani_torch.utils.loss import LossHandler
 from makani_torch.utils.training.deterministic_trainer import train_step
 from makani_torch.utils.training.optimizer import AdamFactored, _factored_dims
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, C, B = 33, 64, 4, 2
 LR = 1e-3
@@ -105,8 +106,24 @@ def _variables(model, *args):
     return jax.tree_util.tree_map_with_path(perturb, variables)
 
 
+@pytest.fixture(scope="module")
+def jax_init():
+    """The flax variables of a configuration, one JAX init a (depth,
+    n_future): the fp32 and bf16 configurations share theirs (fp32
+    parameters in both: the same tree and values)."""
+    cache = {}
+
+    def variables(params, jmodel, inp, zen):
+        key = (params.num_layers, params.n_future)
+        if key not in cache:
+            cache[key] = _variables(jmodel, jnp.asarray(inp), jnp.asarray(zen))
+        return cache[key]
+
+    return variables
+
+
 @pytest.fixture(scope="module", params=list(CONFIGS))
-def step(request):
+def step(request, jax_init):
     """Both packages' step on one configuration: loss, gradients and
     parameters after the step, by name, as numpy."""
     params = _params(**CONFIGS[request.param])
@@ -117,7 +134,7 @@ def step(request):
     zen = r.uniform(-1.0, 1.0, (B, 1 + nf, 1, H, W)).astype(np.float32)
 
     jmodel, _ = jget_model(copy.deepcopy(params), multistep=True)
-    variables = _variables(jmodel, jnp.asarray(inp), jnp.asarray(zen))
+    variables = jax_init(params, jmodel, inp, zen)
     jloss = JLossHandler(copy.deepcopy(params))
     bf16 = params.compute_dtype == "bfloat16"
     tx = optax.chain(scale_by_adam_factored(mu_dtype=jnp.bfloat16 if bf16 else None, min_dim_size_to_factor=MIN_FACTOR), optax.scale_by_learning_rate(LR))

@@ -41,6 +41,7 @@ from makani_torch.utils.parse_dataset_metadata import parse_dataset_metadata
 from makani_torch.utils.training.deterministic_trainer import Trainer
 from makani_torch.utils.training.optimizer import get_optimizer
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIG = dict(
     nettype="SFNO", scale_factor=2, embed_dim=16, num_layers=2, channel_names=list(CHANNEL_NAMES), n_history=0, n_future=0, dt=1, dhours=6,

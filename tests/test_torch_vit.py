@@ -29,6 +29,7 @@ from tests.test_torch_afno import REPO, batch, check_model_run, check_published_
 
 from makani_torch.models.model_registry import get_model
 from makani_torch.utils.yparams import ParamsBase
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
